@@ -16,3 +16,7 @@ def pytest_configure(config):
         "slow: long-running multi-device subprocess tests "
         "(deselect with -m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips with a reason where there is none",
+    )

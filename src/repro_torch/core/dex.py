@@ -1,0 +1,197 @@
+"""DEX on the virtual mesh: configuration, state and the lookup entry point.
+
+Compute servers are route rows of the mesh (logical partitioning, §4);
+memory servers are its columns, each holding one shard of the
+subtree-blocked pool (§3); each device keeps a set-associative node cache
+(§5) and offloads a column's lanes when its cost model says a two-sided walk
+is cheaper than fetching rows (§6.1).  The execution dataflow is in
+``core/engine.py``.
+
+``state_from_numpy`` / ``state_to_numpy`` carry a state across packages:
+the reference's ``DexState`` flattened to numpy and keyed by field path
+(``"pool.pool_keys"``, ``"cache.tags"``, ``"miss_ema"``, ...).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.fleet_cache import P_ADMIT_LEAF_PCT, DexCache, init_cache
+from repro_torch.core.mesh import resolve_device
+from repro_torch.core.nodes import FANOUT, KEY_MAX
+from repro_torch.core.pool import PoolMeta, SubtreePool, initial_succ
+from repro_torch.obs import latency as _latency
+from repro_torch.obs.registry import N_STATS
+
+NODE_ROW_BYTES = FANOUT * 8 * 3  # keys + children + values on the wire
+OFFLOAD_REQ_BYTES = 16
+OFFLOAD_RESP_BYTES = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class DexMeshConfig:
+    """Static configuration of the mesh plane."""
+
+    route_axes: Tuple[str, ...] = ("data",)  # compute-partition axes
+    memory_axis: str = "model"  # pool-shard axis
+    n_route: int = 1  # route axis size
+    n_memory: int = 1  # memory axis size
+    cache_sets: int = 256
+    cache_ways: int = 4
+    p_admit_leaf_pct: int = P_ADMIT_LEAF_PCT  # paper §5.4 P_A, in percent
+    route_capacity_factor: float = 2.0  # bucket slack
+    policy: str = "auto"  # fetch | offload | auto
+    offload_c: float = 1.3  # cost coefficient (§6.1)
+    ema_decay: float = 0.98
+    route_table_slots: int = 0  # leaf-direct route table
+
+    @property
+    def n_devices(self) -> int:
+        return self.n_route * self.n_memory
+
+
+class DexState(NamedTuple):
+    pool: SubtreePool
+    cache: DexCache
+    boundaries: torch.Tensor  # [n_route + 1] int64, replicated
+    # [Dev, n_memory, levels] f32 per-(column, level) miss-rate EMA of the
+    # offload rule
+    miss_ema: torch.Tensor
+    stats: torch.Tensor  # [Dev, N_STATS] int64
+    versions: torch.Tensor  # [Dev, n_nodes] int32 per-node write version
+    occupancy: torch.Tensor  # [S, C] int32 keys per node
+    route_demand: torch.Tensor  # [Dev, n_route] int64 routed requests
+    succ: torch.Tensor  # [Dev, n_nodes] int64 leaf successor gid
+    n_alloc: torch.Tensor  # [S] int32 per-subtree free-list watermark
+    lat_hist: torch.Tensor  # [Dev, classes, paths, buckets] int64
+    # [Dev, 2, n_memory, levels] f32 offload cost-model audit (predicted,
+    # realized bytes)
+    lat_audit: torch.Tensor
+    rt_keys: torch.Tensor  # [R] int64 route-table fence-low keys
+    rt_hi: torch.Tensor  # [R] int64 fence-high keys
+    rt_sub: torch.Tensor  # [R] int32 predicted subtree
+    rt_local: torch.Tensor  # [R] int32 predicted leaf local id
+    rt_ver: torch.Tensor  # [R] int32 leaf version at training time
+
+
+def init_state(
+    pool: SubtreePool,
+    meta: PoolMeta,
+    cfg: DexMeshConfig,
+    boundaries,
+    *,
+    device=None,
+) -> DexState:
+    """A fresh state over ``pool`` with cold caches and zeroed counters.
+    ``succ`` is one successor table broadcast over ``Dev`` (a view, not a
+    copy per device)."""
+    device = resolve_device(device)
+    pool = SubtreePool(*(t.to(device) for t in pool))
+    levels = meta.levels_in_subtree
+    d = cfg.n_devices
+    r = max(cfg.route_table_slots, 1)
+    base = meta.base_cap if meta.base_cap > 0 else meta.subtree_cap
+    i64 = dict(dtype=torch.int64, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return DexState(
+        pool=pool,
+        cache=init_cache(cfg, device),
+        boundaries=torch.as_tensor(np.asarray(boundaries, np.int64)).to(device),
+        miss_ema=torch.ones((d, cfg.n_memory, levels), **f32),
+        stats=torch.zeros((d, N_STATS), **i64),
+        versions=torch.zeros((d, meta.n_nodes), **i32),
+        occupancy=(pool.pool_keys != KEY_MAX).sum(-1).to(torch.int32),
+        route_demand=torch.zeros((d, cfg.n_route), **i64),
+        succ=initial_succ(meta, device)[None].expand(d, meta.n_nodes),
+        n_alloc=torch.full((meta.n_subtrees_padded,), base, **i32),
+        lat_hist=torch.zeros(
+            (d, _latency.N_CLASSES, _latency.N_PATHS, _latency.N_BUCKETS), **i64
+        ),
+        lat_audit=torch.zeros((d, 2, cfg.n_memory, levels), **f32),
+        rt_keys=torch.full((r,), KEY_MAX, **i64),
+        rt_hi=torch.full((r,), KEY_MAX, **i64),
+        rt_sub=torch.zeros((r,), **i32),
+        rt_local=torch.zeros((r,), **i32),
+        rt_ver=torch.full((r,), -1, **i32),
+    )
+
+
+def state_to_numpy(state: DexState) -> Dict[str, np.ndarray]:
+    """Flatten ``state`` to numpy arrays keyed by field path.  The arrays are
+    copies: the engine updates cache planes in place, so a view of a CPU
+    state would change under the caller's feet."""
+
+    def copy(t):
+        return t.detach().to("cpu", copy=True).numpy()
+
+    out = {}
+    for name, value in state._asdict().items():
+        if isinstance(value, tuple):
+            for sub, t in value._asdict().items():
+                out[f"{name}.{sub}"] = copy(t)
+        else:
+            out[name] = copy(value)
+    return out
+
+
+def state_from_numpy(
+    arrays: Dict[str, np.ndarray], meta: PoolMeta, cfg: DexMeshConfig, device=None
+) -> DexState:
+    """Build a state from numpy arrays keyed by field path (the reference's
+    ``DexState`` flattened, or :func:`state_to_numpy`'s output), checking
+    the planes' shapes against ``meta`` and ``cfg``."""
+    device = resolve_device(device)
+
+    def t(key):
+        return torch.from_numpy(np.array(arrays[key])).to(device)
+
+    state = DexState(
+        pool=SubtreePool(*(t(f"pool.{f}") for f in SubtreePool._fields)),
+        cache=DexCache(*(t(f"cache.{f}") for f in DexCache._fields)),
+        **{
+            f: t(f)
+            for f in DexState._fields
+            if f not in ("pool", "cache")
+        },
+    )
+    d, levels = cfg.n_devices, meta.levels_in_subtree
+    want = {
+        "pool": (meta.n_subtrees_padded, meta.subtree_cap, FANOUT),
+        "tags": (d, cfg.cache_sets, cfg.cache_ways),
+        "miss_ema": (d, cfg.n_memory, levels),
+        "versions": (d, meta.n_nodes),
+    }
+    got = {
+        "pool": tuple(state.pool.pool_keys.shape),
+        "tags": tuple(state.cache.tags.shape),
+        "miss_ema": tuple(state.miss_ema.shape),
+        "versions": tuple(state.versions.shape),
+    }
+    if got != want:
+        raise ValueError(f"state planes {got} do not fit meta/cfg {want}")
+    return state
+
+
+def make_dex_lookup(meta: PoolMeta, cfg: DexMeshConfig, *, device=None):
+    """Build the lookup: ``(state, keys) -> (state, found, values, shed)``.
+
+    A thin wrapper over the engine (``core/engine.py``) with
+    ``ops=("lookup",)``.  ``keys`` [B] lanes are split evenly over the
+    devices; results come back in the caller's lane order.  ``shed`` marks
+    lanes a routing bucket dropped: retry them."""
+    from repro_torch.core import engine as engine_mod  # engine imports us
+
+    eng = engine_mod.make_dex_engine(meta, cfg, ops=("lookup",), device=device)
+
+    def lookup(state: DexState, keys):
+        keys = torch.as_tensor(keys, dtype=torch.int64)
+        opcodes = torch.full(keys.shape, engine_mod.OP_LOOKUP, dtype=torch.int32)
+        new_state, r = eng(state, opcodes, keys, torch.zeros_like(keys))
+        return new_state, r.found, r.values, r.shed
+
+    return lookup

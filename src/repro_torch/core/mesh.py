@@ -1,0 +1,86 @@
+"""The virtual mesh: the reference's route x memory device mesh, run in one
+process on one card.
+
+The reference runs its engine body under ``shard_map`` over a
+``(route, memory)`` mesh.  The port runs the same mesh as a leading ``Dev``
+axis on every per-device tensor, route-major (``dev = r * n_memory + m``),
+and runs the engine body once, batched over ``Dev``.  The collectives become
+tensor operations on that axis:
+
+* ``a2a`` over the memory axis, on ``[Dev, n_memory, ...]`` buffers:
+  ``out[r*nm + m, s] = buf[r*nm + s, m]``;
+* ``a2a`` over the route axis, on ``[Dev, n_route, ...]`` buffers:
+  ``out[r*nm + m, s] = buf[s*nm + m, r]``;
+* ``psum`` over all axes: a sum over ``Dev``, broadcast back.
+
+Every collective goes through this module, which counts the calls the way
+``repro.core.routing`` counts them while tracing (``all_to_all`` and
+``route_exchange``), so the per-batch counts can be held against the
+reference's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+COUNTS = {"all_to_all": 0, "route_exchange": 0}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``"cuda"``; raises when CUDA is asked for and missing."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def count(kind: str) -> None:
+    COUNTS[kind] += 1
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def collective_counts() -> dict:
+    return dict(COUNTS)
+
+
+def device_linear_index(cfg, device) -> torch.Tensor:
+    """``[Dev]`` linear device position over all mesh axes, route-major."""
+    return torch.arange(cfg.n_devices, device=device)
+
+
+def memory_linear_index(cfg, device) -> torch.Tensor:
+    """``[Dev]`` memory column of each device."""
+    return torch.arange(cfg.n_devices, device=device) % cfg.n_memory
+
+
+def a2a(x: torch.Tensor, cfg, axis: str) -> torch.Tensor:
+    """``[Dev, n_axis, ...]`` per-destination buffers -> per-source buffers
+    along the named mesh axis (``cfg.memory_axis`` or the route axis)."""
+    count("all_to_all")
+    nr, nm = cfg.n_route, cfg.n_memory
+    rest = tuple(x.shape[2:])
+    tail = tuple(range(3, 3 + len(rest)))
+    if axis == cfg.memory_axis:
+        y = x.reshape((nr, nm, nm) + rest).permute((0, 2, 1) + tail)
+    elif axis in cfg.route_axes:
+        if len(cfg.route_axes) != 1:
+            raise NotImplementedError("two route axes are not ported yet")
+        y = x.reshape((nr, nm, nr) + rest).permute((2, 1, 0) + tail)
+    else:
+        raise ValueError(f"unknown mesh axis {axis!r}")
+    return y.reshape(x.shape)
+
+
+def psum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over ``Dev``, broadcast back to every device.  Callers only sum
+    integer-valued planes, which are exact in any order."""
+    return x.sum(0, keepdim=True).expand_as(x)

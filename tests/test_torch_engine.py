@@ -1,0 +1,242 @@
+"""The port's lookup engine against ``repro.core.engine.make_dex_engine(
+ops=("lookup",))``: lane results, every state plane and the per-batch
+collective counts are bit-identical after each of three batches, at 1x1
+(inline) and at 2x4 (the reference in a subprocess on a forced 8-device
+CPU mesh, ``tests/torch_mesh_ref.py``)."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.compat import make_mesh_compat  # noqa: E402
+from repro.core import dex as ref_dex  # noqa: E402
+from repro.core import engine as ref_engine  # noqa: E402
+from repro.core import pool as ref_pool  # noqa: E402
+from repro.core import routing as ref_routing  # noqa: E402
+from repro_torch.core import dex as t_dex  # noqa: E402
+from repro_torch.core import engine as t_engine  # noqa: E402
+from repro_torch.core import fleet_cache as t_fleet_cache  # noqa: E402
+from repro_torch.core import mesh as t_mesh  # noqa: E402
+from repro_torch.core import pool as t_pool  # noqa: E402
+from repro_torch.obs import registry as t_registry  # noqa: E402
+
+KEY_MIN = np.iinfo(np.int64).min
+KEY_MAX = np.iinfo(np.int64).max
+RESULTS = ("found", "values", "status", "shed")
+HERE = pathlib.Path(__file__).parent
+
+
+def _flat(state):
+    leaves, _ = jax.tree_util.tree_flatten_with_path(state)
+    return {".".join(p.name for p in path): np.asarray(x) for path, x in leaves}
+
+
+def _assert_state_equal(want: dict, state, where):
+    got = t_dex.state_to_numpy(state)
+    assert sorted(got) == sorted(want), where
+    for k, a in want.items():
+        b = got[k]
+        assert a.dtype == b.dtype and a.shape == b.shape, (where, k)
+        np.testing.assert_array_equal(a, b, err_msg=f"{where}: {k}")
+
+
+def _dataset(n, seed):
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(16 * n, size=n, replace=False).astype(np.int64) + 1)
+
+
+@pytest.mark.parametrize(
+    "policy,factor",
+    [("fetch", 2.0), ("offload", 2.0), ("auto", 2.0), ("auto", 0.4)],
+)
+def test_engine_1x1_matches_reference(policy, factor):
+    """tests/test_engine.py's 1x1 setup (4,000 keys), three batches."""
+    keys = _dataset(4000, seed=1)
+    vals = keys * 5
+    pool, meta = ref_pool.build_pool(keys, vals, level_m=1, fill=0.7, n_shards=1)
+    _, t_meta = t_pool.build_pool(keys, vals, level_m=1, fill=0.7, device="cpu")
+    mesh = make_mesh_compat((1, 1), ("data", "model"))
+    kw = dict(
+        n_route=1,
+        n_memory=1,
+        cache_sets=128,
+        cache_ways=4,
+        p_admit_leaf_pct=10,
+        route_capacity_factor=factor,
+        policy=policy,
+    )
+    cfg, t_cfg = ref_dex.DexMeshConfig(**kw), t_dex.DexMeshConfig(**kw)
+    state = ref_dex.init_state(pool, meta, cfg, np.array([KEY_MIN, KEY_MAX]))
+    t_state = t_dex.state_from_numpy(_flat(state), t_meta, t_cfg, "cpu")
+    fn = ref_engine.make_dex_engine(meta, cfg, mesh, ops=("lookup",))
+    eng = jax.jit(fn)
+    t_eng = t_engine.make_dex_engine(t_meta, t_cfg, device="cpu")
+    for k in ("route_rounds", "fused_pairs", "descent_levels", "scan_hops"):
+        assert t_eng.plan[k] == fn.plan[k], k
+    rng = np.random.default_rng(2)
+    counts = None
+    for i in range(3):
+        q = rng.choice(keys, size=400).astype(np.int64)
+        q[::7] += 1
+        q[::31] = KEY_MAX
+        q[5] = KEY_MIN
+        opc = np.zeros(q.shape, np.int32)
+        args = (jnp.asarray(opc), jnp.asarray(q), jnp.zeros(q.shape, jnp.int64))
+        if counts is None:
+            counts = ref_routing.trace_collective_counts(fn, state, *args)
+        state, res = eng(state, *args)
+        t_mesh.reset_counts()
+        t_state, t_res = t_eng(t_state, opc, q, np.zeros(q.shape, np.int64))
+        assert t_mesh.collective_counts() == counts
+        for k in RESULTS:
+            np.testing.assert_array_equal(
+                np.asarray(getattr(res, k)), getattr(t_res, k).numpy(), err_msg=k
+            )
+        _assert_state_equal(_flat(state), t_state, f"{policy} batch {i}")
+    stats = t_state.stats.numpy()
+    if policy == "offload":
+        assert stats[:, t_registry.STAT_OFFLOADS].sum() > 0
+    if factor < 1:
+        assert stats[:, t_registry.STAT_DROPS].sum() > 0
+
+
+def test_make_dex_lookup_wrapper_matches_engine():
+    keys = _dataset(3000, seed=4)
+    t_pool_, t_meta = t_pool.build_pool(keys, keys * 3, device="cpu")
+    t_cfg = t_dex.DexMeshConfig(n_route=2, n_memory=2, cache_sets=32)
+    bounds = np.array([KEY_MIN, int(keys[1500]), KEY_MAX])
+    q = np.concatenate([keys[::10], keys[::10] + 1])[:296]
+    lookup = t_dex.make_dex_lookup(t_meta, t_cfg, device="cpu")
+    s1, f, v, sh = lookup(t_dex.init_state(t_pool_, t_meta, t_cfg, bounds,
+                                           device="cpu"), q)
+    assert not bool(sh.any())
+    np.testing.assert_array_equal(f.numpy(), np.isin(q, keys))
+    np.testing.assert_array_equal(v.numpy()[f.numpy()], q[f.numpy()] * 3)
+    eng = t_engine.make_dex_engine(
+        t_meta, t_cfg, cache_policy=t_fleet_cache.uniform_policy(t_cfg), device="cpu"
+    )
+    s2, r = eng(
+        t_dex.init_state(t_pool_, t_meta, t_cfg, bounds, device="cpu"),
+        np.zeros(q.shape, np.int32),
+        q,
+        np.zeros(q.shape, np.int64),
+    )
+    np.testing.assert_array_equal(r.found.numpy(), f.numpy())
+    a, b = t_dex.state_to_numpy(s1), t_dex.state_to_numpy(s2)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def mesh_ref(tmp_path_factory):
+    out = tmp_path_factory.mktemp("mesh_ref") / "ref.npz"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(HERE.parent / "src") + os.pathsep + env.get(
+        "PYTHONPATH", ""
+    )
+    env.pop("XLA_FLAGS", None)
+    res = subprocess.run(
+        [sys.executable, str(HERE / "torch_mesh_ref.py"), str(out)],
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=600,
+    )
+    assert res.returncode == 0, f"stdout:\n{res.stdout}\nstderr:\n{res.stderr}"
+    with np.load(out) as z:
+        return dict(z)
+
+
+@pytest.mark.parametrize("name", ["fetch", "offload", "auto", "auto_tight"])
+def test_engine_2x4_matches_reference(mesh_ref, name):
+    arrays = mesh_ref
+    policy, factor = str(arrays[f"{name}/policy"]), float(arrays[f"{name}/factor"])
+    keys, vals = arrays["keys"], arrays["values"]
+    _, t_meta = t_pool.build_pool(keys, vals, level_m=1, fill=0.7, n_shards=4,
+                                  device="cpu")
+    t_cfg = t_dex.DexMeshConfig(
+        n_route=2,
+        n_memory=4,
+        cache_sets=64,
+        cache_ways=4,
+        policy=policy,
+        route_capacity_factor=factor,
+    )
+
+    def planes(tag):
+        pre = f"{name}/{tag}/"
+        return {k[len(pre):]: v for k, v in arrays.items() if k.startswith(pre)}
+
+    t_state = t_dex.state_from_numpy(planes("init"), t_meta, t_cfg, "cpu")
+    t_eng = t_engine.make_dex_engine(t_meta, t_cfg, device="cpu")
+    counts = arrays[f"{name}/counts"]
+    for i in range(3):
+        q = arrays[f"batch/{i}"]
+        t_mesh.reset_counts()
+        t_state, t_res = t_eng(
+            t_state, np.zeros(q.shape, np.int32), q, np.zeros(q.shape, np.int64)
+        )
+        assert t_mesh.collective_counts() == {
+            "all_to_all": int(counts[0]), "route_exchange": int(counts[1])
+        }
+        want = planes(str(i))
+        for k in RESULTS:
+            np.testing.assert_array_equal(
+                want.pop(f"result.{k}"), getattr(t_res, k).numpy(), err_msg=k
+            )
+        _assert_state_equal(want, t_state, f"{name} batch {i}")
+    if factor < 1:
+        assert t_state.stats.numpy()[:, t_registry.STAT_DROPS].sum() > 0
+
+
+def test_state_to_numpy_is_a_snapshot():
+    """The engine updates cache planes in place; a flattened state must not
+    change with them."""
+    keys = _dataset(500, seed=5)
+    t_pool_, t_meta = t_pool.build_pool(keys, device="cpu")
+    t_cfg = t_dex.DexMeshConfig(cache_sets=16)
+    state = t_dex.init_state(
+        t_pool_, t_meta, t_cfg, np.array([KEY_MIN, KEY_MAX]), device="cpu"
+    )
+    before = t_dex.state_to_numpy(state)
+    state.cache.tags.fill_(7)
+    assert (before["cache.tags"] == -1).all()
+    again = t_dex.state_from_numpy(before, t_meta, t_cfg, "cpu")
+    for k, v in t_dex.state_to_numpy(again).items():
+        np.testing.assert_array_equal(v, before[k], err_msg=k)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(ops=("lookup", "update")),
+        dict(ops=("scan",)),
+        dict(cfg=dict(route_table_slots=8)),
+        dict(cfg=dict(route_axes=("data", "pod"))),
+        dict(divergent=True),
+    ],
+)
+def test_unported_engine_options_raise(kw):
+    keys = _dataset(500, seed=6)
+    _, t_meta = t_pool.build_pool(keys, device="cpu")
+    t_cfg = t_dex.DexMeshConfig(**kw.get("cfg", {}))
+    policy = None
+    if kw.get("divergent"):
+        policy = t_fleet_cache.uniform_policy(t_cfg)._replace(demand_beta=2.0)
+    with pytest.raises(NotImplementedError):
+        t_engine.make_dex_engine(
+            t_meta,
+            t_cfg,
+            ops=kw.get("ops", ("lookup",)),
+            cache_policy=policy,
+            device="cpu",
+        )

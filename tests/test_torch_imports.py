@@ -1,0 +1,64 @@
+"""Import hygiene of the port: every ``repro_torch`` module and
+``chip_smoke.py`` import without JAX and without the reference package, and
+an entry point left on its default device raises where there is no CUDA
+instead of running on the CPU."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+PROBE = r"""
+import importlib, pathlib, sys
+root = pathlib.Path(sys.argv[1])
+sys.path.insert(0, str(root / "src"))
+sys.path.insert(0, str(root))
+pkg = root / "src" / "repro_torch"
+mods = sorted(
+    "repro_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
+    for p in pkg.rglob("*.py")
+)
+mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
+for m in mods:
+    importlib.import_module(m)
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro.")
+)
+assert not bad, bad
+import torch
+from repro_torch.core import dex, engine, pool
+if not torch.cuda.is_available():
+    for call in (
+        lambda: pool.build_pool([1, 2, 3]),
+        lambda: engine.make_dex_engine(None, dex.DexMeshConfig()),
+    ):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("default device ran without CUDA")
+print("IMPORTS_OK", len(mods))
+"""
+
+
+def test_port_imports_without_jax_or_reference():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run(
+        [sys.executable, "-c", PROBE, str(ROOT)],
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=300,
+        cwd=str(ROOT),
+    )
+    assert res.returncode == 0, f"stdout:\n{res.stdout}\nstderr:\n{res.stderr}"
+    assert "IMPORTS_OK" in res.stdout
