@@ -44,6 +44,9 @@ sys.path.insert(0, str(ROOT / "src"))
 FULL_KEYS = 200_000_000  # the paper's bulk load (YCSB, §8.1)
 BATCH = 65_536
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+# The least a search of one sorted 64-key row must read: a binary search
+# over its sixteen 32-byte sectors (4 keys each), ceil(log2(16 + 1)) reads.
+ROW_SEARCH_BYTES = 32 * 5
 VALUE_XOR = 0x5DEECE66D
 POLICY_BATCHES = (("offload", 1, 10), ("fetch", 2, 10), ("auto", 3, 20))
 
@@ -169,9 +172,10 @@ def node_search_inputs(pool, keys, n, seed):
 
 
 def walk_bytes(pool, st, q, levels, found):
-    """Least bytes a walk must move: each distinct row it reads once (512 B
-    of keys), each distinct child id read (4 B), the matched values (8 B),
-    the per-lane inputs (subtree 4 B, query 8 B) and outputs (9 B)."""
+    """Least bytes a walk must move: a binary search of each distinct row it
+    reads (``ROW_SEARCH_BYTES``), each distinct child id read (4 B), the
+    matched values (8 B), the per-lane inputs (subtree 4 B, query 8 B) and
+    outputs (9 B)."""
     import torch
 
     cap = pool.pool_keys.shape[1]
@@ -190,7 +194,13 @@ def walk_bytes(pool, st, q, levels, found):
     n_rows = torch.unique(torch.cat(rows)).numel()
     n_kids = torch.unique(torch.cat(kids)).numel() if kids else 0
     n = q.numel()
-    return 512 * n_rows + 4 * n_kids + 8 * int(found.sum()) + 12 * n + 9 * n
+    return (
+        ROW_SEARCH_BYTES * n_rows
+        + 4 * n_kids
+        + 8 * int(found.sum())
+        + 12 * n
+        + 9 * n
+    )
 
 
 def phase_kernels(pool, meta, keys, seed):
@@ -217,8 +227,10 @@ def phase_kernels(pool, meta, keys, seed):
     err = max_abs_err(got, want)
     if not equal:
         fail(f"node_search differs from its plain version (max abs err {err})")
+    # a binary search per row, the query in, slot/found/value out, and the
+    # one value read where the row holds the query
     matched = int((rows == q[:, None]).sum())
-    nbytes = n_ns * (512 + 8 + 4 + 1 + 8) + 8 * matched
+    nbytes = n_ns * (ROW_SEARCH_BYTES + 8 + 4 + 1 + 8) + 8 * matched
     out["node_search"] = dict(
         name="node_search",
         route="cuda",
@@ -326,8 +338,7 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
                     if k.startswith("cache.") or k in planes
                 }
                 for k, v in r._asdict().items():
-                    if v is not None:
-                        got[k] = v.cpu().numpy()
+                    got[k] = v.cpu().numpy()
                 out.append(got)
             runs.append(out)
         for i, (a, b) in enumerate(zip(*runs)):
@@ -341,9 +352,11 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
         )
 
 
-def profile_batch(policy, eng, state, *inputs):
-    """Run one batch under ``torch.profiler``; print its wall time, the
-    device's busy share and the kernels that took the most device time."""
+def profile_batch(policy, eng, state, median_ms, *inputs):
+    """Run one batch under ``torch.profiler``; print its device busy time,
+    the idle share of ``median_ms`` (the policy's unprofiled median batch,
+    since the profiler itself slows the host) and the kernels that took the
+    most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -366,8 +379,9 @@ def profile_batch(policy, eng, state, *inputs):
     busy = sum(ms for _, ms, _ in events)
     top = "; ".join(f"{k[:48]} {ms:.3f} ms x{n}" for k, ms, n in events[:8])
     print(
-        f"profile {policy}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-        f"({busy / wall:.0%}), idle {1 - busy / wall:.0%}; top: {top}"
+        f"profile {policy}: wall {wall:.2f} ms under the profiler, device busy"
+        f" {busy:.2f} ms, idle {1 - busy / median_ms:.1%} of the unprofiled"
+        f" median {median_ms:.2f} ms; top: {top}"
     )
     return out
 
@@ -408,7 +422,8 @@ def phase_main(args, keys, pool, meta):
             torch.cuda.synchronize()
             if i == warm + timed:
                 # one more batch under the profiler: where the time goes
-                state, r = profile_batch(policy, eng, state, zero32, q, zero64)
+                med = float(np.median(times))
+                state, r = profile_batch(policy, eng, state, med, zero32, q, zero64)
             else:
                 t0 = time.perf_counter()
                 state, r = eng(state, zero32, q, zero64)
@@ -499,7 +514,6 @@ def main(argv=None):
             bound_by=k["bound_by"],
             library_ms=k["library_ms"],
             bit_equal=k["bit_equal"],
-            kernel_ms=k["ms"],
         ))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -28,7 +28,7 @@ route table are not ported yet: asking for them raises.
 from __future__ import annotations
 
 from math import inf
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -72,9 +72,6 @@ class EngineResult(NamedTuple):
     values: torch.Tensor
     status: torch.Tensor
     shed: torch.Tensor
-    scan_keys: Optional[torch.Tensor] = None
-    scan_values: Optional[torch.Tensor] = None
-    taken: Optional[torch.Tensor] = None
 
 
 class Descent(NamedTuple):

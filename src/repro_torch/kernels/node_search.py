@@ -5,13 +5,15 @@ Replaces the TPU kernel ``node_search`` in ``src/repro/kernels/node_search.py``
 because the TPU's vector unit has no 64-bit lanes.  Hopper compares int64
 natively, so the kernel reads the key row as it is.
 
-What bounds it: bytes.  Each lane's answer needs its 512-byte key row, read
-once; the comparisons are a handful of integer operations per byte.  Design:
-one warp per row, each thread loads two keys with one 16-byte load (the warp
-reads the row in one coalesced 512-byte transaction), ``__ballot_sync`` and
-``__popc`` give the count of keys <= q and the match mask, and only the lane
-that holds the match reads its value, so no value row is streamed.  The
-contract is the TPU kernel's: ``(slot, found, value)``.
+What bounds it: bytes.  Each lane's answer needs at least a binary search of
+its sorted key row, five of the row's sixteen 32-byte sectors; the
+comparisons are a handful of integer operations per byte.  Design: one warp
+per row, each thread loads two keys with one 16-byte load (the warp reads the
+whole 512-byte row in one coalesced transaction, about three times the least
+bytes but no chain of dependent reads), ``__ballot_sync`` and ``__popc`` give
+the count of keys <= q and the match mask, and only the lane that holds the
+match reads its value, so no value row is streamed.  A sector-wise search is
+later work.  The contract is the TPU kernel's: ``(slot, found, value)``.
 
 The plain version is ``repro_torch.kernels.ref.node_search_ref``; the
 dispatch, build and launch count are in ``kernels/ops.py``; the source is

@@ -7,9 +7,8 @@ raises.  Nothing falls back.
 The CUDA sources under ``repro_torch/csrc`` are compiled at first use with
 ``nvcc`` for ``sm_90a``, one ``nvcc`` per source started together, then
 linked into one shared library with a plain C interface that ``ctypes``
-loads.  The library goes to ``build/kernels/`` at the repository root (or
-``$REPRO_TORCH_BUILD_DIR``), named by a hash of the sources, so an edited
-source is rebuilt.
+loads.  The library goes to ``build/kernels/`` at the repository root,
+named by a hash of the sources, so an edited source is rebuilt.
 
 ``LAUNCHES`` counts each kernel's launches: a wrapper adds one where it
 launches its kernel and nowhere else.
@@ -48,9 +47,6 @@ def reset_launches() -> None:
 
 
 def build_dir() -> pathlib.Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return pathlib.Path(env)
     return pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 

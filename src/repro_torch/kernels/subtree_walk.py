@@ -12,9 +12,9 @@ the case ``S = 1``, ``subtree = 0``.
 
 What bounds it: memory latency.  A query reads ``levels`` 512-byte rows, and
 each row's address depends on the child id read from the row before, so a
-warp waits out one device-memory round trip per level; the byte bound (rows
-moved over the card's memory rate) is far below what the chain of dependent
-reads allows.  Design: one warp per query, one coalesced 512-byte read per
+warp waits out one device-memory round trip per level; the byte bound (a
+binary search of each distinct row, over the card's memory rate) is far below
+what the chain of dependent reads allows.  Design: one warp per query, one coalesced 512-byte read per
 level, ballots for the slot, the child id read once by the whole warp (one
 broadcast transaction), and the leaf value read only by the lane that holds
 the match.  Many warps in flight hide part of the latency; staging an M = 1
