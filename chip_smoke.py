@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's lookup path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's lookup and write paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py [--seed 0] [--n-keys 200000000]
 
@@ -7,22 +8,32 @@ Phases, in order; any failure exits non-zero:
 
   1. device: the card's name and power limit (``nvidia-smi``), CUDA version;
   2. build: compile the CUDA kernels from ``src/repro_torch/csrc``;
-  3. kernels: ``node_search`` and ``subtree_walk`` at the main path's shapes
-     (65,536-lane batches on a 2x4 virtual mesh) on seeded inputs with
-     misses, KEY_MIN / KEY_MAX, negative keys and queries below a row's
-     first key, bit-equal to their plain PyTorch versions, and timed beside
-     the plain version and a PyTorch yardstick;
+  3. kernels: ``node_search``, ``subtree_walk`` and ``leaf_write`` at the
+     main path's shapes (65,536-lane batches on a 2x4 virtual mesh) on
+     seeded inputs with misses, KEY_MIN / KEY_MAX, negative keys and
+     queries below a row's first key (for ``leaf_write``: rows with only
+     updates, only inserts, both and nothing staged, rows filled to
+     exactly 64, staged keys below and above a row's keys), bit-equal to
+     their plain PyTorch versions, and timed beside the plain version and a
+     PyTorch yardstick where one exists;
   4. the port on the CPU and on the card give the same lane results and
-     state planes (20k keys, 2x4 mesh, 3 batches under ``fetch``, ``fetch``
-     with shedding buckets, and ``auto``);
+     state planes (20k keys, 2x4 mesh, 3 batches): lookups under ``fetch``,
+     ``fetch`` with shedding buckets and ``auto``; mixed lookups, updates
+     and inserts (hot keys written in every batch, one leaf driven past its
+     slack) under ``fetch``, ``fetch`` with shedding buckets, ``offload``
+     and ``auto``, every plane compared, the pool's included;
   5. the main path at full size: 200M sorted int64 keys made on the card
      from ``--seed``, level-M = 1 subtree blocks at fill 0.7, a 2x4 virtual
      mesh split at the median key, 65,536 sets x 4 ways of cache per
-     virtual device, and YCSB workload C traffic (100% reads, scrambled
-     Zipfian, theta 0.99) in 65,536-lane batches under ``offload``,
-     ``fetch`` and ``auto``; every lane that is not shed must match a host
-     oracle (``np.searchsorted`` on the sorted keys);
-  6. one JSON line of per-kernel launches, errors and times.
+     virtual device, 65,536-lane batches of YCSB workload C (100% reads)
+     under ``offload``, ``fetch`` and ``auto``, then on the same index YCSB
+     workload A (50% reads, 50% updates) under ``offload``, ``fetch`` and
+     ``auto`` and the paper's insert-intensive mix (50% inserts, 50% reads)
+     under ``fetch`` and ``offload``, all scrambled Zipfian, theta 0.99.
+     A host oracle carries the applied writes forward; every lane that is
+     not shed must match it;
+  6. one JSON line of per-kernel launches (summed over phase 5's paths,
+     each counted from 0 just before it), errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 prints no result and exits non-zero.
@@ -38,6 +49,8 @@ import sys
 import time
 import warnings
 
+import numpy as np
+
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -47,8 +60,26 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # The least a search of one sorted 64-key row must read: a binary search
 # over its sixteen 32-byte sectors (4 keys each), ceil(log2(16 + 1)) reads.
 ROW_SEARCH_BYTES = 32 * 5
+# The least leaf_write must move per row: its 64 keys and 64 values read and
+# written once (4 x 512 B), its occupancy written (4 B), and one probe of each
+# staged list (an update slot, 4 B, and an insert key, 8 B) to find it
+# empty; each active staged update adds its slot and value (12 B), each
+# active staged insert its key and value (16 B).
+LEAF_ROW_BYTES = 4 * 64 * 8 + 4 + 4 + 8
+STAGED_UPDATE_BYTES = 4 + 8
+STAGED_INSERT_BYTES = 8 + 8
 VALUE_XOR = 0x5DEECE66D
-POLICY_BATCHES = (("offload", 1, 10), ("fetch", 2, 10), ("auto", 3, 20))
+# (workload, policy, warm-up batches, timed batches) of phase 5, in order
+MAIN_RUNS = (
+    ("read-only", "offload", 1, 10),
+    ("read-only", "fetch", 2, 10),
+    ("read-only", "auto", 3, 20),
+    ("ycsb-a", "offload", 1, 5),
+    ("ycsb-a", "fetch", 1, 5),
+    ("ycsb-a", "auto", 1, 5),
+    ("insert-intensive", "fetch", 1, 5),
+    ("insert-intensive", "offload", 1, 5),
+)
 
 
 def parse_args(argv):
@@ -199,8 +230,65 @@ def walk_bytes(pool, st, q, levels, found):
         + 4 * n_kids
         + 8 * int(found.sum())
         + 12 * n
-        + 9 * n
+        + 13 * n
     )
+
+
+def leaf_write_inputs(q, seed, dev):
+    """Contract inputs of ``leaf_write`` made on the card from ``seed``:
+    sorted rows with KEY_MAX padding, KEY_MIN and negative keys; rows with
+    only updates, only inserts, both, and nothing staged (by ``row % 4``);
+    rows filled to exactly 64 (every eighth from row 1); staged keys below a
+    row's first key and above its last; in every third row the active staged
+    inserts spread among inactive entries, elsewhere a prefix."""
+    import torch
+
+    from repro_torch.core.nodes import KEY_MAX, KEY_MIN
+
+    f = 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    big = 2**62
+
+    def ints(shape):
+        return torch.randint(-big, big, shape, generator=g, device=dev)
+
+    def counts(high):
+        return torch.randint(0, high, (q,), generator=g, device=dev)
+
+    col = torch.arange(f, device=dev)[None, :]
+    row = torch.arange(q, device=dev)
+    pool = ints((q, 2 * f)).sort(1).values + torch.arange(2 * f, device=dev)
+    pool[::5, 0] = KEY_MIN
+    inv = torch.rand((q, 2 * f), generator=g, device=dev).argsort(1).argsort(1)
+    occ = counts(f + 1)
+    kind = row % 4
+    n_ins = torch.where((kind == 1) | (kind == 2), counts(f + 1), 0)
+    n_ins = torch.minimum(n_ins, f - occ)
+    n_ins[1::8] = f - occ[1::8]
+
+    def pick(mask, n):
+        idx = (~mask).to(torch.int8).argsort(dim=1, stable=True)[:, :f]
+        return torch.where(col < n[:, None], pool.gather(1, idx), KEY_MAX)
+
+    rows_k = pick(inv < occ[:, None], occ)
+    staged = pick((inv >= occ[:, None]) & (inv < (occ + n_ins)[:, None]), n_ins)
+    rows_v = torch.where(rows_k != KEY_MAX, ints((q, f)), 0)
+    # every third row: the active entries at random ascending positions
+    rank = torch.rand((q, f), generator=g, device=dev).argsort(1).argsort(1)
+    spot = rank < n_ins[:, None]
+    nth = (spot.long().cumsum(1) - 1).clamp(min=0)
+    spread = torch.where(spot, staged.gather(1, nth), KEY_MAX)
+    ins_key = torch.where((row % 3 == 0)[:, None], spread, staged)
+    ins_val = torch.where(ins_key != KEY_MAX, ints((q, f)), 0)
+    n_upd = torch.where((kind == 0) | (kind == 2), counts(f + 1), 0)
+    n_upd = torch.minimum(n_upd, occ)
+    scores = torch.where(
+        col < occ[:, None], torch.rand((q, f), generator=g, device=dev), 2.0
+    )
+    slots = scores.argsort(1)
+    upd_slot = torch.where(col < n_upd[:, None], slots, -1).to(torch.int32)
+    upd_val = torch.where(upd_slot >= 0, ints((q, f)), 0)
+    return rows_k, rows_v, upd_slot, upd_val, ins_key, ins_val
 
 
 def phase_kernels(pool, meta, keys, seed):
@@ -286,6 +374,38 @@ def phase_kernels(pool, meta, keys, seed):
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes",
     )
+    # leaf writes: one staged row per request slot of every column's
+    # gathered batch, as the write path stages them
+    n_lw = cfg.n_memory * cfg.n_route * cfg.n_memory * wcap
+    args = leaf_write_inputs(n_lw, seed + 2, keys.device)
+    got = ops.leaf_write(*args)
+    want = ref.leaf_write_ref(*args)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max_abs_err(got, want)
+    if not equal:
+        fail(f"leaf_write differs from its plain version (max abs err {err})")
+    n_upd = int((args[2] >= 0).sum())
+    n_ins = int((args[4] != KEY_MAX).sum())
+    nbytes = (
+        n_lw * LEAF_ROW_BYTES
+        + n_upd * STAGED_UPDATE_BYTES
+        + n_ins * STAGED_INSERT_BYTES
+    )
+    out["leaf_write"] = dict(
+        name="leaf_write",
+        route="cuda",
+        source="src/repro_torch/csrc/leaf_write.cu",
+        replaces="src/repro/kernels/leaf_write.py:138",
+        shape=f"rows [{n_lw}, 64] i64, {n_upd} updates, {n_ins} inserts staged",
+        bit_equal=True,
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ops.leaf_write(*args), 20),
+        plain_ms=cuda_ms(lambda: ref.leaf_write_ref(*args), 3),
+        library_ms=None,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+    )
+    del args, got, want
     card = torch.cuda.get_device_name(keys.device)
     for k in out.values():
         print(
@@ -296,60 +416,105 @@ def phase_kernels(pool, meta, keys, seed):
     return out
 
 
+def mixed_batch(rng, keys, lanes, hot, overflow):
+    """One batch of random lookups, updates and inserts of fresh keys; the
+    ``hot`` keys take the first lanes as updates; ``overflow`` keys (fresh
+    keys of one leaf, more than its slack) follow as inserts."""
+    from repro_torch.core.engine import OP_INSERT, OP_UPDATE
+    from repro_torch.core.nodes import KEY_MAX
+
+    opc = rng.integers(0, 3, size=lanes).astype("int32")
+    kk = rng.choice(keys, size=lanes)
+    fresh = kk + rng.integers(1, 4, size=lanes)
+    ins = (opc == OP_INSERT) & ~np.isin(fresh, keys)
+    kk[ins] = fresh[ins]
+    h, o = len(hot), len(overflow)
+    opc[:h] = OP_UPDATE
+    kk[:h] = hot
+    opc[h : h + o] = OP_INSERT
+    kk[h : h + o] = overflow
+    vals = kk ^ rng.integers(1, 2**40, size=lanes)
+    kk[::29] = KEY_MAX
+    return opc, kk, vals
+
+
 def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
     """The port on the CPU (plain versions) and on the card (kernels) give
-    the same lane results and state planes: under ``fetch`` (the cache and
-    its duplicate admissions), ``fetch`` with buckets small enough to shed,
-    and ``auto``."""
-    import numpy as np
-
+    the same lane results and state planes: lookups under ``fetch`` (the
+    cache and its duplicate admissions), ``fetch`` with buckets small enough
+    to shed, and ``auto``; mixed lookups, updates and inserts under
+    ``fetch``, shedding ``fetch``, ``offload`` and ``auto``, comparing every
+    plane (pool, occupancy and versions included)."""
     from repro_torch.core import dex, engine
     from repro_torch.core import pool as pool_mod
     from repro_torch.core.nodes import KEY_MAX, KEY_MIN
-    from repro_torch.obs.registry import STAT_DROPS
+    from repro_torch.obs.registry import STAT_DROPS, STAT_SPLITS, STAT_WRITES
 
     rng = np.random.default_rng(seed)
     keys = np.sort(rng.choice(2**40, size=20_000, replace=False).astype(np.int64))
     keys -= 2**39
     bounds = np.array([KEY_MIN, keys[keys.size // 2], KEY_MAX], np.int64)
-    batches = []
+    lookups = []
     for _ in range(3):
         q = rng.choice(keys, size=4096).astype(np.int64)
         q[::13] += 1
         q[::29] = KEY_MAX
-        batches.append(q)
-    planes = ("stats", "miss_ema", "lat_hist", "lat_audit", "route_demand")
-    for policy, factor in (("fetch", 4.0), ("fetch", 0.5), ("auto", 4.0)):
+        z = np.zeros(q.shape, np.int64)
+        lookups.append((z.astype(np.int32), q, z))
+    # 30 fresh keys into one leaf (44 keys at fill 0.7, 20 slots of slack)
+    overflow = keys[4400:4430] + 1
+    mixed = [
+        mixed_batch(rng, keys, 4096, keys[100:116], overflow if i == 1 else [])
+        for i in range(3)
+    ]
+    look_planes = ("stats", "miss_ema", "lat_hist", "lat_audit", "route_demand")
+    runs = [
+        ("lookups", ("lookup",), lookups, "fetch", 4.0),
+        ("lookups", ("lookup",), lookups, "fetch", 0.5),
+        ("lookups", ("lookup",), lookups, "auto", 4.0),
+        ("mixed", engine.PORTED_OPS, mixed, "fetch", 4.0),
+        ("mixed", engine.PORTED_OPS, mixed, "fetch", 0.5),
+        ("mixed", engine.PORTED_OPS, mixed, "offload", 4.0),
+        ("mixed", engine.PORTED_OPS, mixed, "auto", 4.0),
+    ]
+    for label, ops_, batches, policy, factor in runs:
         cfg = mesh_config(policy, 64, factor)
-        runs = []
+        out = []
         for dev in devices:
             pool, meta = pool_mod.build_pool(
                 keys, keys ^ VALUE_XOR, level_m=1, n_shards=4, device=dev
             )
             state = dex.init_state(pool, meta, cfg, bounds, device=dev)
-            eng = engine.make_dex_engine(meta, cfg, device=dev)
-            out = []
-            for q in batches:
-                z = np.zeros(q.shape, np.int64)
-                state, r = eng(state, z.astype(np.int32), q, z)
-                got = {
-                    k: v
-                    for k, v in dex.state_to_numpy(state).items()
-                    if k.startswith("cache.") or k in planes
-                }
-                for k, v in r._asdict().items():
-                    got[k] = v.cpu().numpy()
-                out.append(got)
-            runs.append(out)
-        for i, (a, b) in enumerate(zip(*runs)):
+            eng = engine.make_dex_engine(meta, cfg, ops=ops_, device=dev)
+            out.append([])
+            for opc, q, v in batches:
+                state, r = eng(state, opc, q, v)
+                got = dex.state_to_numpy(state)
+                if label == "lookups":
+                    got = {
+                        k: a
+                        for k, a in got.items()
+                        if k.startswith("cache.") or k in look_planes
+                    }
+                for k, a in r._asdict().items():
+                    got[k] = a.cpu().numpy()
+                out[-1].append(got)
+        for i, (a, b) in enumerate(zip(*out)):
             for k in a:
                 if a[k].shape != b[k].shape or not np.array_equal(a[k], b[k]):
-                    fail(f"{policy} x{factor}: CPU and CUDA differ at batch {i}: {k}")
-        shed = int(runs[0][-1]["stats"][:, STAT_DROPS].sum())
+                    fail(
+                        f"{label} {policy} x{factor}: CPU and CUDA differ at"
+                        f" batch {i}: {k}"
+                    )
+        stats = out[0][-1]["stats"].sum(0)
         print(
-            f"cpu-vs-cuda {policy} x{factor}: 3 batches of 4096 lanes, 2x4 mesh,"
-            f" all planes equal ({shed} shed)"
+            f"cpu-vs-cuda {label} {policy} x{factor}: 3 batches of 4096 lanes,"
+            f" 2x4 mesh, all {len(a)} planes and results equal"
+            f" ({stats[STAT_DROPS]} shed, {stats[STAT_WRITES]} writes,"
+            f" {stats[STAT_SPLITS]} splits)"
         )
+        if label == "mixed" and factor >= 1 and stats[STAT_SPLITS] == 0:
+            fail(f"mixed {policy} x{factor}: no insert was shed as a split")
 
 
 def profile_batch(policy, eng, state, median_ms, *inputs):
@@ -386,88 +551,159 @@ def profile_batch(policy, eng, state, median_ms, *inputs):
     return out
 
 
+class HostOracle:
+    """The index's contents on the host: the bulk-loaded keys (each value a
+    fixed function of its key) and every write the engine acknowledged."""
+
+    def __init__(self, host_keys):
+        self.keys = host_keys
+        self.written = {}  # key -> value of each acknowledged write
+
+    def lookup(self, q):
+        """``(found, value)`` of each key of ``q`` in the current contents."""
+        n = self.keys.size
+        # sorted queries let each search start from the last one's answer
+        order = np.argsort(q, kind="stable")
+        pos = np.empty_like(order)
+        pos[order] = np.searchsorted(self.keys, q[order])
+        found = (pos < n) & (self.keys[np.minimum(pos, n - 1)] == q)
+        w = self.written
+        in_w = np.fromiter((k in w for k in q.tolist()), bool, count=q.size)
+        value = q ^ VALUE_XOR
+        if in_w.any():
+            value[in_w] = [w[k] for k in q[in_w].tolist()]
+        return found | in_w, value
+
+    def check(self, where, opc, kk, vals, r):
+        """Hold one batch's results to the contents before it, then apply
+        its acknowledged writes in lane order (the last lane of a key wins).
+        Returns ``(lanes checked, lanes shed, splits)``."""
+        from repro_torch.core.engine import OP_INSERT, OP_LOOKUP, OP_UPDATE
+        from repro_torch.core.write import STATUS_MISS, STATUS_OK, STATUS_SPLIT
+
+        found, values, status, shed = (t.cpu().numpy() for t in r)
+        ok = ~shed
+        exists, cur = self.lookup(kk)
+        lk = ok & (opc == OP_LOOKUP)
+        if not (found[lk] == exists[lk]).all():
+            fail(f"{where}: found differs from the host oracle")
+        if not (values[lk & exists] == cur[lk & exists]).all():
+            fail(f"{where}: values differ from the host oracle")
+        up = ok & (opc == OP_UPDATE)
+        if not (status[up] == np.where(exists[up], STATUS_OK, STATUS_MISS)).all():
+            fail(f"{where}: an update's status differs from the host oracle")
+        ins = ok & (opc == OP_INSERT)
+        if not np.isin(status[ins], (STATUS_OK, STATUS_SPLIT)).all():
+            fail(f"{where}: an insert was neither applied nor shed as a split")
+        done = (up | ins) & (status == STATUS_OK)
+        self.written.update(zip(kk[done].tolist(), vals[done].tolist()))
+        return int(ok.sum()), int(shed.sum()), int((status == STATUS_SPLIT).sum())
+
+
 def phase_main(args, keys, pool, meta):
-    """The full-size YCSB-C run under each policy."""
-    import numpy as np
+    """The full-size runs of ``MAIN_RUNS``, in order, on one index: the
+    engine writes the pool in place, so each run starts from the contents
+    the runs before it left, and so does the host oracle."""
     import torch
 
     from repro_torch.core import dex, engine
-    from repro_torch.core.nodes import KEY_MAX, KEY_MIN
+    from repro_torch.core.nodes import KEY_MIN, KEY_MAX
     from repro_torch.data import ycsb
     from repro_torch.kernels import ops
     from repro_torch.obs import registry as reg
 
     n = keys.numel()
+    dev = keys.device
     host_keys = keys.cpu().numpy()
     bounds = np.array([KEY_MIN, host_keys[n // 2], KEY_MAX], np.int64)
-    total = sum(w + t + 1 for _, w, t in POLICY_BATCHES)
-    wl = ycsb.generate("read-only", n, BATCH * total, seed=args.seed + 1)
-    if not (wl.ops == ycsb.OP_LOOKUP).all():
-        fail("YCSB-C traffic must be all reads")
-    idx = torch.from_numpy(wl.idx).to(keys.device)
-    zero64 = torch.zeros(BATCH, dtype=torch.int64, device=keys.device)
-    zero32 = torch.zeros(BATCH, dtype=torch.int32, device=keys.device)
-    report = {}
-    ops.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    off = 0
-    for policy, warm, timed in POLICY_BATCHES:
-        cfg = mesh_config(policy, 65_536)
-        state = dex.init_state(pool, meta, cfg, bounds, device=keys.device)
-        eng = engine.make_dex_engine(meta, cfg, device=keys.device)
-        times, shed_total, checked = [], 0, 0
-        for i in range(warm + timed + 1):
-            q = keys[idx[off : off + BATCH]]
-            off += BATCH
-            torch.cuda.synchronize()
-            if i == warm + timed:
-                # one more batch under the profiler: where the time goes
-                med = float(np.median(times))
-                state, r = profile_batch(policy, eng, state, med, zero32, q, zero64)
-            else:
-                t0 = time.perf_counter()
-                state, r = eng(state, zero32, q, zero64)
+    oracle = HostOracle(host_keys)
+    engine_ops = {
+        "read-only": ("lookup",),
+        "ycsb-a": ("lookup", "update"),
+        "insert-intensive": ("lookup", "insert"),
+    }
+    # the kernels each path must launch
+    path_kernels = {
+        "read-only": ("node_search", "subtree_walk"),
+        "ycsb-a": ("node_search", "subtree_walk", "leaf_write"),
+        "insert-intensive": ("node_search", "subtree_walk", "leaf_write"),
+    }
+    report, per_path = {}, {}
+    batch_no = 0
+    for w_i, workload in enumerate(dict.fromkeys(r[0] for r in MAIN_RUNS)):
+        runs = [r for r in MAIN_RUNS if r[0] == workload]
+        ops.reset_launches()
+        total = sum(warm + timed + 1 for _, _, warm, timed in runs)
+        wl = ycsb.generate(workload, host_keys, BATCH * total, seed=args.seed + 1 + w_i)
+        off = 0
+        for _, policy, warm, timed in runs:
+            cfg = mesh_config(policy, 65_536)
+            state = dex.init_state(pool, meta, cfg, bounds, device=dev)
+            eng = engine.make_dex_engine(
+                meta, cfg, ops=engine_ops[workload], device=dev
+            )
+            torch.cuda.reset_peak_memory_stats()
+            times, batches = [], []
+            for i in range(warm + timed + 1):
+                opc = wl.ops[off : off + BATCH]
+                kk = wl.keys[off : off + BATCH]
+                off += BATCH
+                batch_no += 1
+                # a value no earlier write of the key has had
+                stamp = (batch_no << 20) + np.arange(BATCH)
+                vals = kk ^ VALUE_XOR ^ stamp
+                inputs = [torch.from_numpy(a).to(dev) for a in (opc, kk, vals)]
                 torch.cuda.synchronize()
-                if i >= warm:
-                    times.append((time.perf_counter() - t0) * 1e3)
-            qh = q.cpu().numpy()
-            found = r.found.cpu().numpy()
-            vals = r.values.cpu().numpy()
-            shed = r.shed.cpu().numpy()
-            pos = np.searchsorted(host_keys, qh)
-            hit = (pos < n) & (host_keys[np.minimum(pos, n - 1)] == qh)
-            ok = ~shed
-            if not (found[ok] == hit[ok]).all():
-                fail(f"{policy} batch {i}: found differs from the host oracle")
-            if not (vals[ok & hit] == (qh[ok & hit] ^ VALUE_XOR)).all():
-                fail(f"{policy} batch {i}: values differ from the host oracle")
-            shed_total += int(shed.sum())
-            checked += int(ok.sum())
-        stats = state.stats.sum(0).cpu().numpy()
-        med = float(np.median(times))
-        report[policy] = dict(
-            median_ms=med,
-            p25_ms=float(np.percentile(times, 25)),
-            p75_ms=float(np.percentile(times, 75)),
-            lookups_per_s=BATCH / med * 1e3,
-            batches=timed,
-            checked_lanes=checked,
-            shed_lanes=shed_total,
-            hits=int(stats[reg.STAT_HITS]),
-            fetches=int(stats[reg.STAT_FETCHES]),
-            offloads=int(stats[reg.STAT_OFFLOADS]),
-            offload_groups=int(stats[reg.STAT_OFFLOAD_GROUPS]),
-            fetch_groups=int(stats[reg.STAT_FETCH_GROUPS]),
-            drops=int(stats[reg.STAT_DROPS]),
-        )
-        print(f"main {policy}: " + json.dumps(report[policy]))
-        del state
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"main: peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
-    for k, v in launches.items():
-        if v <= 0:
-            fail(f"kernel {k} was not launched on the main path")
+                if i == warm + timed:
+                    # one more batch under the profiler: where the time goes
+                    med = float(np.median(times))
+                    label = f"{workload} {policy}"
+                    state, r = profile_batch(label, eng, state, med, *inputs)
+                else:
+                    t0 = time.perf_counter()
+                    state, r = eng(state, *inputs)
+                    torch.cuda.synchronize()
+                    if i >= warm:
+                        times.append((time.perf_counter() - t0) * 1e3)
+                batches.append((opc, kk, vals, r))
+            # the oracle's host work runs after the batches, not between them
+            checked, shed, splits = 0, 0, 0
+            for i, (opc, kk, vals, r) in enumerate(batches):
+                where = f"{workload} {policy} batch {i}"
+                c, s_, sp = oracle.check(where, opc, kk, vals, r)
+                checked, shed, splits = checked + c, shed + s_, splits + sp
+            del batches
+            stats = state.stats.sum(0).cpu().numpy()
+            med = float(np.median(times))
+            run = f"{workload}/{policy}"
+            report[run] = dict(
+                median_ms=med,
+                p25_ms=float(np.percentile(times, 25)),
+                p75_ms=float(np.percentile(times, 75)),
+                ops_per_s=BATCH / med * 1e3,
+                batches=timed,
+                checked_lanes=checked,
+                shed_lanes=shed,
+                split_lanes=splits,
+                hits=int(stats[reg.STAT_HITS]),
+                fetches=int(stats[reg.STAT_FETCHES]),
+                offloads=int(stats[reg.STAT_OFFLOADS]),
+                writes=int(stats[reg.STAT_WRITES]),
+                splits=int(stats[reg.STAT_SPLITS]),
+                drops=int(stats[reg.STAT_DROPS]),
+                offload_groups=int(stats[reg.STAT_OFFLOAD_GROUPS]),
+                fetch_groups=int(stats[reg.STAT_FETCH_GROUPS]),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            )
+            print(f"main {workload} {policy}: {json.dumps(report[run])}")
+            del state, eng
+        per_path[workload] = dict(ops.LAUNCHES)
+        print(f"main {workload}: launches {per_path[workload]}")
+        for k in path_kernels[workload]:
+            if per_path[workload][k] <= 0:
+                fail(f"kernel {k} was not launched on the {workload} path")
+    launches = {k: sum(p[k] for p in per_path.values()) for k in ops.LAUNCHES}
+    print(f"main: {len(oracle.written)} keys written; launches {launches}")
     return report, launches
 
 
@@ -496,9 +732,15 @@ def main(argv=None):
         f"{meta.subtree_cap} nodes, top height {meta.top_height}, "
         f"built in {time.perf_counter() - t0:.1f} s"
     )
+    t0 = time.perf_counter()
     kernels = phase_kernels(pool, meta, keys, args.seed)
+    t1 = time.perf_counter()
     phase_cpu_vs_cuda(args.seed)
+    t2 = time.perf_counter()
     report, launches = phase_main(args, keys, pool, meta)
+    t3 = time.perf_counter()
+    print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
+          f" main {t3 - t2:.1f} s")
     rows = []
     for name, k in kernels.items():
         rows.append(dict(

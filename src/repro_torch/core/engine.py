@@ -1,28 +1,38 @@
-"""The mesh plane's execution engine, lookup slice.
+"""The mesh plane's execution engine: point lookups, updates and inserts.
 
-:func:`make_dex_engine` with ``ops=("lookup",)`` runs a batch of point
-lookups over the virtual mesh (``core/mesh.py``) the way the reference's
-unified engine does, batched over the ``Dev`` axis:
+:func:`make_dex_engine` runs a batch of mixed lookups, updates and inserts
+over the virtual mesh (``core/mesh.py``) the way the reference's unified
+engine does, batched over the ``Dev`` axis:
 
   1. one route round: ``routing.route_owners``, ``pack_by_dest`` and
-     ``route_exchange`` move each lane to the route row owning its key;
+     ``route_exchange`` move each lane to the route row owning its key (the
+     write slice carries its value, opcode and batch priority along);
   2. the replicated top-tree walk (``pool.top_walk``, ``node_search``) and
      the per-column offload decision: each destination memory column's
      group of live lanes compares its predicted fetch bytes (the per-column,
      per-level miss-rate EMA) against the two-sided RPC bytes;
   3. the version-checked cached descent, one ``cached_fetch_level`` per
      level, with ``node_search`` picking the child at inner levels and
-     matching the key at the leaf;
-  4. for lanes whose column offloads: one request/response exchange over
-     the memory axis, where the owning column walks its subtree block with
-     the ``subtree_walk`` kernel;
-  5. the EMA, stat, latency-histogram and audit planes, and the return trip
-     over the route axis.
+     matching the key at the leaf; inserts stop above the leaf;
+  4. one request/response exchange over the memory axis: offloaded lanes
+     are walked by the owning column with the ``subtree_walk`` kernel, and
+     every write is applied there in one conflict-resolved batch
+     (``write._apply_leaf_writes``, the ``leaf_write`` kernel);
+  5. version bumps and the write-through refresh (updates) or drop
+     (inserts) of the writer's own cached row; the EMA, stat, latency-
+     histogram and audit planes, and the return trip over the route axis.
 
 ``policy="fetch"`` never offloads; ``policy="offload"`` offloads every live
-lane and runs no descent; ``policy="auto"`` decides per column.  Writes,
-scans, the pipelined engine, divergent cache policies, peer peeks and the
-route table are not ported yet: asking for them raises.
+lane and runs no descent; ``policy="auto"`` decides per column.  Reads see
+the pre-batch index, then updates apply, then inserts (a phase-offset batch
+priority); an insert into a leaf that would overflow comes back
+``STATUS_SPLIT``.  Scans, the pipelined engine, divergent cache policies,
+peer peeks and the route table are not ported yet: asking for them raises.
+
+The engine writes its state in place: the cache planes, and with writes the
+pool's key and value planes, ``occupancy`` and ``versions``.  The returned
+state shares these tensors with the one it was given, which saves a copy of
+the pool per batch; a caller that needs the pre-batch state keeps a copy.
 """
 
 from __future__ import annotations
@@ -44,6 +54,13 @@ from repro_torch.core.dex import (
 from repro_torch.core.fleet_cache import DexCache, cached_fetch_level
 from repro_torch.core.nodes import FANOUT, KEY_MAX
 from repro_torch.core.pool import PoolMeta, top_walk
+from repro_torch.core.write import (
+    STATUS_MISS,
+    STATUS_OK,
+    STATUS_SHED,
+    STATUS_SPLIT,
+    _apply_leaf_writes,
+)
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import latency as obs_latency
 from repro_torch.obs.registry import (
@@ -55,18 +72,30 @@ from repro_torch.obs.registry import (
     STAT_OFFLOAD_GROUPS,
     STAT_OFFLOADS,
     STAT_OPS,
+    STAT_SPLITS,
+    STAT_WRITES,
 )
 
 OP_LOOKUP, OP_UPDATE, OP_INSERT, OP_SCAN = 0, 1, 2, 3
 ALL_OPS = ("lookup", "update", "insert", "scan")
-PORTED_OPS = ("lookup",)
+PORTED_OPS = ("lookup", "update", "insert")
+_OP_CODES = {"lookup": OP_LOOKUP, "update": OP_UPDATE, "insert": OP_INSERT}
 
-STATUS_MISS = 0
-STATUS_SHED = -1
+# fused-round message tags (field 0 of a request record)
+MSG_NONE = 0  # no request from this lane (or bucket padding)
+MSG_UPDATE = 1  # fetched-path update: gid known from the descent
+MSG_INSERT = 2  # fetched-path slack-slot insert: gid from the descent
+MSG_OFF_LOOKUP = 3  # offloaded lookup: the owner walks its block
+MSG_OFF_UPDATE = 4  # offloaded update: the owner walks, then writes
+MSG_OFF_INSERT = 5  # offloaded insert: the owner walks, then merges
+REQ_FIELDS = 6  # (tag, gid, subtree, key, value, prio)
+RESP_HEAD = 4  # (status, value, gid, leaf-took-inserts) ahead of the value row
 
 
 class EngineResult(NamedTuple):
-    """Per-lane results of one batch, in the caller's lane order."""
+    """Per-lane results of one batch, in the caller's lane order:
+    ``found``/``values`` answer lookups, ``status`` answers writes
+    (``write.STATUS_*``), ``shed`` marks lanes shed anywhere (retry them)."""
 
     found: torch.Tensor
     values: torch.Tensor
@@ -78,8 +107,9 @@ class Descent(NamedTuple):
     """What the cached descent hands the rest of the batch, per lane
     ``[Dev, Q]`` or per device."""
 
-    found: torch.Tensor  # leaf match (one-sided lanes)
+    found: torch.Tensor  # leaf match (one-sided lookup and update lanes)
     value: torch.Tensor
+    gid: torch.Tensor  # the leaf's global node id
     shed: torch.Tensor  # a fetch bucket dropped the lane
     fmiss: torch.Tensor  # some level paid a remote fetch
     cost: torch.Tensor  # modelled seconds so far
@@ -89,6 +119,18 @@ class Descent(NamedTuple):
     realized: torch.Tensor  # [Dev, n_memory, levels] distinct fetched bytes
     n_hit: torch.Tensor  # [Dev]
     n_fetch: torch.Tensor  # [Dev] coalesced remote reads
+
+
+class Fused(NamedTuple):
+    """The fused round's answers, per lane ``[Dev, Q]``."""
+
+    send: torch.Tensor  # the lane sent a request
+    dropped: torch.Tensor  # a request bucket dropped it
+    status: torch.Tensor  # int32 STATUS_* from the owner
+    value: torch.Tensor  # offloaded lookups' value
+    gid: torch.Tensor  # the leaf the owner wrote (KEY_MAX if none)
+    ins: torch.Tensor  # the leaf took a fresh insert this batch
+    row_v: torch.Tensor  # [Dev, Q, F] the leaf's post-batch value row
 
 
 def fma32(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -124,24 +166,30 @@ def make_dex_engine(
     meta: PoolMeta,
     cfg: DexMeshConfig,
     *,
-    ops: Tuple[str, ...] = PORTED_OPS,
+    ops: Tuple[str, ...] = ("lookup",),
     cache_policy: "fleet_cache.CachePolicy | None" = None,
     device=None,
 ):
     """Build the engine ``(state, opcodes, keys, values) -> (state,
     EngineResult)`` on ``device`` (None = CUDA).
 
+    ``ops`` is any non-empty subset of ``PORTED_OPS``.
     ``opcodes``/``keys``/``values`` are [B] lanes, split evenly over the
     virtual devices (lanes ``dev*b .. (dev+1)*b`` start on device ``dev``);
-    ``keys == KEY_MAX`` lanes and opcodes outside ``ops`` are inactive, and
-    lookups ignore ``values``.  The returned function carries the
-    reference's ``plan`` attribute.  The cache planes of the given state are
-    updated in place."""
+    ``keys == KEY_MAX`` lanes and opcodes outside ``ops`` are inactive.
+    Update and insert lanes carry their new value in ``values``; lookups
+    ignore it.  ``ops`` prunes statically: an engine without writes routes
+    keys alone and carries no write round.  The returned function carries
+    the reference's ``plan`` attribute.  The state is updated in place (see
+    the module's docstring)."""
+    ops = tuple(ops)
     for o in ops:
         if o not in ALL_OPS:
             raise ValueError(f"unknown op {o!r}; options: {ALL_OPS}")
-    if tuple(ops) != PORTED_OPS:
-        raise NotImplementedError(f"only ops={PORTED_OPS} is ported, got {ops}")
+    if not ops:
+        raise ValueError("ops must name at least one operation")
+    if any(o not in PORTED_OPS for o in ops):
+        raise NotImplementedError(f"only ops in {PORTED_OPS} are ported, got {ops}")
     if cfg.policy not in ("fetch", "offload", "auto"):
         raise ValueError(f"unknown policy {cfg.policy!r}")
     if cfg.route_table_slots > 0:
@@ -152,9 +200,16 @@ def make_dex_engine(
         raise NotImplementedError("divergent cache policies are not ported yet")
     device = mesh.resolve_device(device)
 
+    has_lookup = "lookup" in ops
+    has_update = "update" in ops
+    has_insert = "insert" in ops
+    has_writes = has_update or has_insert
+    enabled = [_OP_CODES[o] for o in ops]
     levels = meta.levels_in_subtree
     may_offload = cfg.policy != "fetch"
     do_descent = cfg.policy != "offload"
+    # the leaf level serves lookups and updates; inserts stop above it
+    do_leaf = has_lookup or has_update
     audit = cfg.policy == "auto"
     nr, nm, n_dev = cfg.n_route, cfg.n_memory, cfg.n_devices
     s_per = meta.n_subtrees_padded // nm
@@ -172,12 +227,13 @@ def make_dex_engine(
     # XLA folds ``NODE_ROW_BYTES * offload_c`` into one float32 constant
     row_cost = float(np.float32(NODE_ROW_BYTES) * np.float32(cfg.offload_c))
     rpc_bytes = float(OFFLOAD_REQ_BYTES + OFFLOAD_RESP_BYTES)
-    first = (mesh.device_linear_index(cfg, device) == 0).long()
+    dev_index = mesh.device_linear_index(cfg, device)
+    first = (dev_index == 0).long()
     my_col = mesh.memory_linear_index(cfg, device)[:, None]
     plan = {
         "route_rounds": 1,
-        "fused_pairs": 1 if may_offload else 0,
-        "descent_levels": levels if do_descent else 0,
+        "fused_pairs": 1 if (may_offload or has_writes) else 0,
+        "descent_levels": (levels if do_leaf else levels - 1) if do_descent else 0,
         "scan_hops": 0,
         "pipeline": False,
     }
@@ -199,10 +255,11 @@ def make_dex_engine(
         want_off_c = _dot_levels(caps, ema) * row_cost > nf * rpc_bytes
         return want_off_c, grp_live, caps
 
-    def descent(state, q, subtree, col, want, cost) -> Descent:
-        """The version-checked cached descent of the ``want`` lanes: one
-        ``cached_fetch_level`` per level, ``node_search`` for the child at
-        inner levels and for the match at the leaf."""
+    def descent(state, q, subtree, col, want, leaf_want, cost) -> Descent:
+        """The version-checked cached descent: one ``cached_fetch_level`` per
+        level for the ``want`` lanes (``leaf_want`` at the leaf),
+        ``node_search`` for the child at inner levels and for the match at
+        the leaf.  Without a leaf level it stops at the leaf's id."""
         nq = q.shape[1]
         flat_q = q.reshape(-1)
         cache = state.cache
@@ -214,10 +271,13 @@ def make_dex_engine(
         miss_cl = torch.zeros((n_dev, nm, levels), device=device)
         want_cl = torch.zeros_like(miss_cl)
         realized = torch.zeros_like(miss_cl)
-        for lvl in range(levels):
+        found = torch.zeros_like(want)
+        value = torch.zeros_like(q)
+        for lvl in range(levels if do_leaf else levels - 1):
             leaf = lvl == levels - 1
             gid = meta.node_gid(subtree, local)
             if leaf:
+                want = leaf_want
                 salt = state.stats[:, STAT_OPS, None] + torch.arange(
                     nq, device=device
                 )
@@ -250,14 +310,20 @@ def make_dex_engine(
                 cnt = nset[:, :n_nodes].view(n_dev, nm, -1).sum(-1).float()
                 realized[..., lvl] = cnt * float(NODE_ROW_BYTES)
             rows_k = rows_k.view(-1, FANOUT)
-            if not leaf:
+            if leaf:
+                _, found, value = kops.node_search(
+                    rows_k, flat_q, rows_v.view(-1, FANOUT)
+                )
+                found = found.view(n_dev, nq) & want
+                value = value.view(n_dev, nq)
+            else:
                 slot, _, _ = kops.node_search(rows_k, flat_q)
                 local = rows_c.view(-1, FANOUT).gather(1, slot.long()[:, None])
                 local = local.view(n_dev, nq).long()
-        _, found, value = kops.node_search(rows_k, flat_q, rows_v.view(-1, FANOUT))
         return Descent(
-            found=found.view(n_dev, nq) & want,
-            value=value.view(n_dev, nq),
+            found=found,
+            value=value,
+            gid=meta.node_gid(subtree, local),
             shed=shed,
             fmiss=fmiss,
             cost=cost,
@@ -269,8 +335,27 @@ def make_dex_engine(
             n_fetch=n_fetch,
         )
 
+    def no_descent(state, q, subtree, cost) -> Descent:
+        zero_cl = torch.zeros((n_dev, nm, levels), device=device)
+        zero_dev = torch.zeros(n_dev, dtype=torch.int64, device=device)
+        none = torch.zeros_like(q, dtype=torch.bool)
+        return Descent(
+            found=none,
+            value=torch.zeros_like(q),
+            gid=meta.node_gid(subtree, torch.zeros_like(q)),
+            shed=none,
+            fmiss=none,
+            cost=cost,
+            cache=state.cache,
+            miss_cl=zero_cl,
+            want_cl=zero_cl,
+            realized=zero_cl,
+            n_hit=zero_dev,
+            n_fetch=zero_dev,
+        )
+
     def owner_walk(pool, q, subtree, send):
-        """The fused request/response exchange over the memory axis: the
+        """The lookup engine's fused exchange over the memory axis: the
         owning column walks its subtree block for each ``send`` lane with
         the ``subtree_walk`` kernel.  Returns ``(found, value, dropped)``."""
         nq = q.shape[1]
@@ -284,7 +369,7 @@ def make_dex_engine(
         walk = kf != KEY_MAX
         # a request on column m names a subtree of m's shard
         st = my_col * s_per + torch.where(walk, stf % s_per, 0)
-        o_found, o_val = kops.subtree_walk(
+        o_found, o_val, _ = kops.subtree_walk(
             pool.pool_keys,
             pool.pool_children,
             pool.pool_values,
@@ -298,6 +383,142 @@ def make_dex_engine(
         resp = mesh.a2a(resp, cfg, cfg.memory_axis)
         back = routing.unpack_to_lanes(resp, wlane, nq, 0)
         return back[..., 0] != 0, back[..., 1], dropped & send
+
+    def write_round(state, q, val, opc, pr, subtree, col, offl, d: Descent):
+        """The fused tagged request/response exchange of an engine with
+        writes.  Each lane's request goes to its leaf's memory column; the
+        columns' batches are gathered over the route replicas and applied
+        to the one pool once: offloaded lanes first walk the pre-batch pool
+        (``subtree_walk``), then every write applies (``leaf_write``), and
+        each device takes its own route row of the response."""
+        pool = state.pool
+        nq = q.shape[1]
+        live = q != KEY_MAX
+        ok_lane = live & ~d.shed
+        tag = torch.zeros_like(q)
+        if has_lookup and may_offload:
+            tag = torch.where(
+                ok_lane & (opc == OP_LOOKUP) & offl, MSG_OFF_LOOKUP, tag
+            )
+        if has_update:
+            is_up = ok_lane & (opc == OP_UPDATE)
+            if may_offload:
+                tag = torch.where(is_up & offl, MSG_OFF_UPDATE, tag)
+            tag = torch.where(is_up & ~offl & d.found, MSG_UPDATE, tag)
+        if has_insert:
+            is_in = ok_lane & (opc == OP_INSERT)
+            if may_offload:
+                tag = torch.where(is_in & offl, MSG_OFF_INSERT, tag)
+            tag = torch.where(is_in & ~offl, MSG_INSERT, tag)
+        send = tag != MSG_NONE
+        dest = torch.where(send, col, nm)
+        wcap = routing.route_capacity(nq, nm, cfg.route_capacity_factor)
+        fetched_w = (tag == MSG_UPDATE) | (tag == MSG_INSERT)
+        payload = torch.stack(
+            [tag, torch.where(fetched_w, d.gid, KEY_MAX), subtree, q, val, pr], -1
+        )
+        wbuf, wlane, dropped = routing.pack_by_dest(payload, dest, nm, wcap)
+        dropped = dropped & send
+        req = mesh.a2a(wbuf, cfg, cfg.memory_axis)  # [Dev, nm, wcap, RF]
+        # [nm, nr, nm, wcap, RF]: each column's batch, gathered once
+        flat = mesh.gather_route(req, cfg).reshape(-1, REQ_FIELDS)
+        tagf, gidf, stf, kf, vf, prf = (c.contiguous() for c in flat.unbind(-1))
+        wgid = torch.where((tagf == MSG_UPDATE) | (tagf == MSG_INSERT), gidf, KEY_MAX)
+        resp_val = torch.zeros_like(kf)
+        if may_offload:
+            # the owner-side walk reads the pre-batch pool
+            walk = (tagf >= MSG_OFF_LOOKUP) & (tagf <= MSG_OFF_INSERT)
+            col_f = torch.arange(kf.numel(), device=device) // (nr * nm * wcap)
+            st = col_f * s_per + torch.where(walk, stf % s_per, 0)
+            o_found, o_val, o_loc = kops.subtree_walk(
+                pool.pool_keys,
+                pool.pool_children,
+                pool.pool_values,
+                st.to(torch.int32),
+                kf,
+                levels=levels,
+            )
+            o_found = o_found & walk
+            off_w = (tagf == MSG_OFF_UPDATE) | (tagf == MSG_OFF_INSERT)
+            wgid = torch.where(off_w, meta.node_gid(stf, o_loc.long()), wgid)
+            lk = tagf == MSG_OFF_LOOKUP
+            resp_val = torch.where(lk, o_val, 0)
+        allow_ins = (tagf == MSG_INSERT) | (tagf == MSG_OFF_INSERT)
+        _, _, _, wstat, rows_v, ins_in_leaf = _apply_leaf_writes(
+            pool.pool_keys,
+            pool.pool_values,
+            state.occupancy,
+            meta,
+            wgid,
+            kf,
+            vf,
+            prf,
+            allow_ins,
+        )
+        if may_offload:
+            wstat = torch.where(
+                lk, torch.where(o_found, STATUS_OK, STATUS_MISS).to(wstat.dtype), wstat
+            )
+        resp = torch.cat(
+            [
+                wstat[:, None].long(),
+                resp_val[:, None],
+                wgid[:, None],
+                ins_in_leaf[:, None].long(),
+                rows_v,
+            ],
+            -1,
+        )
+        del rows_v
+        width = RESP_HEAD + FANOUT
+        # each device answers its own route row
+        resp = mesh.route_share(resp.view(nm, nr, nm, wcap, width), cfg)
+        resp = mesh.a2a(resp, cfg, cfg.memory_axis)
+        back = routing.unpack_to_lanes(resp, wlane, nq, 0)
+        return Fused(
+            send=send,
+            dropped=dropped,
+            status=back[..., 0].to(torch.int32),
+            value=back[..., 1],
+            gid=back[..., 2],
+            ins=back[..., 3] != 0,
+            row_v=back[..., RESP_HEAD:],
+        )
+
+    def write_through(state, cache: DexCache, opc, f: Fused):
+        """Version bumps (mesh-wide maximum) and the writer's own cache:
+        refresh an updated leaf's value row, drop an inserted leaf's row."""
+        delivered = f.send & ~f.dropped
+        wrote_ok = (
+            delivered
+            & ((opc == OP_UPDATE) | (opc == OP_INSERT))
+            & (f.status == STATUS_OK)
+        )
+        vers = state.versions
+        nv = vers.gather(1, torch.where(wrote_ok, f.gid, 0)) + 1
+        bump = torch.zeros(n_nodes + 1, dtype=vers.dtype, device=device)
+        at = torch.where(wrote_ok, f.gid, n_nodes).reshape(-1)
+        bump.scatter_reduce_(0, at, nv.reshape(-1), "amax")
+        new_vers = torch.maximum(mesh.pmax(vers), bump[:n_nodes])
+        set_idx = routing.umod(routing.hash64(f.gid), cfg.cache_sets)
+        dd = torch.arange(n_dev, device=device)[:, None]
+        eqt = cache.tags[dd, set_idx] == f.gid[..., None]
+        chit = eqt.any(-1) & wrote_ok
+        way = fleet_cache._first_true(eqt)
+        slot = (dd * cfg.cache_sets + set_idx) * cfg.cache_ways + way
+        # lanes that hit one (set, way) carry one gid, so one row and one
+        # version: duplicate writes agree
+        if has_update:
+            # not when the leaf also took inserts: the cached keys would be
+            # stale under a current version; the old stamp forces a refetch
+            u = (chit & (opc == OP_UPDATE) & ~f.ins).nonzero(as_tuple=True)
+            cache.values.view(-1, FANOUT)[slot[u]] = f.row_v[u]
+            cache.ver.view(-1)[slot[u]] = nv[u]
+        if has_insert:
+            i = (chit & (opc == OP_INSERT)).nonzero(as_tuple=True)
+            cache.tags.view(-1)[slot[i]] = -1
+        vers.copy_(new_vers)
+        return cache
 
     def engine(state: DexState, opcodes, keys, values):
         keys = torch.as_tensor(keys).to(device=device, dtype=torch.int64)
@@ -316,16 +537,39 @@ def make_dex_engine(
                 status=torch.zeros((0,), dtype=torch.int32, device=device),
                 shed=none,
             )
-        # opcodes outside the ported set are no-ops, masked before routing
-        opcodes = torch.as_tensor(opcodes).to(device)
-        keys = torch.where(opcodes == OP_LOOKUP, keys, KEY_MAX).view(n_dev, b)
+        # opcodes outside ``ops`` are no-ops, masked before routing
+        opcodes = torch.as_tensor(opcodes).to(device=device, dtype=torch.int32)
+        allowed = opcodes == enabled[0]
+        for code in enabled[1:]:
+            allowed = allowed | (opcodes == code)
+        keys = torch.where(allowed, keys, KEY_MAX).view(n_dev, b)
 
         # 1. route round: every lane to the route row owning its key
         owner, demand = routing.route_owners(state.boundaries, keys, nr)
         cap = routing.route_capacity(b, nr, cfg.route_capacity_factor)
-        buf, lane, dropped_r = routing.pack_by_dest(keys, owner, nr, cap)
+        if has_writes:
+            values = torch.as_tensor(values).to(device=device, dtype=torch.int64)
+            opc_in = opcodes.view(n_dev, b).long()
+            lane_prio = dev_index[:, None] * b + torch.arange(b, device=device)
+            # phase-offset priority: all updates replay before all inserts
+            phase = torch.where(opc_in == OP_INSERT, n_dev * b, 0)
+            payload = torch.stack(
+                [keys, values.view(n_dev, b), opc_in, lane_prio + phase], -1
+            )
+        else:
+            payload = keys
+        buf, lane, dropped_r = routing.pack_by_dest(payload, owner, nr, cap)
         dropped_r = dropped_r & (keys != KEY_MAX)
-        q = routing.route_exchange(buf, cfg).reshape(n_dev, -1)
+        routed = routing.route_exchange(buf, cfg).reshape(
+            (n_dev, nr * cap) + tuple(payload.shape[2:])
+        )
+        if has_writes:
+            q = routed[..., 0].contiguous()
+            val, pr = routed[..., 1], routed[..., 3]
+            opc = routed[..., 2].to(torch.int32)
+        else:
+            q = routed
+            opc = None
         live = q != KEY_MAX
 
         # 2. top walk and the per-column offload decision
@@ -342,33 +586,45 @@ def make_dex_engine(
         # 3. cached descent of the lanes that stay one-sided
         fetchable = live & ~offl
         if do_descent:
-            d = descent(state, q, subtree, col, fetchable, cost)
+            leaf_want = fetchable if opc is None else fetchable & (opc != OP_INSERT)
+            d = descent(state, q, subtree, col, fetchable, leaf_want, cost)
         else:
-            zero_cl = torch.zeros((n_dev, nm, levels), device=device)
-            zero_dev = torch.zeros(n_dev, dtype=torch.int64, device=device)
-            d = Descent(
-                found=torch.zeros_like(live),
-                value=torch.zeros_like(q),
-                shed=torch.zeros_like(live),
-                fmiss=torch.zeros_like(live),
-                cost=cost,
-                cache=state.cache,
-                miss_cl=zero_cl,
-                want_cl=zero_cl,
-                realized=zero_cl,
-                n_hit=zero_dev,
-                n_fetch=zero_dev,
-            )
-        cost = d.cost + fetchable.float() * obs_latency.T_LOCAL
+            d = no_descent(state, q, subtree, cost)
+        cost = d.cost
+        if has_lookup:
+            # the compute-side leaf search of one-sided lookups
+            searched = fetchable if opc is None else fetchable & (opc == OP_LOOKUP)
+            cost = cost + searched.float() * obs_latency.T_LOCAL
 
-        # 4. offloaded lanes: the owner-side block walk
-        send = offl & ~d.shed
-        r_found = dropped_w = torch.zeros_like(live)
+        # 4. the fused round over the memory axis
+        r_found = send = dropped_w = torch.zeros_like(live)
         r_val = 0
-        if may_offload:
+        cache = d.cache
+        status = None
+        if has_writes:
+            f = write_round(state, q, val, opc, pr, subtree, col, offl, d)
+            send, dropped_w, r_val = f.send, f.dropped, f.value
+            r_found = f.status == STATUS_OK
+            cache = write_through(state, cache, opc, f)
+            is_w = live & ((opc == OP_UPDATE) | (opc == OP_INSERT))
+            status = torch.where(
+                is_w & send & ~dropped_w & ~d.shed,
+                f.status,
+                torch.where(
+                    is_w & (d.shed | dropped_w), STATUS_SHED, STATUS_MISS
+                ).to(torch.int32),
+            )
+            del f
+        elif may_offload:
+            send = offl & ~d.shed
             r_found, r_val, dropped_w = owner_walk(state.pool, q, subtree, send)
         delivered = send & ~dropped_w
+        # a lane that sent a request was offloaded or is a fetched-path write
+        off_done = delivered & offl
+        write_done = delivered & ~offl
         out_found = torch.where(offl, r_found & delivered, d.found & ~d.shed)
+        if has_writes:
+            out_found = out_found & (opc == OP_LOOKUP)
         out_val = torch.where(out_found, torch.where(offl, r_val, d.value), 0)
         lane_shed = d.shed | (send & dropped_w)
 
@@ -383,22 +639,31 @@ def make_dex_engine(
         upd[:, STAT_OPS] = live.sum(1)
         upd[:, STAT_HITS] = d.n_hit
         upd[:, STAT_FETCHES] = d.n_fetch
-        upd[:, STAT_OFFLOADS] = delivered.sum(1)
+        upd[:, STAT_OFFLOADS] = off_done.sum(1)
         upd[:, STAT_DROPS] = dropped_r.sum(1) + (lane_shed & live).sum(1)
+        if has_writes:
+            upd[:, STAT_WRITES] = write_done.sum(1)
+            upd[:, STAT_SPLITS] = (status == STATUS_SPLIT).sum(1)
         # group decisions are mesh-global: count them once, on device 0
         upd[:, STAT_OFFLOAD_GROUPS] = first * (want_off_c & grp_live).sum(1)
         upd[:, STAT_FETCH_GROUPS] = first * (~want_off_c & grp_live).sum(1)
-        # a two-sided trip prices one RPC plus the owner's per-level walk;
-        # each live lane bins into one (class, path, bucket) cell
-        cost = cost + delivered.float() * (
+        # a two-sided trip prices one RPC plus the owner's per-level walk, a
+        # fetched-path write one write-through; each live lane bins into one
+        # (op class, path, bucket) cell
+        cost = cost + off_done.float() * (
             obs_latency.T_RPC + float(levels) * obs_latency.T_MEM
         )
+        if has_writes:
+            cost = cost + write_done.float() * obs_latency.T_WRITE
         path = torch.where(d.fmiss, 1, 0)
-        path = torch.where(delivered, 3, path)
+        path = torch.where(off_done, 3, path)
         path = torch.where(lane_shed, 5, path)
         cell = path * obs_latency.N_BUCKETS + obs_latency.bucket_index(cost)
+        if has_writes:
+            cls = torch.clamp(opc, 0, obs_latency.N_CLASSES - 1).long()
+            cell = cell + cls * (obs_latency.N_PATHS * obs_latency.N_BUCKETS)
         hist = torch.zeros_like(state.lat_hist).view(n_dev, -1)
-        hist.scatter_add_(1, cell, live.long())  # op class 0: lookups
+        hist.scatter_add_(1, cell, live.long())
         audit_upd = torch.zeros_like(state.lat_audit)
         if audit:
             # predicted bytes of the columns priced onto the fetch side, on
@@ -412,23 +677,33 @@ def make_dex_engine(
             audit_upd[:, 1] = d.realized
 
         # the return trip over the route axis
-        fields = torch.stack([out_found.long(), out_val, lane_shed.long()], -1)
-        back = routing.route_exchange(fields.view(n_dev, nr, cap, 3), cfg)
+        fields = [out_found.long(), out_val]
+        if has_writes:
+            fields.append(status.long())
+        fields.append(lane_shed.long())
+        width = len(fields)
+        fields = torch.stack(fields, -1)
+        back = routing.route_exchange(fields.view(n_dev, nr, cap, width), cfg)
         out = routing.unpack_to_lanes(back, lane, b, 0)
         new_state = state._replace(
-            cache=d.cache,
+            cache=cache,
             miss_ema=new_ema,
             stats=state.stats + upd,
             route_demand=state.route_demand + demand,
             lat_hist=state.lat_hist + hist.view(state.lat_hist.shape),
             lat_audit=state.lat_audit + audit_upd,
         )
-        status = torch.where(dropped_r, STATUS_SHED, STATUS_MISS).to(torch.int32)
+        if has_writes:
+            res_status = torch.where(
+                dropped_r, STATUS_SHED, out[..., 2].to(torch.int32)
+            )
+        else:
+            res_status = torch.where(dropped_r, STATUS_SHED, STATUS_MISS)
         result = EngineResult(
             found=((out[..., 0] != 0) & ~dropped_r).reshape(-1),
             values=torch.where(dropped_r, 0, out[..., 1]).reshape(-1),
-            status=status.reshape(-1),
-            shed=((out[..., 2] != 0) | dropped_r).reshape(-1),
+            status=res_status.to(torch.int32).reshape(-1),
+            shed=((out[..., width - 1] != 0) | dropped_r).reshape(-1),
         )
         return new_state, result
 

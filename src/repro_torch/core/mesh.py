@@ -11,12 +11,18 @@ tensor operations on that axis:
   ``out[r*nm + m, s] = buf[r*nm + s, m]``;
 * ``a2a`` over the route axis, on ``[Dev, n_route, ...]`` buffers:
   ``out[r*nm + m, s] = buf[s*nm + m, r]``;
-* ``psum`` over all axes: a sum over ``Dev``, broadcast back.
+* ``psum`` and ``pmax`` over all axes: a sum or maximum over ``Dev``,
+  broadcast back;
+* ``gather_route``, the write round's all-gather over the route axis: the
+  reference makes every route replica of a memory column apply the same
+  gathered batch to its copy of the shard; the virtual mesh holds the pool
+  once, so it keeps one gathered batch per column, and ``route_share``
+  hands each device its own route row of the response.
 
 Every collective goes through this module, which counts the calls the way
 ``repro.core.routing`` counts them while tracing (``all_to_all`` and
-``route_exchange``), so the per-batch counts can be held against the
-reference's.
+``route_exchange``; the reference counts no all-gather), so the per-batch
+counts can be held against the reference's.
 """
 
 from __future__ import annotations
@@ -84,3 +90,30 @@ def psum(x: torch.Tensor) -> torch.Tensor:
     """Sum over ``Dev``, broadcast back to every device.  Callers only sum
     integer-valued planes, which are exact in any order."""
     return x.sum(0, keepdim=True).expand_as(x)
+
+
+def gather_route(x: torch.Tensor, cfg) -> torch.Tensor:
+    """``[Dev, ...]`` -> ``[n_memory, n_route, ...]``: each memory column's
+    batch gathered over its route replicas, ``out[m, r] = x[r*nm + m]``.
+
+    The reference all-gathers so that every route replica of a column's pool
+    shard applies the same writes; the virtual mesh holds one copy of the
+    pool, so it keeps one gathered batch per column and applies it once.
+    Like the reference's counter, this counts nothing."""
+    if len(cfg.route_axes) != 1:
+        raise NotImplementedError("two route axes are not ported yet")
+    rest = tuple(x.shape[1:])
+    return x.reshape((cfg.n_route, cfg.n_memory) + rest).transpose(0, 1)
+
+
+def route_share(x: torch.Tensor, cfg) -> torch.Tensor:
+    """``[n_memory, n_route, ...]`` -> ``[Dev, ...]``, the inverse of
+    :func:`gather_route`: device ``r*nm + m`` takes its own route row ``r``
+    of column ``m``'s response."""
+    rest = tuple(x.shape[2:])
+    return x.transpose(0, 1).reshape((cfg.n_devices,) + rest)
+
+
+def pmax(x: torch.Tensor) -> torch.Tensor:
+    """Maximum over ``Dev``, broadcast back to every device."""
+    return x.amax(0, keepdim=True).expand_as(x)

@@ -251,7 +251,7 @@ def subtree_walk_ref(block_keys, block_children, block_values, queries, *, level
         zero,
         queries,
         levels=levels,
-    )
+    )[:2]
 
 
 def pool_lookup_ref(pool: SubtreePool, meta: PoolMeta, queries: torch.Tensor):
@@ -264,4 +264,4 @@ def pool_lookup_ref(pool: SubtreePool, meta: PoolMeta, queries: torch.Tensor):
         st.to(torch.int32),
         queries,
         levels=meta.levels_in_subtree,
-    )
+    )[:2]

@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import leaf_write as _leaf_write
 from repro_torch.kernels import node_search as _node_search
 from repro_torch.kernels import ref
 from repro_torch.kernels import subtree_walk as _subtree_walk
@@ -34,7 +35,7 @@ from repro_torch.kernels import subtree_walk as _subtree_walk
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-LAUNCHES = {"node_search": 0, "subtree_walk": 0}
+LAUNCHES = {"node_search": 0, "subtree_walk": 0, "leaf_write": 0}
 #: seconds the last build took (0.0 when the library came from the cache)
 BUILD_SECONDS = [0.0]
 
@@ -114,6 +115,7 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()[0]))
         _node_search.bind(lib)
         _subtree_walk.bind(lib)
+        _leaf_write.bind(lib)
         _LIB.append(lib)
     return _LIB[0]
 
@@ -142,8 +144,8 @@ def subtree_walk(
     *,
     levels: int,
 ):
-    """``(found [B] bool, value [B] int64)``: each query walks its subtree
-    block of the pool (see ``ref.subtree_walk_ref``)."""
+    """``(found [B] bool, value [B] int64, leaf local id [B] int32)``: each
+    query walks its subtree block of the pool (see ``ref.subtree_walk_ref``)."""
     if pool_keys.device.type == "cpu":
         _subtree_walk.validate(
             pool_keys, pool_children, pool_values, subtree, queries, levels
@@ -155,4 +157,24 @@ def subtree_walk(
         library(), pool_keys, pool_children, pool_values, subtree, queries, levels
     )
     LAUNCHES["subtree_walk"] += 1
+    return out
+
+
+def leaf_write(
+    rows_k: torch.Tensor,
+    rows_v: torch.Tensor,
+    upd_slot: torch.Tensor,
+    upd_val: torch.Tensor,
+    ins_key: torch.Tensor,
+    ins_val: torch.Tensor,
+):
+    """``(new_keys [Q, 64], new_values [Q, 64], occupancy [Q] int32)``: the
+    staged updates and inserts applied to each leaf row (see
+    ``ref.leaf_write_ref``)."""
+    args = (rows_k, rows_v, upd_slot, upd_val, ins_key, ins_val)
+    if rows_k.device.type == "cpu":
+        _leaf_write.validate(*args)
+        return ref.leaf_write_ref(*args)
+    out = _leaf_write.launch(library(), *args)
+    LAUNCHES["leaf_write"] += 1
     return out

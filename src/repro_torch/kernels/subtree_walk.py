@@ -8,7 +8,9 @@ child ids.  The contract is generalised so the engine can call it on a whole
 pool: each query names its own subtree block
 (``subtree_walk(pool_keys [S,C,64], pool_children [S,C,64], pool_values
 [S,C,64], subtree [B], queries [B], levels)``); the TPU kernel's contract is
-the case ``S = 1``, ``subtree = 0``.
+the case ``S = 1``, ``subtree = 0``.  Beside ``(found, value)`` it returns
+the leaf's block-local id (``int32 [B]``): an offloaded write applies at the
+leaf the owner's walk reached.
 
 What bounds it: memory latency.  A query reads ``levels`` 512-byte rows, and
 each row's address depends on the child id read from the row before, so a
@@ -40,6 +42,7 @@ _P = ctypes.c_void_p
 
 def bind(lib: ctypes.CDLL) -> None:
     lib.dex_subtree_walk.argtypes = [
+        _P,
         _P,
         _P,
         _P,
@@ -91,6 +94,7 @@ def launch(
     b = queries.shape[0]
     found = torch.empty((b,), dtype=torch.bool, device=dev)
     value = torch.empty((b,), dtype=torch.int64, device=dev)
+    leaf = torch.empty((b,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
     err = lib.dex_subtree_walk(
@@ -101,6 +105,7 @@ def launch(
         queries.data_ptr(),
         found.data_ptr(),
         value.data_ptr(),
+        leaf.data_ptr(),
         b,
         s,
         c,
@@ -109,4 +114,4 @@ def launch(
     )
     if err != 0:
         raise RuntimeError(f"subtree_walk launch failed: CUDA error {err}")
-    return found, value
+    return found, value, leaf

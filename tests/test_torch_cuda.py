@@ -23,6 +23,54 @@ def cuda():
     return torch.device("cuda")
 
 
+def leaf_case(q, seed):
+    """Contract inputs of ``leaf_write``: sorted rows with KEY_MAX padding,
+    KEY_MIN and negative keys; rows with only updates, only inserts, both,
+    and nothing staged (by ``row % 4``); rows filled to exactly 64; staged
+    keys below a row's first key and above its last; active staged entries
+    as a prefix or spread among inactive ones."""
+    f = FANOUT
+    rng = np.random.default_rng(seed)
+    big = 2**62
+
+    def ints(shape):
+        return rng.integers(-big, big, size=shape)
+
+    r = np.arange(q)[:, None]
+    col = np.arange(f)[None, :]
+    pool = np.sort(ints((q, 2 * f)), axis=1) + np.arange(2 * f)  # ascending
+    pool[::5, 0] = KEY_MIN
+    inv = np.argsort(np.argsort(rng.random((q, 2 * f)), axis=1), axis=1)
+    occ = rng.integers(0, f + 1, size=q)
+    kind = np.arange(q) % 4
+    n_ins = np.where((kind == 1) | (kind == 2), rng.integers(0, f + 1, size=q), 0)
+    n_ins = np.minimum(n_ins, f - occ)
+    n_ins[1::8] = f - occ[1::8]  # filled to exactly 64
+
+    def pick(mask, n):
+        idx = np.argsort(~mask, axis=1, kind="stable")[:, :f]
+        return np.where(col < n[:, None], pool[r, idx], KEY_MAX)
+
+    rows_k = pick(inv < occ[:, None], occ)
+    staged = pick((inv >= occ[:, None]) & (inv < (occ + n_ins)[:, None]), n_ins)
+    rows_v = np.where(rows_k != KEY_MAX, ints((q, f)), 0)
+    ins_key = staged.copy()
+    # spread the active entries of every third row among inactive ones
+    for i in range(0, q, 3):
+        m = int(n_ins[i])
+        ins_key[i] = KEY_MAX
+        ins_key[i, np.sort(rng.choice(f, size=m, replace=False))] = staged[i, :m]
+    ins_val = np.where(ins_key != KEY_MAX, ints((q, f)), 0)
+
+    n_upd = np.where((kind == 0) | (kind == 2), rng.integers(0, f + 1, size=q), 0)
+    n_upd = np.minimum(n_upd, occ)
+    scores = np.where(col < occ[:, None], rng.random((q, f)), 2.0)
+    slots = np.argsort(scores, axis=1)
+    upd_slot = np.where(col < n_upd[:, None], slots, -1).astype(np.int32)
+    upd_val = np.where(upd_slot >= 0, ints((q, f)), 0)
+    return rows_k, rows_v, upd_slot, upd_val, ins_key, ins_val
+
+
 def _rows(b, seed):
     rng = np.random.default_rng(seed)
     rows = np.sort(
@@ -75,6 +123,38 @@ def test_subtree_walk_kernel_matches_plain(cuda, level_m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("level_m", [1, 2])
+def test_subtree_walk_kernel_returns_the_leaf_id(cuda, level_m):
+    """The third output is the leaf's block-local id: a key the walk finds
+    sits in that leaf's row."""
+    rng = np.random.default_rng(10 + level_m)
+    keys = np.sort(rng.choice(2**40, size=20_000, replace=False).astype(np.int64))
+    pool, meta = t_pool.build_pool(keys, keys * 3, level_m=level_m, device=cuda)
+    q = torch.from_numpy(np.concatenate([keys[::5], keys[::9] + 1])).to(cuda)
+    st = t_pool.top_walk(pool, meta, q).to(torch.int32)
+    args = (pool.pool_keys, pool.pool_children, pool.pool_values, st, q)
+    found, _, leaf = ops.subtree_walk(*args, levels=meta.levels_in_subtree)
+    assert leaf.dtype == torch.int32
+    want = ref.subtree_walk_ref(*args, levels=meta.levels_in_subtree)
+    assert torch.equal(leaf, want[2])
+    rows = pool.pool_keys[st.long(), leaf.long()]
+    assert torch.equal((rows == q[:, None]).any(1), found)
+    assert bool(found[: keys[::5].size].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 37, 4099])
+def test_leaf_write_kernel_matches_plain(cuda, q):
+    case = [torch.from_numpy(a).to(cuda) for a in leaf_case(q, q)]
+    before = ops.LAUNCHES["leaf_write"]
+    got = ops.leaf_write(*case)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["leaf_write"] == before + 1
+    for g, w in zip(got, ref.leaf_write_ref(*case)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_inputs(cuda):
     rows = torch.zeros((4, FANOUT), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
@@ -83,3 +163,5 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
         ops.node_search(rows[:, :32], torch.zeros(4, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError):
         ops.node_search(rows, torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(ValueError):  # upd_slot must be int32
+        ops.leaf_write(rows, rows, rows, rows, rows, rows)

@@ -2,7 +2,9 @@
 ops=("lookup",))``: lane results, every state plane and the per-batch
 collective counts are bit-identical after each of three batches, at 1x1
 (inline) and at 2x4 (the reference in a subprocess on a forced 8-device
-CPU mesh, ``tests/torch_mesh_ref.py``)."""
+CPU mesh, ``tests/torch_mesh_ref.py``); at 2x4 also the mixed lookup,
+update and insert engine.  The 1x1 mixed engine is in
+tests/test_torch_write.py."""
 
 import os
 import pathlib
@@ -198,6 +200,54 @@ def test_engine_2x4_matches_reference(mesh_ref, name):
         assert t_state.stats.numpy()[:, t_registry.STAT_DROPS].sum() > 0
 
 
+@pytest.mark.parametrize("name", ["mixed_fetch", "mixed_offload", "mixed_auto"])
+def test_mixed_engine_2x4_matches_reference(mesh_ref, name):
+    """Lookups, updates and inserts at 2x4: every route replica of a memory
+    column applies the same gathered batch in the reference; the port applies
+    it once to its one pool and must end in the same planes."""
+    arrays = mesh_ref
+    policy = str(arrays[f"{name}/policy"])
+    keys, vals = arrays["keys"], arrays["values"]
+    _, t_meta = t_pool.build_pool(keys, vals, level_m=1, fill=0.7, n_shards=4,
+                                  device="cpu")
+    t_cfg = t_dex.DexMeshConfig(
+        n_route=2,
+        n_memory=4,
+        cache_sets=64,
+        cache_ways=4,
+        policy=policy,
+        route_capacity_factor=float(arrays[f"{name}/factor"]),
+    )
+
+    def planes(tag):
+        pre = f"{name}/{tag}/"
+        return {k[len(pre):]: v for k, v in arrays.items() if k.startswith(pre)}
+
+    t_state = t_dex.state_from_numpy(planes("init"), t_meta, t_cfg, "cpu")
+    t_eng = t_engine.make_dex_engine(
+        t_meta, t_cfg, ops=("lookup", "update", "insert"), device="cpu"
+    )
+    counts = arrays[f"{name}/counts"]
+    for i in range(3):
+        args = [arrays[f"mixed/{i}/{f}"] for f in ("opcodes", "keys", "values")]
+        t_mesh.reset_counts()
+        t_state, t_res = t_eng(t_state, *args)
+        assert t_mesh.collective_counts() == {
+            "all_to_all": int(counts[0]), "route_exchange": int(counts[1])
+        }
+        want = planes(str(i))
+        for k in RESULTS:
+            np.testing.assert_array_equal(
+                want.pop(f"result.{k}"), getattr(t_res, k).numpy(), err_msg=k
+            )
+        _assert_state_equal(want, t_state, f"{name} batch {i}")
+    stats = t_state.stats.numpy()
+    assert stats[:, t_registry.STAT_SPLITS].sum() > 0
+    assert stats[:, t_registry.STAT_WRITES].sum() + stats[
+        :, t_registry.STAT_OFFLOADS
+    ].sum() > 0
+
+
 def test_state_to_numpy_is_a_snapshot():
     """The engine updates cache planes in place; a flattened state must not
     change with them."""
@@ -218,7 +268,7 @@ def test_state_to_numpy_is_a_snapshot():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(ops=("lookup", "update")),
+        dict(ops=("lookup", "scan")),
         dict(ops=("scan",)),
         dict(cfg=dict(route_table_slots=8)),
         dict(cfg=dict(route_axes=("data", "pod"))),

@@ -107,7 +107,7 @@ def test_subtree_walk_matches_reference_kernel(level_m):
     np.testing.assert_array_equal(np.asarray(j_value)[real], np.asarray(value))
     found, value = j_found, j_value
     # the port's generalised contract with S = 1, subtree = 0
-    t_found, t_value = t_ops.subtree_walk(
+    t_found, t_value, t_leaf = t_ops.subtree_walk(
         torch.from_numpy(bk[None]),
         torch.from_numpy(bc[None]),
         torch.from_numpy(bv[None]),
@@ -117,6 +117,14 @@ def test_subtree_walk_matches_reference_kernel(level_m):
     )
     _eq(found, t_found)
     _eq(value, t_value)
+    # the leaf id is the last child id read, unwrapped, as the reference
+    # engine's inline walk (engine.py:968-984) gives it to its writes
+    loc = np.zeros(q.shape, np.int64)
+    for _ in range(levels - 1):
+        slot = np.maximum((bk[loc] <= q[:, None]).sum(-1) - 1, 0)
+        loc = bc[loc, slot].astype(np.int64)
+    assert t_leaf.dtype == torch.int32
+    np.testing.assert_array_equal(loc, t_leaf.numpy())
     f2, v2 = t_pool.subtree_walk_ref(
         torch.from_numpy(bk),
         torch.from_numpy(bc),
@@ -137,7 +145,7 @@ def test_subtree_walk_whole_pool_matches_per_block_walks(level_m):
     q = rng.choice(keys, size=96).astype(np.int64)
     q[::4] += 1
     st = np.asarray(ref_pool.top_walk(pool, meta, q)).astype(np.int32)
-    t_found, t_value = t_ops.subtree_walk(
+    t_found, t_value, _ = t_ops.subtree_walk(
         torch.from_numpy(np.array(pool.pool_keys)),
         torch.from_numpy(np.array(pool.pool_children)),
         torch.from_numpy(np.array(pool.pool_values)),
@@ -163,4 +171,6 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     t_ops.reset_launches()
     rows, q, vals = _node_case(8, 9)
     t_ops.node_search(torch.from_numpy(rows), torch.from_numpy(q))
-    assert t_ops.LAUNCHES == {"node_search": 0, "subtree_walk": 0}
+    z = torch.zeros((2, FANOUT), dtype=torch.int64)
+    t_ops.leaf_write(z, z, z.to(torch.int32) - 1, z, z + KEY_MAX, z)
+    assert t_ops.LAUNCHES == {"node_search": 0, "subtree_walk": 0, "leaf_write": 0}

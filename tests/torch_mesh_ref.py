@@ -1,9 +1,12 @@
 """Reference side of the port's 2x4 mesh parity check.
 
-Runs ``repro``'s lookup engine on a forced 8-device CPU mesh (route 2 x
-memory 4) for each configuration in ``CONFIGS``, three batches each, and
-saves the initial state, every state plane and lane result after each
-batch, and the traced collective counts to one ``.npz``.
+Runs ``repro``'s engine on a forced 8-device CPU mesh (route 2 x memory 4)
+for each configuration in ``CONFIGS``, three batches each, and saves the
+initial state, every state plane and lane result after each batch, and the
+traced collective counts to one ``.npz``.  The lookup configurations run
+``ops=("lookup",)`` on lookup batches; the ``mixed_*`` ones run
+``ops=("lookup", "update", "insert")`` on mixed batches with hot keys
+written in every other batch and one leaf driven past its slack.
 ``tests/test_torch_engine.py`` runs this in a subprocess (the device count
 locks when JAX starts) and replays the same batches through the port's
 virtual mesh.
@@ -31,12 +34,16 @@ from repro.core.nodes import KEY_MAX, KEY_MIN  # noqa: E402
 N_KEYS = 6000
 LANES = 512
 BATCHES = 3
-#: (name, policy, route_capacity_factor); the last one sheds lanes
+MIXED_OPS = ("lookup", "update", "insert")
+#: (name, policy, route_capacity_factor, ops); auto_tight sheds lanes
 CONFIGS = (
-    ("fetch", "fetch", 4.0),
-    ("offload", "offload", 4.0),
-    ("auto", "auto", 4.0),
-    ("auto_tight", "auto", 0.75),
+    ("fetch", "fetch", 4.0, ("lookup",)),
+    ("offload", "offload", 4.0, ("lookup",)),
+    ("auto", "auto", 4.0, ("lookup",)),
+    ("auto_tight", "auto", 0.75, ("lookup",)),
+    ("mixed_fetch", "fetch", 4.0, MIXED_OPS),
+    ("mixed_offload", "offload", 4.0, MIXED_OPS),
+    ("mixed_auto", "auto", 4.0, MIXED_OPS),
 )
 
 
@@ -55,6 +62,33 @@ def batches():
         q[::13] += 1
         q[::29] = KEY_MAX
         out.append(q)
+    return out
+
+
+def mixed_batches():
+    """``(opcodes, keys, values)`` per batch: random lookups, updates and
+    inserts of fresh keys; eight hot keys updated on even batches and read on
+    odd ones; in batch 1, 30 fresh keys into one leaf (its slack is 20)."""
+    keys, _ = dataset()
+    hot = keys[40:48]
+    rng = np.random.default_rng(2)
+    out = []
+    for bi in range(BATCHES):
+        opc = rng.integers(0, 3, size=LANES).astype(np.int32)
+        kk = rng.choice(keys, size=LANES).astype(np.int64)
+        ins = opc == engine_mod.OP_INSERT
+        fresh = kk + rng.integers(1, 4, size=LANES)
+        ok = ~np.isin(fresh, keys)
+        kk[ins & ok] = fresh[ins & ok]
+        vals = np.where(opc == engine_mod.OP_UPDATE, kk ^ 0x5A5A, kk * 7)
+        opc[:8] = engine_mod.OP_LOOKUP if bi % 2 else engine_mod.OP_UPDATE
+        kk[:8] = hot
+        vals[:8] = hot ^ (100 + bi)
+        if bi == 1:
+            opc[8:38] = engine_mod.OP_INSERT
+            kk[8:38] = keys[1980:2010] + 1
+        kk[::29] = KEY_MAX
+        out.append((opc, kk, vals.astype(np.int64)))
     return out
 
 
@@ -85,7 +119,10 @@ def main(out_path):
     out = {"keys": keys, "values": vals}
     for i, q in enumerate(batches()):
         out[f"batch/{i}"] = q
-    for name, policy, factor in CONFIGS:
+    for i, planes in enumerate(mixed_batches()):
+        for field, a in zip(("opcodes", "keys", "values"), planes):
+            out[f"mixed/{i}/{field}"] = a
+    for name, policy, factor, ops in CONFIGS:
         out[f"{name}/policy"] = np.array(policy)
         out[f"{name}/factor"] = np.array(factor)
         cfg = config(policy, factor)
@@ -98,14 +135,15 @@ def main(out_path):
         )
         for k, v in flat(state).items():
             out[f"{name}/init/{k}"] = v
-        fn = engine_mod.make_dex_engine(meta, cfg, mesh, ops=("lookup",))
+        fn = engine_mod.make_dex_engine(meta, cfg, mesh, ops=ops)
         eng = jax.jit(fn)
-        for i, q in enumerate(batches()):
-            args = (
-                jax.device_put(jnp.zeros(q.shape, jnp.int32), lanes),
-                jax.device_put(jnp.asarray(q), lanes),
-                jax.device_put(jnp.zeros(q.shape, jnp.int64), lanes),
-            )
+        if ops == MIXED_OPS:
+            trace = mixed_batches()
+        else:
+            trace = [(np.zeros(q.shape, np.int32), q, np.zeros(q.shape, np.int64))
+                     for q in batches()]
+        for i, planes in enumerate(trace):
+            args = tuple(jax.device_put(jnp.asarray(a), lanes) for a in planes)
             if i == 0:
                 counts = routing.trace_collective_counts(fn, state, *args)
                 out[f"{name}/counts"] = np.array(
