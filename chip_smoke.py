@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's lookup and write paths on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch port's lookup, write, scan and split paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed 0] [--n-keys 200000000]
 
@@ -8,20 +8,26 @@ Phases, in order; any failure exits non-zero:
 
   1. device: the card's name and power limit (``nvidia-smi``), CUDA version;
   2. build: compile the CUDA kernels from ``src/repro_torch/csrc``;
-  3. kernels: ``node_search``, ``subtree_walk`` and ``leaf_write`` at the
-     main path's shapes (65,536-lane batches on a 2x4 virtual mesh) on
-     seeded inputs with misses, KEY_MIN / KEY_MAX, negative keys and
-     queries below a row's first key (for ``leaf_write``: rows with only
-     updates, only inserts, both and nothing staged, rows filled to
-     exactly 64, staged keys below and above a row's keys), bit-equal to
-     their plain PyTorch versions, and timed beside the plain version and a
-     PyTorch yardstick where one exists;
+  3. kernels: ``node_search``, ``subtree_walk``, ``leaf_write``,
+     ``leaf_scan`` and ``leaf_split`` at the main path's shapes
+     (65,536-lane batches on a 2x4 virtual mesh) on seeded inputs with
+     misses, KEY_MIN / KEY_MAX, negative keys and queries below a row's
+     first key (for ``leaf_write``: rows with only updates, only inserts,
+     both and nothing staged, rows filled to exactly 64, staged keys below
+     and above a row's keys; for ``leaf_scan``: real windows of the index
+     with starts below, inside and past a leaf, counts of 0, 1, 100 and
+     above, and inactive slots; for ``leaf_split``: rows with nothing
+     staged, merges without a split, splits at m = 65 and m = 128),
+     bit-equal to their plain PyTorch versions, and timed beside the plain
+     version and a PyTorch yardstick where one exists;
   4. the port on the CPU and on the card give the same lane results and
      state planes (20k keys, 2x4 mesh, 3 batches): lookups under ``fetch``,
      ``fetch`` with shedding buckets and ``auto``; mixed lookups, updates
      and inserts (hot keys written in every batch, one leaf driven past its
      slack) under ``fetch``, ``fetch`` with shedding buckets, ``offload``
-     and ``auto``, every plane compared, the pool's included;
+     and ``auto``; the same with scans (``ops=ALL_OPS``); and one SMO round
+     after a burst that overflows eight leaves; every plane compared, the
+     pool's included;
   5. the main path at full size: 200M sorted int64 keys made on the card
      from ``--seed``, level-M = 1 subtree blocks at fill 0.7, a 2x4 virtual
      mesh split at the median key, 65,536 sets x 4 ways of cache per
@@ -30,8 +36,14 @@ Phases, in order; any failure exits non-zero:
      workload A (50% reads, 50% updates) under ``offload``, ``fetch`` and
      ``auto`` and the paper's insert-intensive mix (50% inserts, 50% reads)
      under ``fetch`` and ``offload``, all scrambled Zipfian, theta 0.99.
-     A host oracle carries the applied writes forward; every lane that is
-     not shed must match it;
+     Then, on the same index: a split burst (32 fresh keys into each of
+     2,048 leaves, every lane shed ``STATUS_SPLIT`` and settled by
+     ``run_smo`` with exactly 2,048 on-mesh splits); a 65,536-lane scan
+     batch across the split leaves; and YCSB workload E (95% scans of
+     uniform length 1-100, 5% inserts) under ``fetch`` and ``offload``,
+     its split lanes settled by ``run_smo`` after each batch.  A host
+     oracle carries the applied writes forward; every lane that is not shed
+     must match it, scans included;
   6. one JSON line of per-kernel launches (summed over phase 5's paths,
      each counted from 0 just before it), errors and times.
 
@@ -68,6 +80,14 @@ ROW_SEARCH_BYTES = 32 * 5
 LEAF_ROW_BYTES = 4 * 64 * 8 + 4 + 4 + 8
 STAGED_UPDATE_BYTES = 4 + 8
 STAGED_INSERT_BYTES = 8 + 8
+# leaf_split per row: its keys and values read and its left row written
+# (3 x 512 B), one probe of its staged list (8 B), occ_l, occ_r, sep and
+# did_split written (20 B); a row that splits writes its right row too.
+SPLIT_ROW_BYTES = 3 * 64 * 8 + 8 + 20
+SPLIT_RIGHT_BYTES = 2 * 64 * 8
+SCAN_MAX_COUNT = 100  # YCSB workload E's maxscanlength
+SMO_LEAVES = 2_048  # leaves the split burst overflows, one per subtree
+SMO_KEYS_PER_LEAF = 32
 VALUE_XOR = 0x5DEECE66D
 # (workload, policy, warm-up batches, timed batches) of phase 5, in order
 MAIN_RUNS = (
@@ -80,6 +100,8 @@ MAIN_RUNS = (
     ("insert-intensive", "fetch", 1, 5),
     ("insert-intensive", "offload", 1, 5),
 )
+# (policy, warm-up batches, timed batches) of YCSB workload E
+SCAN_RUNS = (("fetch", 1, 5), ("offload", 1, 5))
 
 
 def parse_args(argv):
@@ -291,6 +313,120 @@ def leaf_write_inputs(q, seed, dev):
     return rows_k, rows_v, upd_slot, upd_val, ins_key, ins_val
 
 
+def leaf_split_inputs(q, seed, dev):
+    """Contract inputs of ``leaf_split`` made on the card from ``seed``:
+    sorted rows with KEY_MAX padding, KEY_MIN and negative keys; staged keys
+    distinct from the row's, ascending, in every third row spread among
+    inactive entries.  By ``row % 8``: nothing staged (rows 0-3, as most
+    rows of an SMO round), a merge without a split, a split at exactly
+    m = 65, one at m = 128 (a full row and a full staged list), and a
+    random mix."""
+    import torch
+
+    from repro_torch.core.nodes import KEY_MAX, KEY_MIN
+
+    f = 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    big = 2**62
+
+    def ints(shape):
+        return torch.randint(-big, big, shape, generator=g, device=dev)
+
+    col = torch.arange(f, device=dev)[None, :]
+    row = torch.arange(q, device=dev)
+    pool = ints((q, 2 * f)).sort(1).values + torch.arange(2 * f, device=dev)
+    pool[::5, 0] = KEY_MIN
+    inv = torch.rand((q, 2 * f), generator=g, device=dev).argsort(1).argsort(1)
+    occ = torch.randint(0, f + 1, (q,), generator=g, device=dev)
+    n_ins = torch.randint(0, f + 1, (q,), generator=g, device=dev)
+    kind = row % 8
+    n_ins = torch.where(kind < 4, 0, n_ins)
+    n_ins = torch.where(kind == 4, torch.minimum(n_ins, f - occ), n_ins)
+    occ = torch.where(kind == 5, occ.clamp(min=1), occ)
+    n_ins = torch.where(kind == 5, 65 - occ, n_ins)
+    occ = torch.where(kind == 6, f, occ)
+    n_ins = torch.where(kind == 6, f, n_ins)
+
+    def pick(mask, n):
+        idx = (~mask).to(torch.int8).argsort(dim=1, stable=True)[:, :f]
+        return torch.where(col < n[:, None], pool.gather(1, idx), KEY_MAX)
+
+    rows_k = pick(inv < occ[:, None], occ)
+    staged = pick((inv >= occ[:, None]) & (inv < (occ + n_ins)[:, None]), n_ins)
+    rank = torch.rand((q, f), generator=g, device=dev).argsort(1).argsort(1)
+    spot = rank < n_ins[:, None]
+    nth = (spot.long().cumsum(1) - 1).clamp(min=0)
+    spread = torch.where(spot, staged.gather(1, nth), KEY_MAX)
+    ins_key = torch.where((row % 3 == 0)[:, None], spread, staged)
+    rows_v = torch.where(rows_k != KEY_MAX, ints((q, f)), 0)
+    ins_val = torch.where(ins_key != KEY_MAX, ints((q, f)), 0)
+    return rows_k, rows_v, ins_key, ins_val
+
+
+def leaf_scan_inputs(pool, meta, keys, n, seed):
+    """Real windows of the index as the engine builds them for ``n`` routed
+    slots: one slot in four is an active scan (the share a YCSB-E batch
+    fills), its start a bulk key, a key plus one, below its leaf's first
+    key or past its last, its count random up to 100, 0, 1, 100 or 150
+    (clipped to 100); the start leaf found by a walk, then successor hops
+    while the collected records fall short of the count.  Returns
+    ``(window_keys, window_values, start, counts, hops)``."""
+    import torch
+
+    from repro_torch.core.engine import scan_hops
+    from repro_torch.core.nodes import KEY_MAX
+    from repro_torch.core.pool import initial_succ, top_walk
+    from repro_torch.kernels import ref
+
+    dev = keys.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hops = scan_hops(meta, SCAN_MAX_COUNT)
+    lane = torch.arange(n, device=dev)
+    active = lane % 4 == 0
+    kind = (lane // 4) % 8
+    start = keys[torch.randint(0, keys.numel(), (n,), generator=g, device=dev)]
+    start = torch.where(kind == 1, start + 1, start)
+    counts = torch.randint(0, SCAN_MAX_COUNT + 1, (n,), generator=g, device=dev)
+    for k_, c_ in ((2, 0), (3, 1), (4, SCAN_MAX_COUNT), (5, SCAN_MAX_COUNT + 50)):
+        counts = torch.where(kind == k_, c_, counts)
+    st = top_walk(pool, meta, start)
+    _, _, loc = ref.subtree_walk_ref(
+        pool.pool_keys, pool.pool_children, pool.pool_values, st.to(torch.int32),
+        start, levels=meta.levels_in_subtree,
+    )
+    gid = st * meta.subtree_cap + loc.long()
+    flat_k = pool.pool_keys.view(-1, 64)
+    flat_v = pool.pool_values.view(-1, 64)
+    row0 = flat_k[gid]
+    last = row0.gather(1, ((row0 != KEY_MAX).sum(1, keepdim=True) - 1).clamp(min=0))
+    start = torch.where(kind == 6, row0[:, 0] - 1, start)
+    start = torch.where(kind == 7, last[:, 0] + 1, start)
+    start = torch.where(active, start, KEY_MAX)
+    counts = torch.where(active, counts, 0).to(torch.int32)
+    cnt = counts.clamp(0, SCAN_MAX_COUNT)
+    succ = initial_succ(meta, dev)
+    qc = start[:, None]
+    win_k = [torch.where(active[:, None], row0, KEY_MAX)]
+    win_v = [torch.where(active[:, None], flat_v[gid], 0)]
+    collected = ((win_k[0] != KEY_MAX) & (win_k[0] >= qc)).sum(1)
+    in_range, g_h = active, gid
+    for _ in range(1, hops):
+        nxt = succ[torch.where(in_range, g_h, 0)]
+        in_range = in_range & (collected < cnt) & (nxt >= 0)
+        g_h = torch.where(in_range, nxt, g_h)
+        rk = torch.where(in_range[:, None], flat_k[g_h], KEY_MAX)
+        win_k.append(rk)
+        win_v.append(torch.where(in_range[:, None], flat_v[g_h], 0))
+        collected = collected + ((rk != KEY_MAX) & (rk >= qc)).sum(1)
+    return (
+        torch.cat(win_k, 1).contiguous(),
+        torch.cat(win_v, 1).contiguous(),
+        start.contiguous(),
+        counts,
+        hops,
+    )
+
+
 def phase_kernels(pool, meta, keys, seed):
     """Each kernel at the main path's shapes, against its plain version."""
     import torch
@@ -406,6 +542,71 @@ def phase_kernels(pool, meta, keys, seed):
         bound_by="bytes",
     )
     del args, got, want
+
+    # scans: one window per routed slot of a YCSB-E batch
+    wk, wv, start, counts, hops = leaf_scan_inputs(pool, meta, keys, n_ns, seed + 3)
+    mc = SCAN_MAX_COUNT
+    got = ops.leaf_scan(wk, wv, start, counts, max_count=mc)
+    want = ref.leaf_scan_ref(wk, wv, start, counts, max_count=mc)
+    err = max_abs_err(got, want)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail(f"leaf_scan differs from its plain version (max abs err {err})")
+    n_active = int(((counts > 0) & (start != KEY_MAX)).sum())
+    n_sel = int(got[2].sum())
+    # every slot reads its start and count and writes its row and taken; an
+    # active one also searches its start row and reads each selected record
+    nbytes = (
+        n_ns * (8 + 4 + 16 * mc + 4)
+        + n_active * ROW_SEARCH_BYTES
+        + n_sel * 16
+    )
+    out["leaf_scan"] = dict(
+        name="leaf_scan",
+        route="cuda",
+        source="src/repro_torch/csrc/leaf_scan.cu",
+        replaces="src/repro/kernels/leaf_scan.py:107",
+        shape=(
+            f"windows [{n_ns}, {hops * 64}] i64, {n_active} active, "
+            f"{n_sel} records taken, max_count {mc}"
+        ),
+        bit_equal=True,
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ops.leaf_scan(wk, wv, start, counts, max_count=mc), 20),
+        plain_ms=cuda_ms(
+            lambda: ref.leaf_scan_ref(wk, wv, start, counts, max_count=mc), 3
+        ),
+        library_ms=None,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+    )
+    del wk, wv, got, want
+
+    # splits: one row per lane of every column's gathered SMO round
+    n_sp = cfg.n_memory * cfg.n_route * cfg.n_memory * per_dev
+    args = leaf_split_inputs(n_sp, seed + 4, keys.device)
+    got = ops.leaf_split(*args)
+    want = ref.leaf_split_ref(*args)
+    err = max_abs_err(got, want)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail(f"leaf_split differs from its plain version (max abs err {err})")
+    n_ins = int((args[2] != KEY_MAX).sum())
+    n_split = int(got[7].sum())
+    nbytes = n_sp * SPLIT_ROW_BYTES + n_split * SPLIT_RIGHT_BYTES + n_ins * 16
+    out["leaf_split"] = dict(
+        name="leaf_split",
+        route="cuda",
+        source="src/repro_torch/csrc/leaf_split.cu",
+        replaces="src/repro/kernels/leaf_split.py:164",
+        shape=f"rows [{n_sp}, 64] i64, {n_ins} inserts staged, {n_split} splits",
+        bit_equal=True,
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ops.leaf_split(*args), 20),
+        plain_ms=cuda_ms(lambda: ref.leaf_split_ref(*args), 3),
+        library_ms=None,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+    )
+    del args, got, want
     card = torch.cuda.get_device_name(keys.device)
     for k in out.values():
         print(
@@ -438,17 +639,38 @@ def mixed_batch(rng, keys, lanes, hot, overflow):
     return opc, kk, vals
 
 
+def fresh_in_leaf(rng, row, n):
+    """``n`` distinct keys strictly between a leaf row's first and last key
+    and not in the row (the index holds no other key in that range)."""
+    from repro_torch.core.nodes import KEY_MAX
+
+    real = row[row != KEY_MAX]
+    lo, hi = int(real[0]), int(real[-1])
+    while True:
+        cand = np.unique(rng.integers(lo + 1, hi, size=2 * n))
+        cand = cand[~np.isin(cand, real)]
+        if cand.size >= n:
+            return rng.permutation(cand)[:n]
+
+
 def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
     """The port on the CPU (plain versions) and on the card (kernels) give
     the same lane results and state planes: lookups under ``fetch`` (the
     cache and its duplicate admissions), ``fetch`` with buckets small enough
     to shed, and ``auto``; mixed lookups, updates and inserts under
-    ``fetch``, shedding ``fetch``, ``offload`` and ``auto``, comparing every
-    plane (pool, occupancy and versions included)."""
-    from repro_torch.core import dex, engine
+    ``fetch``, shedding ``fetch``, ``offload`` and ``auto``; the same with
+    scans (``ops=ALL_OPS``, ``max_count=32``, counts up to 40); and one SMO
+    round after an insert burst that overflows eight leaves; comparing every
+    plane (pool, occupancy, versions, ``n_alloc`` and ``succ`` included)."""
+    from repro_torch.core import dex, engine, smo, write
     from repro_torch.core import pool as pool_mod
     from repro_torch.core.nodes import KEY_MAX, KEY_MIN
-    from repro_torch.obs.registry import STAT_DROPS, STAT_SPLITS, STAT_WRITES
+    from repro_torch.obs.registry import (
+        STAT_DROPS,
+        STAT_SMO_SPLITS,
+        STAT_SPLITS,
+        STAT_WRITES,
+    )
 
     rng = np.random.default_rng(seed)
     keys = np.sort(rng.choice(2**40, size=20_000, replace=False).astype(np.int64))
@@ -467,15 +689,29 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
         mixed_batch(rng, keys, 4096, keys[100:116], overflow if i == 1 else [])
         for i in range(3)
     ]
+    scans = []
+    for i in range(3):
+        opc, kk, vals = mixed_batch(
+            rng, keys, 4096, keys[100:116], overflow if i == 1 else []
+        )
+        scn = (np.arange(4096) >= 46) & (rng.random(4096) < 0.35)
+        opc[scn] = engine.OP_SCAN
+        vals[scn] = rng.integers(1, 41, size=int(scn.sum()))
+        scans.append((opc, kk, vals))
     look_planes = ("stats", "miss_ema", "lat_hist", "lat_audit", "route_demand")
+    write_ops = ("lookup", "update", "insert")
     runs = [
         ("lookups", ("lookup",), lookups, "fetch", 4.0),
         ("lookups", ("lookup",), lookups, "fetch", 0.5),
         ("lookups", ("lookup",), lookups, "auto", 4.0),
-        ("mixed", engine.PORTED_OPS, mixed, "fetch", 4.0),
-        ("mixed", engine.PORTED_OPS, mixed, "fetch", 0.5),
-        ("mixed", engine.PORTED_OPS, mixed, "offload", 4.0),
-        ("mixed", engine.PORTED_OPS, mixed, "auto", 4.0),
+        ("mixed", write_ops, mixed, "fetch", 4.0),
+        ("mixed", write_ops, mixed, "fetch", 0.5),
+        ("mixed", write_ops, mixed, "offload", 4.0),
+        ("mixed", write_ops, mixed, "auto", 4.0),
+        ("scans", engine.ALL_OPS, scans, "fetch", 4.0),
+        ("scans", engine.ALL_OPS, scans, "fetch", 0.5),
+        ("scans", engine.ALL_OPS, scans, "offload", 4.0),
+        ("scans", engine.ALL_OPS, scans, "auto", 4.0),
     ]
     for label, ops_, batches, policy, factor in runs:
         cfg = mesh_config(policy, 64, factor)
@@ -485,7 +721,9 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
                 keys, keys ^ VALUE_XOR, level_m=1, n_shards=4, device=dev
             )
             state = dex.init_state(pool, meta, cfg, bounds, device=dev)
-            eng = engine.make_dex_engine(meta, cfg, ops=ops_, device=dev)
+            eng = engine.make_dex_engine(
+                meta, cfg, ops=ops_, max_count=32, device=dev
+            )
             out.append([])
             for opc, q, v in batches:
                 state, r = eng(state, opc, q, v)
@@ -497,7 +735,8 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
                         if k.startswith("cache.") or k in look_planes
                     }
                 for k, a in r._asdict().items():
-                    got[k] = a.cpu().numpy()
+                    if a is not None:
+                        got[k] = a.cpu().numpy()
                 out[-1].append(got)
         for i, (a, b) in enumerate(zip(*out)):
             for k in a:
@@ -513,8 +752,49 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
             f" ({stats[STAT_DROPS]} shed, {stats[STAT_WRITES]} writes,"
             f" {stats[STAT_SPLITS]} splits)"
         )
-        if label == "mixed" and factor >= 1 and stats[STAT_SPLITS] == 0:
-            fail(f"mixed {policy} x{factor}: no insert was shed as a split")
+        if label != "lookups" and factor >= 1 and stats[STAT_SPLITS] == 0:
+            fail(f"{label} {policy} x{factor}: no insert was shed as a split")
+        if label == "scans" and not (out[0][-1]["taken"] > 0).any():
+            fail(f"scans {policy} x{factor}: no scan took a record")
+
+    # one SMO round after a burst of 30 fresh keys into each of eight leaves
+    cfg = mesh_config("fetch", 64)
+    leaves = (3, 50, 120, 200, 260, 330, 400, 440)
+    burst = np.concatenate(
+        [fresh_in_leaf(rng, keys[j * 44 : j * 44 + 44], 30) for j in leaves]
+    )
+    kk = np.full(4096, KEY_MAX, np.int64)
+    kk[rng.permutation(4096)[: burst.size]] = burst
+    vv = np.where(kk != KEY_MAX, kk ^ VALUE_XOR ^ 77, 0)
+    out = []
+    for dev in devices:
+        pool, meta = pool_mod.build_pool(
+            keys, keys ^ VALUE_XOR, level_m=1, n_shards=4, device=dev
+        )
+        state = dex.init_state(pool, meta, cfg, bounds, device=dev)
+        state, st = write.make_dex_insert(meta, cfg, device=dev)(state, kk, vv)
+        shed = (st == write.STATUS_SPLIT).cpu().numpy()
+        state, st1 = smo.make_dex_smo(meta, cfg, device=dev)(
+            state, np.where(shed, kk, KEY_MAX), np.where(shed, vv, 0)
+        )
+        got = dex.state_to_numpy(state)
+        got["insert_status"] = st.cpu().numpy()
+        got["smo_status"] = st1.cpu().numpy()
+        out.append(got)
+    a, b = out
+    for k in a:
+        if a[k].shape != b[k].shape or not np.array_equal(a[k], b[k]):
+            fail(f"smo round: CPU and CUDA differ: {k}")
+    shed = a["insert_status"] == write.STATUS_SPLIT
+    n_split = int(a["stats"][:, STAT_SMO_SPLITS].sum())
+    if shed.sum() != burst.size or not (a["smo_status"][shed] == write.STATUS_OK).all():
+        fail("smo round: the burst was not shed whole and settled in one round")
+    if n_split != len(leaves):
+        fail(f"smo round: {n_split} splits, expected {len(leaves)}")
+    print(
+        f"cpu-vs-cuda smo round: {burst.size} lanes shed and settled, {n_split}"
+        f" splits, 2x4 mesh, all {len(a)} planes and statuses equal"
+    )
 
 
 def profile_batch(policy, eng, state, median_ms, *inputs):
@@ -548,7 +828,7 @@ def profile_batch(policy, eng, state, median_ms, *inputs):
         f" {busy:.2f} ms, idle {1 - busy / median_ms:.1%} of the unprofiled"
         f" median {median_ms:.2f} ms; top: {top}"
     )
-    return out
+    return (*out, 1 - busy / median_ms)
 
 
 class HostOracle:
@@ -558,6 +838,21 @@ class HostOracle:
     def __init__(self, host_keys):
         self.keys = host_keys
         self.written = {}  # key -> value of each acknowledged write
+        self._arrays = None  # the written keys sorted, and their values
+
+    def apply(self, kk, vals):
+        """Take acknowledged writes, in lane order (the last lane of a key
+        wins)."""
+        self.written.update(zip(kk.tolist(), vals.tolist()))
+        self._arrays = None
+
+    def written_arrays(self):
+        if self._arrays is None:
+            wk = np.fromiter(self.written.keys(), np.int64, len(self.written))
+            wv = np.fromiter(self.written.values(), np.int64, len(self.written))
+            order = np.argsort(wk)
+            self._arrays = (wk[order], wv[order])
+        return self._arrays
 
     def lookup(self, q):
         """``(found, value)`` of each key of ``q`` in the current contents."""
@@ -567,21 +862,51 @@ class HostOracle:
         pos = np.empty_like(order)
         pos[order] = np.searchsorted(self.keys, q[order])
         found = (pos < n) & (self.keys[np.minimum(pos, n - 1)] == q)
-        w = self.written
-        in_w = np.fromiter((k in w for k in q.tolist()), bool, count=q.size)
+        wk, wv = self.written_arrays()
         value = q ^ VALUE_XOR
-        if in_w.any():
-            value[in_w] = [w[k] for k in q[in_w].tolist()]
-        return found | in_w, value
+        if wk.size:
+            pw = np.minimum(np.searchsorted(wk, q), wk.size - 1)
+            in_w = wk[pw] == q
+            value = np.where(in_w, wv[pw], value)
+            found = found | in_w
+        return found, value
 
-    def check(self, where, opc, kk, vals, r):
+    def scan(self, starts, counts, mc):
+        """``(keys [n, mc] KEY_MAX-padded, values [n, mc] 0-padded, taken)``:
+        the first ``counts`` keys >= each start in the current contents,
+        merged from ``mc`` bulk keys and ``mc`` written keys per lane."""
+        from repro_torch.core.nodes import KEY_MAX
+
+        col = np.arange(mc)
+
+        def window(arr, s):
+            if arr.size == 0:
+                return np.full((s.size, mc), KEY_MAX, np.int64)
+            idx = np.searchsorted(arr, s)[:, None] + col
+            return np.where(idx < arr.size, arr[np.minimum(idx, arr.size - 1)], KEY_MAX)
+
+        wk, wv = self.written_arrays()
+        both = np.sort(np.concatenate([window(self.keys, starts), window(wk, starts)], 1), 1)
+        dup = np.zeros(both.shape, bool)
+        dup[:, 1:] = both[:, 1:] == both[:, :-1]
+        both = np.sort(np.where(dup, KEY_MAX, both), 1)[:, :mc]
+        both = np.where(col < np.clip(counts, 0, mc)[:, None], both, KEY_MAX)
+        real = both != KEY_MAX
+        _, vals = self.lookup(both.reshape(-1))
+        vals = np.where(real, vals.reshape(both.shape), 0)
+        return both, vals, real.sum(1)
+
+    def check(self, where, opc, kk, vals, r, mc=0):
         """Hold one batch's results to the contents before it, then apply
-        its acknowledged writes in lane order (the last lane of a key wins).
-        Returns ``(lanes checked, lanes shed, splits)``."""
-        from repro_torch.core.engine import OP_INSERT, OP_LOOKUP, OP_UPDATE
+        its acknowledged writes.  A scan lane carries its count in ``vals``
+        and must return the first ``count`` keys >= its start.  Returns
+        ``(lanes checked, lanes shed, splits)``."""
+        from repro_torch.core.engine import OP_INSERT, OP_LOOKUP, OP_SCAN, OP_UPDATE
         from repro_torch.core.write import STATUS_MISS, STATUS_OK, STATUS_SPLIT
 
-        found, values, status, shed = (t.cpu().numpy() for t in r)
+        found, values, status, shed = (
+            t.cpu().numpy() for t in (r.found, r.values, r.status, r.shed)
+        )
         ok = ~shed
         exists, cur = self.lookup(kk)
         lk = ok & (opc == OP_LOOKUP)
@@ -595,8 +920,20 @@ class HostOracle:
         ins = ok & (opc == OP_INSERT)
         if not np.isin(status[ins], (STATUS_OK, STATUS_SPLIT)).all():
             fail(f"{where}: an insert was neither applied nor shed as a split")
+        if r.scan_keys is not None:
+            sc = np.flatnonzero(ok & (opc == OP_SCAN))
+            want_k, want_v, want_t = self.scan(kk[sc], vals[sc], mc)
+            taken = r.taken.cpu().numpy()
+            if not (taken[sc] == want_t).all():
+                fail(f"{where}: a scan's taken differs from the host oracle")
+            if not np.array_equal(r.scan_keys.cpu().numpy()[sc], want_k):
+                fail(f"{where}: scan keys differ from the host oracle")
+            if not np.array_equal(r.scan_values.cpu().numpy()[sc], want_v):
+                fail(f"{where}: scan values differ from the host oracle")
+            if not (taken[shed & (opc == OP_SCAN)] == -1).all():
+                fail(f"{where}: a shed scan did not report taken = -1")
         done = (up | ins) & (status == STATUS_OK)
-        self.written.update(zip(kk[done].tolist(), vals[done].tolist()))
+        self.apply(kk[done], vals[done])
         return int(ok.sum()), int(shed.sum()), int((status == STATUS_SPLIT).sum())
 
 
@@ -658,7 +995,7 @@ def phase_main(args, keys, pool, meta):
                     # one more batch under the profiler: where the time goes
                     med = float(np.median(times))
                     label = f"{workload} {policy}"
-                    state, r = profile_batch(label, eng, state, med, *inputs)
+                    state, r, idle = profile_batch(label, eng, state, med, *inputs)
                 else:
                     t0 = time.perf_counter()
                     state, r = eng(state, *inputs)
@@ -694,17 +1031,216 @@ def phase_main(args, keys, pool, meta):
                 offload_groups=int(stats[reg.STAT_OFFLOAD_GROUPS]),
                 fetch_groups=int(stats[reg.STAT_FETCH_GROUPS]),
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                idle_share=idle,
             )
             print(f"main {workload} {policy}: {json.dumps(report[run])}")
             del state, eng
         per_path[workload] = dict(ops.LAUNCHES)
-        print(f"main {workload}: launches {per_path[workload]}")
-        for k in path_kernels[workload]:
-            if per_path[workload][k] <= 0:
-                fail(f"kernel {k} was not launched on the {workload} path")
-    launches = {k: sum(p[k] for p in per_path.values()) for k in ops.LAUNCHES}
-    print(f"main: {len(oracle.written)} keys written; launches {launches}")
-    return report, launches
+        check_launches(workload, per_path[workload], path_kernels[workload])
+    print(f"main: {len(oracle.written)} keys written")
+    return report, per_path, oracle, bounds
+
+
+def check_launches(path, launches, kernels):
+    print(f"main {path}: launches {launches}")
+    for k in kernels:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the {path} path")
+
+
+def timed_smo(smo, round_ms):
+    """``smo`` with each round's milliseconds (host clock around a
+    synchronised round) appended to ``round_ms``."""
+    import torch
+
+    def run(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = smo(*a)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return run
+
+
+def phase_splits_and_scans(args, keys, pool, meta, oracle, bounds):
+    """On the index the main runs left, with one state carried through: a
+    split burst settled on the mesh, a scan batch across the split leaves,
+    then YCSB workload E under each policy of ``SCAN_RUNS``."""
+    import torch
+
+    from repro_torch.core import dex, engine, smo, write
+    from repro_torch.core.nodes import KEY_MAX
+    from repro_torch.core.scan import make_dex_scan
+    from repro_torch.data import ycsb
+    from repro_torch.kernels import ops
+    from repro_torch.obs import registry as reg
+
+    dev = keys.device
+    host_keys = oracle.keys
+    rng = np.random.default_rng(args.seed + 20)
+    cfg = mesh_config("fetch", 65_536)
+    state = dex.init_state(pool, meta, cfg, bounds, device=dev)
+    smo_round = smo.make_dex_smo(meta, cfg, device=dev)
+    report, per_path = {}, {}
+
+    def stat(st, i):
+        return int(st.stats[:, i].sum())
+
+    # 1. the split burst: 32 fresh keys into each of 2,048 leaves, one leaf
+    # in each of 2,048 subtrees other than the last
+    ops.reset_launches()
+    subtrees = rng.choice(meta.n_subtrees - 1, size=SMO_LEAVES, replace=False)
+    local = meta.leaf_start + rng.integers(0, meta.leaves_per_subtree, SMO_LEAVES)
+    rows = pool.pool_keys[
+        torch.from_numpy(subtrees).to(dev), torch.from_numpy(local).to(dev)
+    ].cpu().numpy()
+    burst = np.concatenate([fresh_in_leaf(rng, r, SMO_KEYS_PER_LEAF) for r in rows])
+    kk = rng.permutation(burst)
+    vv = kk ^ VALUE_XOR ^ (1 << 50)
+    t0 = time.perf_counter()
+    state, st = write.make_dex_insert(meta, cfg, device=dev)(state, kk, vv)
+    st = st.cpu().numpy()
+    if not (st == write.STATUS_SPLIT).all():
+        fail(f"split burst: {int((st != write.STATUS_SPLIT).sum())} lanes not shed")
+    before = stat(state, reg.STAT_SMO_SPLITS)
+    round_ms = []
+    state, status, rounds = smo.run_smo(timed_smo(smo_round, round_ms), state, kk, vv)
+    took = (time.perf_counter() - t0) * 1e3
+    n_split = stat(state, reg.STAT_SMO_SPLITS) - before
+    if not (status == write.STATUS_OK).all():
+        fail(f"split burst: {int((status != write.STATUS_OK).sum())} lanes unsettled")
+    if n_split != SMO_LEAVES:
+        fail(f"split burst: {n_split} on-mesh splits, expected {SMO_LEAVES}")
+    oracle.apply(kk, vv)
+    report["split-burst"] = dict(
+        lanes=int(kk.size),
+        leaves=SMO_LEAVES,
+        smo_splits=n_split,
+        rounds=rounds,
+        round_ms=round_ms,
+        total_ms=took,
+    )
+    print(f"main split-burst: {json.dumps(report['split-burst'])}")
+    per_path["split-burst"] = dict(ops.LAUNCHES)
+    check_launches("split-burst", per_path["split-burst"], ("leaf_split", "leaf_write"))
+
+    # 2. scans across the splits: half start at a burst leaf's first key
+    ops.reset_launches()
+    scan = make_dex_scan(meta, cfg, max_count=SCAN_MAX_COUNT, device=dev)
+    starts = np.concatenate([
+        np.resize(rows[:, 0], BATCH // 2),
+        rng.choice(host_keys, size=BATCH - BATCH // 2),
+    ])
+    counts = np.full(BATCH, SCAN_MAX_COUNT, np.int64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, sk, sv, tk = scan(state, starts, counts)
+    torch.cuda.synchronize()
+    took = (time.perf_counter() - t0) * 1e3
+    want_k, want_v, want_t = oracle.scan(starts, counts, SCAN_MAX_COUNT)
+    if not (np.array_equal(tk.cpu().numpy(), want_t)
+            and np.array_equal(sk.cpu().numpy(), want_k)
+            and np.array_equal(sv.cpu().numpy(), want_v)):
+        fail("scan check: results differ from the host oracle")
+    report["scan-check"] = dict(lanes=BATCH, ms=took, records=int(want_t.sum()))
+    print(f"main scan-check: {json.dumps(report['scan-check'])}")
+    per_path["scan-check"] = dict(ops.LAUNCHES)
+    check_launches("scan-check", per_path["scan-check"], ("node_search", "leaf_scan"))
+
+    # 3. YCSB workload E: 95% scans of uniform length 1-100, 5% inserts
+    total = sum(warm + timed + 1 for _, warm, timed in SCAN_RUNS)
+    wl = ycsb.generate(
+        "ycsb-e", host_keys, BATCH * total, seed=args.seed + 21,
+        scan_len=SCAN_MAX_COUNT, scan_len_dist="uniform",
+    )
+    off = 0
+    for policy, warm, timed in SCAN_RUNS:
+        ops.reset_launches()
+        pcfg = mesh_config(policy, 65_536)
+        eng = engine.make_dex_engine(
+            meta, pcfg, ops=("insert", "scan"), max_count=SCAN_MAX_COUNT, device=dev
+        )
+        torch.cuda.reset_peak_memory_stats()
+        stats0 = state.stats.sum(0).cpu().numpy()
+        times, batches, smo_ms, smo_rounds = [], [], [], 0
+        for i in range(warm + timed + 1):
+            opc, kk, vals = ycsb.engine_lanes(wl, off, off + BATCH)
+            off += BATCH
+            stamp = (off << 20) + np.arange(BATCH)
+            vals = np.where(opc == engine.OP_SCAN, vals, kk ^ VALUE_XOR ^ stamp)
+            inputs = [torch.from_numpy(a).to(dev) for a in (opc, kk, vals)]
+            torch.cuda.synchronize()
+            if i == warm + timed:
+                med = float(np.median(times))
+                state, r, idle = profile_batch(
+                    f"ycsb-e {policy}", eng, state, med, *inputs
+                )
+            else:
+                t0 = time.perf_counter()
+                state, r = eng(state, *inputs)
+                torch.cuda.synchronize()
+                if i >= warm:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            # split lanes settle on the mesh after the batch, untimed
+            split = (r.status == write.STATUS_SPLIT).cpu().numpy()
+            settled = (np.zeros(0, np.int64),) * 2
+            if split.any():
+                sk_ = np.where(split, kk, KEY_MAX)
+                t0 = time.perf_counter()
+                state, sst, nr = smo.run_smo(smo_round, state, sk_, vals)
+                torch.cuda.synchronize()
+                smo_ms.append((time.perf_counter() - t0) * 1e3)
+                smo_rounds += nr
+                ok = sst == write.STATUS_OK
+                settled = (kk[ok], vals[ok])
+            batches.append((opc, kk, vals, r, settled))
+        checked, shed, splits = 0, 0, 0
+        for i, (opc, kk, vals, r, settled) in enumerate(batches):
+            c, s_, sp = oracle.check(
+                f"ycsb-e {policy} batch {i}", opc, kk, vals, r, SCAN_MAX_COUNT
+            )
+            oracle.apply(*settled)
+            checked, shed, splits = checked + c, shed + s_, splits + sp
+        del batches
+        stats = state.stats.sum(0).cpu().numpy() - stats0
+        med = float(np.median(times))
+        run = f"ycsb-e/{policy}"
+        report[run] = dict(
+            median_ms=med,
+            p25_ms=float(np.percentile(times, 25)),
+            p75_ms=float(np.percentile(times, 75)),
+            ops_per_s=BATCH / med * 1e3,
+            batches=timed,
+            checked_lanes=checked,
+            shed_lanes=shed,
+            split_lanes=splits,
+            hits=int(stats[reg.STAT_HITS]),
+            fetches=int(stats[reg.STAT_FETCHES]),
+            offloads=int(stats[reg.STAT_OFFLOADS]),
+            writes=int(stats[reg.STAT_WRITES]),
+            smo_splits=int(stats[reg.STAT_SMO_SPLITS]),
+            smo_rounds=smo_rounds,
+            smo_ms=smo_ms,
+            drops=int(stats[reg.STAT_DROPS]),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            idle_share=idle,
+        )
+        print(f"main ycsb-e {policy}: {json.dumps(report[run])}")
+        print(
+            f"main ycsb-e {policy} smo (untimed, after the batches that shed"
+            f" splits): {smo_rounds} rounds, ms {smo_ms}"
+        )
+        path = f"ycsb-e/{policy}"
+        per_path[path] = dict(ops.LAUNCHES)
+        need = ("node_search", "leaf_scan", "leaf_write")
+        if policy != "fetch":
+            need += ("subtree_walk",)
+        check_launches(path, per_path[path], need)
+        del eng
+    print(f"main: {len(oracle.written)} keys written")
+    return report, per_path
 
 
 def main(argv=None):
@@ -737,10 +1273,16 @@ def main(argv=None):
     t1 = time.perf_counter()
     phase_cpu_vs_cuda(args.seed)
     t2 = time.perf_counter()
-    report, launches = phase_main(args, keys, pool, meta)
+    report, per_path, oracle, bounds = phase_main(args, keys, pool, meta)
     t3 = time.perf_counter()
+    more, more_paths = phase_splits_and_scans(args, keys, pool, meta, oracle, bounds)
+    report.update(more)
+    per_path.update(more_paths)
+    t4 = time.perf_counter()
+    launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["read-only"]}
+    print(f"main: launches {launches}")
     print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
-          f" main {t3 - t2:.1f} s")
+          f" main {t3 - t2:.1f} s, splits and scans {t4 - t3:.1f} s")
     rows = []
     for name, k in kernels.items():
         rows.append(dict(

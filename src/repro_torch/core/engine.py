@@ -1,12 +1,14 @@
-"""The mesh plane's execution engine: point lookups, updates and inserts.
+"""The mesh plane's execution engine: point lookups, updates, inserts and
+range scans.
 
-:func:`make_dex_engine` runs a batch of mixed lookups, updates and inserts
-over the virtual mesh (``core/mesh.py``) the way the reference's unified
-engine does, batched over the ``Dev`` axis:
+:func:`make_dex_engine` runs a batch of mixed lookups, updates, inserts and
+scans over the virtual mesh (``core/mesh.py``) the way the reference's
+unified engine does, batched over the ``Dev`` axis:
 
   1. one route round: ``routing.route_owners``, ``pack_by_dest`` and
-     ``route_exchange`` move each lane to the route row owning its key (the
-     write slice carries its value, opcode and batch priority along);
+     ``route_exchange`` move each lane to the route row owning its key (an
+     engine with writes or scans carries its value, opcode and batch
+     priority along);
   2. the replicated top-tree walk (``pool.top_walk``, ``node_search``) and
      the per-column offload decision: each destination memory column's
      group of live lanes compares its predicted fetch bytes (the per-column,
@@ -14,6 +16,9 @@ engine does, batched over the ``Dev`` axis:
   3. the version-checked cached descent, one ``cached_fetch_level`` per
      level, with ``node_search`` picking the child at inner levels and
      matching the key at the leaf; inserts stop above the leaf;
+  3b. scan lanes only: successor-chain hops over ``DexState.succ``, one
+     ``cached_fetch_level`` per hop while a lane's count is not yet covered,
+     then the ``leaf_scan`` kernel compacts each lane's window of leaf rows;
   4. one request/response exchange over the memory axis: offloaded lanes
      are walked by the owning column with the ``subtree_walk`` kernel, and
      every write is applied there in one conflict-resolved batch
@@ -23,11 +28,13 @@ engine does, batched over the ``Dev`` axis:
      histogram and audit planes, and the return trip over the route axis.
 
 ``policy="fetch"`` never offloads; ``policy="offload"`` offloads every live
-lane and runs no descent; ``policy="auto"`` decides per column.  Reads see
-the pre-batch index, then updates apply, then inserts (a phase-offset batch
-priority); an insert into a leaf that would overflow comes back
-``STATUS_SPLIT``.  Scans, the pipelined engine, divergent cache policies,
-peer peeks and the route table are not ported yet: asking for them raises.
+lane that is not a scan and runs no descent unless scans need it;
+``policy="auto"`` decides per column.  Scans never offload and leave the
+miss EMA alone.  Reads (lookups and scans) see the pre-batch index, then
+updates apply, then inserts (a phase-offset batch priority); an insert into
+a leaf that would overflow comes back ``STATUS_SPLIT`` for ``core/smo.py``.
+The pipelined engine, divergent cache policies, peer peeks and the route
+table are not ported yet: asking for them raises.
 
 The engine writes its state in place: the cache planes, and with writes the
 pool's key and value planes, ``occupancy`` and ``versions``.  The returned
@@ -38,7 +45,7 @@ the pool per batch; a caller that needs the pre-batch state keeps a copy.
 from __future__ import annotations
 
 from math import inf
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,8 +85,13 @@ from repro_torch.obs.registry import (
 
 OP_LOOKUP, OP_UPDATE, OP_INSERT, OP_SCAN = 0, 1, 2, 3
 ALL_OPS = ("lookup", "update", "insert", "scan")
-PORTED_OPS = ("lookup", "update", "insert")
-_OP_CODES = {"lookup": OP_LOOKUP, "update": OP_UPDATE, "insert": OP_INSERT}
+_OP_CODES = {
+    "lookup": OP_LOOKUP,
+    "update": OP_UPDATE,
+    "insert": OP_INSERT,
+    "scan": OP_SCAN,
+}
+DEFAULT_MAX_COUNT = 128
 
 # fused-round message tags (field 0 of a request record)
 MSG_NONE = 0  # no request from this lane (or bucket padding)
@@ -92,15 +104,29 @@ REQ_FIELDS = 6  # (tag, gid, subtree, key, value, prio)
 RESP_HEAD = 4  # (status, value, gid, leaf-took-inserts) ahead of the value row
 
 
+def scan_hops(meta: PoolMeta, max_count: int) -> int:
+    """Leaves a ``max_count``-record scan may read: its start leaf (which
+    may contribute nothing) plus enough least-filled leaves for the rest.
+    The static bound of the hop loop; each lane stops reading as soon as its
+    count is covered."""
+    return 1 + -(-max_count // meta.min_leaf_fill)
+
+
 class EngineResult(NamedTuple):
     """Per-lane results of one batch, in the caller's lane order:
     ``found``/``values`` answer lookups, ``status`` answers writes
-    (``write.STATUS_*``), ``shed`` marks lanes shed anywhere (retry them)."""
+    (``write.STATUS_*``), ``shed`` marks lanes shed anywhere (retry them).
+    ``scan_keys``/``scan_values`` [B, max_count] and ``taken`` [B] int32
+    answer scans (``taken == -1`` for a shed scan) and are None for an engine
+    without ``"scan"``."""
 
     found: torch.Tensor
     values: torch.Tensor
     status: torch.Tensor
     shed: torch.Tensor
+    scan_keys: Optional[torch.Tensor] = None
+    scan_values: Optional[torch.Tensor] = None
+    taken: Optional[torch.Tensor] = None
 
 
 class Descent(NamedTuple):
@@ -119,6 +145,8 @@ class Descent(NamedTuple):
     realized: torch.Tensor  # [Dev, n_memory, levels] distinct fetched bytes
     n_hit: torch.Tensor  # [Dev]
     n_fetch: torch.Tensor  # [Dev] coalesced remote reads
+    rows_k: Optional[torch.Tensor] = None  # [Dev, Q, F] leaf rows (scans)
+    rows_v: Optional[torch.Tensor] = None
 
 
 class Fused(NamedTuple):
@@ -167,29 +195,29 @@ def make_dex_engine(
     cfg: DexMeshConfig,
     *,
     ops: Tuple[str, ...] = ("lookup",),
+    max_count: int = DEFAULT_MAX_COUNT,
     cache_policy: "fleet_cache.CachePolicy | None" = None,
     device=None,
 ):
     """Build the engine ``(state, opcodes, keys, values) -> (state,
     EngineResult)`` on ``device`` (None = CUDA).
 
-    ``ops`` is any non-empty subset of ``PORTED_OPS``.
+    ``ops`` is any non-empty subset of ``ALL_OPS``.
     ``opcodes``/``keys``/``values`` are [B] lanes, split evenly over the
     virtual devices (lanes ``dev*b .. (dev+1)*b`` start on device ``dev``);
     ``keys == KEY_MAX`` lanes and opcodes outside ``ops`` are inactive.
-    Update and insert lanes carry their new value in ``values``; lookups
-    ignore it.  ``ops`` prunes statically: an engine without writes routes
-    keys alone and carries no write round.  The returned function carries
-    the reference's ``plan`` attribute.  The state is updated in place (see
-    the module's docstring)."""
+    Update and insert lanes carry their new value in ``values``, scan lanes
+    their record count (clipped to ``max_count``); lookups ignore it.
+    ``ops`` prunes statically: an engine without writes or scans routes keys
+    alone and carries no write round, one without scans no hops.  The
+    returned function carries the reference's ``plan`` attribute.  The state
+    is updated in place (see the module's docstring)."""
     ops = tuple(ops)
     for o in ops:
         if o not in ALL_OPS:
             raise ValueError(f"unknown op {o!r}; options: {ALL_OPS}")
     if not ops:
         raise ValueError("ops must name at least one operation")
-    if any(o not in PORTED_OPS for o in ops):
-        raise NotImplementedError(f"only ops in {PORTED_OPS} are ported, got {ops}")
     if cfg.policy not in ("fetch", "offload", "auto"):
         raise ValueError(f"unknown policy {cfg.policy!r}")
     if cfg.route_table_slots > 0:
@@ -203,14 +231,23 @@ def make_dex_engine(
     has_lookup = "lookup" in ops
     has_update = "update" in ops
     has_insert = "insert" in ops
+    has_scan = "scan" in ops
     has_writes = has_update or has_insert
+    # lanes that can offload (scans never do)
+    has_offloadable = has_lookup or has_writes
+    # the route round carries opcode, value and priority planes
+    route_planes = has_writes or has_scan
     enabled = [_OP_CODES[o] for o in ops]
     levels = meta.levels_in_subtree
-    may_offload = cfg.policy != "fetch"
-    do_descent = cfg.policy != "offload"
-    # the leaf level serves lookups and updates; inserts stop above it
-    do_leaf = has_lookup or has_update
-    audit = cfg.policy == "auto"
+    mc = max_count
+    hops = scan_hops(meta, mc) if has_scan else 0
+    may_offload = has_offloadable and cfg.policy != "fetch"
+    # scans need the descent to their start leaf under every policy
+    do_descent = has_scan or cfg.policy != "offload" or not has_offloadable
+    # the leaf level serves lookups, updates and a scan's first hop; inserts
+    # stop above it
+    do_leaf = has_lookup or has_update or has_scan
+    audit = has_offloadable and cfg.policy == "auto"
     nr, nm, n_dev = cfg.n_route, cfg.n_memory, cfg.n_devices
     s_per = meta.n_subtrees_padded // nm
     n_nodes = meta.n_nodes
@@ -234,7 +271,7 @@ def make_dex_engine(
         "route_rounds": 1,
         "fused_pairs": 1 if (may_offload or has_writes) else 0,
         "descent_levels": (levels if do_leaf else levels - 1) if do_descent else 0,
-        "scan_hops": 0,
+        "scan_hops": hops,
         "pipeline": False,
     }
 
@@ -255,11 +292,13 @@ def make_dex_engine(
         want_off_c = _dot_levels(caps, ema) * row_cost > nf * rpc_bytes
         return want_off_c, grp_live, caps
 
-    def descent(state, q, subtree, col, want, leaf_want, cost) -> Descent:
+    def descent(state, q, subtree, col, want, leaf_want, cost, is_scan) -> Descent:
         """The version-checked cached descent: one ``cached_fetch_level`` per
         level for the ``want`` lanes (``leaf_want`` at the leaf),
         ``node_search`` for the child at inner levels and for the match at
-        the leaf.  Without a leaf level it stops at the leaf's id."""
+        the leaf.  Without a leaf level it stops at the leaf's id.  Scan
+        lanes leave the miss observation and the audit's realized bytes
+        alone; an engine with scans keeps the leaf rows for their window."""
         nq = q.shape[1]
         flat_q = q.reshape(-1)
         cache = state.cache
@@ -273,6 +312,7 @@ def make_dex_engine(
         realized = torch.zeros_like(miss_cl)
         found = torch.zeros_like(want)
         value = torch.zeros_like(q)
+        leaf_k = leaf_v = None
         for lvl in range(levels if do_leaf else levels - 1):
             leaf = lvl == levels - 1
             gid = meta.node_gid(subtree, local)
@@ -299,14 +339,16 @@ def make_dex_engine(
             n_fetch = n_fetch + n_msgs
             n_hit = n_hit + hit.sum(1)
             zero = torch.zeros((n_dev, nm), device=device)
-            miss_cl[..., lvl] = zero.scatter_add(1, col, miss.float())
-            want_cl[..., lvl] = zero.scatter_add(1, col, want.float())
+            obs = want & ~is_scan
+            miss_cl[..., lvl] = zero.scatter_add(1, col, (miss & obs).float())
+            want_cl[..., lvl] = zero.scatter_add(1, col, obs.float())
             if audit:
                 # realized bytes count distinct fetched nodes per column
                 nset = torch.zeros(
                     (n_dev, n_nodes + 1), dtype=torch.bool, device=device
                 )
-                nset.scatter_(1, torch.where(fetched, gid, n_nodes), True)
+                seen = fetched & ~is_scan
+                nset.scatter_(1, torch.where(seen, gid, n_nodes), True)
                 cnt = nset[:, :n_nodes].view(n_dev, nm, -1).sum(-1).float()
                 realized[..., lvl] = cnt * float(NODE_ROW_BYTES)
             rows_k = rows_k.view(-1, FANOUT)
@@ -316,6 +358,8 @@ def make_dex_engine(
                 )
                 found = found.view(n_dev, nq) & want
                 value = value.view(n_dev, nq)
+                if has_scan:
+                    leaf_k, leaf_v = rows_k.view(n_dev, nq, FANOUT), rows_v
             else:
                 slot, _, _ = kops.node_search(rows_k, flat_q)
                 local = rows_c.view(-1, FANOUT).gather(1, slot.long()[:, None])
@@ -333,7 +377,84 @@ def make_dex_engine(
             realized=realized,
             n_hit=n_hit,
             n_fetch=n_fetch,
+            rows_k=leaf_k,
+            rows_v=leaf_v,
         )
+
+    def scan_window(state, q, cnt, is_scan, d: Descent):
+        """The scan lanes' successor-chain hops: the start leaf's row, then
+        one ``cached_fetch_level`` per hop over ``DexState.succ`` for the
+        lanes whose collected records fall short of their count, then the
+        ``leaf_scan`` kernel over each lane's window.  Reads the pre-batch
+        pool and runs before any write.  Returns the descent with its shed,
+        cost, cache and counters carried forward, and ``(keys, values,
+        taken)``."""
+        nq = q.shape[1]
+        succ = state.succ[0]
+        qc = q[..., None]
+        win_k = [torch.where(is_scan[..., None], d.rows_k, KEY_MAX)]
+        win_v = [torch.where(is_scan[..., None], d.rows_v, 0)]
+        collected = ((win_k[0] != KEY_MAX) & (win_k[0] >= qc)).sum(-1)
+        in_range = is_scan
+        gid_h = d.gid
+        shed, cost, fmiss, cache = d.shed, d.cost, d.fmiss, d.cache
+        n_hit, n_fetch = d.n_hit, d.n_fetch
+        for h in range(1, hops):
+            nxt = succ[torch.where(in_range, gid_h, 0)]
+            in_range = in_range & (collected < cnt) & (nxt >= 0)
+            gid_h = torch.where(in_range, nxt, gid_h)
+            gid = torch.where(in_range, gid_h, 0)
+            salt = state.stats[:, STAT_OPS, None] + h + torch.arange(
+                nq, device=device
+            )
+            p_ok = fleet_cache.leaf_admit(cfg, cache_policy, gid, salt)
+            rows_k, _, rows_v, hit, miss, f_drop, n_msgs, cache = (
+                cached_fetch_level(
+                    state.pool, meta, cfg, cache, state.versions, gid, in_range, p_ok
+                )
+            )
+            shed = shed | f_drop
+            n_fetch = n_fetch + n_msgs
+            n_hit = n_hit + hit.sum(1)
+            # each hop prices one more leaf read and its local search
+            fetched = miss & ~f_drop
+            cost = cost + (
+                hit.float() * obs_latency.T_CACHED
+                + fetched.float() * obs_latency.T_READ
+                + in_range.float() * obs_latency.T_LOCAL
+            )
+            fmiss = fmiss | fetched
+            rows_k = torch.where(in_range[..., None], rows_k, KEY_MAX)
+            rows_v = torch.where(in_range[..., None], rows_v, 0)
+            collected = collected + ((rows_k != KEY_MAX) & (rows_k >= qc)).sum(-1)
+            win_k.append(rows_k)
+            win_v.append(rows_v)
+        w = hops * FANOUT
+        sc_k, sc_v, taken = kops.leaf_scan(
+            torch.cat(win_k, -1).view(-1, w),
+            torch.cat(win_v, -1).view(-1, w),
+            q.reshape(-1),
+            cnt.reshape(-1),
+            max_count=mc,
+        )
+        del win_k, win_v
+        ok = (is_scan & ~shed).view(-1)
+        sc_k = torch.where(ok[:, None], sc_k, KEY_MAX).view(n_dev, nq, mc)
+        sc_v = torch.where(ok[:, None], sc_v, 0).view(n_dev, nq, mc)
+        taken = torch.where(
+            ok.view(n_dev, nq), taken.view(n_dev, nq), torch.where(is_scan & shed, -1, 0)
+        ).to(torch.int32)
+        d = d._replace(
+            shed=shed,
+            cost=cost,
+            fmiss=fmiss,
+            cache=cache,
+            n_hit=n_hit,
+            n_fetch=n_fetch,
+            rows_k=None,
+            rows_v=None,
+        )
+        return d, (sc_k, sc_v, taken)
 
     def no_descent(state, q, subtree, cost) -> Descent:
         zero_cl = torch.zeros((n_dev, nm, levels), device=device)
@@ -531,11 +652,19 @@ def make_dex_engine(
         b = keys.shape[0] // n_dev
         if b == 0:
             none = torch.zeros((0,), dtype=torch.bool, device=device)
+            i64 = dict(dtype=torch.int64, device=device)
             return state, EngineResult(
                 found=none,
-                values=torch.zeros((0,), dtype=torch.int64, device=device),
+                values=torch.zeros((0,), **i64),
                 status=torch.zeros((0,), dtype=torch.int32, device=device),
                 shed=none,
+                scan_keys=torch.zeros((0, mc), **i64) if has_scan else None,
+                scan_values=torch.zeros((0, mc), **i64) if has_scan else None,
+                taken=(
+                    torch.zeros((0,), dtype=torch.int32, device=device)
+                    if has_scan
+                    else None
+                ),
             )
         # opcodes outside ``ops`` are no-ops, masked before routing
         opcodes = torch.as_tensor(opcodes).to(device=device, dtype=torch.int32)
@@ -547,7 +676,7 @@ def make_dex_engine(
         # 1. route round: every lane to the route row owning its key
         owner, demand = routing.route_owners(state.boundaries, keys, nr)
         cap = routing.route_capacity(b, nr, cfg.route_capacity_factor)
-        if has_writes:
+        if route_planes:
             values = torch.as_tensor(values).to(device=device, dtype=torch.int64)
             opc_in = opcodes.view(n_dev, b).long()
             lane_prio = dev_index[:, None] * b + torch.arange(b, device=device)
@@ -563,7 +692,7 @@ def make_dex_engine(
         routed = routing.route_exchange(buf, cfg).reshape(
             (n_dev, nr * cap) + tuple(payload.shape[2:])
         )
-        if has_writes:
+        if route_planes:
             q = routed[..., 0].contiguous()
             val, pr = routed[..., 1], routed[..., 3]
             opc = routed[..., 2].to(torch.int32)
@@ -571,14 +700,16 @@ def make_dex_engine(
             q = routed
             opc = None
         live = q != KEY_MAX
+        is_scan = live & (opc == OP_SCAN) if has_scan else torch.zeros_like(live)
 
         # 2. top walk and the per-column offload decision
         subtree = top_walk(state.pool, meta, q.reshape(-1)).view(q.shape)
         subtree = torch.where(live, subtree, 0)
         col = subtree // s_per
         ema = state.miss_ema
-        want_off_c, grp_live, caps = offload_decision(ema, col, live)
-        offl = want_off_c.gather(1, col) & live
+        offable = live & ~is_scan
+        want_off_c, grp_live, caps = offload_decision(ema, col, offable)
+        offl = want_off_c.gather(1, col) & offable
         # per-lane cost ledger (obs/latency.py): the top walk prices like
         # warm cached accesses
         cost = live.float() * (obs_latency.T_CACHED * float(meta.top_height))
@@ -587,14 +718,21 @@ def make_dex_engine(
         fetchable = live & ~offl
         if do_descent:
             leaf_want = fetchable if opc is None else fetchable & (opc != OP_INSERT)
-            d = descent(state, q, subtree, col, fetchable, leaf_want, cost)
+            d = descent(state, q, subtree, col, fetchable, leaf_want, cost, is_scan)
         else:
             d = no_descent(state, q, subtree, cost)
+        if has_scan:
+            # the scan window, read before the write round touches the pool
+            cnt = torch.clamp(torch.where(is_scan, val, 0), 0, mc).to(torch.int32)
+            d, scan_out = scan_window(state, q, cnt, is_scan, d)
         cost = d.cost
         if has_lookup:
             # the compute-side leaf search of one-sided lookups
             searched = fetchable if opc is None else fetchable & (opc == OP_LOOKUP)
             cost = cost + searched.float() * obs_latency.T_LOCAL
+        if has_scan:
+            # and of a scan's first (descent) hop
+            cost = cost + is_scan.float() * obs_latency.T_LOCAL
 
         # 4. the fused round over the memory axis
         r_found = send = dropped_w = torch.zeros_like(live)
@@ -623,7 +761,7 @@ def make_dex_engine(
         off_done = delivered & offl
         write_done = delivered & ~offl
         out_found = torch.where(offl, r_found & delivered, d.found & ~d.shed)
-        if has_writes:
+        if opc is not None:
             out_found = out_found & (opc == OP_LOOKUP)
         out_val = torch.where(out_found, torch.where(offl, r_val, d.value), 0)
         lane_shed = d.shed | (send & dropped_w)
@@ -659,7 +797,7 @@ def make_dex_engine(
         path = torch.where(off_done, 3, path)
         path = torch.where(lane_shed, 5, path)
         cell = path * obs_latency.N_BUCKETS + obs_latency.bucket_index(cost)
-        if has_writes:
+        if opc is not None:
             cls = torch.clamp(opc, 0, obs_latency.N_CLASSES - 1).long()
             cell = cell + cls * (obs_latency.N_PATHS * obs_latency.N_BUCKETS)
         hist = torch.zeros_like(state.lat_hist).view(n_dev, -1)
@@ -681,9 +819,15 @@ def make_dex_engine(
         if has_writes:
             fields.append(status.long())
         fields.append(lane_shed.long())
-        width = len(fields)
+        head = len(fields)
         fields = torch.stack(fields, -1)
+        if has_scan:
+            sc_k, sc_v, taken = scan_out
+            fields = torch.cat([fields, taken.long()[..., None], sc_k, sc_v], -1)
+            del scan_out, sc_k, sc_v
+        width = fields.shape[-1]
         back = routing.route_exchange(fields.view(n_dev, nr, cap, width), cfg)
+        del fields
         out = routing.unpack_to_lanes(back, lane, b, 0)
         new_state = state._replace(
             cache=cache,
@@ -703,8 +847,21 @@ def make_dex_engine(
             found=((out[..., 0] != 0) & ~dropped_r).reshape(-1),
             values=torch.where(dropped_r, 0, out[..., 1]).reshape(-1),
             status=res_status.to(torch.int32).reshape(-1),
-            shed=((out[..., width - 1] != 0) | dropped_r).reshape(-1),
+            shed=((out[..., head - 1] != 0) | dropped_r).reshape(-1),
         )
+        if has_scan:
+            dr = dropped_r[..., None]
+            result = result._replace(
+                scan_keys=torch.where(
+                    dr, KEY_MAX, out[..., head + 1 : head + 1 + mc]
+                ).reshape(-1, mc),
+                scan_values=torch.where(
+                    dr, 0, out[..., head + 1 + mc : head + 1 + 2 * mc]
+                ).reshape(-1, mc),
+                taken=torch.where(dropped_r, -1, out[..., head])
+                .to(torch.int32)
+                .reshape(-1),
+            )
         return new_state, result
 
     engine.plan = plan

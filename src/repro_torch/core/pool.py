@@ -58,6 +58,14 @@ class PoolMeta:
         return self.level_m + 1
 
     @property
+    def min_leaf_fill(self) -> int:
+        """Fewest keys a leaf that is not the last can hold: bulk-built
+        leaves carry ``per_node`` keys, and an on-mesh split leaves each half
+        at least ``FANOUT // 2`` (``core/smo.py`` splits only rows that
+        overflow)."""
+        return min(self.per_node, FANOUT // 2)
+
+    @property
     def n_nodes(self) -> int:
         return self.n_subtrees_padded * self.subtree_cap
 

@@ -16,7 +16,7 @@ apply, :func:`_apply_leaf_writes`, and the thin single-opcode wrappers:
   already exists becomes a value update.  **A leaf that would overflow is
   shed**: none of its staged inserts apply, and their lanes come back with
   ``STATUS_SPLIT``, counted in ``STAT_SPLITS``, for the structural path
-  (the on-mesh SMO, not ported yet) to replay.
+  (the on-mesh SMO, ``core/smo.py``) to replay.
 
 Cache coherence is write-through-and-invalidate with per-leaf versions: the
 writing device refreshes (update) or drops (insert) its own cached row and
@@ -53,12 +53,13 @@ def _seg_positions(mask: torch.Tensor, new_seg: torch.Tensor) -> torch.Tensor:
     return excl - excl[new_seg][seg_id]
 
 
-def _lexsort(prio: torch.Tensor, key: torch.Tensor, gid: torch.Tensor):
-    """The order of ``jnp.lexsort((prio, key, gid))``: by ``gid``, then
-    ``key``, then ``prio``, by three stable sorts from the last key up."""
-    order = torch.sort(prio, stable=True).indices
-    order = order[torch.sort(key[order], stable=True).indices]
-    return order[torch.sort(gid[order], stable=True).indices]
+def _lexsort(*keys: torch.Tensor):
+    """The order of ``jnp.lexsort(keys)``: by the last key, ties by the one
+    before it, and so on, by one stable sort per key from the first up."""
+    order = torch.sort(keys[0], stable=True).indices
+    for k in keys[1:]:
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
 
 
 def _run_sums(x: torch.Tensor, new_run: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,10 @@ distribution (theta = 0.99, as YCSB) and the workload mixes.
 
 Cooper et al., "Benchmarking Cloud Serving Systems with YCSB", SoCC 2010;
 workload C (``workloads/workloadc``) is the ``read-only`` mix: 100% reads
-of existing records, keys drawn from a scrambled Zipfian.  Host-side numpy,
-identical to ``repro.data.ycsb`` for the same seed.
+of existing records, keys drawn from a scrambled Zipfian; workload E
+(``workloads/workloade``) is ``ycsb-e``: 95% scans and 5% inserts, scan
+lengths uniform in ``[1, maxscanlength]`` with ``scan_len_dist="uniform"``.
+Host-side numpy, identical to ``repro.data.ycsb`` for the same seed.
 """
 
 from __future__ import annotations
@@ -93,6 +95,32 @@ class Workload:
     ops: np.ndarray  # op codes
     keys: np.ndarray  # target keys (-1 when only a key count was given)
     idx: np.ndarray  # dataset index of each op's key (-1 for inserts)
+    scan_len: int = 100
+    #: per-op scan lengths (uniform in [1, scan_len]); None = all scan_len
+    scan_lens: "np.ndarray | None" = None
+
+
+def engine_lanes(wl: Workload, lo: int = 0, hi=None, *, update_xor: int = 0x5A5A):
+    """Slice ``[lo, hi)`` of a workload as one mixed batch for the engine:
+    ``(opcodes int32, keys int64, values int64)``.  The value plane carries
+    ``key ^ update_xor`` on update lanes, the key on insert lanes, the
+    record count on scan lanes (``scan_lens`` where drawn, else
+    ``scan_len``) and 0 on lookups, as ``repro.data.ycsb.engine_lanes``
+    does."""
+    hi = wl.ops.size if hi is None else hi
+    ops = wl.ops[lo:hi].astype(np.int32)
+    keys = wl.keys[lo:hi].astype(np.int64)
+    vals = np.zeros(ops.shape, np.int64)
+    upd = ops == OP_UPDATE
+    vals[upd] = keys[upd] ^ update_xor
+    ins = ops == OP_INSERT
+    vals[ins] = keys[ins]
+    scn = ops == OP_SCAN
+    if wl.scan_lens is not None:
+        vals[scn] = wl.scan_lens[lo:hi][scn]
+    else:
+        vals[scn] = wl.scan_len
+    return ops, keys, vals
 
 
 def generate(
@@ -102,14 +130,21 @@ def generate(
     *,
     theta: float = 0.99,
     seed: int = 1,
+    scan_len: int = 100,
+    scan_len_dist: str = "fixed",
 ) -> Workload:
     """``n_ops`` operations of the named mix over ``dataset`` (sorted keys,
-    or their count when only indices are wanted).  Reads and updates target
-    existing keys through scrambled-Zipfian ranks; inserts draw fresh keys
-    next to existing ones.  Ops and keys equal ``repro.data.ycsb.generate``
-    for the same arguments."""
+    or their count when only indices are wanted).  Reads, updates and scans
+    target existing keys through scrambled-Zipfian ranks; inserts draw fresh
+    keys next to existing ones.  ``scan_len_dist="fixed"`` gives every scan
+    ``scan_len`` records; ``"uniform"`` draws per-op lengths in ``[1,
+    scan_len]`` into ``scan_lens`` (YCSB workload E), after the ops and
+    keys.  Ops, keys and scan lengths equal ``repro.data.ycsb.generate`` for
+    the same arguments."""
     if name not in WORKLOADS:
         raise KeyError(f"unknown workload {name!r}; options: {list(WORKLOADS)}")
+    if scan_len_dist not in ("fixed", "uniform"):
+        raise ValueError(f"unknown scan_len_dist {scan_len_dist!r}")
     p_ins, p_look, p_upd, p_scan = WORKLOADS[name]
     rng = np.random.default_rng(seed)
     n = dataset if isinstance(dataset, int) else dataset.size
@@ -129,4 +164,13 @@ def generate(
         if n_ins:
             keys[is_ins] = dataset[idx[is_ins]] + rng.integers(1, 3, size=n_ins)
     idx = np.where(is_ins, -1, idx)
-    return Workload(ops=ops.astype(np.int32), keys=keys, idx=idx)
+    scan_lens = None
+    if scan_len_dist == "uniform":
+        scan_lens = rng.integers(1, scan_len + 1, size=n_ops).astype(np.int32)
+    return Workload(
+        ops=ops.astype(np.int32),
+        keys=keys,
+        idx=idx,
+        scan_len=scan_len,
+        scan_lens=scan_lens,
+    )

@@ -27,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import leaf_scan as _leaf_scan
+from repro_torch.kernels import leaf_split as _leaf_split
 from repro_torch.kernels import leaf_write as _leaf_write
 from repro_torch.kernels import node_search as _node_search
 from repro_torch.kernels import ref
@@ -35,7 +37,13 @@ from repro_torch.kernels import subtree_walk as _subtree_walk
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-LAUNCHES = {"node_search": 0, "subtree_walk": 0, "leaf_write": 0}
+LAUNCHES = {
+    "node_search": 0,
+    "subtree_walk": 0,
+    "leaf_write": 0,
+    "leaf_scan": 0,
+    "leaf_split": 0,
+}
 #: seconds the last build took (0.0 when the library came from the cache)
 BUILD_SECONDS = [0.0]
 
@@ -116,6 +124,8 @@ def library() -> ctypes.CDLL:
         _node_search.bind(lib)
         _subtree_walk.bind(lib)
         _leaf_write.bind(lib)
+        _leaf_scan.bind(lib)
+        _leaf_split.bind(lib)
         _LIB.append(lib)
     return _LIB[0]
 
@@ -177,4 +187,43 @@ def leaf_write(
         return ref.leaf_write_ref(*args)
     out = _leaf_write.launch(library(), *args)
     LAUNCHES["leaf_write"] += 1
+    return out
+
+
+def leaf_scan(
+    window_keys: torch.Tensor,
+    window_values: torch.Tensor,
+    start_keys: torch.Tensor,
+    counts: torch.Tensor,
+    *,
+    max_count: int,
+):
+    """``(keys [B, max_count], values [B, max_count], taken [B] int32)``: up
+    to ``counts[b]`` records with key >= ``start_keys[b]`` out of each lane's
+    leaf window (see ``ref.leaf_scan_ref``)."""
+    args = (window_keys, window_values, start_keys, counts)
+    if window_keys.device.type == "cpu":
+        _leaf_scan.validate(*args, max_count)
+        return ref.leaf_scan_ref(*args, max_count=max_count)
+    out = _leaf_scan.launch(library(), *args, max_count)
+    LAUNCHES["leaf_scan"] += 1
+    return out
+
+
+def leaf_split(
+    rows_k: torch.Tensor,
+    rows_v: torch.Tensor,
+    ins_key: torch.Tensor,
+    ins_val: torch.Tensor,
+):
+    """``(left_k, left_v, right_k, right_v [Q, 64], occ_l, occ_r [Q] int32,
+    sep [Q] int64, did_split [Q] int32)``: the staged inserts merged into
+    each leaf row, split where the merge overflows (see
+    ``ref.leaf_split_ref``)."""
+    args = (rows_k, rows_v, ins_key, ins_val)
+    if rows_k.device.type == "cpu":
+        _leaf_split.validate(*args)
+        return ref.leaf_split_ref(*args)
+    out = _leaf_split.launch(library(), *args)
+    LAUNCHES["leaf_split"] += 1
     return out

@@ -108,3 +108,80 @@ def leaf_write_ref(
     out_v = torch.where(out_k != KEY_MAX, out_v, 0)
     occ = (out_k != KEY_MAX).sum(-1).to(torch.int32)
     return out_k, out_v, occ
+
+
+def leaf_scan_ref(
+    window_keys: torch.Tensor,
+    window_values: torch.Tensor,
+    start_keys: torch.Tensor,
+    counts: torch.Tensor,
+    *,
+    max_count: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Up to ``counts[b]`` records with key >= ``start_keys[b]`` taken from
+    each lane's leaf window, as ``repro.kernels.ref.leaf_scan_ref`` computes
+    them.
+
+    ``window_keys``/``window_values`` [B, W] int64 are consecutive leaf rows
+    (KEY_MAX padding), ``start_keys`` [B] int64, ``counts`` [B] int32
+    (clipped to ``[0, max_count]``).  The selected records keep their window
+    order (a stable sort by selection rank compacts them to the front).
+    Returns ``(keys [B, max_count] KEY_MAX-padded, values [B, max_count]
+    0-padded, taken [B] int32)``; ``max_count`` must not exceed ``W``."""
+    counts = counts.to(torch.int32).clamp(0, max_count)
+    w = window_keys.shape[1]
+    mask = (window_keys != KEY_MAX) & (window_keys >= start_keys[:, None])
+    rank = torch.cumsum(mask.to(torch.int32), -1)
+    sel = mask & (rank <= counts[:, None])
+    taken = sel.sum(-1).to(torch.int32)
+    order = torch.sort(torch.where(sel, rank, w + 1), dim=-1, stable=True).indices
+    order = order[:, :max_count]
+    out_k = torch.where(sel, window_keys, KEY_MAX).gather(1, order)
+    out_v = torch.where(sel, window_values, 0).gather(1, order)
+    return out_k, out_v, taken
+
+
+def leaf_split_ref(
+    rows_k: torch.Tensor,
+    rows_v: torch.Tensor,
+    ins_key: torch.Tensor,
+    ins_val: torch.Tensor,
+):
+    """Staged inserts merged into sorted leaf rows, a row cut in two where
+    the merge overflows it, as ``repro.kernels.ref.leaf_split_ref`` computes
+    it.
+
+    ``rows_k``/``rows_v`` [Q, F] int64 (KEY_MAX padding), ``ins_key``/
+    ``ins_val`` [Q, S] int64 (``ins_key`` KEY_MAX inactive; active keys
+    distinct from each other and from the row's keys).  A stable sort of the
+    ``[Q, F + S]`` concatenation merges them; a row whose merged count ``m``
+    exceeds F is cut at ``m // 2`` (the left row keeps the lower half), any
+    other comes back whole as the left row.  Returns ``(left_k, left_v,
+    right_k, right_v [Q, F], occ_l, occ_r [Q] int32, sep [Q] int64,
+    did_split [Q] int32)``; ``sep`` is the right row's first key, KEY_MAX
+    where the row did not split; padding values are 0."""
+    f = rows_k.shape[1]
+    act = ins_key != KEY_MAX
+    merged_k = torch.cat([rows_k, torch.where(act, ins_key, KEY_MAX)], -1)
+    merged_v = torch.cat(
+        [torch.where(rows_k != KEY_MAX, rows_v, 0), torch.where(act, ins_val, 0)], -1
+    )
+    mk, order = torch.sort(merged_k, dim=-1, stable=True)
+    mv = merged_v.gather(1, order)
+    m = (mk != KEY_MAX).sum(-1).to(torch.int32)
+    split = m > f
+    left_n = torch.where(split, m // 2, m)
+    col = torch.arange(mk.shape[1], device=rows_k.device)[None, :]
+    in_left = col < left_n[:, None]
+    lk = torch.where(in_left, mk, KEY_MAX)[:, :f].contiguous()
+    lv = torch.where(in_left & (mk != KEY_MAX), mv, 0)[:, :f].contiguous()
+    idx = torch.clamp(col[:, :f] + left_n[:, None], 0, mk.shape[1] - 1)
+    rk_full = mk.gather(1, idx)
+    rv_full = mv.gather(1, idx)
+    in_right = split[:, None] & (col[:, :f] < (m - left_n)[:, None])
+    rk = torch.where(in_right, rk_full, KEY_MAX)
+    rv = torch.where(in_right & (rk_full != KEY_MAX), rv_full, 0)
+    occ_l = (lk != KEY_MAX).sum(-1).to(torch.int32)
+    occ_r = (rk != KEY_MAX).sum(-1).to(torch.int32)
+    sep = torch.where(split, rk[:, 0], KEY_MAX)
+    return lk, lv, rk, rv, occ_l, occ_r, sep, split.to(torch.int32)

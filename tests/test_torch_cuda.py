@@ -71,6 +71,78 @@ def leaf_case(q, seed):
     return rows_k, rows_v, upd_slot, upd_val, ins_key, ins_val
 
 
+def scan_case(b, hops, seed, max_count):
+    """Contract inputs of ``leaf_scan``: windows of ``hops`` sorted leaf rows
+    (32 to 64 keys each, KEY_MAX padding, some rows empty as a lane's unread
+    hops are, negative keys); starts on a key, between keys, below the
+    window, past it, KEY_MIN and KEY_MAX; counts 0, 1, ``max_count``, above
+    it and negative."""
+    f = FANOUT
+    rng = np.random.default_rng(seed)
+    w = hops * f
+    fill = rng.integers(32, f + 1, size=(b, hops))
+    fill[:, 1:][rng.random((b, hops - 1)) < 0.2] = 0  # hops a lane did not read
+    gaps = rng.integers(1, 2**20, size=(b, hops * f))
+    keys = np.cumsum(gaps, axis=1) - rng.integers(0, 2**40, size=(b, 1))
+    col = np.arange(f)[None, None, :]
+    k = np.where(col < fill[..., None], keys.reshape(b, hops, f), KEY_MAX)
+    k = k.reshape(b, w)
+    v = np.where(k != KEY_MAX, rng.integers(-(2**62), 2**62, size=(b, w)), 0)
+    real = k != KEY_MAX
+    pick = np.array([rng.choice(np.flatnonzero(r)) for r in real])
+    start = k[np.arange(b), pick].copy()
+    kind = np.arange(b) % 8
+    start[kind == 1] += 1
+    start[kind == 2] = k[kind == 2, 0] - 5
+    start[kind == 3] = keys[kind == 3, -1] + 7
+    start[kind == 4] = KEY_MIN
+    start[kind == 5] = KEY_MAX
+    counts = rng.integers(0, max_count + 1, size=b)
+    counts[::7] = 0
+    counts[1::7] = 1
+    counts[2::7] = max_count
+    counts[3::7] = max_count + 40
+    counts[4::11] = -3
+    return k, v, start.astype(np.int64), counts.astype(np.int32)
+
+
+def split_case(q, seed):
+    """Contract inputs of ``leaf_split``: sorted rows with KEY_MAX padding,
+    KEY_MIN and negative keys; staged keys distinct from the row's,
+    ascending, spread among inactive entries.  By ``row % 6``: nothing staged, a
+    merge to exactly m = 65 (the least split), m = 128 (a full row and a full
+    staged list), m = 64 (full, no split), and two random mixes."""
+    f = FANOUT
+    rng = np.random.default_rng(seed)
+    rows_k = np.full((q, f), KEY_MAX, np.int64)
+    rows_v = np.zeros((q, f), np.int64)
+    ins_key = np.full((q, f), KEY_MAX, np.int64)
+    ins_val = np.zeros((q, f), np.int64)
+    for i in range(q):
+        pool = np.sort(rng.integers(-(2**62), 2**62, size=2 * f)) + np.arange(2 * f)
+        if i % 5 == 0:
+            pool[0] = KEY_MIN
+        kind = i % 6
+        occ = int(rng.integers(0, f + 1))
+        n_ins = int(rng.integers(0, f + 1))
+        if kind == 0:
+            n_ins = 0
+        elif kind == 1:
+            occ = int(rng.integers(1, f + 1))
+            n_ins = 65 - occ
+        elif kind == 2:
+            occ, n_ins = f, f
+        elif kind == 3:
+            n_ins = f - occ
+        perm = rng.permutation(2 * f)
+        rows_k[i, :occ] = np.sort(pool[perm[:occ]])
+        rows_v[i, :occ] = rng.integers(-(2**62), 2**62, size=occ)
+        slots = np.sort(rng.choice(f, size=n_ins, replace=False))
+        ins_key[i, slots] = np.sort(pool[perm[occ : occ + n_ins]])
+        ins_val[i, slots] = rng.integers(-(2**62), 2**62, size=n_ins)
+    return rows_k, rows_v, ins_key, ins_val
+
+
 def _rows(b, seed):
     rng = np.random.default_rng(seed)
     rows = np.sort(
@@ -155,6 +227,30 @@ def test_leaf_write_kernel_matches_plain(cuda, q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,hops,max_count", [(1, 2, 16), (37, 3, 48), (4099, 5, 100)])
+def test_leaf_scan_kernel_matches_plain(cuda, b, hops, max_count):
+    case = [torch.from_numpy(a).to(cuda) for a in scan_case(b, hops, b, max_count)]
+    before = ops.LAUNCHES["leaf_scan"]
+    got = ops.leaf_scan(*case, max_count=max_count)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["leaf_scan"] == before + 1
+    for g, w in zip(got, ref.leaf_scan_ref(*case, max_count=max_count)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 37, 4099])
+def test_leaf_split_kernel_matches_plain(cuda, q):
+    case = [torch.from_numpy(a).to(cuda) for a in split_case(q, q)]
+    before = ops.LAUNCHES["leaf_split"]
+    got = ops.leaf_split(*case)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["leaf_split"] == before + 1
+    for g, w in zip(got, ref.leaf_split_ref(*case)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_inputs(cuda):
     rows = torch.zeros((4, FANOUT), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
@@ -165,3 +261,12 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
         ops.node_search(rows, torch.zeros(4, dtype=torch.int64))
     with pytest.raises(ValueError):  # upd_slot must be int32
         ops.leaf_write(rows, rows, rows, rows, rows, rows)
+    with pytest.raises(ValueError):  # counts must be int32
+        ops.leaf_scan(rows, rows, rows[:, 0], rows[:, 0].contiguous(), max_count=8)
+    with pytest.raises(ValueError):  # max_count above the window width
+        ops.leaf_scan(
+            rows, rows, rows[:, 0].contiguous(),
+            torch.zeros(4, dtype=torch.int32, device=cuda), max_count=65,
+        )
+    with pytest.raises(ValueError):  # staged rows must be [Q, 64]
+        ops.leaf_split(rows, rows, rows[:, :32], rows[:, :32])

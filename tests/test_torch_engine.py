@@ -268,8 +268,8 @@ def test_state_to_numpy_is_a_snapshot():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(ops=("lookup", "scan")),
-        dict(ops=("scan",)),
+        dict(ops=("lookup", "scan"), cfg=dict(route_table_slots=8)),
+        dict(ops=("scan",), divergent=True),
         dict(cfg=dict(route_table_slots=8)),
         dict(cfg=dict(route_axes=("data", "pod"))),
         dict(divergent=True),

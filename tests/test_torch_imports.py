@@ -25,6 +25,7 @@ mods = sorted(
     for p in pkg.rglob("*.py")
 )
 mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
+assert {"repro_torch.core.scan", "repro_torch.core.smo"} <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
 bad = sorted(
@@ -33,11 +34,13 @@ bad = sorted(
 )
 assert not bad, bad
 import torch
-from repro_torch.core import dex, engine, pool
+from repro_torch.core import dex, engine, pool, scan, smo
 if not torch.cuda.is_available():
     for call in (
         lambda: pool.build_pool([1, 2, 3]),
         lambda: engine.make_dex_engine(None, dex.DexMeshConfig()),
+        lambda: scan.make_dex_scan(None, dex.DexMeshConfig()),
+        lambda: smo.make_dex_smo(None, dex.DexMeshConfig()),
     ):
         try:
             call()

@@ -173,4 +173,12 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     t_ops.node_search(torch.from_numpy(rows), torch.from_numpy(q))
     z = torch.zeros((2, FANOUT), dtype=torch.int64)
     t_ops.leaf_write(z, z, z.to(torch.int32) - 1, z, z + KEY_MAX, z)
-    assert t_ops.LAUNCHES == {"node_search": 0, "subtree_walk": 0, "leaf_write": 0}
+    t_ops.leaf_scan(z, z, z[:, 0].contiguous(), z[:, 0].to(torch.int32), max_count=8)
+    t_ops.leaf_split(z, z, z + KEY_MAX, z)
+    assert t_ops.LAUNCHES == {
+        "node_search": 0,
+        "subtree_walk": 0,
+        "leaf_write": 0,
+        "leaf_scan": 0,
+        "leaf_split": 0,
+    }

@@ -1,17 +1,27 @@
 """Reference side of the port's 2x4 mesh parity check.
 
 Runs ``repro``'s engine on a forced 8-device CPU mesh (route 2 x memory 4)
-for each configuration in ``CONFIGS``, three batches each, and saves the
+for each configuration of a group, three batches each, and saves the
 initial state, every state plane and lane result after each batch, and the
-traced collective counts to one ``.npz``.  The lookup configurations run
-``ops=("lookup",)`` on lookup batches; the ``mixed_*`` ones run
-``ops=("lookup", "update", "insert")`` on mixed batches with hot keys
-written in every other batch and one leaf driven past its slack.
-``tests/test_torch_engine.py`` runs this in a subprocess (the device count
-locks when JAX starts) and replays the same batches through the port's
-virtual mesh.
+traced collective counts to one ``.npz``.
 
-    python tests/torch_mesh_ref.py OUT.npz
+* ``engine`` (the default): the lookup configurations run
+  ``ops=("lookup",)`` on lookup batches; the ``mixed_*`` ones run
+  ``ops=("lookup", "update", "insert")`` on mixed batches with hot keys
+  written in every other batch and one leaf driven past its slack
+  (``tests/test_torch_engine.py``);
+* ``scan``: ``ops=ALL_OPS`` with ``max_count=32`` on mixed batches with
+  scans (counts up to 40, so some clip), under ``fetch``, shedding
+  ``fetch``, ``offload`` and ``auto``, and a scan-only engine under
+  ``offload`` (``tests/test_torch_scan.py``);
+* ``smo``: an insert batch that overflows five leaves, one SMO round,
+  ``run_smo`` for the rest, then a scan batch across the split leaves
+  (``tests/test_torch_smo.py``).
+
+The test files run this in a subprocess (the device count locks when JAX
+starts) and replay the same batches through the port's virtual mesh.
+
+    python tests/torch_mesh_ref.py OUT.npz [engine|scan|smo]
 """
 
 import os
@@ -29,6 +39,9 @@ from repro.core import dex as dex_mod  # noqa: E402
 from repro.core import engine as engine_mod  # noqa: E402
 from repro.core import pool as pool_mod  # noqa: E402
 from repro.core import routing  # noqa: E402
+from repro.core import scan as scan_mod  # noqa: E402
+from repro.core import smo as smo_mod  # noqa: E402
+from repro.core import write as write_mod  # noqa: E402
 from repro.core.nodes import KEY_MAX, KEY_MIN  # noqa: E402
 
 N_KEYS = 6000
@@ -45,6 +58,17 @@ CONFIGS = (
     ("mixed_offload", "offload", 4.0, MIXED_OPS),
     ("mixed_auto", "auto", 4.0, MIXED_OPS),
 )
+SCAN_MAX_COUNT = 32
+ALL_OPS = engine_mod.ALL_OPS
+SCAN_CONFIGS = (
+    ("scan_fetch", "fetch", 4.0, ALL_OPS),
+    ("scan_fetch_tight", "fetch", 0.75, ALL_OPS),
+    ("scan_offload", "offload", 4.0, ALL_OPS),
+    ("scan_auto", "auto", 4.0, ALL_OPS),
+    ("scan_only_offload", "offload", 4.0, ("scan",)),
+)
+RESULTS = ("found", "values", "status", "shed")
+SCAN_RESULTS = RESULTS + ("scan_keys", "scan_values", "taken")
 
 
 def dataset():
@@ -92,6 +116,60 @@ def mixed_batches():
     return out
 
 
+def scan_batches():
+    """``(opcodes, keys, values)`` per batch: lookups, updates, inserts of
+    fresh keys and scans (counts 1 to 40, above ``SCAN_MAX_COUNT`` in
+    some); eight hot keys updated on even batches and scanned on odd ones;
+    in batch 1, 30 fresh keys into one leaf."""
+    keys, _ = dataset()
+    hot = keys[40:48]
+    rng = np.random.default_rng(3)
+    out = []
+    for bi in range(BATCHES):
+        opc = rng.integers(0, 4, size=LANES).astype(np.int32)
+        kk = rng.choice(keys, size=LANES).astype(np.int64)
+        ins = opc == engine_mod.OP_INSERT
+        fresh = kk + rng.integers(1, 4, size=LANES)
+        ok = ~np.isin(fresh, keys)
+        kk[ins & ok] = fresh[ins & ok]
+        vals = np.where(opc == engine_mod.OP_UPDATE, kk ^ 0x5A5A, kk * 7)
+        scn = opc == engine_mod.OP_SCAN
+        vals[scn] = rng.integers(1, SCAN_MAX_COUNT + 9, size=int(scn.sum()))
+        kk[scn & (rng.random(LANES) < 0.25)] += 1  # starts between keys
+        opc[:8] = engine_mod.OP_SCAN if bi % 2 else engine_mod.OP_UPDATE
+        kk[:8] = hot
+        vals[:8] = 8 if bi % 2 else hot ^ (100 + bi)
+        if bi == 1:
+            opc[8:38] = engine_mod.OP_INSERT
+            kk[8:38] = keys[1980:2010] + 1
+        kk[::29] = KEY_MAX
+        out.append((opc, kk, vals.astype(np.int64)))
+    return out
+
+
+SMO_LEAVES = (3, 20, 45, 77, 120)  # leaf indices (44 keys each) to overflow
+
+
+def smo_burst():
+    """``(keys, values)`` of one insert batch: 30 fresh keys into each leaf
+    of ``SMO_LEAVES`` (20 slots of slack each), two of them duplicated,
+    plus random fresh keys and inactive lanes."""
+    keys, _ = dataset()
+    rng = np.random.default_rng(4)
+    burst = []
+    for leaf in SMO_LEAVES:
+        lo, hi = keys[leaf * 44], keys[leaf * 44 + 43]
+        cand = np.setdiff1d(np.arange(lo + 1, hi), keys)
+        burst.append(rng.choice(cand, size=30, replace=False))
+    kk = np.full(LANES, KEY_MAX, np.int64)
+    kk[:150] = np.concatenate(burst)
+    kk[150:152] = kk[10:12]  # duplicate writers: the later lane wins
+    fresh = rng.choice(keys, size=200) + 1
+    kk[200:400] = np.where(np.isin(fresh, keys), KEY_MAX, fresh)
+    vals = np.where(kk != KEY_MAX, kk * 3 + np.arange(LANES), 0)
+    return kk, vals.astype(np.int64)
+
+
 def flat(tree):
     leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
     return {".".join(p.name for p in path): np.asarray(x) for path, x in leaves}
@@ -110,34 +188,32 @@ def config(policy, factor):
     )
 
 
-def main(out_path):
-    mesh = make_mesh_compat((2, 4), ("data", "model"))
-    keys, vals = dataset()
-    pool, meta = pool_mod.build_pool(keys, vals, level_m=1, fill=0.7, n_shards=4)
-    bounds = np.array([KEY_MIN, 150_000, KEY_MAX], np.int64)
-    lanes = NamedSharding(mesh, P(("data", "model")))
-    out = {"keys": keys, "values": vals}
-    for i, q in enumerate(batches()):
-        out[f"batch/{i}"] = q
-    for i, planes in enumerate(mixed_batches()):
-        for field, a in zip(("opcodes", "keys", "values"), planes):
-            out[f"mixed/{i}/{field}"] = a
-    for name, policy, factor, ops in CONFIGS:
+def sharded_state(pool, meta, cfg, bounds, mesh):
+    state = dex_mod.init_state(pool, meta, cfg, bounds)
+    return jax.tree.map(
+        lambda x,
+        s: jax.device_put(x, s),
+        state,
+        dex_mod.state_shardings(mesh, cfg),
+    )
+
+
+def run_engines(out, configs, pool, meta, bounds, mesh, lanes):
+    for name, policy, factor, ops in configs:
         out[f"{name}/policy"] = np.array(policy)
         out[f"{name}/factor"] = np.array(factor)
+        out[f"{name}/ops"] = np.array(",".join(ops))
         cfg = config(policy, factor)
-        state = dex_mod.init_state(pool, meta, cfg, bounds)
-        state = jax.tree.map(
-            lambda x,
-            s: jax.device_put(x, s),
-            state,
-            dex_mod.state_shardings(mesh, cfg),
-        )
+        state = sharded_state(pool, meta, cfg, bounds, mesh)
         for k, v in flat(state).items():
             out[f"{name}/init/{k}"] = v
-        fn = engine_mod.make_dex_engine(meta, cfg, mesh, ops=ops)
+        has_scan = "scan" in ops
+        kw = dict(max_count=SCAN_MAX_COUNT) if has_scan else {}
+        fn = engine_mod.make_dex_engine(meta, cfg, mesh, ops=ops, **kw)
         eng = jax.jit(fn)
-        if ops == MIXED_OPS:
+        if has_scan:
+            trace = scan_batches()
+        elif ops == MIXED_OPS:
             trace = mixed_batches()
         else:
             trace = [(np.zeros(q.shape, np.int32), q, np.zeros(q.shape, np.int64))
@@ -152,11 +228,82 @@ def main(out_path):
             state, res = eng(state, *args)
             for k, v in flat(state).items():
                 out[f"{name}/{i}/{k}"] = v
-            for k in ("found", "values", "status", "shed"):
+            for k in SCAN_RESULTS if has_scan else RESULTS:
                 out[f"{name}/{i}/result.{k}"] = np.asarray(getattr(res, k))
+
+
+def run_smo_case(out, pool, meta, bounds, mesh, lanes):
+    """An insert batch that sheds five overflowing leaves, one SMO round,
+    ``run_smo`` for what is left, and a scan batch across the split leaves;
+    every plane saved after each step."""
+    cfg = config("fetch", 4.0)
+    state = sharded_state(pool, meta, cfg, bounds, mesh)
+    for k, v in flat(state).items():
+        out[f"smo/init/{k}"] = v
+    insert = jax.jit(write_mod.make_dex_insert(meta, cfg, mesh))
+    smo = jax.jit(smo_mod.make_dex_smo(meta, cfg, mesh))
+    kk, vv = smo_burst()
+    out["smo/keys"], out["smo/values"] = kk, vv
+    state, st = insert(state, jax.device_put(jnp.asarray(kk), lanes),
+                       jax.device_put(jnp.asarray(vv), lanes))
+    st = np.asarray(st)
+    out["smo/insert_status"] = st
+    for k, v in flat(state).items():
+        out[f"smo/insert/{k}"] = v
+    shed = st == write_mod.STATUS_SPLIT
+    sk = np.where(shed, kk, KEY_MAX)
+    sv = np.where(shed, vv, 0)
+    state, st1 = smo(state, jax.device_put(jnp.asarray(sk), lanes),
+                     jax.device_put(jnp.asarray(sv), lanes))
+    out["smo/round_status"] = np.asarray(st1)
+    for k, v in flat(state).items():
+        out[f"smo/round/{k}"] = v
+    state, st2, rounds = smo_mod.run_smo(smo, state, sk, sv)
+    out["smo/run_status"] = st2
+    out["smo/run_rounds"] = np.array(rounds)
+    for k, v in flat(state).items():
+        out[f"smo/run/{k}"] = v
+    scan = jax.jit(scan_mod.make_dex_scan(meta, cfg, mesh, max_count=64))
+    keys, _ = dataset()
+    starts = np.concatenate([keys[np.array(SMO_LEAVES) * 44], kk[:150:5]])
+    starts = np.resize(starts, LANES).astype(np.int64)
+    counts = np.full(LANES, 64, np.int64)
+    out["smo/scan_starts"] = starts
+    state, sk_, sv_, tk = scan(state, jax.device_put(jnp.asarray(starts), lanes),
+                               jax.device_put(jnp.asarray(counts), lanes))
+    out["smo/scan_keys"] = np.asarray(sk_)
+    out["smo/scan_values"] = np.asarray(sv_)
+    out["smo/taken"] = np.asarray(tk)
+    for k, v in flat(state).items():
+        out[f"smo/scan/{k}"] = v
+
+
+def main(out_path, group="engine"):
+    mesh = make_mesh_compat((2, 4), ("data", "model"))
+    keys, vals = dataset()
+    pool, meta = pool_mod.build_pool(keys, vals, level_m=1, fill=0.7, n_shards=4)
+    bounds = np.array([KEY_MIN, 150_000, KEY_MAX], np.int64)
+    lanes = NamedSharding(mesh, P(("data", "model")))
+    out = {"keys": keys, "values": vals}
+    for i, q in enumerate(batches()):
+        out[f"batch/{i}"] = q
+    for i, planes in enumerate(mixed_batches()):
+        for field, a in zip(("opcodes", "keys", "values"), planes):
+            out[f"mixed/{i}/{field}"] = a
+    for i, planes in enumerate(scan_batches()):
+        for field, a in zip(("opcodes", "keys", "values"), planes):
+            out[f"scanmix/{i}/{field}"] = a
+    if group == "engine":
+        run_engines(out, CONFIGS, pool, meta, bounds, mesh, lanes)
+    elif group == "scan":
+        run_engines(out, SCAN_CONFIGS, pool, meta, bounds, mesh, lanes)
+    elif group == "smo":
+        run_smo_case(out, pool, meta, bounds, mesh, lanes)
+    else:
+        raise SystemExit(f"unknown group {group!r}")
     np.savez(out_path, **out)
     print("MESH_REF_OK")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:3])
