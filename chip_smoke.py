@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's lookup, write, scan and split paths on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's lookup, write, scan, split, separator, route-table
+and repartition paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed 0] [--n-keys 200000000]
 
@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit (``nvidia-smi``), CUDA version;
   2. build: compile the CUDA kernels from ``src/repro_torch/csrc``;
   3. kernels: ``node_search``, ``subtree_walk``, ``leaf_write``,
-     ``leaf_scan`` and ``leaf_split`` at the main path's shapes
+     ``leaf_scan``, ``leaf_split`` and ``node_search_prefix`` at the main
+     path's shapes
      (65,536-lane batches on a 2x4 virtual mesh) on seeded inputs with
      misses, KEY_MIN / KEY_MAX, negative keys and queries below a row's
      first key (for ``leaf_write``: rows with only updates, only inserts,
@@ -17,7 +18,9 @@ Phases, in order; any failure exits non-zero:
      and above a row's keys; for ``leaf_scan``: real windows of the index
      with starts below, inside and past a leaf, counts of 0, 1, 100 and
      above, and inactive slots; for ``leaf_split``: rows with nothing
-     staged, merges without a split, splits at m = 65 and m = 128),
+     staged, merges without a split, splits at m = 65 and m = 128; for
+     ``node_search_prefix``: the index's compressed rows along real
+     descents, compressible, incompressible and empty),
      bit-equal to their plain PyTorch versions, and timed beside the plain
      version and a PyTorch yardstick where one exists;
   4. the port on the CPU and on the card give the same lane results and
@@ -25,9 +28,11 @@ Phases, in order; any failure exits non-zero:
      ``fetch`` with shedding buckets and ``auto``; mixed lookups, updates
      and inserts (hot keys written in every batch, one leaf driven past its
      slack) under ``fetch``, ``fetch`` with shedding buckets, ``offload``
-     and ``auto``; the same with scans (``ops=ALL_OPS``); and one SMO round
-     after a burst that overflows eight leaves; every plane compared, the
-     pool's included;
+     and ``auto``; the same with scans (``ops=ALL_OPS``); the mixed engine
+     with a trained route table (``fetch``, ``offload``, ``auto``) and a
+     poisoned one; ``install_boundaries`` then two batches; and one SMO
+     round after a burst that overflows eight leaves, then
+     ``refresh_sep_planes``; every plane compared, the pool's included;
   5. the main path at full size: 200M sorted int64 keys made on the card
      from ``--seed``, level-M = 1 subtree blocks at fill 0.7, a 2x4 virtual
      mesh split at the median key, 65,536 sets x 4 ways of cache per
@@ -36,14 +41,23 @@ Phases, in order; any failure exits non-zero:
      workload A (50% reads, 50% updates) under ``offload``, ``fetch`` and
      ``auto`` and the paper's insert-intensive mix (50% inserts, 50% reads)
      under ``fetch`` and ``offload``, all scrambled Zipfian, theta 0.99.
-     Then, on the same index: a split burst (32 fresh keys into each of
-     2,048 leaves, every lane shed ``STATUS_SPLIT`` and settled by
-     ``run_smo`` with exactly 2,048 on-mesh splits); a 65,536-lane scan
-     batch across the split leaves; and YCSB workload E (95% scans of
-     uniform length 1-100, 5% inserts) under ``fetch`` and ``offload``,
-     its split lanes settled by ``run_smo`` after each batch.  A host
-     oracle carries the applied writes forward; every lane that is not shed
-     must match it, scans included;
+     Then, on the same index: the compressed separator planes built at
+     load; a split burst (32 fresh keys into each of 2,048 leaves, every
+     lane shed ``STATUS_SPLIT`` and settled by ``run_smo`` with exactly
+     2,048 on-mesh splits); the planes refreshed (``refresh_sep_planes``)
+     and held to a fresh build, and the burst's and a YCSB-C batch's keys
+     descended through them with ``node_search_prefix`` held to
+     ``node_search`` at every level; a 65,536-lane scan batch across the
+     split leaves; YCSB workload E (95% scans of uniform length 1-100, 5%
+     inserts) under ``fetch`` and ``offload``, its split lanes settled by
+     ``run_smo`` after each batch; a route table of 2**23 slots trained on
+     the pool, and YCSB-C and YCSB-A under ``fetch`` in three arms over one
+     trace (descent only, leaf-direct, poisoned; the poisoned arm must
+     equal the descent arm); and a localized YCSB-C Zipfian (hotspot 0.2,
+     then 0.8) under tight buckets, static and with a
+     ``RepartitionController``, which must shed fewer lanes.  A host oracle
+     carries the applied writes forward; every lane that is not shed must
+     match it, scans included;
   6. one JSON line of per-kernel launches (summed over phase 5's paths,
      each counted from 0 just before it), errors and times.
 
@@ -85,6 +99,14 @@ STAGED_INSERT_BYTES = 8 + 8
 # did_split written (20 B); a row that splits writes its right row too.
 SPLIT_ROW_BYTES = 3 * 64 * 8 + 8 + 20
 SPLIT_RIGHT_BYTES = 2 * 64 * 8
+# node_search_prefix per lane: a compressible lane reads its prefix (8 B),
+# nbits (4 B) and query (8 B) and writes its slot (4 B), plus a binary
+# search of its 256-byte suffix row (ceil(log2(8 + 1)) = 4 of 8 sectors)
+# unless its prefix already exceeds the query's; an incompressible lane
+# reads nbits and query, writes the slot, and searches its canonical row.
+PREFIX_LANE_BYTES = 8 + 4 + 8 + 4
+SUFFIX_SEARCH_BYTES = 32 * 4
+CANON_LANE_BYTES = 4 + 8 + 4 + ROW_SEARCH_BYTES
 SCAN_MAX_COUNT = 100  # YCSB workload E's maxscanlength
 SMO_LEAVES = 2_048  # leaves the split burst overflows, one per subtree
 SMO_KEYS_PER_LEAF = 32
@@ -102,6 +124,17 @@ MAIN_RUNS = (
 )
 # (policy, warm-up batches, timed batches) of YCSB workload E
 SCAN_RUNS = (("fetch", 1, 5), ("offload", 1, 5))
+# route-table slots of phase 5: at least the leaves (about 4.55M at 200M
+# keys, plus split siblings), 235 MB of table
+RT_SLOTS = 2**23
+# (workload, warm-up batches, timed batches) of the route-table arms, each
+# run under ``fetch`` as descent-only, leaf-direct and poisoned
+RT_RUNS = (("read-only", 1, 5), ("ycsb-a", 1, 5))
+RT_ARMS = ("descent", "leaf-direct", "poisoned")
+# the repartition runs: a localized Zipfian (hotspot fraction, batches)
+# under tight buckets, static and with the controller
+REPART_PHASES = ((0.2, 5), (0.8, 5))
+REPART_FACTOR = 1.25
 
 
 def parse_args(argv):
@@ -138,7 +171,7 @@ def max_abs_err(got, want):
     )
 
 
-def mesh_config(policy, cache_sets, factor=4.0):
+def mesh_config(policy, cache_sets, factor=4.0, rt_slots=0):
     from repro_torch.core.dex import DexMeshConfig
 
     return DexMeshConfig(
@@ -148,20 +181,23 @@ def mesh_config(policy, cache_sets, factor=4.0):
         cache_ways=4,
         policy=policy,
         route_capacity_factor=factor,
+        route_table_slots=rt_slots,
     )
 
 
 def make_index(n_keys, seed, device):
     """``n_keys`` sorted unique int64 keys spanning negative and positive
-    values (a cumulative sum of seeded random gaps), values a fixed function
-    of the key, and the blocked pool over them."""
+    values (a cumulative sum of seeded random gaps below 2**24, so a leaf's
+    44 keys span about 2**28.4 and most leaves' separators compress to 30
+    bits or fewer), values a fixed function of the key, and the blocked
+    pool over them."""
     import torch
 
     from repro_torch.core import pool as pool_mod
 
     g = torch.Generator(device=device).manual_seed(seed)
-    gaps = torch.randint(1, 2**32, (n_keys,), generator=g, device=device)
-    keys = torch.cumsum(gaps, 0) - 2**61
+    gaps = torch.randint(1, 2**24, (n_keys,), generator=g, device=device)
+    keys = torch.cumsum(gaps, 0) - n_keys * 2**22
     del gaps
     values = keys ^ VALUE_XOR
     pool, meta = pool_mod.build_pool(
@@ -427,6 +463,62 @@ def leaf_scan_inputs(pool, meta, keys, n, seed):
     )
 
 
+def prefix_search_inputs(pool, meta, sep, keys, n, seed):
+    """Gathered rows of the index's compressed planes along real descents:
+    each lane walks a bulk key down to its leaf and takes the block root's
+    row (every fourth lane), an empty free-list row (every sixteenth from
+    lane 5) or the leaf's row; its query equals the key, is one above it,
+    below the row's first key, KEY_MIN, negative or KEY_MAX.  Returns
+    ``(prefix, nbits, suffix, rows, queries)``."""
+    import torch
+
+    from repro_torch.core.nodes import KEY_MAX, KEY_MIN
+    from repro_torch.core.pool import top_walk
+    from repro_torch.kernels import ref
+
+    dev = keys.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = keys[torch.randint(0, keys.numel(), (n,), generator=g, device=dev)]
+    st = top_walk(pool, meta, q)
+    _, _, leaf = ref.subtree_walk_ref(
+        pool.pool_keys, pool.pool_children, pool.pool_values, st.to(torch.int32),
+        q, levels=meta.levels_in_subtree,
+    )
+    lane = torch.arange(n, device=dev)
+    local = torch.where(lane % 4 == 0, 0, leaf.long())
+    local = torch.where(lane % 16 == 5, meta.base_cap, local)
+    gid = st * meta.subtree_cap + local
+    rows = pool.pool_keys.view(-1, 64)[gid]
+    q = torch.where(lane % 8 == 1, q + 1, q)
+    q = torch.where(lane % 8 == 2, rows[:, 0] - 1, q)
+    q = torch.where(lane % 16 == 3, KEY_MAX, q)
+    q = torch.where(lane % 16 == 7, KEY_MIN, q)
+    q = torch.where(lane % 16 == 11, -3, q)
+    return (
+        sep.prefix.view(-1)[gid],
+        sep.nbits.view(-1)[gid],
+        sep.suffix.view(-1, 64)[gid],
+        rows,
+        q.contiguous(),
+    )
+
+
+def prefix_search_bytes(prefix, nbits, queries):
+    """Least bytes ``node_search_prefix`` must move for these lanes
+    (``PREFIX_LANE_BYTES``, ``SUFFIX_SEARCH_BYTES``, ``CANON_LANE_BYTES``)."""
+    import torch
+
+    comp = nbits >= 0
+    one = torch.ones_like(queries)
+    low = torch.bitwise_left_shift(one, nbits.clamp(min=0).long()) - 1
+    searched = comp & (prefix <= (queries & ~low))
+    return (
+        int(comp.sum()) * PREFIX_LANE_BYTES
+        + int(searched.sum()) * SUFFIX_SEARCH_BYTES
+        + int((~comp).sum()) * CANON_LANE_BYTES
+    )
+
+
 def phase_kernels(pool, meta, keys, seed):
     """Each kernel at the main path's shapes, against its plain version."""
     import torch
@@ -607,6 +699,46 @@ def phase_kernels(pool, meta, keys, seed):
         bound_by="bytes",
     )
     del args, got, want
+
+    # compressed separator search: one gathered row triple per descent row
+    sep = pool_mod.compress_separators(pool, meta)
+    args = prefix_search_inputs(pool, meta, sep, keys, n_ns, seed + 5)
+    del sep
+    got = ops.node_search_prefix(*args)
+    want = ref.node_search_prefix_ref(*args)
+    err = max_abs_err([got], [want])
+    if not torch.equal(got, want):
+        fail(f"node_search_prefix differs from its plain version (max abs err {err})")
+    slot, _, _ = ref.node_search_ref(args[3], args[4])
+    live = args[4] != KEY_MAX
+    if not torch.equal(got[live], slot[live]):
+        fail("node_search_prefix differs from node_search below KEY_MAX")
+    n_comp = int((args[1] >= 0).sum())
+    n_empty = int((args[3][:, 0] == KEY_MAX).sum())
+    rows_, q_ = args[3], args[4]
+    out["node_search_prefix"] = dict(
+        name="node_search_prefix",
+        route="cuda",
+        source="src/repro_torch/csrc/node_search_prefix.cu",
+        replaces="src/repro/kernels/node_search.py:159",
+        shape=(
+            f"{n_ns} lanes, {n_comp} compressible rows ({n_empty} empty),"
+            f" {n_ns - n_comp} incompressible"
+        ),
+        bit_equal=True,
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ops.node_search_prefix(*args), 20),
+        plain_ms=cuda_ms(lambda: ref.node_search_prefix_ref(*args), 5),
+        library_ms=cuda_ms(
+            lambda: torch.searchsorted(rows_, q_[:, None], right=True), 20
+        ),
+        bound_ms=prefix_search_bytes(args[0], args[1], args[4])
+        / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+    )
+    if not 0 < n_comp - n_empty < n_ns - n_empty:
+        fail("node_search_prefix inputs lack compressible or incompressible rows")
+    del args, got, want, rows_, q_
     card = torch.cuda.get_device_name(keys.device)
     for k in out.values():
         print(
@@ -659,14 +791,23 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
     cache and its duplicate admissions), ``fetch`` with buckets small enough
     to shed, and ``auto``; mixed lookups, updates and inserts under
     ``fetch``, shedding ``fetch``, ``offload`` and ``auto``; the same with
-    scans (``ops=ALL_OPS``, ``max_count=32``, counts up to 40); and one SMO
-    round after an insert burst that overflows eight leaves; comparing every
-    plane (pool, occupancy, versions, ``n_alloc`` and ``succ`` included)."""
-    from repro_torch.core import dex, engine, smo, write
+    scans (``ops=ALL_OPS``, ``max_count=32``, counts up to 40); the mixed
+    engine with a trained route table under ``fetch``, ``offload`` and
+    ``auto`` and a poisoned one under ``fetch``; ``install_boundaries`` then
+    two mixed batches; and one SMO round after an insert burst that
+    overflows eight leaves, then ``refresh_sep_planes``; comparing every
+    plane (pool, occupancy, versions, ``n_alloc``, ``succ``, the route table
+    and the separator planes included)."""
+    import torch
+
+    from repro_torch.core import dex, engine, repartition, route_table, smo, write
     from repro_torch.core import pool as pool_mod
     from repro_torch.core.nodes import KEY_MAX, KEY_MIN
+    from repro_torch.core.partition import LogicalPartitions
     from repro_torch.obs.registry import (
         STAT_DROPS,
+        STAT_RT_MISPREDICTS,
+        STAT_RT_SKIPS,
         STAT_SMO_SPLITS,
         STAT_SPLITS,
         STAT_WRITES,
@@ -712,15 +853,24 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
         ("scans", engine.ALL_OPS, scans, "fetch", 0.5),
         ("scans", engine.ALL_OPS, scans, "offload", 4.0),
         ("scans", engine.ALL_OPS, scans, "auto", 4.0),
+        ("rt trained", write_ops, mixed, "fetch", 4.0),
+        ("rt trained", write_ops, mixed, "offload", 4.0),
+        ("rt trained", write_ops, mixed, "auto", 4.0),
+        ("rt poisoned", write_ops, mixed, "fetch", 4.0),
     ]
     for label, ops_, batches, policy, factor in runs:
-        cfg = mesh_config(policy, 64, factor)
+        table = label.startswith("rt")
+        cfg = mesh_config(policy, 64, factor, rt_slots=1024 if table else 0)
         out = []
         for dev in devices:
             pool, meta = pool_mod.build_pool(
                 keys, keys ^ VALUE_XOR, level_m=1, n_shards=4, device=dev
             )
             state = dex.init_state(pool, meta, cfg, bounds, device=dev)
+            if table:
+                state = route_table.train_route_table(state, meta)
+            if label == "rt poisoned":
+                state = route_table.poison_route_table(state)
             eng = engine.make_dex_engine(
                 meta, cfg, ops=ops_, max_count=32, device=dev
             )
@@ -756,6 +906,41 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
             fail(f"{label} {policy} x{factor}: no insert was shed as a split")
         if label == "scans" and not (out[0][-1]["taken"] > 0).any():
             fail(f"scans {policy} x{factor}: no scan took a record")
+        if table and policy == "fetch":
+            skips, mis = stats[STAT_RT_SKIPS], stats[STAT_RT_MISPREDICTS]
+            if (label == "rt trained") != (skips > 0) or mis == 0:
+                fail(f"{label} {policy}: {skips} skips, {mis} mispredicts")
+
+    # install new boundaries, then two mixed batches
+    cfg = mesh_config("fetch", 64)
+    old = LogicalPartitions(bounds)
+    new = old.rebalance([3.0, 1.0], key_range=(int(keys[0]), int(keys[-1])))
+    out = []
+    for dev in devices:
+        pool, meta = pool_mod.build_pool(
+            keys, keys ^ VALUE_XOR, level_m=1, n_shards=4, device=dev
+        )
+        state = dex.init_state(pool, meta, cfg, bounds, device=dev)
+        state, *counts = repartition.install_boundaries(state, meta, old, new)
+        eng = engine.make_dex_engine(meta, cfg, ops=write_ops, device=dev)
+        got = {"counts": np.array(counts)}
+        for i, (opc, q, v) in enumerate(mixed[:2]):
+            state, r = eng(state, opc, q, v)
+            got.update({f"{i}/{k}": a for k, a in dex.state_to_numpy(state).items()})
+            got.update({f"{i}/{k}": a.cpu().numpy() for k, a in r._asdict().items()
+                        if a is not None})
+        out.append(got)
+    a, b = out
+    for k in a:
+        if a[k].shape != b[k].shape or not np.array_equal(a[k], b[k]):
+            fail(f"install then two batches: CPU and CUDA differ: {k}")
+    if a["counts"][0] == 0:
+        fail("install: no node was invalidated")
+    print(
+        f"cpu-vs-cuda install: boundary {bounds[1]} -> {new.boundaries[1]},"
+        f" (invalidated, shared before, shared after) {a['counts'].tolist()},"
+        f" then 2 mixed batches, all {len(a)} planes and results equal"
+    )
 
     # one SMO round after a burst of 30 fresh keys into each of eight leaves
     cfg = mesh_config("fetch", 64)
@@ -772,12 +957,19 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
             keys, keys ^ VALUE_XOR, level_m=1, n_shards=4, device=dev
         )
         state = dex.init_state(pool, meta, cfg, bounds, device=dev)
+        sep = pool_mod.compress_separators(state.pool, meta)
+        v0 = state.versions.clone()
         state, st = write.make_dex_insert(meta, cfg, device=dev)(state, kk, vv)
         shed = (st == write.STATUS_SPLIT).cpu().numpy()
         state, st1 = smo.make_dex_smo(meta, cfg, device=dev)(
             state, np.where(shed, kk, KEY_MAX), np.where(shed, vv, 0)
         )
+        sep = smo.refresh_sep_planes(sep, state, meta, v0)
+        fresh = pool_mod.compress_separators(state.pool, meta)
+        if not all(torch.equal(x, y) for x, y in zip(sep, fresh)):
+            fail(f"refresh_sep_planes on {dev} differs from a fresh compress")
         got = dex.state_to_numpy(state)
+        got.update({f"sep.{k}": t.cpu().numpy() for k, t in sep._asdict().items()})
         got["insert_status"] = st.cpu().numpy()
         got["smo_status"] = st1.cpu().numpy()
         out.append(got)
@@ -793,7 +985,8 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
         fail(f"smo round: {n_split} splits, expected {len(leaves)}")
     print(
         f"cpu-vs-cuda smo round: {burst.size} lanes shed and settled, {n_split}"
-        f" splits, 2x4 mesh, all {len(a)} planes and statuses equal"
+        f" splits, 2x4 mesh, all {len(a)} planes and statuses equal, separator"
+        " planes refreshed equal to a fresh compress"
     )
 
 
@@ -1064,13 +1257,49 @@ def timed_smo(smo, round_ms):
     return run
 
 
+def sep_descent(pool, sep, meta, q):
+    """Walk ``q`` down its subtree level by level through the compressed
+    planes: at every level ``node_search_prefix``'s slot must equal
+    ``node_search``'s on the canonical row.  Returns ``(found, value,
+    compressible share per level)`` from the prefix search's leaf slot."""
+    import torch
+
+    from repro_torch.core.pool import top_walk
+    from repro_torch.kernels import ops
+
+    st = top_walk(pool, meta, q)
+    local = torch.zeros_like(q)
+    shares = []
+    for lvl in range(meta.levels_in_subtree):
+        nbits = sep.nbits[st, local]
+        rows = pool.pool_keys[st, local]
+        slot = ops.node_search_prefix(
+            sep.prefix[st, local], nbits, sep.suffix[st, local], rows, q
+        )
+        want, _, _ = ops.node_search(rows, q)
+        if not torch.equal(slot, want):
+            bad = int((slot != want).sum())
+            fail(f"sep descent: node_search_prefix differs at level {lvl} ({bad} lanes)")
+        shares.append(float((nbits >= 0).float().mean()))
+        if lvl < meta.level_m:
+            local = pool.pool_children[st, local, slot.long()].long()
+    slot = slot.long()[:, None]
+    found = rows.gather(1, slot)[:, 0] == q
+    value = pool.pool_values[st, local].gather(1, slot)[:, 0]
+    return found, torch.where(found, value, 0), shares
+
+
 def phase_splits_and_scans(args, keys, pool, meta, oracle, bounds):
-    """On the index the main runs left, with one state carried through: a
-    split burst settled on the mesh, a scan batch across the split leaves,
-    then YCSB workload E under each policy of ``SCAN_RUNS``."""
+    """On the index the main runs left, with one state carried through: the
+    compressed separator planes built at load; a split burst settled on the
+    mesh, the planes refreshed and held to a fresh build, and the burst's and
+    a YCSB-C batch's keys descended through them; a scan batch across the
+    split leaves, then YCSB workload E under each policy of
+    ``SCAN_RUNS``."""
     import torch
 
     from repro_torch.core import dex, engine, smo, write
+    from repro_torch.core import pool as pool_mod
     from repro_torch.core.nodes import KEY_MAX
     from repro_torch.core.scan import make_dex_scan
     from repro_torch.data import ycsb
@@ -1087,6 +1316,28 @@ def phase_splits_and_scans(args, keys, pool, meta, oracle, bounds):
 
     def stat(st, i):
         return int(st.stats[:, i].sum())
+
+    # 0. the compressed separator planes of the pool as loaded here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sep = pool_mod.compress_separators(state.pool, meta)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    # sep_compression_stats counts only rows with a real suffix, so it
+    # cannot see incompressible rows; the share of all non-empty rows is
+    # counted here
+    real = state.pool.pool_keys[..., 0] != KEY_MAX
+    report["sep-planes"] = dict(
+        build_ms=build_ms,
+        plane_bytes=sum(t.numel() * t.element_size() for t in sep),
+        nonempty_rows=int(real.sum()),
+        compressible_share_of_nonempty=float(
+            ((sep.nbits >= 0) & real).sum() / real.sum()
+        ),
+        **pool_mod.sep_compression_stats(sep, meta),
+    )
+    print(f"main sep-planes: {json.dumps(report['sep-planes'])}")
+    v0 = state.versions.clone()  # a copy: the burst bumps the plane in place
 
     # 1. the split burst: 32 fresh keys into each of 2,048 leaves, one leaf
     # in each of 2,048 subtrees other than the last
@@ -1125,6 +1376,46 @@ def phase_splits_and_scans(args, keys, pool, meta, oracle, bounds):
     print(f"main split-burst: {json.dumps(report['split-burst'])}")
     per_path["split-burst"] = dict(ops.LAUNCHES)
     check_launches("split-burst", per_path["split-burst"], ("leaf_split", "leaf_write"))
+
+    # 1b. the separator planes after the burst: refreshed from the version
+    # delta, equal to a fresh build on every row; then the burst's keys and
+    # a YCSB-C batch's keys descend through them
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sep = smo.refresh_sep_planes(sep, state, meta, v0)
+    torch.cuda.synchronize()
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    fresh = pool_mod.compress_separators(state.pool, meta)
+    if not all(torch.equal(a, b) for a, b in zip(sep, fresh)):
+        fail("refresh_sep_planes differs from a fresh compress_separators")
+    n_changed = int((state.versions[0] != v0[0]).sum())
+    del fresh, v0
+    ops.reset_launches()
+    wl = ycsb.generate("read-only", host_keys, BATCH, seed=args.seed + 22)
+    q = np.concatenate([kk, wl.keys])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found, value, shares = sep_descent(pool, sep, meta, torch.from_numpy(q).to(dev))
+    torch.cuda.synchronize()
+    descent_ms = (time.perf_counter() - t0) * 1e3
+    want_f, want_v = oracle.lookup(q)
+    found, value = found.cpu().numpy(), value.cpu().numpy()
+    if not (np.array_equal(found, want_f) and np.array_equal(value[found], want_v[found])):
+        fail("sep descent: the leaf match differs from the host oracle")
+    report["sep-descent"] = dict(
+        refresh_ms=refresh_ms,
+        rows_refreshed=n_changed,
+        lanes=int(q.size),
+        found=int(found.sum()),
+        compressible_share_by_level=shares,
+        descent_ms=descent_ms,
+    )
+    print(f"main sep-descent: {json.dumps(report['sep-descent'])}")
+    per_path["sep-descent"] = dict(ops.LAUNCHES)
+    check_launches(
+        "sep-descent", per_path["sep-descent"], ("node_search", "node_search_prefix")
+    )
+    del sep
 
     # 2. scans across the splits: half start at a burst leaf's first key
     ops.reset_launches()
@@ -1243,6 +1534,247 @@ def phase_splits_and_scans(args, keys, pool, meta, oracle, bounds):
     return report, per_path
 
 
+def run_batches(eng, state, batches, label, dev, profile=True):
+    """Run ``(opc, keys, values)`` batches, the first ``warm`` untimed and,
+    with ``profile``, the last under the profiler.  Returns ``(state,
+    results, times_ms, idle share or None)``."""
+    import torch
+
+    times, results, idle = [], [], None
+    n = len(batches)
+    for i, (warm, opc, kk, vals) in enumerate(batches):
+        inputs = [torch.from_numpy(a).to(dev) for a in (opc, kk, vals)]
+        torch.cuda.synchronize()
+        if profile and i == n - 1:
+            state, r, idle = profile_batch(
+                label, eng, state, float(np.median(times)), *inputs
+            )
+        else:
+            t0 = time.perf_counter()
+            state, r = eng(state, *inputs)
+            torch.cuda.synchronize()
+            if not warm:
+                times.append((time.perf_counter() - t0) * 1e3)
+        results.append(r)
+    return state, results, times, idle
+
+
+def phase_route_table(args, keys, pool, meta, oracle, bounds):
+    """The leaf-direct route table at full size: trained once on the pool
+    the earlier runs left (``RT_SLOTS`` slots), then each workload of
+    ``RT_RUNS`` under ``fetch`` in three arms over one trace: descent only,
+    leaf-direct and poisoned.  Every arm starts from a fresh state (cold
+    caches, zero counters and versions) over the same pool: the value plane
+    is restored from a clone taken before the first arm, and the host oracle
+    from a copy.  Every lane that is not shed must equal the oracle; the
+    poisoned arm must equal the descent arm lane for lane and in fetches,
+    with no skip; the leaf-direct arm must skip."""
+    import torch
+
+    from repro_torch.core import dex, engine, route_table
+    from repro_torch.data import ycsb
+    from repro_torch.kernels import ops
+    from repro_torch.obs import registry as reg
+
+    dev = keys.device
+    report, per_path = {}, {}
+    cfg_rt = mesh_config("fetch", 65_536, rt_slots=RT_SLOTS)
+    state = dex.init_state(pool, meta, cfg_rt, bounds, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained = route_table.train_route_table(state, meta)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3
+    live = int((trained.rt_ver >= 0).sum())
+    tables = {
+        "leaf-direct": trained,
+        "poisoned": route_table.poison_route_table(trained),
+    }
+    report["rt-train"] = dict(
+        train_ms=train_ms,
+        slots=RT_SLOTS,
+        live_entries=live,
+        table_bytes=sum(
+            getattr(trained, f).numel() * getattr(trained, f).element_size()
+            for f in ("rt_keys", "rt_hi", "rt_sub", "rt_local", "rt_ver")
+        ),
+    )
+    print(f"main rt-train: {json.dumps(report['rt-train'])}")
+    if live > RT_SLOTS - 1 or live < meta.n_keys // meta.per_node:
+        fail(f"route table: {live} live entries for {RT_SLOTS} slots")
+    del state
+    saved_values = pool.pool_values.clone()
+    saved_written = dict(oracle.written)
+    engine_ops = {"read-only": ("lookup",), "ycsb-a": ("lookup", "update")}
+    path_kernels = {"read-only": ("node_search",), "ycsb-a": ("node_search", "leaf_write")}
+    for w_i, (workload, warm, timed) in enumerate(RT_RUNS):
+        n_b = warm + timed + 1
+        wl = ycsb.generate(workload, oracle.keys, BATCH * n_b, seed=args.seed + 30 + w_i)
+        batches = []
+        for i in range(n_b):
+            opc = wl.ops[i * BATCH : (i + 1) * BATCH]
+            kk = wl.keys[i * BATCH : (i + 1) * BATCH]
+            vals = kk ^ VALUE_XOR ^ ((700 + i) << 20) ^ np.arange(BATCH)
+            batches.append((i < warm, opc, kk, vals))
+        descent = None
+        for arm in RT_ARMS:
+            pool.pool_values.copy_(saved_values)
+            oracle.written = dict(saved_written)
+            oracle._arrays = None
+            cfg = mesh_config("fetch", 65_536) if arm == "descent" else cfg_rt
+            state = dex.init_state(pool, meta, cfg, bounds, device=dev)
+            if arm != "descent":
+                t = tables[arm]
+                state = state._replace(
+                    rt_keys=t.rt_keys, rt_hi=t.rt_hi, rt_sub=t.rt_sub,
+                    rt_local=t.rt_local, rt_ver=t.rt_ver,
+                )
+            eng = engine.make_dex_engine(meta, cfg, ops=engine_ops[workload], device=dev)
+            ops.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            state, results, times, idle = run_batches(
+                eng, state, batches, f"rt {workload} {arm}", dev
+            )
+            lanes = [
+                {k: getattr(r, k).cpu().numpy() for k in ("found", "values", "status", "shed")}
+                for r in results
+            ]
+            checked = shed = 0
+            for i, ((_, opc, kk, vals), r) in enumerate(zip(batches, results)):
+                c, s_, _ = oracle.check(f"rt {workload} {arm} batch {i}", opc, kk, vals, r)
+                checked, shed = checked + c, shed + s_
+            stats = state.stats.sum(0).cpu().numpy()
+            med = float(np.median(times))
+            run = f"rt/{workload}/{arm}"
+            report[run] = dict(
+                median_ms=med,
+                p25_ms=float(np.percentile(times, 25)),
+                p75_ms=float(np.percentile(times, 75)),
+                ops_per_s=BATCH / med * 1e3,
+                batches=timed,
+                checked_lanes=checked,
+                shed_lanes=shed,
+                hits=int(stats[reg.STAT_HITS]),
+                fetches=int(stats[reg.STAT_FETCHES]),
+                fetches_per_op=float(stats[reg.STAT_FETCHES] / stats[reg.STAT_OPS]),
+                rt_skips=int(stats[reg.STAT_RT_SKIPS]),
+                rt_mispredicts=int(stats[reg.STAT_RT_MISPREDICTS]),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                idle_share=idle,
+            )
+            print(f"main rt {workload} {arm}: {json.dumps(report[run])}")
+            per_path[run] = dict(ops.LAUNCHES)
+            check_launches(run, per_path[run], path_kernels[workload])
+            if arm == "descent":
+                descent = (lanes, report[run])
+            elif arm == "poisoned":
+                same = all(
+                    np.array_equal(a[k], b[k]) for a, b in zip(descent[0], lanes) for k in a
+                )
+                if not same or report[run]["fetches"] != descent[1]["fetches"]:
+                    fail(f"rt {workload}: the poisoned arm differs from the descent arm")
+                if report[run]["rt_skips"] != 0 or report[run]["rt_mispredicts"] == 0:
+                    fail(f"rt {workload}: the poisoned arm accepted a guess")
+            elif report[run]["rt_skips"] == 0:
+                fail(f"rt {workload}: the leaf-direct arm skipped nothing")
+            del state, eng, results
+    pool.pool_values.copy_(saved_values)
+    oracle.written = saved_written
+    oracle._arrays = None
+    del saved_values, tables, trained
+    return report, per_path
+
+
+def phase_repartition(args, keys, pool, meta, oracle, bounds):
+    """Live repartitioning at full size: a localized YCSB-C Zipfian
+    (``REPART_PHASES``: hotspot 0.2, then 0.8) under tight buckets
+    (``REPART_FACTOR``) with a trained route table, once with the static
+    boundary table and once with a ``RepartitionController``
+    (``imbalance_threshold`` 1.2, ``min_ops`` one batch, no cooldown), which
+    retrains the table after each install.  The controller run must shed
+    strictly fewer lanes; every lane that is not shed must equal the
+    oracle."""
+    import torch
+
+    from repro_torch.core import dex, engine, repartition, route_table
+    from repro_torch.core.partition import LogicalPartitions
+    from repro_torch.data import ycsb
+    from repro_torch.kernels import ops
+    from repro_torch.obs import registry as reg
+
+    dev = keys.device
+    cfg = mesh_config("fetch", 65_536, factor=REPART_FACTOR, rt_slots=RT_SLOTS)
+    batches = []
+    for p_i, (hotspot, n_b) in enumerate(REPART_PHASES):
+        wl = ycsb.generate(
+            "read-only", oracle.keys, BATCH * n_b, seed=args.seed + 40 + p_i,
+            hotspot=hotspot,
+        )
+        for i in range(n_b):
+            kk = wl.keys[i * BATCH : (i + 1) * BATCH]
+            batches.append((False, wl.ops[i * BATCH : (i + 1) * BATCH], kk,
+                            np.zeros(BATCH, np.int64)))
+    report, per_path = {}, {}
+    eng = engine.make_dex_engine(meta, cfg, device=dev)
+    for mode in ("static", "controller"):
+        ops.reset_launches()
+        state = route_table.train_route_table(
+            dex.init_state(pool, meta, cfg, bounds, device=dev), meta
+        )
+        ctl = repartition.RepartitionController(
+            LogicalPartitions(bounds),
+            n_memory=cfg.n_memory,
+            cfg=repartition.RepartitionConfig(
+                imbalance_threshold=1.2, min_ops=BATCH, cooldown_batches=0
+            ),
+        )
+        shed_by_batch, times, installs = [], [], []
+        for i, (_, opc, kk, vals) in enumerate(batches):
+            state, results, t_ms, _ = run_batches(
+                eng, state, [(False, opc, kk, vals)], "", dev, profile=False
+            )
+            times += t_ms
+            _, s_, _ = oracle.check(f"repartition {mode} batch {i}", opc, kk, vals,
+                                    results[0])
+            shed_by_batch.append(s_)
+            if mode == "controller":
+                ctl.observe(state.stats, kk, demand=state.route_demand)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, rep_ = ctl.maybe_repartition(state, meta)
+                torch.cuda.synchronize()
+                if rep_ is not None:
+                    installs.append(dict(
+                        batch=i,
+                        ms=(time.perf_counter() - t0) * 1e3,
+                        boundary=int(rep_.new_boundaries[1]),
+                        nodes_invalidated=rep_.nodes_invalidated,
+                        imbalance=rep_.imbalance,
+                        fraction_keyspace_moved=rep_.fraction_keyspace_moved,
+                    ))
+        stats = state.stats.sum(0).cpu().numpy()
+        run = f"repartition/{mode}"
+        report[run] = dict(
+            shed_lanes=int(sum(shed_by_batch)),
+            shed_by_batch=shed_by_batch,
+            median_ms=float(np.median(times)),
+            drops=int(stats[reg.STAT_DROPS]),
+            rt_skips=int(stats[reg.STAT_RT_SKIPS]),
+            installs=installs,
+        )
+        print(f"main repartition {mode}: {json.dumps(report[run])}")
+        per_path[run] = dict(ops.LAUNCHES)
+        check_launches(run, per_path[run], ("node_search",))
+        del state
+    static, ctl_run = report["repartition/static"], report["repartition/controller"]
+    if not ctl_run["installs"] or ctl_run["shed_lanes"] >= static["shed_lanes"]:
+        fail(
+            f"repartition: the controller shed {ctl_run['shed_lanes']} lanes against"
+            f" {static['shed_lanes']} static, with {len(ctl_run['installs'])} installs"
+        )
+    return report, per_path
+
+
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
     import torch
@@ -1279,10 +1811,19 @@ def main(argv=None):
     report.update(more)
     per_path.update(more_paths)
     t4 = time.perf_counter()
+    more, more_paths = phase_route_table(args, keys, pool, meta, oracle, bounds)
+    report.update(more)
+    per_path.update(more_paths)
+    t5 = time.perf_counter()
+    more, more_paths = phase_repartition(args, keys, pool, meta, oracle, bounds)
+    report.update(more)
+    per_path.update(more_paths)
+    t6 = time.perf_counter()
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["read-only"]}
     print(f"main: launches {launches}")
     print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
-          f" main {t3 - t2:.1f} s, splits and scans {t4 - t3:.1f} s")
+          f" main {t3 - t2:.1f} s, splits and scans {t4 - t3:.1f} s,"
+          f" route table {t5 - t4:.1f} s, repartition {t6 - t5:.1f} s")
     rows = []
     for name, k in kernels.items():
         rows.append(dict(

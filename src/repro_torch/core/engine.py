@@ -30,11 +30,15 @@ unified engine does, batched over the ``Dev`` axis:
 ``policy="fetch"`` never offloads; ``policy="offload"`` offloads every live
 lane that is not a scan and runs no descent unless scans need it;
 ``policy="auto"`` decides per column.  Scans never offload and leave the
-miss EMA alone.  Reads (lookups and scans) see the pre-batch index, then
-updates apply, then inserts (a phase-offset batch priority); an insert into
-a leaf that would overflow comes back ``STATUS_SPLIT`` for ``core/smo.py``.
-The pipelined engine, divergent cache policies, peer peeks and the route
-table are not ported yet: asking for them raises.
+miss EMA alone.  With ``route_table_slots > 0`` a lane that stays one-sided
+first asks the leaf-direct route table (``core/route_table.py``): an
+accepted guess skips the inner levels and probes its leaf directly, a
+rejected one takes the full descent.  Reads (lookups and scans) see the
+pre-batch index, then updates apply, then inserts (a phase-offset batch
+priority); an insert into a leaf that would overflow comes back
+``STATUS_SPLIT`` for ``core/smo.py``.
+The pipelined engine, divergent cache policies, peer peeks and two route
+axes are not ported yet: asking for them raises.
 
 The engine writes its state in place: the cache planes, and with writes the
 pool's key and value planes, ``occupancy`` and ``versions``.  The returned
@@ -79,6 +83,8 @@ from repro_torch.obs.registry import (
     STAT_OFFLOAD_GROUPS,
     STAT_OFFLOADS,
     STAT_OPS,
+    STAT_RT_MISPREDICTS,
+    STAT_RT_SKIPS,
     STAT_SPLITS,
     STAT_WRITES,
 )
@@ -197,6 +203,7 @@ def make_dex_engine(
     ops: Tuple[str, ...] = ("lookup",),
     max_count: int = DEFAULT_MAX_COUNT,
     cache_policy: "fleet_cache.CachePolicy | None" = None,
+    pipeline: bool = False,
     device=None,
 ):
     """Build the engine ``(state, opcodes, keys, values) -> (state,
@@ -220,8 +227,8 @@ def make_dex_engine(
         raise ValueError("ops must name at least one operation")
     if cfg.policy not in ("fetch", "offload", "auto"):
         raise ValueError(f"unknown policy {cfg.policy!r}")
-    if cfg.route_table_slots > 0:
-        raise NotImplementedError("the route table is not ported yet")
+    if pipeline:
+        raise NotImplementedError("the pipelined engine is not ported yet")
     if len(cfg.route_axes) != 1:
         raise NotImplementedError("two route axes are not ported yet")
     if not fleet_cache.is_uniform(cache_policy):
@@ -248,6 +255,9 @@ def make_dex_engine(
     # stop above it
     do_leaf = has_lookup or has_update or has_scan
     audit = has_offloadable and cfg.policy == "auto"
+    # the leaf-direct route table; with no slots the program is the
+    # descent-only one
+    use_rt = cfg.route_table_slots > 0 and do_descent
     nr, nm, n_dev = cfg.n_route, cfg.n_memory, cfg.n_devices
     s_per = meta.n_subtrees_padded // nm
     n_nodes = meta.n_nodes
@@ -292,13 +302,17 @@ def make_dex_engine(
         want_off_c = _dot_levels(caps, ema) * row_cost > nf * rpc_bytes
         return want_off_c, grp_live, caps
 
-    def descent(state, q, subtree, col, want, leaf_want, cost, is_scan) -> Descent:
+    def descent(
+        state, q, subtree, col, want, leaf_want, cost, is_scan, acc=None, p_loc=None
+    ) -> Descent:
         """The version-checked cached descent: one ``cached_fetch_level`` per
         level for the ``want`` lanes (``leaf_want`` at the leaf),
         ``node_search`` for the child at inner levels and for the match at
         the leaf.  Without a leaf level it stops at the leaf's id.  Scan
         lanes leave the miss observation and the audit's realized bytes
-        alone; an engine with scans keeps the leaf rows for their window."""
+        alone; an engine with scans keeps the leaf rows for their window.
+        Lanes of ``acc`` (route-table guesses accepted) skip the inner
+        levels and land on their predicted leaf ``p_loc``."""
         nq = q.shape[1]
         flat_q = q.reshape(-1)
         cache = state.cache
@@ -313,8 +327,11 @@ def make_dex_engine(
         found = torch.zeros_like(want)
         value = torch.zeros_like(q)
         leaf_k = leaf_v = None
+        inner_want = want if acc is None else want & ~acc
         for lvl in range(levels if do_leaf else levels - 1):
             leaf = lvl == levels - 1
+            if leaf and acc is not None:
+                local = torch.where(acc, p_loc, local)
             gid = meta.node_gid(subtree, local)
             if leaf:
                 want = leaf_want
@@ -323,6 +340,7 @@ def make_dex_engine(
                 )
                 p_ok = fleet_cache.leaf_admit(cfg, cache_policy, gid, salt)
             else:
+                want = inner_want
                 p_ok = torch.ones_like(want)
             rows_k, rows_c, rows_v, hit, miss, f_drop, n_msgs, cache = (
                 cached_fetch_level(
@@ -364,6 +382,9 @@ def make_dex_engine(
                 slot, _, _ = kops.node_search(rows_k, flat_q)
                 local = rows_c.view(-1, FANOUT).gather(1, slot.long()[:, None])
                 local = local.view(n_dev, nq).long()
+        if not do_leaf and acc is not None:
+            # inserts stop above the leaf: accepted lanes take the guess
+            local = torch.where(acc, p_loc, local)
         return Descent(
             found=found,
             value=value,
@@ -714,11 +735,35 @@ def make_dex_engine(
         # warm cached accesses
         cost = live.float() * (obs_latency.T_CACHED * float(meta.top_height))
 
-        # 3. cached descent of the lanes that stay one-sided
+        # 2b. the route-table probe: an accepted guess skips the inner levels
+        # (scans and offloaded lanes never ask)
         fetchable = live & ~offl
+        acc = p_loc = None
+        if use_rt:
+            ridx, _, p_loc = routing.rt_predict(
+                state.rt_keys, state.rt_sub, state.rt_local, q
+            )
+            guess, acc, _ = fleet_cache.rt_accept(
+                meta,
+                state.rt_keys,
+                state.rt_hi,
+                state.rt_sub,
+                state.rt_local,
+                state.rt_ver,
+                state.versions,
+                ridx,
+                subtree,
+                q,
+                fetchable & ~is_scan,
+            )
+            p_loc = p_loc.long()
+
+        # 3. cached descent of the lanes that stay one-sided
         if do_descent:
             leaf_want = fetchable if opc is None else fetchable & (opc != OP_INSERT)
-            d = descent(state, q, subtree, col, fetchable, leaf_want, cost, is_scan)
+            d = descent(
+                state, q, subtree, col, fetchable, leaf_want, cost, is_scan, acc, p_loc
+            )
         else:
             d = no_descent(state, q, subtree, cost)
         if has_scan:
@@ -785,6 +830,10 @@ def make_dex_engine(
         # group decisions are mesh-global: count them once, on device 0
         upd[:, STAT_OFFLOAD_GROUPS] = first * (want_off_c & grp_live).sum(1)
         upd[:, STAT_FETCH_GROUPS] = first * (~want_off_c & grp_live).sum(1)
+        if use_rt:
+            # an accepted lane skips every inner level of its subtree
+            upd[:, STAT_RT_SKIPS] = acc.sum(1) * (levels - 1)
+            upd[:, STAT_RT_MISPREDICTS] = (guess & ~acc).sum(1)
         # a two-sided trip prices one RPC plus the owner's per-level walk, a
         # fetched-path write one write-through; each live lane bins into one
         # (op class, path, bucket) cell

@@ -4,7 +4,9 @@
 axis).  :func:`cached_fetch_level` is one level of the version-checked
 descent: probe, remote-fetch the misses, admit the fetched rows FIFO within
 their set.  Only the uniform policy (every device rolls the same §5.4
-admission dice) is ported.
+admission dice) is ported.  :func:`rt_accept` is the fence check of a
+route-table guess and :func:`invalidate_nodes` the version bump of a
+repartition install.
 
 The cache planes are updated in place: the engine's returned state shares
 them with the state it was given, which saves a copy of every plane per
@@ -184,3 +186,51 @@ def cached_fetch_level(pool, meta, cfg, cache: DexCache, versions, gid, want,
         rows_v,
     )
     return rows_k, rows_c, rows_v, hit, miss, shed, n_msgs, cache
+
+
+def rt_accept(
+    meta,
+    rt_keys: torch.Tensor,
+    rt_hi: torch.Tensor,
+    rt_sub: torch.Tensor,
+    rt_local: torch.Tensor,
+    rt_ver: torch.Tensor,
+    versions: torch.Tensor,
+    idx: torch.Tensor,
+    subtree: torch.Tensor,
+    keys: torch.Tensor,
+    eligible: torch.Tensor,
+):
+    """Fence check of a route-table guess ``idx`` [Dev, Q]
+    (``routing.rt_predict``).  A guess is made for an ``eligible`` lane whose
+    entry is live (``rt_ver >= 0``); it is accepted only when the key lies in
+    the entry's trained fence range ``[rt_keys, rt_hi)``, the predicted
+    subtree equals the top walk's ``subtree``, and the leaf's current
+    version on the lane's device (``versions`` [Dev, n]) still equals the
+    stamp taken at training: any write, split or repartition move bumps it.
+    Returns ``(guess, accept, pred_gid)``; a rejected guess
+    (``guess & ~accept``) is a mispredict and takes the full descent."""
+    idx = idx.long()
+    tver = rt_ver[idx]
+    sub = rt_sub[idx].long()
+    pred_gid = meta.node_gid(sub, rt_local[idx].long())
+    gsafe = pred_gid.clamp(0, versions.shape[1] - 1)
+    guess = eligible & (tver >= 0)
+    accept = (
+        guess
+        & (keys >= rt_keys[idx])
+        & (keys < rt_hi[idx])
+        & (sub == subtree)
+        & (versions.gather(1, gsafe) == tver)
+    )
+    return guess, accept, pred_gid
+
+
+def invalidate_nodes(versions: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
+    """``versions`` [Dev, n] with every distinct node of ``gids`` bumped by
+    one on every device (a gid listed twice bumps once, as the reference's
+    ``bump[gids] = 1`` does).  Every device's version-checked probe then
+    rejects its cached copy of a bumped node.  Returns a new tensor."""
+    bump = torch.zeros(versions.shape[1], dtype=versions.dtype, device=versions.device)
+    bump[gids.to(versions.device).long()] = 1
+    return versions + bump

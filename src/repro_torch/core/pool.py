@@ -5,7 +5,8 @@ the pool is ``[n_subtrees, subtree_cap, FANOUT]`` keys, children and values,
 and the levels above M (the top tree) are replicated.  Local node ids inside
 a block are level-ordered (root = 0), so the owner-side walk never leaves
 its block.  The last ``subtree_cap - base_cap`` rows of each block are
-free-list headroom for on-mesh splits.
+free-list headroom for on-mesh splits.  ``SepPlanes`` are the rows'
+prefix-compressed separators (``compress_separators``).
 
 ``build_pool`` builds the same arrays as ``repro.core.pool.build_pool``,
 vectorised over subtrees so that it runs on the card at full scale.
@@ -232,6 +233,118 @@ def initial_succ(meta: PoolMeta, device=None) -> torch.Tensor:
     gid = (g // lps) * meta.subtree_cap + meta.leaf_start + (g % lps)
     succ[gid[:-1]] = gid[1:]
     return succ
+
+
+# ---------------------------------------------------------------------------
+# Prefix-compressed separators
+# ---------------------------------------------------------------------------
+
+#: Suffixes keep at most 30 low bits, so they fit a non-negative int32 with
+#: room for a padding sentinel above every real value.
+SEP_MAX_NBITS = 30
+SEP_SUFFIX_SENTINEL = 0x7FFFFFFF
+# 2**0 .. 2**30: the bit length of x in [0, 2**30) is how many are <= x
+_POW2 = [1 << i for i in range(SEP_MAX_NBITS + 1)]
+# rows compressed at a time (bounds the [rows, FANOUT] temporaries)
+_COMPRESS_CHUNK = 1 << 20
+
+
+class SepPlanes(NamedTuple):
+    """Prefix-compressed separator planes of the pool's node rows.
+
+    A row's keys share their high bits, so each row stores one 8-byte
+    ``prefix`` (its low ``nbits`` zeroed), the retained bit count ``nbits``
+    and FANOUT 4-byte ``suffix``es: 8 + 4 + 4 * FANOUT bytes against the
+    canonical 8 * FANOUT.  ``nbits = -1`` marks a row whose span needs more
+    than ``SEP_MAX_NBITS`` bits (the ``node_search_prefix`` kernel reads the
+    canonical row there).  Padding suffixes hold ``SEP_SUFFIX_SENTINEL``,
+    above every real suffix; an empty row has ``nbits = 0``."""
+
+    prefix: torch.Tensor  # [S, C] int64 shared high bits (low nbits zeroed)
+    nbits: torch.Tensor  # [S, C] int32 retained low bits; -1 = incompressible
+    suffix: torch.Tensor  # [S, C, FANOUT] int32 truncated separators
+
+
+def _compress_chunk(keys: torch.Tensor):
+    real = keys != KEY_MAX
+    any_real = real.any(1)
+    lo = torch.where(any_real, torch.where(real, keys, KEY_MAX).amin(1), 0)
+    hi = torch.where(any_real, torch.where(real, keys, KEY_MIN).amax(1), 0)
+    # the keys differ only below the bit length of the extremes' xor; a
+    # negative xor (a span across the sign bit) counts all 64 bits
+    x = lo ^ hi
+    good = any_real & (x >= 0) & (x < (1 << SEP_MAX_NBITS))
+    pow2 = torch.tensor(_POW2, dtype=torch.int64, device=keys.device)
+    bits = torch.searchsorted(pow2, x, right=True)
+    nbits = torch.where(any_real, torch.where(good, bits, -1), 0)
+    one = torch.ones_like(x)
+    mask = torch.where(good, torch.bitwise_left_shift(one, nbits.clamp(min=0)) - 1, 0)
+    prefix = torch.where(good, lo & ~mask, 0)
+    suffix = torch.where(
+        real & good[:, None], keys & mask[:, None], SEP_SUFFIX_SENTINEL
+    )
+    return prefix, nbits.to(torch.int32), suffix.to(torch.int32)
+
+
+def compress_rows(keys: torch.Tensor):
+    """Compress ``[N, FANOUT]`` int64 separator rows (KEY_MAX padding) into
+    ``(prefix [N] int64, nbits [N] int32, suffix [N, FANOUT] int32)``.
+
+    A row keeps the bit length of ``min ^ max`` over its real keys (every
+    key between them shares the bits above), when that is at most
+    ``SEP_MAX_NBITS``; the bit length comes from a table of powers of two,
+    exact there, so no row takes a host loop.  Equals
+    ``repro.core.pool.compress_rows``."""
+    parts = [
+        _compress_chunk(keys[i : i + _COMPRESS_CHUNK])
+        for i in range(0, keys.shape[0], _COMPRESS_CHUNK)
+    ]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def compress_separators(pool: SubtreePool, meta: PoolMeta) -> SepPlanes:
+    """The compressed planes of every pool row, built on the pool's device
+    (``core/smo.py::refresh_sep_planes`` keeps them current across on-mesh
+    splits)."""
+    s, c, f = pool.pool_keys.shape
+    prefix, nbits, suffix = compress_rows(pool.pool_keys.view(s * c, f))
+    return SepPlanes(
+        prefix=prefix.view(s, c), nbits=nbits.view(s, c), suffix=suffix.view(s, c, f)
+    )
+
+
+def sep_compression_stats(sep: SepPlanes, meta: PoolMeta) -> dict:
+    """Byte and fanout accounting of the compressed layout, as
+    ``repro.core.pool.sep_compression_stats``: ``effective_fanout`` is how
+    many separators a canonical row's bytes hold under the compressed
+    layout; ``modeled_subtree_depth`` the in-subtree depth that fanout would
+    need for the same leaves."""
+    nbits = sep.nbits.reshape(-1)
+    f = sep.suffix.shape[-1]
+    occupied = (sep.suffix != SEP_SUFFIX_SENTINEL).any(-1).reshape(-1)
+    kept = occupied & (nbits >= 0)
+    n_rows = int(occupied.sum())
+    compressible = int(kept.sum())
+    canon_bytes = 8 * f
+    comp_bytes = 8 + 4 + 4 * f
+    eff_fanout = f * canon_bytes / comp_bytes
+    leaves = max(meta.leaves_per_subtree, 1)
+    modeled_depth = int(np.ceil(np.log(max(leaves, 2)) / np.log(eff_fanout)))
+    # an integer sum is exact, as numpy's float64 mean of int32 is here
+    nb_sum = int(torch.where(kept, nbits, 0).sum())
+    return {
+        "rows": n_rows,
+        "compressible_rows": compressible,
+        "compressible_frac": compressible / max(n_rows, 1),
+        "mean_nbits": nb_sum / compressible if compressible else 0.0,
+        "canonical_row_bytes": canon_bytes,
+        "compressed_row_bytes": comp_bytes,
+        "effective_fanout": eff_fanout,
+        "modeled_subtree_depth": modeled_depth,
+        "baseline_subtree_depth": meta.level_m,
+    }
 
 
 def top_walk(pool: SubtreePool, meta: PoolMeta, queries: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ A batch moves between devices the way the reference moves it:
 
 :func:`fetch_rows` is the remote row read: one request/response exchange
 over the memory axis per tree level, with duplicate requests coalesced.
+:func:`rt_predict` is the route table's leaf guess.
 
 Scatters that the reference writes with ``mode="drop"`` become a scatter of
 slot indices into a map with one spare slot, which the dropped entries land
@@ -59,6 +60,19 @@ def leaf_admit_dice(gid: torch.Tensor, pct, salt=None) -> torch.Tensor:
     if salt is not None:
         x = x ^ (salt.long() * _SALT_MUL)
     return umod(hash64(x), 100) < pct
+
+
+def rt_predict(rt_keys: torch.Tensor, rt_sub: torch.Tensor, rt_local: torch.Tensor,
+               keys: torch.Tensor):
+    """Route-table segment lookup: one ``searchsorted`` of ``keys`` (any
+    shape) against the sorted fence-low plane ``rt_keys`` [R], no collective
+    and no remote read.  Returns ``(idx, pred_subtree, pred_local)`` (int32),
+    a guess that ``fleet_cache.rt_accept`` checks before the engine acts on
+    it."""
+    r = rt_keys.shape[0]
+    idx = torch.searchsorted(rt_keys, keys, right=True) - 1
+    idx = idx.clamp(0, r - 1)
+    return idx.to(torch.int32), rt_sub[idx].to(torch.int32), rt_local[idx].to(torch.int32)
 
 
 def route_capacity(b: int, n_dest: int, factor: float) -> int:

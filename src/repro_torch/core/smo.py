@@ -32,7 +32,8 @@ applied once (``mesh.gather_route``) and each device takes its own route
 row of the statuses (``mesh.route_share``).  The round writes the pool,
 ``occupancy``, ``n_alloc`` and ``versions`` in place; ``succ`` comes back as
 a new table.  :func:`run_smo` drives rounds until the pending set stops
-shrinking.
+shrinking; :func:`refresh_sep_planes` then recompresses the separator rows
+the rounds touched.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import torch
 
 from repro_torch.core import mesh, routing
 from repro_torch.core.nodes import FANOUT, KEY_MAX, NULL
-from repro_torch.core.pool import PoolMeta, top_walk
+from repro_torch.core.pool import PoolMeta, SepPlanes, compress_rows, top_walk
 from repro_torch.core.write import (
     STATUS_MISS,
     STATUS_OK,
@@ -446,3 +447,32 @@ def run_smo(smo, state, keys, values, *, max_rounds=None, levels: int = 2):
         pending = still
     status[pending] = STATUS_SPLIT
     return state, status, rounds
+
+
+def refresh_sep_planes(sep: SepPlanes, state, meta: PoolMeta, old_versions) -> SepPlanes:
+    """Re-compress the separator planes after SMO rounds: every row a split
+    touched (the split leaf, its sibling, the parents the separators merged
+    into) had its version bumped, so the rows whose version on device 0
+    differs from ``old_versions`` are recompressed from the key plane and
+    the rest come back as they were.  Returns new planes.
+
+    The engine and the SMO bump ``state.versions`` in place, so
+    ``old_versions`` must be a copy taken before the rounds
+    (``state.versions.clone()``): a view of the live plane shows no change
+    and nothing is refreshed."""
+    vers, old = state.versions, torch.as_tensor(old_versions).to(state.versions.device)
+    if vers.dim() == 2:
+        vers = vers[0]
+    if old.dim() == 2:
+        old = old[0]
+    changed = torch.nonzero(vers != old)[:, 0]
+    if changed.numel() == 0:
+        return sep
+    s_idx = changed // meta.subtree_cap
+    l_idx = changed % meta.subtree_cap
+    p, nb, sf = compress_rows(state.pool.pool_keys[s_idx, l_idx])
+    out = SepPlanes(*(t.clone() for t in sep))
+    out.prefix[s_idx, l_idx] = p
+    out.nbits[s_idx, l_idx] = nb
+    out.suffix[s_idx, l_idx] = sf
+    return out

@@ -132,6 +132,7 @@ def generate(
     seed: int = 1,
     scan_len: int = 100,
     scan_len_dist: str = "fixed",
+    hotspot: "float | None" = None,
 ) -> Workload:
     """``n_ops`` operations of the named mix over ``dataset`` (sorted keys,
     or their count when only indices are wanted).  Reads, updates and scans
@@ -139,8 +140,12 @@ def generate(
     keys next to existing ones.  ``scan_len_dist="fixed"`` gives every scan
     ``scan_len`` records; ``"uniform"`` draws per-op lengths in ``[1,
     scan_len]`` into ``scan_lens`` (YCSB workload E), after the ops and
-    keys.  Ops, keys and scan lengths equal ``repro.data.ycsb.generate`` for
-    the same arguments."""
+    keys.  ``hotspot`` (a fraction in ``[0, 1)``) centres the Zipfian on that
+    position of the sorted dataset without scrambling, rank 0 at the centre
+    and the ranks fanning out to alternate sides, so the hot keys form one
+    contiguous range (the localized skew that logical repartitioning
+    answers).  Ops, keys and scan lengths equal ``repro.data.ycsb.generate``
+    for the same arguments."""
     if name not in WORKLOADS:
         raise KeyError(f"unknown workload {name!r}; options: {list(WORKLOADS)}")
     if scan_len_dist not in ("fixed", "uniform"):
@@ -154,7 +159,14 @@ def generate(
         size=n_ops,
         p=[p_ins, p_look, p_upd, p_scan],
     )
-    idx = scramble(zipf.draw_ranks(n_ops), n)
+    ranks = zipf.draw_ranks(n_ops)
+    if hotspot is None:
+        idx = scramble(ranks, n)
+    else:
+        if not (0.0 <= hotspot < 1.0):
+            raise ValueError(f"hotspot must be in [0, 1), got {hotspot!r}")
+        offset = np.where(ranks % 2 == 0, ranks // 2, -(ranks // 2 + 1))
+        idx = (int(hotspot * n) + offset) % n
     is_ins = ops == OP_INSERT
     if isinstance(dataset, int):
         keys = np.full(idx.shape, -1, np.int64)

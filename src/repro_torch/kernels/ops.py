@@ -39,6 +39,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 LAUNCHES = {
     "node_search": 0,
+    "node_search_prefix": 0,
     "subtree_walk": 0,
     "leaf_write": 0,
     "leaf_scan": 0,
@@ -142,6 +143,26 @@ def node_search(
         return ref.node_search_ref(rows, queries, values)
     out = _node_search.launch(library(), rows, queries, values)
     LAUNCHES["node_search"] += 1
+    return out
+
+
+def node_search_prefix(
+    prefix: torch.Tensor,
+    nbits: torch.Tensor,
+    suffix: torch.Tensor,
+    rows: torch.Tensor,
+    queries: torch.Tensor,
+) -> torch.Tensor:
+    """``slot [B] int32``: the lower bound of each query over its
+    prefix-compressed row (``prefix [B]``, ``nbits [B]``, ``suffix [B, 64]``
+    int32), the canonical row ``rows [B, 64]`` where ``nbits < 0`` (see
+    ``ref.node_search_prefix_ref``)."""
+    args = (prefix, nbits, suffix, rows, queries)
+    if rows.device.type == "cpu":
+        _node_search.validate_prefix(*args)
+        return ref.node_search_prefix_ref(*args)
+    out = _node_search.launch_prefix(library(), *args)
+    LAUNCHES["node_search_prefix"] += 1
     return out
 
 

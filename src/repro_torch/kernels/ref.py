@@ -38,6 +38,40 @@ def node_search_ref(
     return slot, found, value
 
 
+def node_search_prefix_ref(
+    prefix: torch.Tensor,
+    nbits: torch.Tensor,
+    suffix: torch.Tensor,
+    rows: torch.Tensor,
+    queries: torch.Tensor,
+) -> torch.Tensor:
+    """Lower bound over prefix-compressed rows, per lane.
+
+    ``prefix`` [B] int64 (low ``nbits`` zeroed), ``nbits`` [B] int32 (-1 =
+    incompressible, else at most 30), ``suffix`` [B, F] int32
+    (``0x7FFFFFFF`` padding), ``rows`` [B, F] int64 the canonical rows,
+    ``queries`` [B] int64.  A compressible row's keys share the bits above
+    ``nbits``, so ``key <= q`` is the prefix compare of ``q``'s masked high
+    bits, with the int32 suffix compare breaking a tie; an incompressible
+    row counts its canonical keys.  Returns ``slot = max(count - 1, 0)``
+    (int32), equal to ``node_search_ref``'s slot for every query below
+    KEY_MAX."""
+    q = queries
+    good = nbits >= 0
+    nb = nbits.clamp(min=0).long()
+    mask = torch.bitwise_left_shift(torch.ones_like(q), nb) - 1
+    q_suf = (q & mask).to(torch.int32)
+    q_pref = q & ~mask
+    nreal = (suffix != 0x7FFFFFFF).sum(-1)
+    cnt_sfx = (suffix <= q_suf[:, None]).sum(-1)
+    cnt_c = torch.where(
+        q_pref == prefix, cnt_sfx, torch.where(prefix < q_pref, nreal, 0)
+    )
+    cnt_f = (rows <= q[:, None]).sum(-1)
+    cnt = torch.where(good, cnt_c, cnt_f)
+    return torch.clamp(cnt - 1, min=0).to(torch.int32)
+
+
 def subtree_walk_ref(
     pool_keys: torch.Tensor,
     pool_children: torch.Tensor,

@@ -250,6 +250,68 @@ def test_leaf_split_kernel_matches_plain(cuda, q):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+def prefix_case(b, seed):
+    """Contract inputs of ``node_search_prefix``: ``b`` lanes over sorted
+    rows whose spans run from 2 to 2**40 (compressible and not), empty rows,
+    rows with KEY_MIN, rows across the sign bit; their planes from the port's
+    ``compress_rows``; queries on a key, between keys, below and past the
+    row, KEY_MIN, KEY_MAX and negative."""
+    rng = np.random.default_rng(seed)
+    rows = np.full((b, FANOUT), KEY_MAX, np.int64)
+    for i in range(b):
+        if i % 7 == 6:
+            continue  # an empty row
+        base = -5 if i % 11 == 5 else int(rng.integers(-(2**62), 2**62))
+        span = int(2 ** rng.integers(1, 41))
+        k = np.unique(base + rng.integers(0, span, size=rng.integers(1, FANOUT + 1)))
+        if i % 13 == 4:
+            k[0] = KEY_MIN
+        rows[i, : k.size] = k
+    prefix, nbits, suffix = t_pool.compress_rows(torch.from_numpy(rows))
+    occ = np.maximum((rows != KEY_MAX).sum(1), 1)
+    q = rows[np.arange(b), rng.integers(0, occ)].copy()
+    q[1::5] += 1
+    q[2::5] = rows[2::5, 0] - 1
+    q[3::16] = KEY_MAX
+    q[7::16] = KEY_MIN
+    q[11::16] = -3
+    q[q == KEY_MAX - 1] = KEY_MAX  # an empty row's probe
+    return (prefix.numpy(), nbits.numpy(), suffix.numpy(), rows, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 31, 4097])
+def test_node_search_prefix_kernel_matches_plain(cuda, b):
+    case = [torch.from_numpy(a).to(cuda) for a in prefix_case(b, b)]
+    before = ops.LAUNCHES["node_search_prefix"]
+    got = ops.node_search_prefix(*case)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["node_search_prefix"] == before + 1
+    want = ref.node_search_prefix_ref(*case)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    slot, _, _ = ref.node_search_ref(case[3], case[4])
+    live = case[4] != KEY_MAX
+    assert torch.equal(got[live], slot[live])
+
+
+@pytest.mark.cuda
+def test_node_search_prefix_kernel_on_a_pool(cuda):
+    """Real rows of a dense index, all levels, and its free-list rows."""
+    rng = np.random.default_rng(3)
+    keys = np.cumsum(rng.integers(1, 2**24, size=50_000)).astype(np.int64) - 2**38
+    pool, meta = t_pool.build_pool(keys, keys, level_m=1, device=cuda)
+    sep = t_pool.compress_separators(pool, meta)
+    s, c = sep.nbits.shape
+    lane = torch.from_numpy(rng.integers(0, s * c, size=8192)).to(cuda)
+    q = torch.from_numpy(rng.choice(keys, 8192)).to(cuda)
+    q[::3] += 1
+    args = (sep.prefix.view(-1)[lane], sep.nbits.view(-1)[lane],
+            sep.suffix.view(-1, FANOUT)[lane], pool.pool_keys.view(-1, FANOUT)[lane], q)
+    got = ops.node_search_prefix(*args)
+    assert torch.equal(got, ref.node_search_prefix_ref(*args))
+    assert bool((args[1] >= 0).any()) and bool((args[1] < 0).any())
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_inputs(cuda):
     rows = torch.zeros((4, FANOUT), dtype=torch.int64, device=cuda)
@@ -270,3 +332,14 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
         )
     with pytest.raises(ValueError):  # staged rows must be [Q, 64]
         ops.leaf_split(rows, rows, rows[:, :32], rows[:, :32])
+    nb = torch.zeros(4, dtype=torch.int32, device=cuda)
+    suf = torch.zeros((4, FANOUT), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # nbits must be int32
+        ops.node_search_prefix(rows[:, 0].contiguous(), nb.long(), suf, rows,
+                               rows[:, 0].contiguous())
+    with pytest.raises(ValueError):  # the suffix plane must be 8-byte aligned
+        ops.node_search_prefix(
+            rows[:, 0].contiguous(), nb,
+            torch.zeros(4 * FANOUT + 1, dtype=torch.int32, device=cuda)[1:].view(4, FANOUT),
+            rows, rows[:, 0].contiguous(),
+        )

@@ -268,9 +268,9 @@ def test_state_to_numpy_is_a_snapshot():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(ops=("lookup", "scan"), cfg=dict(route_table_slots=8)),
+        dict(ops=("lookup", "scan"), pipeline=True),
         dict(ops=("scan",), divergent=True),
-        dict(cfg=dict(route_table_slots=8)),
+        dict(cfg=dict(route_table_slots=8), pipeline=True),
         dict(cfg=dict(route_axes=("data", "pod"))),
         dict(divergent=True),
     ],
@@ -288,5 +288,6 @@ def test_unported_engine_options_raise(kw):
             t_cfg,
             ops=kw.get("ops", ("lookup",)),
             cache_policy=policy,
+            pipeline=kw.get("pipeline", False),
             device="cpu",
         )

@@ -25,7 +25,10 @@ mods = sorted(
     for p in pkg.rglob("*.py")
 )
 mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
-assert {"repro_torch.core.scan", "repro_torch.core.smo"} <= set(mods), mods
+assert {
+    "repro_torch.core.scan", "repro_torch.core.smo", "repro_torch.core.partition",
+    "repro_torch.core.repartition", "repro_torch.core.route_table",
+} <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
 bad = sorted(

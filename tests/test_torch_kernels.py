@@ -175,8 +175,13 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     t_ops.leaf_write(z, z, z.to(torch.int32) - 1, z, z + KEY_MAX, z)
     t_ops.leaf_scan(z, z, z[:, 0].contiguous(), z[:, 0].to(torch.int32), max_count=8)
     t_ops.leaf_split(z, z, z + KEY_MAX, z)
+    t_ops.node_search_prefix(
+        z[:, 0].contiguous(), z[:, 0].to(torch.int32), z.to(torch.int32), z,
+        z[:, 0].contiguous(),
+    )
     assert t_ops.LAUNCHES == {
         "node_search": 0,
+        "node_search_prefix": 0,
         "subtree_walk": 0,
         "leaf_write": 0,
         "leaf_scan": 0,

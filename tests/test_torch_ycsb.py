@@ -65,3 +65,25 @@ def test_ycsb_e_mix_and_lengths():
 def test_bad_scan_len_dist_rejected():
     with pytest.raises(ValueError):
         t_ycsb.generate("ycsb-e", _dataset(100, seed=5), 10, scan_len_dist="pareto")
+
+
+@pytest.mark.parametrize("name,hotspot", [("read-only", 0.2), ("read-only", 0.8),
+                                          ("ycsb-a", 0.0), ("insert-intensive", 0.5)])
+def test_hotspot_matches_reference(name, hotspot):
+    """The localized Zipfian: the same ops and keys as the reference, the
+    hot keys one contiguous range around the hotspot."""
+    ds = _dataset(4000, seed=6)
+    want = ref_ycsb.generate(name, ds, 6000, seed=7, hotspot=hotspot)
+    got = t_ycsb.generate(name, ds, 6000, seed=7, hotspot=hotspot)
+    np.testing.assert_array_equal(want.ops, got.ops)
+    np.testing.assert_array_equal(want.keys, got.keys)
+    reads = got.ops != t_ycsb.OP_INSERT
+    centre = ds[int(hotspot * ds.size)]
+    d = np.abs(np.searchsorted(ds, got.keys[reads]) - np.searchsorted(ds, centre))
+    near = np.minimum(d, ds.size - d)  # the ranks wrap around the dataset
+    assert np.median(near) < ds.size // 20
+
+
+def test_bad_hotspot_rejected():
+    with pytest.raises(ValueError):
+        t_ycsb.generate("read-only", _dataset(100, seed=5), 10, hotspot=1.0)

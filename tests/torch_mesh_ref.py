@@ -16,12 +16,20 @@ traced collective counts to one ``.npz``.
   ``offload`` (``tests/test_torch_scan.py``);
 * ``smo``: an insert batch that overflows five leaves, one SMO round,
   ``run_smo`` for the rest, then a scan batch across the split leaves
-  (``tests/test_torch_smo.py``).
+  (``tests/test_torch_smo.py``);
+* ``rt``: the mixed engine with a leaf-direct route table of 512 slots,
+  trained on the initial state, under ``fetch``, ``offload`` and ``auto``,
+  and a poisoned table under ``fetch``; the untrained state is saved too
+  (``tests/test_torch_route_table.py``);
+* ``repart``: the mixed engine with a trained table under tight buckets on
+  skewed batches, a ``RepartitionController`` observing each batch and
+  installing new boundaries (retraining the table) when it fires; every
+  plane and report saved (``tests/test_torch_repartition.py``).
 
 The test files run this in a subprocess (the device count locks when JAX
 starts) and replay the same batches through the port's virtual mesh.
 
-    python tests/torch_mesh_ref.py OUT.npz [engine|scan|smo]
+    python tests/torch_mesh_ref.py OUT.npz [engine|scan|smo|rt|repart]
 """
 
 import os
@@ -38,11 +46,17 @@ from repro.compat import make_mesh_compat  # noqa: E402
 from repro.core import dex as dex_mod  # noqa: E402
 from repro.core import engine as engine_mod  # noqa: E402
 from repro.core import pool as pool_mod  # noqa: E402
+from repro.core import route_table  # noqa: E402
 from repro.core import routing  # noqa: E402
 from repro.core import scan as scan_mod  # noqa: E402
 from repro.core import smo as smo_mod  # noqa: E402
 from repro.core import write as write_mod  # noqa: E402
 from repro.core.nodes import KEY_MAX, KEY_MIN  # noqa: E402
+from repro.core.partition import LogicalPartitions  # noqa: E402
+from repro.core.repartition import (  # noqa: E402
+    RepartitionConfig,
+    RepartitionController,
+)
 
 N_KEYS = 6000
 LANES = 512
@@ -67,6 +81,16 @@ SCAN_CONFIGS = (
     ("scan_auto", "auto", 4.0, ALL_OPS),
     ("scan_only_offload", "offload", 4.0, ("scan",)),
 )
+RT_SLOTS = 512
+#: (name, policy, route_capacity_factor, table): the mixed engine with a
+#: trained or poisoned route table
+RT_CONFIGS = (
+    ("rt_fetch", "fetch", 4.0, "trained"),
+    ("rt_offload", "offload", 4.0, "trained"),
+    ("rt_auto", "auto", 4.0, "trained"),
+    ("rt_poison_fetch", "fetch", 4.0, "poisoned"),
+)
+REPART_FACTOR = 1.25
 RESULTS = ("found", "values", "status", "shed")
 SCAN_RESULTS = RESULTS + ("scan_keys", "scan_values", "taken")
 
@@ -147,6 +171,28 @@ def scan_batches():
     return out
 
 
+def repart_batches():
+    """``(opcodes, keys, values)`` per batch of the ``repart`` group: mixed
+    lookups, updates and inserts on keys below 100,000 (all in route
+    partition 0 of the initial table, which splits at 150,000), then on
+    keys above 200,000 (all in partition 1)."""
+    keys, _ = dataset()
+    rng = np.random.default_rng(5)
+    out = []
+    for bi, sel in enumerate((keys < 100_000, keys < 100_000, keys > 200_000)):
+        pick = keys[sel]
+        opc = rng.integers(0, 3, size=LANES).astype(np.int32)
+        kk = rng.choice(pick, size=LANES).astype(np.int64)
+        ins = opc == engine_mod.OP_INSERT
+        fresh = kk + rng.integers(1, 4, size=LANES)
+        ok = ~np.isin(fresh, keys)
+        kk[ins & ok] = fresh[ins & ok]
+        vals = np.where(opc == engine_mod.OP_UPDATE, kk ^ (0x5A5A + bi), kk * 7)
+        kk[::31] = KEY_MAX
+        out.append((opc, kk, vals.astype(np.int64)))
+    return out
+
+
 SMO_LEAVES = (3, 20, 45, 77, 120)  # leaf indices (44 keys each) to overflow
 
 
@@ -175,8 +221,9 @@ def flat(tree):
     return {".".join(p.name for p in path): np.asarray(x) for path, x in leaves}
 
 
-def config(policy, factor):
+def config(policy, factor, rt_slots=0):
     return dex_mod.DexMeshConfig(
+        route_table_slots=rt_slots,
         route_axes=("data",),
         memory_axis="model",
         n_route=2,
@@ -230,6 +277,77 @@ def run_engines(out, configs, pool, meta, bounds, mesh, lanes):
                 out[f"{name}/{i}/{k}"] = v
             for k in SCAN_RESULTS if has_scan else RESULTS:
                 out[f"{name}/{i}/result.{k}"] = np.asarray(getattr(res, k))
+
+
+def run_rt_engines(out, pool, meta, bounds, mesh, lanes):
+    """The mixed engine with a trained (or poisoned) route table, three
+    mixed batches per configuration."""
+    for name, policy, factor, table in RT_CONFIGS:
+        out[f"{name}/policy"] = np.array(policy)
+        out[f"{name}/factor"] = np.array(factor)
+        out[f"{name}/table"] = np.array(table)
+        cfg = config(policy, factor, RT_SLOTS)
+        state = sharded_state(pool, meta, cfg, bounds, mesh)
+        for k, v in flat(state).items():
+            out[f"{name}/untrained/{k}"] = v
+        state = route_table.train_route_table(state, meta, mesh=mesh)
+        if table == "poisoned":
+            state = route_table.poison_route_table(state)
+        for k, v in flat(state).items():
+            out[f"{name}/init/{k}"] = v
+        fn = engine_mod.make_dex_engine(meta, cfg, mesh, ops=MIXED_OPS)
+        eng = jax.jit(fn)
+        for i, planes in enumerate(mixed_batches()):
+            args = tuple(jax.device_put(jnp.asarray(a), lanes) for a in planes)
+            if i == 0:
+                counts = routing.trace_collective_counts(fn, state, *args)
+                out[f"{name}/counts"] = np.array(
+                    [counts["all_to_all"], counts["route_exchange"]]
+                )
+            state, res = eng(state, *args)
+            for k, v in flat(state).items():
+                out[f"{name}/{i}/{k}"] = v
+            for k in RESULTS:
+                out[f"{name}/{i}/result.{k}"] = np.asarray(getattr(res, k))
+
+
+def run_repart_case(out, pool, meta, bounds, mesh, lanes):
+    """Skewed mixed batches under tight buckets with a trained route table;
+    after each batch the controller observes the counters and may install
+    new boundaries (and retrain the table)."""
+    cfg = config("fetch", REPART_FACTOR, RT_SLOTS)
+    state = route_table.train_route_table(
+        sharded_state(pool, meta, cfg, bounds, mesh), meta, mesh=mesh
+    )
+    for k, v in flat(state).items():
+        out[f"repart/init/{k}"] = v
+    eng = jax.jit(engine_mod.make_dex_engine(meta, cfg, mesh, ops=MIXED_OPS))
+    ctl = RepartitionController(
+        LogicalPartitions(bounds),
+        n_memory=cfg.n_memory,
+        cfg=RepartitionConfig(
+            imbalance_threshold=1.2, min_ops=LANES // 2, cooldown_batches=0
+        ),
+    )
+    for i, planes in enumerate(repart_batches()):
+        for field, a in zip(("opcodes", "keys", "values"), planes):
+            out[f"repart/{i}/{field}"] = a
+        args = tuple(jax.device_put(jnp.asarray(a), lanes) for a in planes)
+        state, res = eng(state, *args)
+        for k, v in flat(state).items():
+            out[f"repart/{i}/{k}"] = v
+        for k in RESULTS:
+            out[f"repart/{i}/result.{k}"] = np.asarray(getattr(res, k))
+        ctl.observe(
+            np.asarray(state.stats), planes[1], demand=np.asarray(state.route_demand)
+        )
+        state, report = ctl.maybe_repartition(state, meta)
+        out[f"repart/{i}/installed"] = np.array(report is not None)
+        if report is not None:
+            for k, v in vars(report).items():
+                out[f"repart/{i}/report.{k}"] = np.asarray(v)
+        for k, v in flat(state).items():
+            out[f"repart/{i}/after/{k}"] = v
 
 
 def run_smo_case(out, pool, meta, bounds, mesh, lanes):
@@ -299,6 +417,10 @@ def main(out_path, group="engine"):
         run_engines(out, SCAN_CONFIGS, pool, meta, bounds, mesh, lanes)
     elif group == "smo":
         run_smo_case(out, pool, meta, bounds, mesh, lanes)
+    elif group == "rt":
+        run_rt_engines(out, pool, meta, bounds, mesh, lanes)
+    elif group == "repart":
+        run_repart_case(out, pool, meta, bounds, mesh, lanes)
     else:
         raise SystemExit(f"unknown group {group!r}")
     np.savez(out_path, **out)
