@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's lookup, write, scan, split, separator, route-table
-and repartition paths on one NVIDIA GPU and check them.
+and repartition paths, and its paged-KV serving of minitron-4b, on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py [--seed 0] [--n-keys 200000000]
 
@@ -22,7 +23,13 @@ Phases, in order; any failure exits non-zero:
      ``node_search_prefix``: the index's compressed rows along real
      descents, compressible, incompressible and empty),
      bit-equal to their plain PyTorch versions, and timed beside the plain
-     version and a PyTorch yardstick where one exists;
+     version and a PyTorch yardstick where one exists; then
+     ``paged_attention`` (64 requests, 24 heads over 8 of 128, a pool of
+     4,096 pages of 16 tokens with stale rows everywhere, lengths 0, 1, page
+     boundaries, partial pages and the whole 36-page table) and
+     ``flash_attention`` ([2, 24, 2048, 128] against [2, 8, 2048, 128],
+     causal; Sq < Sk; a length that is not a multiple of 64; non-causal),
+     in bf16 and f32, within 2e-2 and 1e-4 of their plain versions;
   4. the port on the CPU and on the card give the same lane results and
      state planes (20k keys, 2x4 mesh, 3 batches): lookups under ``fetch``,
      ``fetch`` with shedding buckets and ``auto``; mixed lookups, updates
@@ -32,7 +39,11 @@ Phases, in order; any failure exits non-zero:
      with a trained route table (``fetch``, ``offload``, ``auto``) and a
      poisoned one; ``install_boundaries`` then two batches; and one SMO
      round after a burst that overflows eight leaves, then
-     ``refresh_sep_planes``; every plane compared, the pool's included;
+     ``refresh_sep_planes``; every plane compared, the pool's included; and
+     the LM path on reduced minitron-4b (2 layers, d_model 64) in f32 and
+     bf16: ten paged decode steps of three requests, one admitted after a
+     release, and one ``prefill`` (tables equal, logits within 1e-4 in f32
+     and 0.05 x RMS in bf16);
   5. the main path at full size: 200M sorted int64 keys made on the card
      from ``--seed``, level-M = 1 subtree blocks at fill 0.7, a 2x4 virtual
      mesh split at the median key, 65,536 sets x 4 ways of cache per
@@ -58,8 +69,29 @@ Phases, in order; any failure exits non-zero:
      ``RepartitionController``, which must shed fewer lanes.  A host oracle
      carries the applied writes forward; every lane that is not shed must
      match it, scans included;
-  6. one JSON line of per-kernel launches (summed over phase 5's paths,
-     each counted from 0 just before it), errors and times.
+  6. serving at full width (the index freed first): minitron-4b, 32 layers,
+     bf16, weights from ``--seed``; 64 request slots over a pool of 4,096
+     pages of 16 tokens (8.6 GB of KV), 36 pages a request; seeded prompts
+     of 32-512 tokens fed a token a step, then 64 greedy tokens; a finished
+     request is released (a range delete of its page keys) and a new one
+     admitted in its slot; 640 decode steps, each resolving the batch's page
+     tables with one index lookup and running ``paged_attention`` in every
+     layer.  A host oracle of (request, page index) -> page must equal every
+     live table entry every step, no page may be held twice, and every page
+     is free at the end; at every 64th step each layer's kernel call is
+     also run through its plain version on the same inputs (max abs error
+     <= 2e-2) and the step is repeated with the plain attention: RMS of the
+     logit difference <= 0.05 x RMS of the logits (its max and the greedy
+     agreement are reported: in bf16 over 32 layers the max sits near
+     0.1 x RMS for any attention that is not bit-identical).  Then ``prefill`` over two
+     2,048-token sequences (tokens/s, ``flash_attention`` ms per call) and
+     two served requests replayed through it (max |dlogit| / RMS and greedy
+     agreement, reported);
+  7. the equivalence gate: minitron-4b cut to 4 layers in float32, four
+     requests of 256 seeded tokens through paged decode, dense
+     ``decode_step`` and ``prefill``, pairwise max |dlogit| <= 1e-3 x RMS;
+  8. one JSON line of per-kernel launches (summed over the paths of phases
+     5 and 6, each counted from 0 just before it), errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 prints no result and exits non-zero.
@@ -68,6 +100,7 @@ prints no result and exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -135,6 +168,22 @@ RT_ARMS = ("descent", "leaf-direct", "poisoned")
 # under tight buckets, static and with the controller
 REPART_PHASES = ((0.2, 5), (0.8, 5))
 REPART_FACTOR = 1.25
+# the LM plane: minitron-4b served through the DEX page table
+LM_ARCH = "minitron-4b"
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
+# max abs error of an attention kernel against its plain version, by dtype
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SERVE_SLOTS = 64  # requests decoded together
+PAGE_SIZE = 16
+N_PAGES = 4_096  # 65,536 tokens of KV, 8.6 GB at 32 layers in bf16
+PAGES_PER_REQ = 36  # 576 tokens: the longest prompt plus the generated tokens
+PROMPT_RANGE = (32, 512)  # prompt lengths, uniform, fed a token a step
+GEN_TOKENS = 64  # greedy tokens a request
+DECODE_STEPS = 640
+CHECK_EVERY = 64  # steps repeated with the plain attention
+PREFILL_TOKENS = 2_048  # two sequences of this length
+PREFILL_RUNS = 3
+GATE_REQUESTS, GATE_TOKENS = 4, 256  # the float32 equivalence gate
 
 
 def parse_args(argv):
@@ -995,25 +1044,7 @@ def profile_batch(policy, eng, state, median_ms, *inputs):
     the idle share of ``median_ms`` (the policy's unprofiled median batch,
     since the profiler itself slows the host) and the kernels that took the
     most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # the profiler's notice on event cycles
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            out = eng(state, *inputs)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-    # kernels only: an operator's row repeats its kernels' device time
-    events = [
-        (e.key, e.self_device_time_total / 1e3, e.count)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
-    ]
-    events = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
+    out, wall, events = device_profile(lambda: eng(state, *inputs))
     busy = sum(ms for _, ms, _ in events)
     top = "; ".join(f"{k[:48]} {ms:.3f} ms x{n}" for k, ms, n in events[:8])
     print(
@@ -1775,6 +1806,583 @@ def phase_repartition(args, keys, pool, meta, oracle, bounds):
     return report, per_path
 
 
+def lm_attention_kernels(seed):
+    """``paged_attention`` and ``flash_attention`` at the serving shapes,
+    in bf16 and f32, against their plain versions (max abs error <= 2e-2
+    in bf16, <= 1e-4 in f32), and timed in bf16 beside the plain version
+    and a PyTorch yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(dev)
+    out = {}
+    b, h, hkv, d = SERVE_SLOTS, 24, 8, 128
+    ppr, page = PAGES_PER_REQ, PAGE_SIZE
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = paged_inputs(dtype, seed + 10, dev)
+        got = ops.paged_attention(*args)
+        want = ref.paged_attention_ref(*args)
+        empty = args[4] == 0
+        if not bool((got[empty] == 0).all()):
+            fail("paged_attention: a request of length 0 must give zeros")
+        errs[dtype] = max_abs_err([got], [want.nan_to_num()])
+        if not errs[dtype] <= ATTN_TOL[dtype_name(dtype)]:
+            fail(f"paged_attention {dtype} differs from its plain version: {errs[dtype]}")
+    q, kp, vp, table, lens = args  # bf16, timed
+    item = q.element_size()
+    pages_used = int(((lens.long() + page - 1) // page).sum())
+    nbytes = (
+        int(lens.long().sum()) * hkv * d * 2 * item  # live K and V rows
+        + 2 * q.numel() * item  # q in, output out
+        + pages_used * 4
+        + lens.numel() * 4
+    )
+
+    def gather_sdpa():
+        k = kp[table.long()].reshape(b, ppr * page, hkv, d).transpose(1, 2)
+        v = vp[table.long()].reshape(b, ppr * page, hkv, d).transpose(1, 2)
+        mask = torch.arange(ppr * page, device=dev)[None, :] < lens[:, None]
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], k, v, attn_mask=mask[:, None, None, :], enable_gqa=True
+        )
+
+    out["paged_attention"] = dict(
+        name="paged_attention",
+        route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:76",
+        shape=(
+            f"q [{b}, {h}, {d}] bf16 over {N_PAGES} pages of {page}, {ppr} a"
+            f" request, {int(lens.sum())} live tokens (lengths 0-{ppr * page})"
+        ),
+        check="max abs err bf16 {:.2e}, f32 {:.2e}".format(
+            errs[torch.bfloat16], errs[torch.float32]
+        ),
+        bit_equal=False,
+        max_abs_err=errs[torch.bfloat16],
+        max_abs_err_f32=errs[torch.float32],
+        ms=cuda_ms(lambda: ops.paged_attention(*args), 50),
+        plain_ms=cuda_ms(lambda: ref.paged_attention_ref(*args), 5),
+        library_ms=None,
+        yardstick_ms=cuda_ms(gather_sdpa, 10),
+        yardstick="gather + F.scaled_dot_product_attention(enable_gqa=True), two calls",
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+    )
+    del args, q, kp, vp, got, want
+
+    # flash: the prefill shape, a shorter q against a longer k, and a length
+    # that is not a multiple of the 64-row tile
+    sq, sk = PREFILL_TOKENS, PREFILL_TOKENS
+    cases = (((2, 24, sq, d), (2, 8, sk, d), True), ((1, 24, 300, d), (1, 8, sk, d), True),
+             ((1, 24, 1000, d), (1, 8, 1000, d), True), ((1, 6, 130, d), (1, 2, 200, d), False))
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for qs, ks, causal in cases:
+            q, k, v = (
+                torch.randn(s, generator=g, device=dev).to(dtype) for s in (qs, ks, ks)
+            )
+            err = max_abs_err(
+                [ops.flash_attention(q, k, v, causal=causal)],
+                [ref.flash_attention_ref(q, k, v, causal=causal)],
+            )
+            if not err <= ATTN_TOL[dtype_name(dtype)]:
+                fail(f"flash_attention {dtype} {qs} x {ks} differs from its plain"
+                     f" version: {err}")
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+    q, k, v = (
+        torch.randn(s, generator=g, device=dev, dtype=torch.bfloat16)
+        for s in ((2, 24, sq, d), (2, 8, sk, d), (2, 8, sk, d))
+    )
+    pairs = sq * (sq + 1) // 2  # (query, key) pairs the causal mask keeps
+    flops = 4 * 2 * 24 * d * pairs
+    nbytes = 2 * (q.numel() * 2 + k.numel() * 2 * 2)
+    out["flash_attention"] = dict(
+        name="flash_attention",
+        route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:78",
+        shape=f"q [2, 24, {sq}, {d}] bf16 over k, v [2, 8, {sk}, {d}], causal",
+        check="max abs err bf16 {:.2e}, f32 {:.2e} over 4 cases".format(
+            errs[torch.bfloat16], errs[torch.float32]
+        ),
+        bit_equal=False,
+        max_abs_err=errs[torch.bfloat16],
+        max_abs_err_f32=errs[torch.float32],
+        ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 10),
+        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3),
+        library_ms=cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+            10,
+        ),
+        bound_ms=max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
+        else "bytes",
+    )
+    for k_ in out.values():
+        print(
+            f"kernel {k_['name']}: {k_['shape']}: {k_['check']}, kernel"
+            f" {k_['ms']:.4f} ms, plain {k_['plain_ms']:.4f} ms, library"
+            f" {k_['library_ms']} ms, yardstick {k_.get('yardstick_ms')} ms,"
+            f" bound {k_['bound_ms']:.4f} ms on {card}"
+        )
+    return out
+
+
+def dtype_name(dtype):
+    return str(dtype).removeprefix("torch.")
+
+
+def paged_inputs(dtype, seed, dev):
+    """``paged_attention`` at the serving shapes: 64 requests of 24 query
+    heads over 8 kv heads of 128, a pool of 4,096 pages of 16 tokens, 36
+    pages a request, every row random (so every page past a request's
+    length holds stale rows, as a recycled page does); lengths 0, 1, 16
+    and 32 (page boundaries), 17 and 575 (partial last pages), 576 (the
+    whole table), the rest uniform in 1-576."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, hkv, d = SERVE_SLOTS, 24, 8, 128
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((N_PAGES, PAGE_SIZE, hkv, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((N_PAGES, PAGE_SIZE, hkv, d), generator=g, device=dev).to(dtype)
+    table = torch.randperm(N_PAGES, generator=g, device=dev)[: b * PAGES_PER_REQ]
+    table = table.reshape(b, PAGES_PER_REQ).to(torch.int32)
+    full = PAGES_PER_REQ * PAGE_SIZE
+    lens = torch.randint(1, full + 1, (b,), generator=g, device=dev)
+    lens[:7] = torch.tensor([0, 1, 16, 32, 17, full - 1, full], device=dev)
+    return q, kp, vp, table, lens.to(torch.int32)
+
+
+def lm_trace(cfg, params, dev, seed):
+    """Ten paged decode steps for three requests, one admitted after
+    another's release (its pages recycled), then one ``prefill``; returns
+    the page tables, the decode logits and the prefill logits (on the
+    host)."""
+    import torch
+
+    from repro_torch.serve.kv_cache import PagedKVCache
+    from repro_torch.serve.serve_step import paged_decode_step, prefill
+
+    rng = np.random.default_rng(seed)
+    kv = PagedKVCache(cfg=cfg, n_pages=16, page_size=4, max_batch=3, device=dev)
+    req = [1, 2, 3]
+    for r, n in zip(req, (0, 3, 6)):
+        kv.admit_request(r, prompt_len=n)
+    tables, logits = [], []
+    for t in range(10):
+        if t == 5:
+            kv.release_request(2)
+            kv.admit_request(4, prompt_len=0)
+            req = [1, 4, 3]
+        for r in req:
+            kv.extend_request(r)
+        ids = np.array(req)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(3, 1))).to(dev)
+        table = kv.resolve_tables(ids, 4)
+        lg, k_new, v_new = paged_decode_step(
+            cfg, params, tok, kv.k_pages, kv.v_pages, table, kv.batch_seq_lens(ids)
+        )
+        kv.append_tokens(ids, k_new, v_new)
+        tables.append(table.cpu())
+        logits.append(lg.cpu())
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 12))).to(dev)
+    return tables, logits, prefill(cfg, params, toks).cpu()
+
+
+def phase_lm_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
+    """The LM path on the CPU (plain versions) and on the card (kernels):
+    reduced minitron-4b (2 layers, d_model 64, 4 heads over 2, head dim 32)
+    in f32 and bf16, weights from ``seed`` carried bit for bit; page tables
+    identical, logits within 1e-4 (f32) or 0.05 x RMS (bf16)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config(LM_ARCH).reduced(
+            n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=32, dtype=dtype
+        )
+        host = model.init_params(cfg, seed, device=devices[0])
+        card = model.params_from_numpy(cfg, model.params_to_numpy(host), devices[1])
+        t_cpu, l_cpu, p_cpu = lm_trace(cfg, host, devices[0], seed)
+        t_gpu, l_gpu, p_gpu = lm_trace(cfg, card, devices[1], seed)
+        for i, (a, b_) in enumerate(zip(t_cpu, t_gpu)):
+            if not torch.equal(a, b_):
+                fail(f"lm cpu-vs-cuda {dtype}: page tables differ at step {i}")
+        err = max_abs_err(l_gpu + [p_gpu], l_cpu + [p_cpu])
+        rms = float(np.sqrt(np.mean([float(x.double().pow(2).mean()) for x in l_cpu])))
+        tol = 1e-4 if dtype == "float32" else 0.05 * rms
+        if not err <= tol:
+            fail(f"lm cpu-vs-cuda {dtype}: logits differ by {err} (limit {tol})")
+        print(f"cpu-vs-cuda lm {dtype}: 10 paged steps + prefill, tables equal,"
+              f" max |dlogit| {err:.3e} (limit {tol:.3e}, RMS {rms:.3f})")
+
+
+def device_profile(fn):
+    """``fn()`` under ``torch.profiler``: its result, the wall milliseconds
+    under the profiler, and the kernels as ``(name, device ms, count)``
+    sorted by device time (kernels only: an operator's row repeats its
+    kernels' time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the profiler's notice on event cycles
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = [
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+    ]
+    return out, wall, sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
+
+
+@contextlib.contextmanager
+def held_to_plain(errs):
+    """Within the block, every ``ops.paged_attention`` call also runs its
+    plain version on the same inputs (the layer's real q, pages, table and
+    lengths) and appends the max abs difference and the share of outputs
+    that differ to ``errs``; the plain calls launch no kernel."""
+    from repro_torch.kernels import ops, ref
+
+    kernel = ops.paged_attention
+
+    def checked(*a):
+        out = kernel(*a)
+        want = ref.paged_attention_ref(*a).nan_to_num()
+        errs.append((max_abs_err([out], [want]), float((out != want).float().mean())))
+        return out
+
+    ops.paged_attention = checked
+    try:
+        yield
+    finally:
+        ops.paged_attention = kernel
+
+
+class Request:
+    """One request of the serving run: a seeded prompt fed a token a step,
+    then greedy tokens until ``GEN_TOKENS`` are generated."""
+
+    def __init__(self, rid, rng, vocab):
+        self.id = rid
+        self.prompt = rng.integers(0, vocab, size=int(rng.integers(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1)))
+        self.fed = []  # tokens fed, in order
+        self.gen = []  # greedy tokens out
+
+    def next_input(self):
+        n = len(self.fed)
+        return int(self.prompt[n]) if n < len(self.prompt) else self.gen[-1]
+
+    def take(self, token):
+        """Record the step's output: a generated token once the whole
+        prompt is in."""
+        if len(self.fed) >= len(self.prompt):
+            self.gen.append(int(token))
+
+    @property
+    def done(self):
+        return len(self.gen) >= GEN_TOKENS
+
+
+def phase_serving(seed):
+    """minitron-4b at full width (32 layers, bf16, weights from ``seed``)
+    served through the DEX page table for ``DECODE_STEPS`` steps; every
+    ``CHECK_EVERY``-th step holds each layer's kernel call to its plain
+    version on the same inputs and is repeated with the plain attention
+    (RMS of the logit difference <= 0.05 x RMS; not timed); a host oracle of
+    ``(request, page index) -> page`` holds the resolved tables every
+    step.  Returns the report, the launches of the path, the params
+    and the two recorded requests (tokens fed, decode logits)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.serve.kv_cache import PagedKVCache
+    from repro_torch.serve.serve_step import paged_decode_step
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kv = PagedKVCache(cfg=cfg, n_pages=N_PAGES, page_size=PAGE_SIZE,
+                      max_batch=SERVE_SLOTS, device=dev)
+    rng = np.random.default_rng(seed + 7)
+    oracle = {}  # request id -> its pages, by page index
+    next_id = [1]
+
+    def admit():
+        r = Request(next_id[0], rng, cfg.vocab)
+        next_id[0] += 1
+        oracle[r.id] = kv.admit_request(r.id, prompt_len=0)
+        return r
+
+    slots = [admit() for _ in range(SERVE_SLOTS)]
+    record = {1: [], 2: []}  # decode logits of two requests, per step
+    recorded = {}
+    times, len_sum, releases, reused = [], 0, 0, 0
+    prof, checks = None, []
+    prof_step = DECODE_STEPS // 2 + 1  # not a step checked against the plain path
+    ops.reset_launches()
+    lookups0 = kv.lookups
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, r in enumerate(slots):
+            if r.done:  # release (a range delete), admit a new one in the slot
+                kv.release_request(r.id)
+                del oracle[r.id]
+                if r.id in record:
+                    recorded[r.id] = r
+                releases += 1
+                slots[i] = admit()
+                reused += 1
+        tok = np.array([[r.next_input()] for r in slots], np.int64)
+        for b, r in enumerate(slots):
+            page = kv.extend_request(r.id)
+            if page is not None:
+                oracle[r.id].append(page)
+            r.fed.append(int(tok[b, 0]))
+        ids = np.array([r.id for r in slots])
+        table = kv.resolve_tables(ids, PAGES_PER_REQ)
+        lens = kv.batch_seq_lens(ids)
+        tok_dev = torch.from_numpy(tok).to(dev)
+        args = (cfg, params, tok_dev, kv.k_pages, kv.v_pages, table, lens)
+        check = step % CHECK_EVERY == 0
+        if step == prof_step:
+            (logits, k_new, v_new), _, prof = device_profile(
+                lambda: paged_decode_step(*args)
+            )
+        elif check:
+            layer_errs = []
+            with held_to_plain(layer_errs):
+                logits, k_new, v_new = paged_decode_step(*args)
+        else:
+            logits, k_new, v_new = paged_decode_step(*args)
+        if check:  # the same inputs through the plain attention
+            plain, _, _ = paged_decode_step(*args, use_kernel=False)
+            d = logits - plain
+            rms = float(plain.pow(2).mean().sqrt())
+            c = dict(
+                step=step,
+                layer_max_abs_err=max(e for e, _ in layer_errs),
+                layer_differing_share=float(np.mean([f for _, f in layer_errs])),
+                max_over_rms=float(d.abs().max()) / rms,
+                rms_over_rms=float(d.pow(2).mean().sqrt()) / rms,
+                greedy_agree=float((logits.argmax(-1) == plain.argmax(-1)).float().mean()),
+            )
+            checks.append(c)
+            if not (c["layer_max_abs_err"] <= ATTN_TOL["bfloat16"]
+                    and c["rms_over_rms"] <= 0.05):
+                fail(f"serving step {step}: kernel vs plain {c}")
+            del plain, d
+        kv.append_tokens(ids, k_new, v_new)
+        nxt = logits.argmax(-1).cpu().numpy()
+        torch.cuda.synchronize()
+        if step != prof_step and not check:
+            times.append((time.perf_counter() - t0) * 1e3)
+        for b, r in enumerate(slots):
+            r.take(nxt[b])
+            if r.id in record:
+                record[r.id].append(logits[b].clone())
+        # the oracle: every live entry of the table, every step
+        host_table = table.cpu().numpy()
+        lens_h = lens.cpu().numpy()
+        len_sum += int(lens_h.sum())
+        for b, r in enumerate(slots):
+            pages = oracle[r.id]
+            want = np.zeros(PAGES_PER_REQ, np.int32)
+            want[: len(pages)] = pages
+            if not np.array_equal(host_table[b], want):
+                fail(f"serving step {step}: request {r.id}'s table {host_table[b]}"
+                     f" differs from the oracle {want}")
+        live = [p for pages in oracle.values() for p in pages]
+        if len(set(live)) != len(live) or set(live) & set(kv.free) or (
+            len(live) + len(kv.free) != N_PAGES
+        ):
+            fail(f"serving step {step}: a page is held twice or lost")
+    launches = dict(ops.LAUNCHES)
+    lookups = kv.lookups - lookups0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for r in slots:
+        kv.release_request(r.id)
+    if sorted(kv.free) != list(range(N_PAGES)):
+        fail("serving: the free list does not hold every page after the releases")
+    if launches["paged_attention"] != cfg.n_layers * DECODE_STEPS:
+        fail(f"serving: {launches['paged_attention']} paged_attention launches,"
+             f" expected {cfg.n_layers * DECODE_STEPS}")
+    med = float(np.median(times))
+    busy = sum(ms for _, ms, _ in prof)
+    paged = sum(ms for k, ms, _ in prof if "paged_attention" in k)
+    top = "; ".join(f"{k[:40]} {ms:.3f} ms x{n}" for k, ms, n in prof[:8])
+    report = dict(
+        steps=DECODE_STEPS,
+        slots=SERVE_SLOTS,
+        tokens_per_s=SERVE_SLOTS / med * 1e3,
+        median_ms=med,
+        p25_ms=float(np.percentile(times, 25)),
+        p75_ms=float(np.percentile(times, 75)),
+        device_busy_ms=busy,
+        idle_share=1 - busy / med,
+        paged_attention_ms=paged,
+        paged_attention_share=paged / busy,
+        lookups_per_step=lookups / DECODE_STEPS,
+        mean_seq_len=len_sum / (DECODE_STEPS * SERVE_SLOTS),
+        releases=releases,
+        peak_gib=peak,
+        init_s=init_s,
+        checks=checks,
+    )
+    print(f"serving {LM_ARCH}: {json.dumps(report)}")
+    print(f"serving profile (step {prof_step}): top: {top}")
+    del kv
+    missing = set(record) - set(recorded)
+    if missing:
+        fail(f"serving: requests {sorted(missing)} did not finish")
+    replays = {
+        rid: (np.array(recorded[rid].fed), recorded[rid].gen, torch.stack(record[rid]))
+        for rid in record
+    }
+    return report, launches, params, replays
+
+
+def phase_prefill(params, replays, seed):
+    """``prefill`` at full width (32 layers, bf16) over two sequences of
+    ``PREFILL_TOKENS``: prefill tokens/s and flash_attention's device ms per
+    call; then the two recorded requests of the serving run replayed
+    through ``prefill``: max |dlogit| / RMS against the decode's logits and
+    the share of greedy tokens that agree (reported, not gated)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve.serve_step import prefill
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    toks = torch.randint(0, cfg.vocab, (2, PREFILL_TOKENS), generator=g, device=dev)
+    prefill(cfg, params, toks)  # warm-up
+    ops.reset_launches()
+    times = []
+    for _ in range(PREFILL_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(cfg, params, toks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(ops.LAUNCHES)
+    if launches["flash_attention"] != cfg.n_layers * PREFILL_RUNS:
+        fail(f"prefill: {launches['flash_attention']} flash_attention launches,"
+             f" expected {cfg.n_layers * PREFILL_RUNS}")
+    if not bool(torch.isfinite(logits).all()):
+        fail("prefill: logits are not finite")
+    del logits
+    _, wall, prof = device_profile(lambda: prefill(cfg, params, toks))
+    busy = sum(ms for _, ms, _ in prof)
+    flash = [(ms, n) for k, ms, n in prof if "flash_attention" in k]
+    med = float(np.median(times))
+    report = dict(
+        tokens=toks.numel(),
+        median_ms=med,
+        tokens_per_s=toks.numel() / med * 1e3,
+        device_busy_ms=busy,
+        idle_share=1 - busy / med,
+        flash_attention_ms_per_call=sum(m for m, _ in flash) / sum(n for _, n in flash),
+        flash_attention_share=sum(m for m, _ in flash) / busy,
+    )
+    for rid, (fed, gen, dec) in replays.items():
+        n_prompt = len(fed) - len(gen) + 1
+        pre = prefill(cfg, params, torch.from_numpy(fed[None]).to(dev))[0]
+        rms = float(dec.pow(2).mean().sqrt())
+        greedy = pre[n_prompt - 1 :].argmax(-1).cpu().numpy()
+        report[f"replay_{rid}"] = dict(
+            tokens=len(fed),
+            max_dlogit_over_rms=float((pre - dec).abs().max()) / rms,
+            greedy_agree=float(np.mean(greedy == np.array(gen))),
+        )
+        del pre
+    print(f"prefill {LM_ARCH}: {json.dumps(report)}")
+    return report, launches
+
+
+def phase_gate(seed):
+    """The equivalence gate at full width: minitron-4b cut to 4 layers in
+    float32 (no TF32), four requests of ``GATE_TOKENS`` seeded tokens
+    through paged decode (the kernel), dense ``decode_step`` (plain) and
+    ``prefill`` (the flash kernel); pairwise max |dlogit| <= 1e-3 x RMS."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+    from repro_torch.serve.kv_cache import PagedKVCache
+    from repro_torch.serve.serve_step import paged_decode_step, prefill
+
+    if torch.backends.cuda.matmul.allow_tf32 or (
+        torch.get_float32_matmul_precision() != "highest"
+    ):
+        fail("gate: float32 products must not use TF32")
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=4, dtype="float32")
+    params = model.init_params(cfg, seed, device=dev)
+    b, n = GATE_REQUESTS, GATE_TOKENS
+    rng = np.random.default_rng(seed + 13)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(b, n))).to(dev)
+    kv = PagedKVCache(cfg=cfg, n_pages=b * n // PAGE_SIZE, page_size=PAGE_SIZE,
+                      max_batch=b, device=dev)
+    ids = np.arange(1, b + 1)
+    for r in ids:
+        kv.admit_request(int(r), prompt_len=0)
+    dense = model.init_decode_cache(cfg, b, n, device=dev)
+    paged_logits, dense_logits = [], []
+    for t in range(n):
+        for r in ids:
+            kv.extend_request(int(r))
+        lg, k_new, v_new = paged_decode_step(
+            cfg, params, toks[:, t : t + 1], kv.k_pages, kv.v_pages,
+            kv.resolve_tables(ids, n // PAGE_SIZE), kv.batch_seq_lens(ids),
+        )
+        kv.append_tokens(ids, k_new, v_new)
+        paged_logits.append(lg)
+        dense_logits.append(model.decode_step(cfg, params, toks[:, t : t + 1], dense, t)[0])
+    del dense, kv
+    paths = {
+        "paged": torch.stack(paged_logits, 1),  # [b, n, V]
+        "dense": torch.stack(dense_logits, 1),
+        "prefill": prefill(cfg, params, toks),
+    }
+    del paged_logits, dense_logits, params
+    rms = float(paths["dense"].double().pow(2).mean().sqrt())
+    report = dict(layers=cfg.n_layers, requests=b, tokens=n, rms=rms)
+    for x, y in (("paged", "dense"), ("paged", "prefill"), ("dense", "prefill")):
+        report[f"{x}_vs_{y}"] = float((paths[x] - paths[y]).abs().max()) / rms
+    print(f"gate {LM_ARCH} 4 layers f32: {json.dumps(report)}")
+    worst = max(v for k, v in report.items() if "_vs_" in k)
+    if not worst <= 1e-3:
+        fail(f"gate: max |dlogit| / RMS {worst} > 1e-3")
+    return report
+
+
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
     import torch
@@ -1802,8 +2410,10 @@ def main(argv=None):
     )
     t0 = time.perf_counter()
     kernels = phase_kernels(pool, meta, keys, args.seed)
+    kernels.update(lm_attention_kernels(args.seed))
     t1 = time.perf_counter()
     phase_cpu_vs_cuda(args.seed)
+    phase_lm_cpu_vs_cuda(args.seed)
     t2 = time.perf_counter()
     report, per_path, oracle, bounds = phase_main(args, keys, pool, meta)
     t3 = time.perf_counter()
@@ -1819,11 +2429,25 @@ def main(argv=None):
     report.update(more)
     per_path.update(more_paths)
     t6 = time.perf_counter()
+    # the LM phases run without the index
+    del keys, pool, meta, oracle, bounds
+    torch.cuda.empty_cache()
+    report["serving"], per_path["serving"], params, replays = phase_serving(args.seed)
+    check_launches("serving", per_path["serving"], ("paged_attention", "node_search"))
+    t7 = time.perf_counter()
+    report["prefill"], per_path["prefill"] = phase_prefill(params, replays, args.seed)
+    check_launches("prefill", per_path["prefill"], ("flash_attention",))
+    del params, replays
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    report["gate"] = phase_gate(args.seed)
+    t9 = time.perf_counter()
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["read-only"]}
     print(f"main: launches {launches}")
     print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
           f" main {t3 - t2:.1f} s, splits and scans {t4 - t3:.1f} s,"
-          f" route table {t5 - t4:.1f} s, repartition {t6 - t5:.1f} s")
+          f" route table {t5 - t4:.1f} s, repartition {t6 - t5:.1f} s,"
+          f" serving {t7 - t6:.1f} s, prefill {t8 - t7:.1f} s, gate {t9 - t8:.1f} s")
     rows = []
     for name, k in kernels.items():
         rows.append(dict(
@@ -1839,6 +2463,7 @@ def main(argv=None):
             bound_by=k["bound_by"],
             library_ms=k["library_ms"],
             bit_equal=k["bit_equal"],
+            **{x: k[x] for x in ("max_abs_err_f32", "yardstick_ms") if x in k},
         ))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

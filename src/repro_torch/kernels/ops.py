@@ -27,10 +27,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import leaf_scan as _leaf_scan
 from repro_torch.kernels import leaf_split as _leaf_split
 from repro_torch.kernels import leaf_write as _leaf_write
 from repro_torch.kernels import node_search as _node_search
+from repro_torch.kernels import paged_attention as _paged_attention
 from repro_torch.kernels import ref
 from repro_torch.kernels import subtree_walk as _subtree_walk
 
@@ -44,6 +46,8 @@ LAUNCHES = {
     "leaf_write": 0,
     "leaf_scan": 0,
     "leaf_split": 0,
+    "paged_attention": 0,
+    "flash_attention": 0,
 }
 #: seconds the last build took (0.0 when the library came from the cache)
 BUILD_SECONDS = [0.0]
@@ -127,6 +131,8 @@ def library() -> ctypes.CDLL:
         _leaf_write.bind(lib)
         _leaf_scan.bind(lib)
         _leaf_split.bind(lib)
+        _paged_attention.bind(lib)
+        _flash_attention.bind(lib)
         _LIB.append(lib)
     return _LIB[0]
 
@@ -247,4 +253,42 @@ def leaf_split(
         return ref.leaf_split_ref(*args)
     out = _leaf_split.launch(library(), *args)
     LAUNCHES["leaf_split"] += 1
+    return out
+
+
+def paged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    seq_lens: torch.Tensor,
+) -> torch.Tensor:
+    """``[B, H, D]``: each request's one query token attended over its
+    tokens below ``seq_lens[b]``, stored in the pages ``page_table[b]``
+    names (see ``ref.paged_attention_ref``)."""
+    args = (q, k_pages, v_pages, page_table, seq_lens)
+    if q.device.type == "cpu":
+        _paged_attention.validate(*args)
+        return ref.paged_attention_ref(*args)
+    out = _paged_attention.launch(library(), *args)
+    LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """``[B, H, Sq, D]``: attention of ``q`` over ``k``, ``v`` ``[B, HKV,
+    Sk, D]`` (GQA), causal with offset ``Sk - Sq`` (see
+    ``ref.flash_attention_ref``)."""
+    if q.device.type == "cpu":
+        _flash_attention.validate(q, k, v)
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    out = _flash_attention.launch(library(), q, k, v, causal, scale)
+    LAUNCHES["flash_attention"] += 1
     return out

@@ -8,6 +8,7 @@ plain version on the card.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -219,3 +220,70 @@ def leaf_split_ref(
     occ_r = (rk != KEY_MAX).sum(-1).to(torch.int32)
     sep = torch.where(split, rk[:, 0], KEY_MAX)
     return lk, lv, rk, rv, occ_l, occ_r, sep, split.to(torch.int32)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Blocked prefill attention's function, unblocked.
+
+    ``q`` [B, H, Sq, D]; ``k``, ``v`` [B, HKV, Sk, D] with H % HKV == 0
+    (query head ``h`` reads kv head ``h // (H // HKV)``).  In f32; causal
+    masks key ``j`` from query ``i`` where ``j > i + Sk - Sq``.  Returns
+    q's dtype.  A row that no key may reach is NaN here (the kernel writes
+    0 there)."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    if causal:
+        dev = q.device
+        mask = torch.arange(sq, device=dev)[:, None] + (sk - sq) >= torch.arange(
+            sk, device=dev
+        )[None, :]
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def paged_attention_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    seq_lens: torch.Tensor,
+) -> torch.Tensor:
+    """Decode attention over KV pages through a page table, one query token
+    per request.
+
+    ``q`` [B, H, D]; ``k_pages``, ``v_pages`` [P, page, HKV, D];
+    ``page_table`` [B, pages_per_req] int32; ``seq_lens`` [B] int32.  Token
+    ``t`` of request ``b`` lies at ``k_pages[page_table[b, t // page], t %
+    page]``; tokens at or past ``seq_lens[b]`` are masked.  In f32; returns
+    q's dtype.  A request with ``seq_len = 0`` is NaN here (the kernel
+    writes 0 there)."""
+    b, h, d = q.shape
+    page, hkv = k_pages.shape[1], k_pages.shape[2]
+    group = h // hkv
+    ppr = page_table.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    tbl = page_table.long()
+    k = k_pages[tbl].reshape(b, ppr * page, hkv, d)
+    v = v_pages[tbl].reshape(b, ppr * page, hkv, d)
+    pos = torch.arange(ppr * page, device=q.device)[None, :]
+    valid = pos < seq_lens[:, None]
+    qf = q.float().reshape(b, hkv, group, d) * scale
+    s = torch.einsum("bngd,bsnd->bngs", qf, k.float())
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bngs,bsnd->bngd", p, v.float())
+    return o.reshape(b, h, d).to(q.dtype)

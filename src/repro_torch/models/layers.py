@@ -1,0 +1,257 @@
+"""Model building blocks of the dense GQA families: norms, RoPE, attention
+and the SwiGLU / GELU MLP.
+
+The port of ``repro.models.layers``' dense part.  Functions are pure
+(parameters in, activations out) over dicts of tensors with the reference's
+names, and follow its casts one for one:
+
+* ``_dot`` multiplies in the activation dtype with f32 accumulation and one
+  rounding to that dtype (the reference's ``preferred_element_type=F32``
+  then ``astype``);
+* ``rmsnorm`` normalises in f32 and rounds before the scale multiply;
+* SwiGLU's ``silu`` runs in f32 and is rounded before ``* up``;
+* the rotary angles and the rotation are float64, as the reference's are
+  (its package enables x64, so ``rope_freqs`` multiplies by a float64 numpy
+  vector), and the result is cast to the activation dtype.
+
+``sdpa`` is the ``flash_attention`` kernel (its plain version on the CPU),
+where the reference inlines a jnp double scan of the same function.  The
+kernel keeps the probabilities in f32 before P.V, as the TPU kernel and its
+oracle do; the reference's jnp form rounds them to bf16 first.  Its tensor-
+parallel hooks (``_tp``) are dropped: one card, no GSPMD.  MLA, MoE and
+Mamba blocks come with later slices of the port.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ArchConfig
+
+F32 = torch.float32
+
+
+def torch_dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` accumulated in f32 and rounded once to x's dtype."""
+    return torch.matmul(x, w)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x, scale, eps):
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def layernorm(x, scale, bias, eps):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * scale + bias
+
+
+def apply_norm(cfg: ArchConfig, x, p):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return rmsnorm(x, p["scale"], cfg.norm_eps)
+
+
+def init_norm(cfg: ArchConfig, dim: int, *, layers: int = 0, device=None) -> dict:
+    """Scale (and bias for layernorm) of one norm; ``layers > 0`` stacks
+    them ``[layers, dim]``."""
+    shape = (layers, dim) if layers else (dim,)
+    dt = torch_dtype(cfg)
+    p = {"scale": torch.ones(shape, dtype=dt, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=dt, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(
+    dim: int, theta: float, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float64 ``cos, sin`` of ``positions[..., None] * inv`` (the positions
+    pass through f32 first, as the reference's do)."""
+    inv = 1.0 / (theta ** (np.arange(0, dim, 2) / dim))
+    inv = torch.from_numpy(inv).to(positions.device)
+    ang = positions[..., None].float().double() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: [..., S, H, Dh]; cos/sin broadcastable against [..., S, H, Dh/2]
+    (callers pass ``cos[:, None, :]``); rotates in float64, casts back."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def sdpa(q, k, v, *, causal: bool, scale=None):
+    """Attention through the ``flash_attention`` kernel.
+
+    q: [B, Sq, H, D]; k, v: [B, Sk, HKV, D] (the reference's layout); the
+    kernel takes heads before positions, so the operands are transposed into
+    contiguous copies and the output back.  The causal diagonal sits at
+    ``Sk - Sq`` (the reference's callers use Sq = Sk, offset 0)."""
+    o = ops.flash_attention(
+        q.transpose(1, 2).contiguous(),
+        k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(),
+        causal=causal,
+        scale=scale,
+    )
+    return o.transpose(1, 2)
+
+
+def _normal(shape, std, dt, gen, device):
+    return (torch.randn(shape, generator=gen, device=device) * std).to(dt)
+
+
+def _stacked(layers, shape, std, dt, gen, device):
+    """``[layers, *shape]`` of N(0, std), drawn a layer at a time so the f32
+    draw never exceeds one layer."""
+    out = torch.empty((layers, *shape), dtype=dt, device=device)
+    for i in range(layers):
+        out[i] = _normal(shape, std, dt, gen, device)
+    return out
+
+
+def init_gqa(cfg: ArchConfig, gen: torch.Generator, *, layers: int, device=None) -> dict:
+    """GQA projections stacked ``[layers, ...]`` at the reference's scales."""
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = 1.0 / math.sqrt(d)
+    dt = torch_dtype(cfg)
+    n = layers
+
+    def w(shape, std):
+        return _stacked(n, shape, std, dt, gen, device)
+
+    p = {
+        "wq": w((d, h * hd), s),
+        "wk": w((d, hkv * hd), s),
+        "wv": w((d, hkv * hd), s),
+        "wo": w((h * hd, d), s / math.sqrt(2 * cfg.n_layers)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((n, h * hd), dtype=dt, device=device)
+        p["bk"] = torch.zeros((n, hkv * hd), dtype=dt, device=device)
+        p["bv"] = torch.zeros((n, hkv * hd), dtype=dt, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((n, hd), dtype=dt, device=device)
+        p["k_norm"] = torch.ones((n, hd), dtype=dt, device=device)
+    return p
+
+
+def _dus(buf, update, at, axis: int):
+    """Write ``update`` into ``buf`` at ``at`` along ``axis``, in place; the
+    start clamps so the update fits, as ``dynamic_update_slice``'s does."""
+    at = min(max(int(at), 0), buf.shape[axis] - update.shape[axis])
+    buf.narrow(axis, at, update.shape[axis]).copy_(update)
+    return buf
+
+
+def gqa_attention(
+    cfg: ArchConfig,
+    p: dict,
+    x: torch.Tensor,  # [B, S, D]
+    positions: torch.Tensor,  # [S] absolute positions
+    *,
+    causal: bool = True,
+    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_len: Optional[int] = None,
+):
+    """Returns ``(out [B, S, D], new_kv_cache or None)``.  With a dense
+    ``kv_cache`` ([B, Smax, HKV, Dh] k and v) the new keys and values are
+    written into it in place at ``cache_len`` and the queries attend over
+    it; without one, ``sdpa``."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _dot(x, p["wq"])
+    k = _dot(x, p["wk"])
+    v = _dot(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
+    q = apply_rope(q, cos[:, None, :], sin[:, None, :])
+    k = apply_rope(k, cos[:, None, :], sin[:, None, :])
+
+    new_cache = None
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        _dus(ck, k, cache_len, axis=1)
+        _dus(cv, v, cache_len, axis=1)
+        new_cache = (ck, cv)
+        smax = ck.shape[1]
+        kpos = torch.arange(smax, device=x.device)
+        keep = kpos < (int(cache_len) + s)
+        qf = q.reshape(b, s, hkv, h // hkv, hd).float() / math.sqrt(hd)
+        sc = torch.einsum("bqngd,bknd->bnqgk", qf, ck.float())
+        sc = sc.masked_fill(~keep[None, None, None, None, :], float("-inf"))
+        mask = positions[:, None] >= kpos[None, :]
+        sc = sc.masked_fill(~mask[None, None, :, None, :], float("-inf"))
+        pr = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bnqgk,bknd->bqngd", pr, cv.float())
+        o = o.reshape(b, s, h, hd).to(x.dtype)
+    else:
+        o = sdpa(q, k, v, causal=causal)
+    out = _dot(o.reshape(b, s, h * hd), p["wo"])
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(cfg: ArchConfig, gen: torch.Generator, *, layers: int, device=None) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    dt = torch_dtype(cfg)
+    width = 2 * ff if cfg.act == "swiglu" else ff
+    return {
+        "wi": _stacked(layers, (d, width), 1.0 / math.sqrt(d), dt, gen, device),
+        "wo": _stacked(
+            layers, (ff, d), 1.0 / math.sqrt(ff) / math.sqrt(2 * cfg.n_layers),
+            dt, gen, device,
+        ),
+    }
+
+
+def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = _dot(x, p["wi"])
+    if cfg.act == "swiglu":
+        gate, up = h.chunk(2, dim=-1)
+        h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
+    else:
+        h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return _dot(h, p["wo"])

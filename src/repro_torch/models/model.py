@@ -1,0 +1,225 @@
+"""The dense GQA decoder: init, forward (train / prefill) and dense-cache
+decode.
+
+The port of ``repro.models.model``'s dense path (families ``dense`` and
+``vlm``: pre-norm GQA with optional QKV bias or QK-norm, then a SwiGLU or
+GELU MLP).  Parameters are a dict of tensors with the reference's names and
+stacked ``[L, ...]`` leaves; ``params_from_numpy`` carries the reference's
+parameter pytree across (as ``jax.tree.map(np.asarray, params)`` gives it),
+the counterpart of ``dex.state_from_numpy``.  The layer stack is a Python
+loop over those leaves, where the reference scans.
+
+MLA, MoE, SSM, hybrid and encoder-decoder configs resolve by name and raise
+``NotImplementedError`` here, naming the slice of the port that brings them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.mesh import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+
+F32 = torch.float32
+
+#: what a config needs that the port does not serve yet, and the slice
+#: (``ROADMAP.md``, item 13) that brings it
+_LATER = (
+    ("ssm", "Mamba blocks (falcon-mamba-7b) come with the mamba_scan slice"),
+    ("hybrid_attn_every", "hybrid Mamba stacks come after the MoE and MLA slices"),
+    ("moe", "MoE blocks come with the slice after mamba_scan"),
+    ("encdec", "encoder-decoder models come after the MLA slice"),
+)
+
+
+def check_served(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA model."""
+    for field, why in _LATER:
+        if getattr(cfg, field):
+            raise NotImplementedError(f"{cfg.name}: {why}")
+    if cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.attention} attention (MLA) comes with the slice after MoE"
+        )
+
+
+def layer_params(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i``'s slice of stacked ``[L, ...]`` leaves (views)."""
+    return {
+        k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()
+    }
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ArchConfig, seed: int, device=None) -> Dict[str, Any]:
+    """Random weights at the reference's scales and dtypes, drawn on
+    ``device`` (``None`` means CUDA) from a ``torch.Generator`` seeded with
+    ``seed``.  The numbers differ from the reference's ``jax.random`` ones;
+    tests carry the reference's parameters across with
+    ``params_from_numpy``."""
+    check_served(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = L.torch_dtype(cfg)
+    n = cfg.n_layers
+    params: Dict[str, Any] = {
+        "embed": L._normal((cfg.vocab, cfg.d_model), 0.02, dt, gen, device),
+        "final_norm": L.init_norm(cfg, cfg.d_model, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L._normal((cfg.d_model, cfg.vocab), 0.02, dt, gen, device)
+    params["blocks"] = {
+        "ln1": L.init_norm(cfg, cfg.d_model, layers=n, device=device),
+        "attn": L.init_gqa(cfg, gen, layers=n, device=device),
+        "ln2": L.init_norm(cfg, cfg.d_model, layers=n, device=device),
+        "mlp": L.init_mlp(cfg, gen, layers=n, device=device),
+    }
+    return params
+
+
+def params_from_numpy(cfg: ArchConfig, tree: Dict[str, Any], device=None):
+    """The reference's parameter pytree, leaves as numpy arrays, as tensors
+    on ``device``.  bfloat16 leaves (``ml_dtypes.bfloat16`` in numpy, or
+    their ``uint16`` bit patterns) are carried bit for bit."""
+    check_served(cfg)
+    device = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+            t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+            return t.view(torch.bfloat16).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else leaf(v) for k, v in t.items()}
+
+    return walk(tree)
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Tensors back to numpy; bfloat16 leaves come back as their ``uint16``
+    bit patterns (numpy has no bfloat16 of its own:
+    ``.view(ml_dtypes.bfloat16)`` restores the reference's dtype)."""
+
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    return {
+        k: params_to_numpy(v) if isinstance(v, dict) else leaf(v)
+        for k, v in params.items()
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _embed(cfg: ArchConfig, params, tokens) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(L.torch_dtype(cfg))
+
+
+def _head_of(cfg: ArchConfig, params) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """``x @ head`` with f32 accumulation and an f32 result, not rounded
+    back (the reference's ``preferred_element_type=F32``).  On the card a
+    bf16 product asks cuBLAS for the f32 output directly (``out_dtype``),
+    which spares an f32 copy of the 256k-row head on every decode step; the
+    CPU has no such product, so it multiplies f32 copies."""
+    if x.dtype == F32:
+        return torch.matmul(x, head)
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), head, out_dtype=F32)
+        return out.reshape(*x.shape[:-1], head.shape[-1])
+    return torch.matmul(x.float(), head.float())
+
+
+def _apply_block(cfg: ArchConfig, p, x, positions):
+    """One decoder block, training / prefill path."""
+    h, _ = L.gqa_attention(cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions)
+    x = x + h
+    return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["ln2"]))
+
+
+def forward(
+    cfg: ArchConfig,
+    params: Dict[str, Any],
+    tokens: torch.Tensor,  # [B, S] int
+    *,
+    positions: Optional[torch.Tensor] = None,
+    return_hidden: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(logits [B, S, V] f32, aux)`` (aux is the MoE loss, 0 for
+    a dense model), or the final hidden states when ``return_hidden``.
+    Every layer's attention is the ``flash_attention`` kernel."""
+    check_served(cfg)
+    s = tokens.shape[1]
+    x = _embed(cfg, params, tokens)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    for i in range(cfg.n_layers):
+        x = _apply_block(cfg, layer_params(params["blocks"], i), x, positions)
+    x = L.apply_norm(cfg, x, params["final_norm"])
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    if return_hidden:
+        return x, aux
+    return _logits(x, _head_of(cfg, params)), aux
+
+
+# ---------------------------------------------------------------------------
+# decode (serving) with a dense cache
+# ---------------------------------------------------------------------------
+
+
+def init_decode_cache(
+    cfg: ArchConfig, batch: int, max_len: int, device=None
+) -> Dict[str, torch.Tensor]:
+    """Dense (contiguous) decode cache ``k``, ``v`` [L, B, max_len, HKV,
+    Dh]; the DEX-paged variant is ``serve/kv_cache.py``."""
+    check_served(cfg)
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = L.torch_dtype(cfg)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+    }
+
+
+def decode_step(
+    cfg: ArchConfig,
+    params: Dict[str, Any],
+    tokens: torch.Tensor,  # [B, 1]
+    cache: Dict[str, torch.Tensor],
+    pos: int,  # current length
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token for every sequence.  Returns ``(logits [B, V], cache)``;
+    the cache is written in place (the reference returns a new one)."""
+    check_served(cfg)
+    x = _embed(cfg, params, tokens)
+    positions = torch.full((1,), int(pos), dtype=torch.int32, device=x.device)
+    for i in range(cfg.n_layers):
+        p = layer_params(params["blocks"], i)
+        h, _ = L.gqa_attention(
+            cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions,
+            kv_cache=(cache["k"][i], cache["v"][i]), cache_len=pos,
+        )
+        x = x + h
+        x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["ln2"]))
+    x = L.apply_norm(cfg, x, params["final_norm"])
+    return _logits(x[:, 0], _head_of(cfg, params)), cache

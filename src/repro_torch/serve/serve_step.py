@@ -1,0 +1,113 @@
+"""Serving steps: dense prefill and paged decode (GQA families).
+
+``paged_decode_step`` is the data-plane consumer of the DEX page table: one
+new token per request, attention over the paged pool through the
+``paged_attention`` kernel in every layer (its plain version with
+``use_kernel=False``).  ``prefill`` is the training forward, whose attention
+is the ``flash_attention`` kernel.
+
+The port of ``repro.serve.serve_step``.  The history and the fresh token are
+blended as the reference blends them: the kernel gives the softmax over the
+history, and the history's log-sum-exp comes from a dense regather of its
+logits (``kp[page_table]``), to weigh it against the fresh token's own
+logit.  Returning the log-sum-exp from the kernel would drop that regather.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+from repro_torch.models import layers as L
+from repro_torch.models import model as M
+from repro_torch.models.config import ArchConfig
+
+F32 = torch.float32
+
+
+def prefill(cfg: ArchConfig, params, tokens, cache=None):
+    """Teacher-forced prefill through the training forward; returns the
+    logits [B, S, V] f32 (``cache`` is unused, as in the reference)."""
+    logits, _ = M.forward(cfg, params, tokens)
+    return logits
+
+
+def paged_decode_step(
+    cfg: ArchConfig,
+    params: Dict,
+    tokens: torch.Tensor,  # [B, 1] current tokens
+    k_pages: torch.Tensor,  # [L, P, page, HKV, Dh]
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [B, ppr] int32 (resolved by the DEX index)
+    seq_lens: torch.Tensor,  # [B] int32 (lengths INCLUDING the current token)
+    *,
+    use_kernel: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step over the paged pool.
+
+    Returns ``(logits [B, V] f32, k_new [L, B, HKV, Dh], v_new)``; the host
+    scatters k_new / v_new into the pool with
+    ``PagedKVCache.append_tokens`` (the token attends to itself here, so
+    the scatter may land after the step)."""
+    M.check_served(cfg)
+    b = tokens.shape[0]
+    hkv, hd, h = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    g = h // hkv
+    x = M._embed(cfg, params, tokens)  # [B, 1, D]
+    positions = seq_lens - 1  # [B]
+    cos, sin = L.rope_freqs(hd, cfg.rope_theta, positions[:, None])  # [B, 1, hd/2]
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    ppr, page = page_table.shape[1], k_pages.shape[2]
+    hist = torch.arange(ppr * page, device=x.device)[None] < positions[:, None]
+    has_hist = (positions > 0)[:, None, None]
+    scale = 1.0 / math.sqrt(hd)
+    attend = ops.paged_attention if use_kernel else kref.paged_attention_ref
+    k_new, v_new = [], []
+    for i in range(cfg.n_layers):
+        p = M.layer_params(params["blocks"], i)
+        kp, vp = k_pages[i], v_pages[i]
+        xin = L.apply_norm(cfg, x, p["ln1"])
+        ap = p["attn"]
+        q = L._dot(xin, ap["wq"])
+        k = L._dot(xin, ap["wk"])
+        v = L._dot(xin, ap["wv"])
+        if cfg.qkv_bias:
+            q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
+        q = q.reshape(b, 1, h, hd)
+        k = k.reshape(b, 1, hkv, hd)
+        v = v.reshape(b, 1, hkv, hd)
+        if cfg.qk_norm:
+            q = L.rmsnorm(q, ap["q_norm"], cfg.norm_eps)
+            k = L.rmsnorm(k, ap["k_norm"], cfg.norm_eps)
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+
+        # attend over the pool's pages, then blend in the fresh token as one
+        # extra key with its own logit
+        o_hist = attend(q[:, 0].contiguous(), kp, vp, page_table, positions)
+        qg = q[:, 0].reshape(b, hkv, g, hd).float() * scale
+        s_self = torch.einsum("bngd,bnd->bng", qg, k[:, 0].float())
+        kh = kp[page_table.long()].reshape(b, ppr * page, hkv, hd)
+        sh = torch.einsum("bngd,bsnd->bngs", qg, kh.float())
+        sh = sh.masked_fill(~hist[:, None, None, :], float("-inf"))
+        lse_hist = torch.logsumexp(sh, dim=-1)  # [B, n, g]
+        denom = torch.exp(lse_hist) + torch.exp(s_self)
+        w_hist = torch.where(has_hist, torch.exp(lse_hist) / denom, 0.0)
+        w_self = torch.where(has_hist, torch.exp(s_self) / denom, 1.0)
+        # an empty history's softmax is NaN in the plain version (0 from the
+        # kernel); it has weight 0, so sanitise before the blend
+        o_hist_g = torch.nan_to_num(o_hist.reshape(b, hkv, g, hd).float())
+        v_self = v[:, 0].float()[:, :, None, :]  # [B, n, 1, d]
+        o = o_hist_g * w_hist[..., None] + v_self * w_self[..., None]
+        o = o.reshape(b, 1, h * hd).to(x.dtype)
+        x = x + L._dot(o, ap["wo"])
+        x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["ln2"]))
+        k_new.append(k[:, 0])
+        v_new.append(v[:, 0])
+    x = L.apply_norm(cfg, x, params["final_norm"])
+    logits = M._logits(x[:, 0], M._head_of(cfg, params))
+    return logits, torch.stack(k_new), torch.stack(v_new)

@@ -11,9 +11,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import pool as t_pool  # noqa: E402
 from repro_torch.core.nodes import FANOUT, KEY_MAX, KEY_MIN  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import model as t_model  # noqa: E402
+from repro_torch.serve.kv_cache import PagedKVCache  # noqa: E402
+from repro_torch.serve.serve_step import paged_decode_step  # noqa: E402
 
 
 @pytest.fixture
@@ -343,3 +347,125 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
             torch.zeros(4 * FANOUT + 1, dtype=torch.int32, device=cuda)[1:].view(4, FANOUT),
             rows, rows[:, 0].contiguous(),
         )
+
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def paged_case(b, h, hkv, d, page, ppr, seed, dtype):
+    """Inputs of ``paged_attention``: a pool larger than the tables, every
+    row random, so a stale page read past a request's length would change
+    its answer; seq_lens 0, 1, one page exactly, a partial last page, the
+    whole table, and random."""
+    rng = np.random.default_rng(seed)
+    n_pages = b * ppr + 5
+    q = rng.standard_normal((b, h, d))
+    kp = rng.standard_normal((n_pages, page, hkv, d))
+    vp = rng.standard_normal((n_pages, page, hkv, d))
+    table = rng.permutation(n_pages)[: b * ppr].reshape(b, ppr).astype(np.int32)
+    lens = rng.integers(0, ppr * page + 1, size=b)
+    for i, n in enumerate((0, 1, page, page + 3, ppr * page)):
+        lens[i % b] = n
+    return [torch.from_numpy(a).to(dtype) for a in (q, kp, vp)] + [
+        torch.from_numpy(table), torch.from_numpy(lens.astype(np.int32))
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,hkv,d,page,ppr",
+    [(6, 24, 8, 128, 16, 4), (5, 8, 2, 64, 16, 3), (5, 4, 4, 32, 8, 5),
+     (5, 8, 2, 256, 4, 3), (5, 8, 8, 8, 16, 2), (5, 16, 2, 96, 16, 2)],
+)
+def test_paged_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, d, page, ppr):
+    args = [t.to(cuda) for t in paged_case(b, h, hkv, d, page, ppr, d + b, dtype)]
+    got = ops.paged_attention(*args)
+    want = ref.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    empty = args[4] == 0
+    assert bool((got[empty] == 0).all()), "seq_len 0 must give zeros"
+    assert bool(want[empty].isnan().all())
+    err = (got.float() - want.float().nan_to_num()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,hkv,sq,sk,d,causal",
+    [(1, 4, 4, 128, 128, 64, True), (2, 6, 2, 100, 100, 32, True),
+     (1, 3, 1, 64, 200, 128, True), (1, 4, 2, 70, 130, 8, False),
+     (1, 2, 2, 33, 33, 256, True), (1, 24, 8, 130, 130, 128, True)],
+)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, sq, sk, d, causal):
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal(s)).to(cuda, dtype)
+        for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))
+    )
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    scaled = ops.flash_attention(q, k, v, causal=causal, scale=0.3)
+    err = (scaled.float() - ref.flash_attention_ref(
+        q, k, v, causal=causal, scale=0.3).float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_reject_bad_inputs(cuda):
+    q = torch.zeros((2, 4, 12), device=cuda)  # head dim not a multiple of 8
+    kp = torch.zeros((3, 4, 2, 12), device=cuda)
+    tbl = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ops.paged_attention(q, kp, kp, tbl, lens)
+    q = torch.zeros((2, 4, 16), device=cuda)
+    kp = torch.zeros((3, 4, 2, 16), device=cuda)
+    with pytest.raises(ValueError):  # pages in another dtype
+        ops.paged_attention(q, kp.bfloat16(), kp.bfloat16(), tbl, lens)
+    with pytest.raises(ValueError):  # int64 table
+        ops.paged_attention(q, kp, kp, tbl.long(), lens)
+    q4 = torch.zeros((1, 4, 8, 16), device=cuda)
+    kv = torch.zeros((1, 3, 8, 16), device=cuda)  # 4 heads over 3
+    with pytest.raises(ValueError):
+        ops.flash_attention(q4, kv, kv)
+    with pytest.raises(ValueError):  # a strided view
+        ops.flash_attention(q4.transpose(1, 2), q4, q4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_step_kernel_matches_plain(cuda, dtype):
+    """Three requests at lengths 1 (empty history), 17 and 40, pages of 16
+    and a recycled page with stale rows: the step's logits with the kernel
+    against ``use_kernel=False``.  Tolerance: 1e-4 in f32; 0.05 x RMS of
+    the logits in bf16 (one bf16 rounding of each layer's attention output
+    may differ)."""
+    cfg = get_config("minitron-4b").reduced(
+        n_layers=2, d_model=64, n_heads=6, n_kv_heads=2, head_dim=32, dtype=dtype
+    )
+    params = t_model.init_params(cfg, seed=0, device=cuda)
+    kv = PagedKVCache(cfg=cfg, n_pages=12, page_size=16, max_batch=3, device=cuda)
+    kv.k_pages.normal_()
+    kv.v_pages.normal_()
+    kv.admit_request(7, prompt_len=40)
+    kv.release_request(7)  # its pages come back holding rows
+    req = np.array([1, 2, 3])
+    for r, n in zip(req, (0, 16, 39)):
+        kv.admit_request(int(r), prompt_len=n)
+        kv.extend_request(int(r))
+    tok = torch.tensor([[5], [6], [7]], device=cuda)
+    args = (cfg, params, tok, kv.k_pages, kv.v_pages, kv.resolve_tables(req, 3),
+            kv.batch_seq_lens(req))
+    got, k1, v1 = paged_decode_step(*args)
+    want, k2, v2 = paged_decode_step(*args, use_kernel=False)
+    torch.cuda.synchronize()
+    # the first layer's new keys and values precede any attention
+    assert torch.equal(k1[0], k2[0]) and torch.equal(v1[0], v2[0])
+    err = (got - want).abs().max().item()
+    rms = want.pow(2).mean().sqrt().item()
+    assert err <= (1e-4 if dtype == "float32" else 0.05 * rms), (err, rms)

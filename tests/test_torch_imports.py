@@ -28,6 +28,11 @@ mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
 assert {
     "repro_torch.core.scan", "repro_torch.core.smo", "repro_torch.core.partition",
     "repro_torch.core.repartition", "repro_torch.core.route_table",
+    "repro_torch.core.btree", "repro_torch.models.config",
+    "repro_torch.models.layers", "repro_torch.models.model",
+    "repro_torch.configs.registry", "repro_torch.configs.minitron_4b",
+    "repro_torch.serve.kv_cache", "repro_torch.serve.serve_step",
+    "repro_torch.kernels.paged_attention", "repro_torch.kernels.flash_attention",
 } <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
@@ -38,8 +43,14 @@ bad = sorted(
 assert not bad, bad
 import torch
 from repro_torch.core import dex, engine, pool, scan, smo
+from repro_torch.configs.registry import get_config
+from repro_torch.models import model
+from repro_torch.serve.kv_cache import PagedKVCache
+small = get_config("minitron-4b").reduced()
 if not torch.cuda.is_available():
     for call in (
+        lambda: model.init_params(small, seed=0),
+        lambda: PagedKVCache(cfg=small, n_pages=4, page_size=4, max_batch=1),
         lambda: pool.build_pool([1, 2, 3]),
         lambda: engine.make_dex_engine(None, dex.DexMeshConfig()),
         lambda: scan.make_dex_scan(None, dex.DexMeshConfig()),

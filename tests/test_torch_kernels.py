@@ -179,6 +179,12 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
         z[:, 0].contiguous(), z[:, 0].to(torch.int32), z.to(torch.int32), z,
         z[:, 0].contiguous(),
     )
+    q = torch.zeros((2, 4, 8))
+    t_ops.paged_attention(
+        q, torch.zeros((3, 4, 2, 8)), torch.zeros((3, 4, 2, 8)),
+        torch.zeros((2, 1), dtype=torch.int32), torch.ones(2, dtype=torch.int32),
+    )
+    t_ops.flash_attention(q[None], q[None, :2], q[None, :2])
     assert t_ops.LAUNCHES == {
         "node_search": 0,
         "node_search_prefix": 0,
@@ -186,4 +192,6 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
         "leaf_write": 0,
         "leaf_scan": 0,
         "leaf_split": 0,
+        "paged_attention": 0,
+        "flash_attention": 0,
     }
