@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's lookup, write, scan, split, separator, route-table
-and repartition paths, and its paged-KV serving of minitron-4b, on one NVIDIA
-GPU and check them.
+and repartition paths, its paged-KV serving of minitron-4b, and its Mamba
+serving of falcon-mamba-7b and zamba2-2.7b, on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py [--seed 0] [--n-keys 200000000]
 
@@ -29,7 +30,13 @@ Phases, in order; any failure exits non-zero:
      boundaries, partial pages and the whole 36-page table) and
      ``flash_attention`` ([2, 24, 2048, 128] against [2, 8, 2048, 128],
      causal; Sq < Sk; a length that is not a multiple of 64; non-causal),
-     in bf16 and f32, within 2e-2 and 1e-4 of their plain versions;
+     in bf16 and f32, within 2e-2 and 1e-4 of their plain versions; then
+     ``mamba_scan`` at falcon-mamba-7b's prefill shape ([2, 2048, 8192],
+     N = 16) and zamba2-2.7b's ([2, 2048, 5120], N = 64), operands in bf16
+     and f32, at init scales with decay-heavy channels, plus a width off
+     the block, L = 1 and ROADMAP queue 3 entry 14's input (2.313), y and
+     the final state within 1e-4 + 1e-4 |plain|, timed at each thread
+     layout;
   4. the port on the CPU and on the card give the same lane results and
      state planes (20k keys, 2x4 mesh, 3 batches): lookups under ``fetch``,
      ``fetch`` with shedding buckets and ``auto``; mixed lookups, updates
@@ -43,7 +50,9 @@ Phases, in order; any failure exits non-zero:
      the LM path on reduced minitron-4b (2 layers, d_model 64) in f32 and
      bf16: ten paged decode steps of three requests, one admitted after a
      release, and one ``prefill`` (tables equal, logits within 1e-4 in f32
-     and 0.05 x RMS in bf16);
+     and 0.05 x RMS in bf16); reduced falcon-mamba-7b and zamba2-2.7b in
+     f32 and bf16: a ``prefill``, then ten ``decode_step``s of three slots,
+     one zeroed after a release (the same limits);
   5. the main path at full size: 200M sorted int64 keys made on the card
      from ``--seed``, level-M = 1 subtree blocks at fill 0.7, a 2x4 virtual
      mesh split at the median key, 65,536 sets x 4 ways of cache per
@@ -87,11 +96,27 @@ Phases, in order; any failure exits non-zero:
      2,048-token sequences (tokens/s, ``flash_attention`` ms per call) and
      two served requests replayed through it (max |dlogit| / RMS and greedy
      agreement, reported);
-  7. the equivalence gate: minitron-4b cut to 4 layers in float32, four
+     6b. (minitron-4b freed) falcon-mamba-7b at full width, 64 layers, bf16:
+     64 slots decoded through ``decode_step`` (the recurrent state),
+     seeded prompts of 32-512 tokens fed a token a step, then 64 greedy
+     tokens, a finished request's slot zeroed and a new one admitted, 640
+     steps; 8 finished requests replayed through ``prefill`` (the kernel in
+     every layer), RMS of the logit difference <= 0.05 x RMS at every
+     generated position; ``prefill`` over 2 x 2,048 tokens, once with every
+     layer's kernel call held to its plain version (phase 3's tolerance);
+     6c. zamba2-2.7b at full width, 54 layers, bf16: ``prefill`` over
+     2 x 2,048 tokens (``mamba_scan`` at N = 64 in every layer,
+     ``flash_attention`` at head dim 80 in the 9 shared-block calls), then
+     128 decode steps of 32 slots;
+  7. the equivalence gates in float32: minitron-4b cut to 4 layers, four
      requests of 256 seeded tokens through paged decode, dense
      ``decode_step`` and ``prefill``, pairwise max |dlogit| <= 1e-3 x RMS;
+     falcon-mamba-7b cut to 4 layers and zamba2-2.7b to 6 (one shared
+     block), ``prefill`` against ``decode_step``, the same limit;
   8. one JSON line of per-kernel launches (summed over the paths of phases
-     5 and 6, each counted from 0 just before it), errors and times.
+     5 and 6, each counted from 0 just before it: the prefill paths of 6b
+     and 6c are ``prefill-ssm`` and ``prefill-hybrid``), errors and
+     times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 prints no result and exits non-zero.
@@ -183,7 +208,16 @@ DECODE_STEPS = 640
 CHECK_EVERY = 64  # steps repeated with the plain attention
 PREFILL_TOKENS = 2_048  # two sequences of this length
 PREFILL_RUNS = 3
-GATE_REQUESTS, GATE_TOKENS = 4, 256  # the float32 equivalence gate
+GATE_REQUESTS, GATE_TOKENS = 4, 256  # the float32 equivalence gates
+# the SSM plane: falcon-mamba-7b served through its recurrent state, and
+# zamba2-2.7b (Mamba layers with a weight-shared attention block)
+SSM_ARCH, HYBRID_ARCH = "falcon-mamba-7b", "zamba2-2.7b"
+# mamba_scan at each one's prefill shape: (B, L, D = d_inner, N)
+MAMBA_SHAPES = {SSM_ARCH: (2, 2048, 8192, 16), HYBRID_ARCH: (2, 2048, 5120, 64)}
+SFU_EXP_PER_CLOCK = 16  # exponentials a clock an SM (H100 special-function units)
+SSM_SLOTS = 64  # falcon-mamba-7b requests decoded together
+SSM_REPLAYS = 8  # finished requests replayed through prefill
+HYBRID_SLOTS, HYBRID_STEPS = 32, 128  # zamba2-2.7b's decode run
 
 
 def parse_args(argv):
@@ -2383,6 +2417,476 @@ def phase_gate(seed):
     return report
 
 
+# ---------------------------------------------------------------------------
+# the SSM plane: falcon-mamba-7b and zamba2-2.7b
+# ---------------------------------------------------------------------------
+
+
+def mamba_tol(got, want):
+    """The largest ``|got - want| - 1e-4 * |want|`` over the tensors: <= 1e-4
+    is ``mamba_scan``'s tolerance, the reference kernel test's atol and rtol
+    (``tests/test_kernels.py``)."""
+    return max(
+        float(((g.double() - w.double()).abs() - 1e-4 * w.double().abs()).max())
+        if g.numel() else 0.0
+        for g, w in zip(got, want)
+    )
+
+
+def mamba_inputs(b, l, d, n, dtype, seed, dev):
+    """``mamba_scan`` operands at the model's init scales (``A = -(1..N) /
+    N`` on every channel, ``delta = softplus(N(0, 1) - 4)``, about 0.018),
+    with every seventh channel decay-heavy (``delta`` uniform in 0.5-2);
+    ``x``, ``B``, ``C`` N(0, 1) in ``dtype``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn((b, l, d), generator=g, device=dev) - 4.0
+    delta = torch.nn.functional.softplus(v, threshold=40.0)
+    delta[..., ::7] = 0.5 + 1.5 * torch.rand((b, l, (d + 6) // 7), generator=g, device=dev)
+    A = -(1.0 + torch.arange(n, device=dev, dtype=torch.float32)) / n
+    A = A.expand(d, n).contiguous()
+    rest = (torch.randn(s, generator=g, device=dev).to(dtype) for s in ((b, l, n), (b, l, n), (b, l, d)))
+    return (delta, A, *rest)
+
+
+def mamba_bytes(b, l, d, n, item):
+    """The least bytes of one scan: delta (f32), x (``item`` bytes) and y
+    (f32) at [B, L, D], B and C at [B, L, N], A and h_last in f32."""
+    return b * l * d * (4 + item + 4) + 2 * b * l * n * item + d * n * 4 + b * d * n * 4
+
+
+def sm_clock_hz():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return float(smi) * 1e6
+
+
+def mamba_kernels(seed):
+    """``mamba_scan`` at the prefill shapes of falcon-mamba-7b ([2, 2048,
+    8192], N = 16) and zamba2-2.7b ([2, 2048, 5120], N = 64), operands in
+    bf16 and in f32; a channel width off the 32-channel block, L = 1 and
+    ROADMAP queue 3 entry 14's input (which must give 2.313); each case's
+    y and final state within ``1e-4 + 1e-4 |plain|`` of the plain version;
+    timed in bf16 beside the plain version and at each thread layout."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan as mamba_mod
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(dev)
+    clock = sm_clock_hz()
+    exps_per_s = SFU_EXP_PER_CLOCK * torch.cuda.get_device_properties(dev).multi_processor_count * clock
+    worst, errs, rows, state_equal = 0.0, {}, {}, 1.0
+    cases = [(shape, dtype) for shape in MAMBA_SHAPES.values()
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [((1, 100, 1000, 16), torch.bfloat16), ((2, 70, 333, 64), torch.float32),
+              ((2, 1, 8192, 16), torch.bfloat16), ((2, 1, 5120, 64), torch.float32)]
+    for i, (shape, dtype) in enumerate(cases):
+        args = mamba_inputs(*shape, dtype, seed + 20 + i, dev)
+        got, want = ops.mamba_scan(*args), ref.mamba_scan_ref(*args)
+        tol = mamba_tol(got, want)
+        if not tol <= 1e-4:
+            fail(f"mamba_scan {shape} {dtype} differs from its plain version by"
+                 f" {tol} beyond 1e-4 |plain|")
+        worst = max(worst, tol)
+        state_equal = min(state_equal, float((got[1] == want[1]).float().mean()))
+        key = dtype_name(dtype)
+        errs[key] = max(errs.get(key, 0.0), max_abs_err(got, want))
+    one = torch.ones((1, 35, 1), device=dev)
+    y, _ = ops.mamba_scan(2 * one, -torch.ones((1, 1), device=dev), one, one, one)
+    entry14 = float(y[0, -1, 0])
+    if not abs(entry14 - 2.313) < 1e-3:
+        fail(f"mamba_scan on ROADMAP queue 3 entry 14's input gives {entry14}, not 2.313")
+    del args, got, want, y
+    for arch, (b, l, d, n) in MAMBA_SHAPES.items():
+        args = mamba_inputs(b, l, d, n, torch.bfloat16, seed + 30, dev)
+        nbytes = mamba_bytes(b, l, d, n, 2)
+        exps = b * l * d * n
+        bytes_ms, exps_ms = nbytes / HBM_BYTES_PER_S * 1e3, exps / exps_per_s * 1e3
+        lanes_ms = {
+            lanes: cuda_ms(lambda: mamba_mod.launch(ops.library(), *args, lanes=lanes), 10)
+            for lanes in mamba_mod.LANES if n <= 16 * lanes
+        }
+        rows[arch] = dict(
+            shape=f"[{b}, {l}, {d}], N = {n}, x / B / C bf16",
+            ms=cuda_ms(lambda: ops.mamba_scan(*args), 10),
+            plain_ms=cuda_ms(lambda: ref.mamba_scan_ref(*args), 2, warmup=1),
+            bound_ms=max(bytes_ms, exps_ms),
+            bound_by="bytes" if bytes_ms > exps_ms else "operations",
+            bytes_ms=bytes_ms,
+            exps_ms=exps_ms,
+            lanes_ms=lanes_ms,
+        )
+        del args
+    main = rows[SSM_ARCH]
+    out = dict(
+        name="mamba_scan",
+        route="cuda",
+        source="src/repro_torch/csrc/mamba_scan.cu",
+        replaces="src/repro/kernels/mamba_scan.py:48",
+        shape=main["shape"],
+        check=f"{len(cases)} cases within 1e-4 + 1e-4 |plain| (worst excess {worst:.2e});"
+              f" final state bit-equal in {state_equal:.2%} of entries at least;"
+              f" entry 14 gives {entry14:.4f}",
+        bit_equal=False,
+        max_abs_err=errs["bfloat16"],
+        max_abs_err_f32=errs["float32"],
+        ms=main["ms"],
+        plain_ms=main["plain_ms"],
+        library_ms=None,
+        bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"],
+        per_arch=rows,
+    )
+    for arch, r in rows.items():
+        print(f"kernel mamba_scan {arch} {r['shape']}: kernel {r['ms']:.4f} ms (threads a"
+              f" channel: {', '.join(f'{k}: {v:.4f} ms' for k, v in r['lanes_ms'].items())}),"
+              f" plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms"
+              f" (bytes {r['bytes_ms']:.4f}, exps {r['exps_ms']:.4f} at {clock / 1e6:.0f} MHz)"
+              f" on {card}")
+    print(f"kernel mamba_scan: {out['check']}, max abs err bf16 {errs['bfloat16']:.2e},"
+          f" f32 {errs['float32']:.2e}")
+    return {"mamba_scan": out}
+
+
+def ssm_trace(cfg, params, dev, seed):
+    """One ``prefill`` of two 12-token sequences, then ten ``decode_step``s
+    of three slots; after step 5 slot 1's request is released and its
+    states zeroed for a new one.  Returns the logits on the host."""
+    import torch
+
+    from repro_torch.models import model
+    from repro_torch.serve.serve_step import prefill
+
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 12))).to(dev)
+    out = [prefill(cfg, params, toks).cpu()]
+    cache = model.init_decode_cache(cfg, 3, 10, device=dev)
+    for t in range(10):
+        if t == 5:
+            release_slot(cache, 1)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(3, 1))).to(dev)
+        out.append(model.decode_step(cfg, params, tok, cache, t)[0].cpu())
+    return out
+
+
+def release_slot(cache, slot):
+    """Zero one slot's recurrent states (and the hybrid's shared keys and
+    values) for the next request."""
+    for plane in cache.values():
+        plane[:, slot].zero_()
+
+
+def phase_ssm_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
+    """The SSM path on the CPU (plain scan) and on the card (the kernel):
+    reduced falcon-mamba-7b and zamba2-2.7b in f32 and bf16, weights from
+    ``seed`` carried bit for bit; logits within 1e-4 (f32) or 0.05 x RMS
+    (bf16)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        for dtype in ("float32", "bfloat16"):
+            cfg = get_config(arch).reduced(dtype=dtype)
+            host = model.init_params(cfg, seed, device=devices[0])
+            card = model.params_from_numpy(cfg, model.params_to_numpy(host), devices[1])
+            want = ssm_trace(cfg, host, devices[0], seed)
+            got = ssm_trace(cfg, card, devices[1], seed)
+            err = max_abs_err(got, want)
+            rms = float(np.sqrt(np.mean([float(x.double().pow(2).mean()) for x in want])))
+            tol = 1e-4 if dtype == "float32" else 0.05 * rms
+            if not err <= tol:
+                fail(f"ssm cpu-vs-cuda {arch} {dtype}: logits differ by {err} (limit {tol})")
+            print(f"cpu-vs-cuda {arch} {dtype}: prefill + 10 decode steps, a slot"
+                  f" reset, max |dlogit| {err:.3e} (limit {tol:.3e}, RMS {rms:.3f})")
+
+
+@contextlib.contextmanager
+def mamba_held_to_plain(excess):
+    """Within the block, every ``ops.mamba_scan`` call also runs its plain
+    version on the same inputs and appends the largest excess over
+    ``1e-4 |plain|`` (see ``mamba_tol``) to ``excess``."""
+    from repro_torch.kernels import ops, ref
+
+    kernel = ops.mamba_scan
+
+    def checked(*a):
+        out = kernel(*a)
+        excess.append(mamba_tol(out, ref.mamba_scan_ref(*a)))
+        return out
+
+    ops.mamba_scan = checked
+    try:
+        yield
+    finally:
+        ops.mamba_scan = kernel
+
+
+def timed_prefill(cfg, params, toks, expect):
+    """``PREFILL_RUNS`` timed ``prefill`` calls after a warm-up; the launch
+    counts must equal ``expect`` (kernel -> launches a call) times the runs.
+    Returns (report, launches)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.serve_step import prefill
+
+    prefill(cfg, params, toks)  # warm-up
+    ops.reset_launches()
+    times = []
+    for _ in range(PREFILL_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(cfg, params, toks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(ops.LAUNCHES)
+    for k, per_call in expect.items():
+        if launches[k] != per_call * PREFILL_RUNS:
+            fail(f"prefill {cfg.name}: {launches[k]} {k} launches, expected"
+                 f" {per_call * PREFILL_RUNS}")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"prefill {cfg.name}: logits are not finite")
+    del logits
+    _, _, prof = device_profile(lambda: prefill(cfg, params, toks))
+    busy = sum(ms for _, ms, _ in prof)
+    med = float(np.median(times))
+    report = dict(
+        tokens=toks.numel(),
+        median_ms=med,
+        tokens_per_s=toks.numel() / med * 1e3,
+        device_busy_ms=busy,
+        idle_share=1 - busy / med,
+        top=[(k[:48], ms, n) for k, ms, n in prof[:6]],
+    )
+    for k in expect:
+        calls = [(ms, n) for name, ms, n in prof if k in name]
+        report[f"{k}_ms_per_call"] = sum(m for m, _ in calls) / sum(n for _, n in calls)
+        report[f"{k}_share"] = sum(m for m, _ in calls) / busy
+    return report, launches
+
+
+def phase_ssm_serving(seed):
+    """falcon-mamba-7b at full width (64 layers, bf16, weights from
+    ``seed``) served with ``decode_step`` over ``SSM_SLOTS`` slots for
+    ``DECODE_STEPS`` steps: seeded prompts fed a token a step, then greedy
+    tokens; a finished request's slot is zeroed and a new request admitted.
+    Then ``SSM_REPLAYS`` finished requests replayed through ``prefill`` (the
+    kernel in every layer) against the decode's logits at each generated
+    position (RMS of the difference <= 0.05 x RMS), and ``prefill`` over two
+    ``PREFILL_TOKENS`` sequences, once with every layer's kernel call held
+    to its plain version.  Returns (report, launches of the prefill path)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+    from repro_torch.serve.serve_step import prefill
+
+    dev = torch.device("cuda")
+    cfg = get_config(SSM_ARCH)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_decode_cache(cfg, SSM_SLOTS, 1, device=dev)
+    rng = np.random.default_rng(seed + 17)
+    next_id = [1]
+
+    def admit():
+        r = Request(next_id[0], rng, cfg.vocab)
+        next_id[0] += 1
+        return r
+
+    slots = [admit() for _ in range(SSM_SLOTS)]
+    record = {rid: [] for rid in range(1, SSM_REPLAYS + 1)}  # generated positions' logits
+    finished = {}
+    times, releases = [], 0
+    prof_step = DECODE_STEPS // 2 + 1
+    prof = None
+    for step in range(DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, r in enumerate(slots):
+            if r.done:
+                if r.id in record:
+                    finished[r.id] = r
+                release_slot(cache, i)
+                releases += 1
+                slots[i] = admit()
+        tok = np.array([[r.next_input()] for r in slots], np.int64)
+        for b, r in enumerate(slots):
+            r.fed.append(int(tok[b, 0]))
+        tok_dev = torch.from_numpy(tok).to(dev)
+        if step == prof_step:
+            (logits, _), _, prof = device_profile(
+                lambda: model.decode_step(cfg, params, tok_dev, cache, step)
+            )
+        else:
+            logits, _ = model.decode_step(cfg, params, tok_dev, cache, step)
+        nxt = logits.argmax(-1).cpu().numpy()
+        torch.cuda.synchronize()
+        if step != prof_step:
+            times.append((time.perf_counter() - t0) * 1e3)
+        for b, r in enumerate(slots):
+            if r.id in record and len(r.fed) >= len(r.prompt):
+                record[r.id].append(logits[b].clone())
+            r.take(nxt[b])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    missing = set(record) - set(finished)
+    if missing:
+        fail(f"ssm serving: requests {sorted(missing)} did not finish")
+    med = float(np.median(times))
+    busy = sum(ms for _, ms, _ in prof)
+    report = dict(
+        arch=SSM_ARCH,
+        steps=DECODE_STEPS,
+        slots=SSM_SLOTS,
+        tokens_per_s=SSM_SLOTS / med * 1e3,
+        median_ms=med,
+        p25_ms=float(np.percentile(times, 25)),
+        p75_ms=float(np.percentile(times, 75)),
+        device_busy_ms=busy,
+        idle_share=1 - busy / med,
+        top=[(k[:48], ms, n) for k, ms, n in prof[:6]],
+        releases=releases,
+        peak_gib=peak,
+        init_s=init_s,
+    )
+    del cache
+    replays = []
+    for rid, r in sorted(finished.items()):
+        dec = torch.stack(record[rid])  # [GEN_TOKENS, V]
+        n_prompt = len(r.prompt)
+        pre = prefill(cfg, params, torch.tensor([r.fed], device=dev))[0, n_prompt - 1 :]
+        rms = float(dec.pow(2).mean().sqrt())
+        d = pre - dec
+        replays.append(dict(
+            request=rid,
+            tokens=len(r.fed),
+            rms_over_rms=float(d.pow(2).mean().sqrt()) / rms,
+            max_over_rms=float(d.abs().max()) / rms,
+            greedy_agree=float((pre.argmax(-1) == dec.argmax(-1)).float().mean()),
+        ))
+        del pre, dec, d
+    report["replays"] = replays
+    worst = max(x["rms_over_rms"] for x in replays)
+    report["replay_rms_over_rms_max"] = worst
+    report["replay_max_over_rms_max"] = max(x["max_over_rms"] for x in replays)
+    report["replay_greedy_agree_min"] = min(x["greedy_agree"] for x in replays)
+    if not worst <= 0.05:
+        fail(f"ssm replays: RMS of the logit difference {worst} x RMS > 0.05")
+    g = torch.Generator(device=dev).manual_seed(seed + 18)
+    toks = torch.randint(0, cfg.vocab, (2, PREFILL_TOKENS), generator=g, device=dev)
+    report["prefill"], launches = timed_prefill(cfg, params, toks, {"mamba_scan": cfg.n_layers})
+    excess = []
+    with mamba_held_to_plain(excess):
+        prefill(cfg, params, toks)
+    if len(excess) != cfg.n_layers or not max(excess) <= 1e-4:
+        fail(f"ssm prefill: {len(excess)} layers' kernel calls held to plain, worst"
+             f" excess {max(excess)} over 1e-4 |plain|")
+    report["prefill"]["held_to_plain_worst_excess"] = max(excess)
+    report["peak_gib"] = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+    print(f"serving {SSM_ARCH}: {json.dumps(report)}")
+    return report, launches
+
+
+def phase_hybrid(seed):
+    """zamba2-2.7b at full width (54 layers, bf16, weights from ``seed``):
+    ``prefill`` over two ``PREFILL_TOKENS`` sequences (``mamba_scan`` at
+    N = 64 in every layer, ``flash_attention`` at head dim 80 in the 9
+    shared-block calls), then ``HYBRID_STEPS`` ``decode_step``s of
+    ``HYBRID_SLOTS`` slots, greedy after a seeded first token.  Returns
+    (report, launches of the prefill path)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+
+    dev = torch.device("cuda")
+    cfg = get_config(HYBRID_ARCH)
+    params = model.init_params(cfg, seed, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(seed + 19)
+    toks = torch.randint(0, cfg.vocab, (2, PREFILL_TOKENS), generator=g, device=dev)
+    groups = cfg.n_layers // cfg.hybrid_attn_every
+    report = {"arch": HYBRID_ARCH}
+    report["prefill"], launches = timed_prefill(
+        cfg, params, toks, {"mamba_scan": cfg.n_layers, "flash_attention": groups}
+    )
+    cache = model.init_decode_cache(cfg, HYBRID_SLOTS, HYBRID_STEPS, device=dev)
+    tok = torch.randint(0, cfg.vocab, (HYBRID_SLOTS, 1), generator=g, device=dev)
+    times = []
+    for step in range(HYBRID_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.decode_step(cfg, params, tok, cache, step)
+        tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(logits).all()):
+        fail("hybrid decode: logits are not finite")
+    med = float(np.median(times[1:]))
+    report["decode"] = dict(
+        steps=HYBRID_STEPS,
+        slots=HYBRID_SLOTS,
+        tokens_per_s=HYBRID_SLOTS / med * 1e3,
+        median_ms=med,
+        p25_ms=float(np.percentile(times[1:], 25)),
+        p75_ms=float(np.percentile(times[1:], 75)),
+    )
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"hybrid {HYBRID_ARCH}: {json.dumps(report)}")
+    return report, launches
+
+
+def phase_ssm_gate(seed):
+    """The SSM equivalence gate at full width in float32 (no TF32):
+    falcon-mamba-7b cut to 4 layers and zamba2-2.7b to 6 (one shared block),
+    four requests of ``GATE_TOKENS`` seeded tokens through ``prefill`` (the
+    kernel) and ``decode_step`` a token at a time (the recurrence); max
+    |dlogit| <= 1e-3 x RMS."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+    from repro_torch.serve.serve_step import prefill
+
+    if torch.backends.cuda.matmul.allow_tf32 or (
+        torch.get_float32_matmul_precision() != "highest"
+    ):
+        fail("ssm gate: float32 products must not use TF32")
+    dev = torch.device("cuda")
+    report = {}
+    for arch, layers in ((SSM_ARCH, 4), (HYBRID_ARCH, 6)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+        params = model.init_params(cfg, seed, device=dev)
+        b, n = GATE_REQUESTS, GATE_TOKENS
+        rng = np.random.default_rng(seed + 21)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(b, n))).to(dev)
+        cache = model.init_decode_cache(cfg, b, n, device=dev)
+        dec = torch.stack(
+            [model.decode_step(cfg, params, toks[:, t : t + 1], cache, t)[0] for t in range(n)], 1
+        )
+        pre = prefill(cfg, params, toks)
+        rms = float(dec.double().pow(2).mean().sqrt())
+        report[arch] = dict(layers=layers, requests=b, tokens=n, rms=rms,
+                            prefill_vs_decode=float((pre - dec).abs().max()) / rms)
+        del params, cache, dec, pre
+        torch.cuda.empty_cache()
+    print(f"gate ssm f32: {json.dumps(report)}")
+    worst = max(r["prefill_vs_decode"] for r in report.values())
+    if not worst <= 1e-3:
+        fail(f"ssm gate: max |dlogit| / RMS {worst} > 1e-3")
+    return report
+
+
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
     import torch
@@ -2411,9 +2915,11 @@ def main(argv=None):
     t0 = time.perf_counter()
     kernels = phase_kernels(pool, meta, keys, args.seed)
     kernels.update(lm_attention_kernels(args.seed))
+    kernels.update(mamba_kernels(args.seed))
     t1 = time.perf_counter()
     phase_cpu_vs_cuda(args.seed)
     phase_lm_cpu_vs_cuda(args.seed)
+    phase_ssm_cpu_vs_cuda(args.seed)
     t2 = time.perf_counter()
     report, per_path, oracle, bounds = phase_main(args, keys, pool, meta)
     t3 = time.perf_counter()
@@ -2442,12 +2948,26 @@ def main(argv=None):
     t8 = time.perf_counter()
     report["gate"] = phase_gate(args.seed)
     t9 = time.perf_counter()
+    # the SSM plane, each model's weights freed before the next
+    report["serving-ssm"], per_path["prefill-ssm"] = phase_ssm_serving(args.seed)
+    check_launches("prefill-ssm", per_path["prefill-ssm"], ("mamba_scan",))
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    report["hybrid"], per_path["prefill-hybrid"] = phase_hybrid(args.seed)
+    check_launches("prefill-hybrid", per_path["prefill-hybrid"],
+                   ("mamba_scan", "flash_attention"))
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    report["gate-ssm"] = phase_ssm_gate(args.seed)
+    t12 = time.perf_counter()
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["read-only"]}
     print(f"main: launches {launches}")
     print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
           f" main {t3 - t2:.1f} s, splits and scans {t4 - t3:.1f} s,"
           f" route table {t5 - t4:.1f} s, repartition {t6 - t5:.1f} s,"
-          f" serving {t7 - t6:.1f} s, prefill {t8 - t7:.1f} s, gate {t9 - t8:.1f} s")
+          f" serving {t7 - t6:.1f} s, prefill {t8 - t7:.1f} s, gate {t9 - t8:.1f} s,"
+          f" ssm serving and prefill {t10 - t9:.1f} s, hybrid {t11 - t10:.1f} s,"
+          f" ssm gate {t12 - t11:.1f} s")
     rows = []
     for name, k in kernels.items():
         rows.append(dict(
@@ -2463,7 +2983,7 @@ def main(argv=None):
             bound_by=k["bound_by"],
             library_ms=k["library_ms"],
             bit_equal=k["bit_equal"],
-            **{x: k[x] for x in ("max_abs_err_f32", "yardstick_ms") if x in k},
+            **{x: k[x] for x in ("max_abs_err_f32", "yardstick_ms", "per_arch") if x in k},
         ))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -31,6 +31,7 @@ from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import leaf_scan as _leaf_scan
 from repro_torch.kernels import leaf_split as _leaf_split
 from repro_torch.kernels import leaf_write as _leaf_write
+from repro_torch.kernels import mamba_scan as _mamba_scan
 from repro_torch.kernels import node_search as _node_search
 from repro_torch.kernels import paged_attention as _paged_attention
 from repro_torch.kernels import ref
@@ -48,6 +49,7 @@ LAUNCHES = {
     "leaf_split": 0,
     "paged_attention": 0,
     "flash_attention": 0,
+    "mamba_scan": 0,
 }
 #: seconds the last build took (0.0 when the library came from the cache)
 BUILD_SECONDS = [0.0]
@@ -133,6 +135,7 @@ def library() -> ctypes.CDLL:
         _leaf_split.bind(lib)
         _paged_attention.bind(lib)
         _flash_attention.bind(lib)
+        _mamba_scan.bind(lib)
         _LIB.append(lib)
     return _LIB[0]
 
@@ -291,4 +294,23 @@ def flash_attention(
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
     out = _flash_attention.launch(library(), q, k, v, causal, scale)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def mamba_scan(
+    delta: torch.Tensor,
+    A: torch.Tensor,
+    Bmat: torch.Tensor,
+    C: torch.Tensor,
+    x: torch.Tensor,
+):
+    """``(y [B, L, D] f32, h_last [B, D, N] f32)``: the selective scan of
+    ``x`` [B, L, D] with steps ``delta`` [B, L, D], diagonal ``A`` [D, N]
+    and ``Bmat``, ``C`` [B, L, N] (see ``ref.mamba_scan_ref``)."""
+    args = (delta, A, Bmat, C, x)
+    if delta.device.type == "cpu":
+        _mamba_scan.validate(*args)
+        return ref.mamba_scan_ref(*args)
+    out = _mamba_scan.launch(library(), *args)
+    LAUNCHES["mamba_scan"] += 1
     return out

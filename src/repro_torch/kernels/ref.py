@@ -287,3 +287,28 @@ def paged_attention_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bngs,bsnd->bngd", p, v.float())
     return o.reshape(b, h, d).to(q.dtype)
+
+
+def mamba_scan_ref(
+    delta: torch.Tensor,
+    A: torch.Tensor,
+    Bmat: torch.Tensor,
+    C: torch.Tensor,
+    x: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan with diagonal ``A``, a step at a time.
+
+    ``delta`` [B, L, D] (post-softplus), ``A`` [D, N] (negative), ``Bmat``
+    and ``C`` [B, L, N], ``x`` [B, L, D]; all cast to f32.  Per step
+    ``h = exp(delta_t * A) * h + (delta_t * x_t) * B_t`` from ``h = 0``, and
+    ``y_t = <h, C_t>``.  Returns ``(y [B, L, D], h_last [B, D, N])``, both
+    f32; the state is one [B, D, N] tensor, never [B, L, D, N]."""
+    delta, A, Bmat, C, x = (t.float() for t in (delta, A, Bmat, C, x))
+    b, l, d = delta.shape
+    h = torch.zeros((b, d, A.shape[1]), dtype=torch.float32, device=delta.device)
+    y = torch.empty((b, l, d), dtype=torch.float32, device=delta.device)
+    for t in range(l):
+        dt = delta[:, t, :, None]
+        h = torch.exp(dt * A) * h + (dt * x[:, t, :, None]) * Bmat[:, t, None, :]
+        y[:, t] = (h * C[:, t, None, :]).sum(-1)
+    return y, h

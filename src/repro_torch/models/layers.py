@@ -1,7 +1,7 @@
-"""Model building blocks of the dense GQA families: norms, RoPE, attention
-and the SwiGLU / GELU MLP.
+"""Model building blocks of the dense GQA and Mamba families: norms, RoPE,
+attention, the SwiGLU / GELU MLP and the Mamba block.
 
-The port of ``repro.models.layers``' dense part.  Functions are pure
+The port of ``repro.models.layers``' dense and Mamba parts.  Functions are pure
 (parameters in, activations out) over dicts of tensors with the reference's
 names, and follow its casts one for one:
 
@@ -18,8 +18,14 @@ names, and follow its casts one for one:
 where the reference inlines a jnp double scan of the same function.  The
 kernel keeps the probabilities in f32 before P.V, as the TPU kernel and its
 oracle do; the reference's jnp form rounds them to bf16 first.  Its tensor-
-parallel hooks (``_tp``) are dropped: one card, no GSPMD.  MLA, MoE and
-Mamba blocks come with later slices of the port.
+parallel hooks (``_tp``) are dropped: one card, no GSPMD.  MLA and MoE
+blocks come with later slices of the port.
+
+``mamba_block``'s scan over a sequence is the ``mamba_scan`` kernel, the
+exact recurrence, where the reference calls its chunked jnp scan
+(``_ssm_chunked_scan``); the two agree at the reference's init scales, and
+on decay-heavy inputs the chunked scan drops terms (``ROADMAP.md``, queue 3,
+entry 14).
 """
 
 from __future__ import annotations
@@ -255,3 +261,90 @@ def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
     return _dot(h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective scan, diagonal A)
+# ---------------------------------------------------------------------------
+
+
+def init_mamba(cfg: ArchConfig, gen: torch.Generator, *, layers: int, device=None) -> dict:
+    """A Mamba block's leaves stacked ``[layers, ...]``, at the reference's
+    scales and dtypes: ``A_log``, ``dt_bias`` and ``D_skip`` in f32, the
+    rest in the model's dtype."""
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    n = cfg.ssm_state
+    dt_rank = max(1, d // 16)
+    dt = torch_dtype(cfg)
+
+    def w(shape, std):
+        return _stacked(layers, shape, std, dt, gen, device)
+
+    a_init = (1.0 + torch.arange(n, dtype=F32, device=device)) / n  # -A
+    return {
+        "in_proj": w((d, 2 * di), 1.0 / math.sqrt(d)),
+        "conv": w((cfg.ssm_conv, di), 0.1),
+        "conv_bias": torch.zeros((layers, di), dtype=dt, device=device),
+        "x_proj": w((di, dt_rank + 2 * n), 1.0 / math.sqrt(di)),
+        "dt_proj": w((dt_rank, di), 1.0 / math.sqrt(dt_rank)),
+        "dt_bias": torch.full((layers, di), -4.0, dtype=F32, device=device),
+        "A_log": torch.log(a_init).expand(layers, di, n).contiguous(),
+        "D_skip": torch.ones((layers, di), dtype=F32, device=device),
+        "out_proj": w((di, d), 1.0 / math.sqrt(di) / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def mamba_block(
+    cfg: ArchConfig,
+    p: dict,
+    x: torch.Tensor,  # [B, S, D]
+    *,
+    ssm_state: Optional[torch.Tensor] = None,  # [B, Di, N] decode carry
+    conv_state: Optional[torch.Tensor] = None,  # [B, conv - 1, Di]
+):
+    """Returns ``(out [B, S, D], new_ssm_state [B, Di, N] f32,
+    new_conv_state [B, conv - 1, Di] f32)``.  One token with a state takes
+    the inline recurrence, as the reference does; a sequence starts from a
+    zero state and runs the ``mamba_scan`` kernel (its plain version on the
+    CPU), whose final state is the new state."""
+    b, s, d = x.shape
+    n = cfg.ssm_state
+    dt_rank = max(1, d // 16)
+
+    xs, z = _dot(x, p["in_proj"]).chunk(2, dim=-1)  # [B, S, Di]
+
+    # depthwise causal conv over time
+    w = p["conv"]  # [K, Di]
+    kk = w.shape[0]
+    if conv_state is not None:
+        ctx = torch.cat([conv_state.to(xs.dtype), xs], dim=1)
+    else:
+        ctx = torch.nn.functional.pad(xs, (0, 0, kk - 1, 0))
+    new_conv_state = ctx[:, s:].float()  # the last conv - 1 inputs
+    conv_out = sum(ctx[:, i : i + s].float() * w[i].float() for i in range(kk))
+    conv_out = conv_out + p["conv_bias"].float()
+    xs = torch.nn.functional.silu(conv_out).to(x.dtype)
+
+    dtv, bmat, cmat = _dot(xs, p["x_proj"]).split([dt_rank, n, n], dim=-1)
+    v = torch.matmul(dtv.float(), p["dt_proj"].float()) + p["dt_bias"]
+    delta = torch.logaddexp(v, torch.zeros((), dtype=F32, device=v.device))  # softplus
+    A = -torch.exp(p["A_log"])  # [Di, N]
+
+    if s == 1 and ssm_state is not None:
+        dt0 = delta[:, 0, :, None]
+        dbx = dt0 * bmat[:, 0, None, :].float() * xs[:, 0, :, None].float()
+        h = torch.exp(dt0 * A) * ssm_state + dbx
+        y = torch.einsum("bdn,bn->bd", h, cmat[:, 0].float())[:, None]
+        new_state = h
+    else:
+        # bmat and cmat are strided slices of x_dbl: the kernel takes them
+        # contiguous
+        y, new_state = ops.mamba_scan(
+            delta, A, bmat.contiguous(), cmat.contiguous(), xs.contiguous()
+        )
+
+    y = y + p["D_skip"] * xs.float()
+    y = y * torch.nn.functional.silu(z.float())
+    out = _dot(y.to(x.dtype), p["out_proj"])
+    return out, new_state, new_conv_state

@@ -1,15 +1,18 @@
-"""The dense GQA decoder: init, forward (train / prefill) and dense-cache
-decode.
+"""The decoder: init, forward (train / prefill) and dense-cache decode for
+the dense GQA, SSM and hybrid families.
 
 The port of ``repro.models.model``'s dense path (families ``dense`` and
 ``vlm``: pre-norm GQA with optional QKV bias or QK-norm, then a SwiGLU or
-GELU MLP).  Parameters are a dict of tensors with the reference's names and
-stacked ``[L, ...]`` leaves; ``params_from_numpy`` carries the reference's
+GELU MLP), its SSM path (``ssm``: a pre-norm Mamba block a layer,
+falcon-mamba-7b) and its hybrid path (a Mamba stack with one weight-shared
+GQA block applied after every ``hybrid_attn_every`` layers, zamba2-2.7b).
+Parameters are a dict of tensors with the reference's names and stacked
+``[L, ...]`` leaves; ``params_from_numpy`` carries the reference's
 parameter pytree across (as ``jax.tree.map(np.asarray, params)`` gives it),
 the counterpart of ``dex.state_from_numpy``.  The layer stack is a Python
 loop over those leaves, where the reference scans.
 
-MLA, MoE, SSM, hybrid and encoder-decoder configs resolve by name and raise
+MLA, MoE and encoder-decoder configs resolve by name and raise
 ``NotImplementedError`` here, naming the slice of the port that brings them.
 """
 
@@ -29,21 +32,21 @@ F32 = torch.float32
 #: what a config needs that the port does not serve yet, and the slice
 #: (``ROADMAP.md``, item 13) that brings it
 _LATER = (
-    ("ssm", "Mamba blocks (falcon-mamba-7b) come with the mamba_scan slice"),
-    ("hybrid_attn_every", "hybrid Mamba stacks come after the MoE and MLA slices"),
-    ("moe", "MoE blocks come with the slice after mamba_scan"),
-    ("encdec", "encoder-decoder models come after the MLA slice"),
+    ("moe", "MoE blocks come with the next slice of the port (item 13.b)"),
+    ("encdec", "encoder-decoder models come after the MLA slice (item 13.d)"),
 )
 
 
 def check_served(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA model."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA, SSM or
+    hybrid model."""
     for field, why in _LATER:
         if getattr(cfg, field):
             raise NotImplementedError(f"{cfg.name}: {why}")
-    if cfg.attention != "gqa":
+    if not cfg.ssm and cfg.attention != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.attention} attention (MLA) comes with the slice after MoE"
+            " (item 13.c)"
         )
 
 
@@ -76,13 +79,25 @@ def init_params(cfg: ArchConfig, seed: int, device=None) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L._normal((cfg.d_model, cfg.vocab), 0.02, dt, gen, device)
-    params["blocks"] = {
-        "ln1": L.init_norm(cfg, cfg.d_model, layers=n, device=device),
-        "attn": L.init_gqa(cfg, gen, layers=n, device=device),
-        "ln2": L.init_norm(cfg, cfg.d_model, layers=n, device=device),
-        "mlp": L.init_mlp(cfg, gen, layers=n, device=device),
-    }
+    if cfg.ssm:
+        params["blocks"] = {
+            "ln1": L.init_norm(cfg, cfg.d_model, layers=n, device=device),
+            "ssm": L.init_mamba(cfg, gen, layers=n, device=device),
+        }
+    else:
+        params["blocks"] = _init_attn_block(cfg, gen, n, device)
+    if cfg.hybrid_attn_every:  # one weight-shared block, unstacked
+        params["shared_attn"] = layer_params(_init_attn_block(cfg, gen, 1, device), 0)
     return params
+
+
+def _init_attn_block(cfg: ArchConfig, gen, layers: int, device):
+    return {
+        "ln1": L.init_norm(cfg, cfg.d_model, layers=layers, device=device),
+        "attn": L.init_gqa(cfg, gen, layers=layers, device=device),
+        "ln2": L.init_norm(cfg, cfg.d_model, layers=layers, device=device),
+        "mlp": L.init_mlp(cfg, gen, layers=layers, device=device),
+    }
 
 
 def params_from_numpy(cfg: ArchConfig, tree: Dict[str, Any], device=None):
@@ -150,10 +165,26 @@ def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 
 
 def _apply_block(cfg: ArchConfig, p, x, positions):
-    """One decoder block, training / prefill path."""
+    """One decoder block (a Mamba block for an SSM config), training /
+    prefill path; also the hybrid's shared attention block."""
+    if "ssm" in p:
+        h, _, _ = L.mamba_block(cfg, p["ssm"], L.apply_norm(cfg, x, p["ln1"]))
+        return x + h
     h, _ = L.gqa_attention(cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions)
     x = x + h
     return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["ln2"]))
+
+
+def _schedule(cfg: ArchConfig):
+    """The stack in order: ``("block", i)`` for layer ``i``, ``("shared",
+    g)`` for the hybrid's shared block after group ``g`` of
+    ``hybrid_attn_every`` layers (the layers past the last whole group run
+    after it, without one)."""
+    every = cfg.hybrid_attn_every
+    for i in range(cfg.n_layers):
+        yield "block", i
+        if every and (i + 1) % every == 0:
+            yield "shared", i // every
 
 
 def forward(
@@ -164,16 +195,18 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(logits [B, S, V] f32, aux)`` (aux is the MoE loss, 0 for
-    a dense model), or the final hidden states when ``return_hidden``.
-    Every layer's attention is the ``flash_attention`` kernel."""
+    """Returns ``(logits [B, S, V] f32, aux)`` (aux is the MoE loss, 0
+    here), or the final hidden states when ``return_hidden``.  Every
+    attention is the ``flash_attention`` kernel, every Mamba layer's scan the
+    ``mamba_scan`` kernel."""
     check_served(cfg)
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    for i in range(cfg.n_layers):
-        x = _apply_block(cfg, layer_params(params["blocks"], i), x, positions)
+    for kind, i in _schedule(cfg):
+        p = params["shared_attn"] if kind == "shared" else layer_params(params["blocks"], i)
+        x = _apply_block(cfg, p, x, positions)
     x = L.apply_norm(cfg, x, params["final_norm"])
     aux = torch.zeros((), dtype=F32, device=x.device)
     if return_hidden:
@@ -189,12 +222,29 @@ def forward(
 def init_decode_cache(
     cfg: ArchConfig, batch: int, max_len: int, device=None
 ) -> Dict[str, torch.Tensor]:
-    """Dense (contiguous) decode cache ``k``, ``v`` [L, B, max_len, HKV,
-    Dh]; the DEX-paged variant is ``serve/kv_cache.py``."""
+    """Dense (contiguous) decode cache: ``k``, ``v`` [L, B, max_len, HKV,
+    Dh] for a GQA model; for an SSM or hybrid one the recurrent ``ssm``
+    [L, B, Di, N] and ``conv`` [L, B, conv - 1, Di] states in f32, and for
+    the hybrid ``shared_k``, ``shared_v`` [groups, B, max_len, HKV, Dh] (one
+    per application of the shared block).  The DEX-paged variant is
+    ``serve/kv_cache.py``."""
     check_served(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dt = L.torch_dtype(cfg)
+    if cfg.ssm:
+        di = cfg.ssm_expand * cfg.d_model
+        nl = cfg.n_layers
+        cache = {
+            "ssm": torch.zeros((nl, batch, di, cfg.ssm_state), dtype=F32, device=device),
+            "conv": torch.zeros((nl, batch, cfg.ssm_conv - 1, di), dtype=F32, device=device),
+        }
+        if cfg.hybrid_attn_every:
+            groups = cfg.n_layers // cfg.hybrid_attn_every
+            shape = (groups, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            cache["shared_k"] = torch.zeros(shape, dtype=dt, device=device)
+            cache["shared_v"] = torch.zeros(shape, dtype=dt, device=device)
+        return cache
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
@@ -209,15 +259,30 @@ def decode_step(
     pos: int,  # current length
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token for every sequence.  Returns ``(logits [B, V], cache)``;
-    the cache is written in place (the reference returns a new one)."""
+    the cache is written in place (the reference returns a new one).  A
+    Mamba layer takes the inline one-token recurrence; an attention block
+    (the hybrid's shared one too) attends over its dense cache."""
     check_served(cfg)
     x = _embed(cfg, params, tokens)
     positions = torch.full((1,), int(pos), dtype=torch.int32, device=x.device)
-    for i in range(cfg.n_layers):
-        p = layer_params(params["blocks"], i)
+    for kind, i in _schedule(cfg):
+        if kind == "shared":
+            p, kv = params["shared_attn"], (cache["shared_k"][i], cache["shared_v"][i])
+        else:
+            p = layer_params(params["blocks"], i)
+            if cfg.ssm:
+                h, new_ssm, new_conv = L.mamba_block(
+                    cfg, p["ssm"], L.apply_norm(cfg, x, p["ln1"]),
+                    ssm_state=cache["ssm"][i], conv_state=cache["conv"][i],
+                )
+                cache["ssm"][i].copy_(new_ssm)
+                cache["conv"][i].copy_(new_conv)
+                x = x + h
+                continue
+            kv = (cache["k"][i], cache["v"][i])
         h, _ = L.gqa_attention(
             cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions,
-            kv_cache=(cache["k"][i], cache["v"][i]), cache_len=pos,
+            kv_cache=kv, cache_len=pos,
         )
         x = x + h
         x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["ln2"]))

@@ -1,10 +1,15 @@
-"""Serving steps: dense prefill and paged decode (GQA families).
+"""Serving steps: prefill (every served family) and paged decode (GQA
+families).
 
 ``paged_decode_step`` is the data-plane consumer of the DEX page table: one
 new token per request, attention over the paged pool through the
 ``paged_attention`` kernel in every layer (its plain version with
-``use_kernel=False``).  ``prefill`` is the training forward, whose attention
-is the ``flash_attention`` kernel.
+``use_kernel=False``).  ``prefill`` is the training forward: its attention
+is the ``flash_attention`` kernel and its Mamba layers' scans the
+``mamba_scan`` kernel.  An SSM or hybrid model decodes through
+``models/model.py::decode_step``, whose recurrent state has no pages; like
+the reference, nothing prefills a prompt into that state: prompts are fed a
+token a step.
 
 The port of ``repro.serve.serve_step``.  The history and the fresh token are
 blended as the reference blends them: the kernel gives the softmax over the
@@ -54,6 +59,11 @@ def paged_decode_step(
     ``PagedKVCache.append_tokens`` (the token attends to itself here, so
     the scatter may land after the step)."""
     M.check_served(cfg)
+    if cfg.ssm:
+        raise ValueError(
+            f"{cfg.name}: paged decode serves attention models; an SSM or hybrid"
+            " model decodes through model.decode_step"
+        )
     b = tokens.shape[0]
     hkv, hd, h = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
     g = h // hkv

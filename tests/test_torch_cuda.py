@@ -469,3 +469,75 @@ def test_paged_decode_step_kernel_matches_plain(cuda, dtype):
     err = (got - want).abs().max().item()
     rms = want.pow(2).mean().sqrt().item()
     assert err <= (1e-4 if dtype == "float32" else 0.05 * rms), (err, rms)
+
+
+def mamba_case(b, l, d, n, seed, dtype):
+    """``mamba_scan`` operands: delta at the model's init scale
+    (``softplus(N(0, 1) - 4)``) with every fifth channel decay-heavy (0.5-2),
+    ``A = -(1..N) / N``, ``B``, ``C``, ``x`` N(0, 1) in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    delta = np.log1p(np.exp(rng.standard_normal((b, l, d)) - 4))
+    delta[..., ::5] = rng.uniform(0.5, 2.0, size=delta[..., ::5].shape)
+    A = -np.tile((1.0 + np.arange(n)) / n, (d, 1))
+    f32 = [torch.from_numpy(a.astype(np.float32)) for a in (delta, A)]
+    rest = [torch.from_numpy(rng.standard_normal(s)).to(dtype) for s in ((b, l, n), (b, l, n), (b, l, d))]
+    return f32 + rest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,l,d,n",
+    [(2, 256, 1024, 16), (2, 256, 640, 64), (1, 100, 1000, 16), (2, 70, 333, 64),
+     (2, 1, 512, 16), (1, 33, 64, 8), (1, 35, 7, 1)],
+)
+def test_mamba_scan_kernel_matches_plain(cuda, dtype, b, l, d, n):
+    """The phase-3 cases of ``chip_smoke.py`` cut down: y and the final state
+    within 1e-4 + 1e-4 |plain| at every thread layout the shape allows."""
+    from repro_torch.kernels import mamba_scan as mamba_mod
+
+    args = [t.to(cuda) for t in mamba_case(b, l, d, n, l + d + n, dtype)]
+    want = ref.mamba_scan_ref(*args)
+    for lanes in [None] + [k for k in mamba_mod.LANES if n <= 16 * k]:
+        got = ops.mamba_scan(*args) if lanes is None else mamba_mod.launch(
+            ops.library(), *args, lanes=lanes
+        )
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            excess = ((g - w).abs() - 1e-4 * w.abs()).max().item()
+            assert excess <= 1e-4, (lanes, excess)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_kernel_edge_inputs(cuda):
+    """ROADMAP queue 3 entry 14's input gives the recurrence's 2.313; L = 0
+    gives an empty y and a zero state; a strided B is refused."""
+    one = torch.ones((1, 35, 1), device=cuda)
+    y, h = ops.mamba_scan(2 * one, -torch.ones((1, 1), device=cuda), one, one, one)
+    assert abs(y[0, -1, 0].item() - 2.313) < 1e-3 and abs(h.item() - 2.313) < 1e-3
+    delta, A, bm, c, x = (t.to(cuda) for t in mamba_case(2, 8, 40, 16, 0, torch.float32))
+    y, h = ops.mamba_scan(delta[:, :0].contiguous(), A, bm[:, :0].contiguous(),
+                          c[:, :0].contiguous(), x[:, :0].contiguous())
+    torch.cuda.synchronize()
+    assert y.shape == (2, 0, 40) and h.shape == (2, 40, 16) and not h.any()
+    wide = torch.cat([bm, c], -1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mamba_scan(delta, A, wide[..., :16], c, x)
+    with pytest.raises(ValueError):  # B in another dtype than x
+        ops.mamba_scan(delta, A, bm.bfloat16(), c, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_ssm_forward_matches_decode_on_the_card(cuda, name):
+    """Reduced float32 model: ``forward`` (the kernel) against
+    ``decode_step`` a token at a time (the recurrence), within 1e-4."""
+    cfg = get_config(name).reduced(dtype="float32")
+    params = t_model.init_params(cfg, seed=0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 20))).to(cuda)
+    full, _ = t_model.forward(cfg, params, toks)
+    cache = t_model.init_decode_cache(cfg, 2, 20, device=cuda)
+    dec = torch.stack(
+        [t_model.decode_step(cfg, params, toks[:, t : t + 1], cache, t)[0] for t in range(20)], 1
+    )
+    assert (dec - full).abs().max().item() <= 1e-4

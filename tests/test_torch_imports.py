@@ -33,6 +33,8 @@ assert {
     "repro_torch.configs.registry", "repro_torch.configs.minitron_4b",
     "repro_torch.serve.kv_cache", "repro_torch.serve.serve_step",
     "repro_torch.kernels.paged_attention", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.mamba_scan", "repro_torch.configs.falcon_mamba_7b",
+    "repro_torch.configs.zamba2_2_7b",
 } <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
@@ -47,9 +49,12 @@ from repro_torch.configs.registry import get_config
 from repro_torch.models import model
 from repro_torch.serve.kv_cache import PagedKVCache
 small = get_config("minitron-4b").reduced()
+ssm = get_config("falcon-mamba-7b").reduced()
 if not torch.cuda.is_available():
     for call in (
         lambda: model.init_params(small, seed=0),
+        lambda: model.init_params(ssm, seed=0),
+        lambda: model.init_decode_cache(ssm, 1, 1),
         lambda: PagedKVCache(cfg=small, n_pages=4, page_size=4, max_batch=1),
         lambda: pool.build_pool([1, 2, 3]),
         lambda: engine.make_dex_engine(None, dex.DexMeshConfig()),

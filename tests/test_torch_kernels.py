@@ -185,6 +185,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
         torch.zeros((2, 1), dtype=torch.int32), torch.ones(2, dtype=torch.int32),
     )
     t_ops.flash_attention(q[None], q[None, :2], q[None, :2])
+    t_ops.mamba_scan(q, torch.zeros((8, 16)), torch.zeros((2, 4, 16)),
+                     torch.zeros((2, 4, 16)), q)
     assert t_ops.LAUNCHES == {
         "node_search": 0,
         "node_search_prefix": 0,
@@ -194,4 +196,5 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
         "leaf_split": 0,
         "paged_attention": 0,
         "flash_attention": 0,
+        "mamba_scan": 0,
     }

@@ -119,7 +119,12 @@ def test_init_params_has_the_reference_tree(name):
 
 
 @pytest.mark.parametrize(
-    "name", sorted(set(ARCHS) - {"minitron-4b", "qwen1.5-110b", "chameleon-34b", "llama3-405b"})
+    "name",
+    sorted(
+        set(ARCHS)
+        - {"minitron-4b", "qwen1.5-110b", "chameleon-34b", "llama3-405b",
+           "falcon-mamba-7b", "zamba2-2.7b"}
+    ),
 )
 def test_other_families_resolve_then_raise(name):
     cfg = get_config(name)
