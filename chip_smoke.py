@@ -9,7 +9,9 @@ them.
 Phases, in order; any failure exits non-zero:
 
   1. device: the card's name and power limit (``nvidia-smi``), CUDA version;
-  2. build: compile the CUDA kernels from ``src/repro_torch/csrc``;
+  2. build: compile the CUDA kernels from ``src/repro_torch/csrc``; count
+     the tensor-core products (HGMMA) and TMA loads (UTMALDG) in the bf16
+     ``flash_attention`` kernels' SASS, which must have both;
   3. kernels: ``node_search``, ``subtree_walk``, ``leaf_write``,
      ``leaf_scan``, ``leaf_split`` and ``node_search_prefix`` at the main
      path's shapes
@@ -29,8 +31,11 @@ Phases, in order; any failure exits non-zero:
      4,096 pages of 16 tokens with stale rows everywhere, lengths 0, 1, page
      boundaries, partial pages and the whole 36-page table) and
      ``flash_attention`` ([2, 24, 2048, 128] against [2, 8, 2048, 128],
-     causal; Sq < Sk; a length that is not a multiple of 64; non-causal),
-     in bf16 and f32, within 2e-2 and 1e-4 of their plain versions; then
+     causal; Sq < Sk; a length that is not a multiple of 64; non-causal;
+     zamba2-2.7b's head dim of 80 at [2, 32, 2048, 80] and with Sq < Sk;
+     D = 64 non-causal), in bf16 and f32, within 2e-2 and 1e-4 of their
+     plain versions, flash timed at minitron-4b's and zamba2-2.7b's prefill
+     shapes beside SDPA and its bound at the true head dim; then
      ``mamba_scan`` at falcon-mamba-7b's prefill shape ([2, 2048, 8192],
      N = 16) and zamba2-2.7b's ([2, 2048, 5120], N = 64), operands in bf16
      and f32, at init scales with decay-heavy channels, plus a width off
@@ -93,7 +98,9 @@ Phases, in order; any failure exits non-zero:
      logit difference <= 0.05 x RMS of the logits (its max and the greedy
      agreement are reported: in bf16 over 32 layers the max sits near
      0.1 x RMS for any attention that is not bit-identical).  Then ``prefill`` over two
-     2,048-token sequences (tokens/s, ``flash_attention`` ms per call) and
+     2,048-token sequences (tokens/s, ``flash_attention`` ms per call and
+     share, one more call with every layer's kernel call held to its plain
+     version within 2e-2, the device ms of ``sdpa``'s transposes) and
      two served requests replayed through it (max |dlogit| / RMS and greedy
      agreement, reported);
      6b. (minitron-4b freed) falcon-mamba-7b at full width, 64 layers, bf16:
@@ -106,8 +113,9 @@ Phases, in order; any failure exits non-zero:
      layer's kernel call held to its plain version (phase 3's tolerance);
      6c. zamba2-2.7b at full width, 54 layers, bf16: ``prefill`` over
      2 x 2,048 tokens (``mamba_scan`` at N = 64 in every layer,
-     ``flash_attention`` at head dim 80 in the 9 shared-block calls), then
-     128 decode steps of 32 slots;
+     ``flash_attention`` at head dim 80 in the 9 shared-block calls, each
+     held to its plain version once, as for minitron-4b), then 128 decode
+     steps of 32 slots;
   7. the equivalence gates in float32: minitron-4b cut to 4 layers, four
      requests of 256 seeded tokens through paged decode, dense
      ``decode_step`` and ``prefill``, pairwise max |dlogit| <= 1e-3 x RMS;
@@ -308,10 +316,43 @@ def phase_build():
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
-    print(ops.build(verbose=True)[1], end="")
+    lib, log = ops.build(verbose=True)
+    print(log, end="")
     ops.library()
     took = time.perf_counter() - t0
     print(f"build: {took:.1f} s (nvcc {ops.BUILD_SECONDS[0]:.1f} s)")
+    sass_evidence(lib)
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "USETMAXREG")
+
+
+def sass_evidence(lib):
+    """Count the tensor-core products (``HGMMA``), TMA loads (``UTMALDG``)
+    and register hand-overs (``USETMAXREG``) in each bf16 flash_attention
+    kernel of the built library (``cuobjdump --dump-sass``); fails unless
+    every one has products and TMA loads."""
+    from repro_torch.kernels import ops
+
+    cuobjdump = pathlib.Path(ops._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "--dump-sass", str(lib)],
+        capture_output=True, text=True, check=True, timeout=300,
+    ).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            if "flash_attention_wgmma" in name:
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name in counts:
+            for op in SASS_OPS:
+                counts[name][op] += line.count(op)
+    if not counts or not all(c["HGMMA"] and c["UTMALDG"] for c in counts.values()):
+        fail(f"flash_attention: a bf16 kernel lacks HGMMA or UTMALDG in its SASS: {counts}")
+    for name, c in counts.items():
+        print(f"sass {name}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    return counts
 
 
 def node_search_inputs(pool, keys, n, seed):
@@ -1078,7 +1119,7 @@ def profile_batch(policy, eng, state, median_ms, *inputs):
     the idle share of ``median_ms`` (the policy's unprofiled median batch,
     since the profiler itself slows the host) and the kernels that took the
     most device time."""
-    out, wall, events = device_profile(lambda: eng(state, *inputs))
+    out, wall, events, _ = device_profile(lambda: eng(state, *inputs))
     busy = sum(ms for _, ms, _ in events)
     top = "; ".join(f"{k[:48]} {ms:.3f} ms x{n}" for k, ms, n in events[:8])
     print(
@@ -1844,10 +1885,12 @@ def lm_attention_kernels(seed):
     """``paged_attention`` and ``flash_attention`` at the serving shapes,
     in bf16 and f32, against their plain versions (max abs error <= 2e-2
     in bf16, <= 1e-4 in f32), and timed in bf16 beside the plain version
-    and a PyTorch yardstick."""
+    and a PyTorch yardstick; flash at minitron-4b's and zamba2-2.7b's
+    prefill shapes (``per_arch``)."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
@@ -1909,11 +1952,14 @@ def lm_attention_kernels(seed):
     )
     del args, q, kp, vp, got, want
 
-    # flash: the prefill shape, a shorter q against a longer k, and a length
-    # that is not a multiple of the 64-row tile
+    # flash: the prefill shape, a shorter q against a longer k, lengths that
+    # are not a multiple of the tiles, non-causal at D = 128 and 64, and
+    # zamba2-2.7b's head dim of 80 (32 heads over 32) at its prefill shape
     sq, sk = PREFILL_TOKENS, PREFILL_TOKENS
     cases = (((2, 24, sq, d), (2, 8, sk, d), True), ((1, 24, 300, d), (1, 8, sk, d), True),
-             ((1, 24, 1000, d), (1, 8, 1000, d), True), ((1, 6, 130, d), (1, 2, 200, d), False))
+             ((1, 24, 1000, d), (1, 8, 1000, d), True), ((1, 6, 130, d), (1, 2, 200, d), False),
+             ((2, 32, sq, 80), (2, 32, sk, 80), True), ((1, 32, 300, 80), (1, 32, 700, 80), True),
+             ((1, 16, 700, 64), (1, 4, 900, 64), False))
     g = torch.Generator(device=dev).manual_seed(seed + 11)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1929,35 +1975,52 @@ def lm_attention_kernels(seed):
                 fail(f"flash_attention {dtype} {qs} x {ks} differs from its plain"
                      f" version: {err}")
             errs[dtype] = max(errs.get(dtype, 0.0), err)
-    q, k, v = (
-        torch.randn(s, generator=g, device=dev, dtype=torch.bfloat16)
-        for s in ((2, 24, sq, d), (2, 8, sk, d), (2, 8, sk, d))
-    )
-    pairs = sq * (sq + 1) // 2  # (query, key) pairs the causal mask keeps
-    flops = 4 * 2 * 24 * d * pairs
-    nbytes = 2 * (q.numel() * 2 + k.numel() * 2 * 2)
+    rows = {}
+    for arch, (h, hkv, dh) in ((LM_ARCH, (24, 8, d)), (HYBRID_ARCH, (32, 32, 80))):
+        q, k, v = (
+            torch.randn(s, generator=g, device=dev, dtype=torch.bfloat16)
+            for s in ((2, h, sq, dh), (2, hkv, sk, dh), (2, hkv, sk, dh))
+        )
+        pairs = sq * (sq + 1) // 2  # (query, key) pairs the causal mask keeps
+        flops = 4 * 2 * h * dh * pairs  # at the true head dim, not the padded one
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel())  # q, k, v in, the output out
+        rows[arch] = dict(
+            shape=f"q [2, {h}, {sq}, {dh}] bf16 over k, v [2, {hkv}, {sk}, {dh}], causal",
+            ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
+            plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3),
+            library_ms=cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=hkv != h
+                ),
+                20,
+            ),
+            bound_ms=max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+            bound_by="operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
+            else "bytes",
+            padded_share=1 - dh / fa_mod.plan(dh, torch.bfloat16).padded_d,
+        )
+        del q, k, v
+    main = rows[LM_ARCH]
     out["flash_attention"] = dict(
         name="flash_attention",
         route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:78",
-        shape=f"q [2, 24, {sq}, {d}] bf16 over k, v [2, 8, {sk}, {d}], causal",
-        check="max abs err bf16 {:.2e}, f32 {:.2e} over 4 cases".format(
-            errs[torch.bfloat16], errs[torch.float32]
+        shape=main["shape"],
+        check="max abs err bf16 {:.2e}, f32 {:.2e} over {} cases".format(
+            errs[torch.bfloat16], errs[torch.float32], len(cases)
         ),
         bit_equal=False,
         max_abs_err=errs[torch.bfloat16],
         max_abs_err_f32=errs[torch.float32],
-        ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 10),
-        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3),
-        library_ms=cuda_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-            10,
-        ),
-        bound_ms=max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
-        bound_by="operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
-        else "bytes",
+        **{x: main[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        per_arch=rows,
     )
+    for arch, r in rows.items():
+        print(f"kernel flash_attention {arch} {r['shape']}: kernel {r['ms']:.4f} ms, plain"
+              f" {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound"
+              f" {r['bound_ms']:.4f} ms ({r['bound_by']}), padded share of the products"
+              f" {r['padded_share']:.3f} on {card}")
     for k_ in out.values():
         print(
             f"kernel {k_['name']}: {k_['shape']}: {k_['check']}, kernel"
@@ -2060,11 +2123,13 @@ def phase_lm_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
               f" max |dlogit| {err:.3e} (limit {tol:.3e}, RMS {rms:.3f})")
 
 
-def device_profile(fn):
+def device_profile(fn, ranges=()):
     """``fn()`` under ``torch.profiler``: its result, the wall milliseconds
-    under the profiler, and the kernels as ``(name, device ms, count)``
-    sorted by device time (kernels only: an operator's row repeats its
-    kernels' time)."""
+    under the profiler, the kernels as ``(name, device ms, count)`` sorted
+    by device time (kernels only: an operator's row repeats its kernels'
+    time), and the device ms of the kernels launched under each profiler
+    range named in ``ranges`` (``record_function``, as ``models/layers.py``
+    ``sdpa`` marks its copies)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2077,35 +2142,49 @@ def device_profile(fn):
             out = fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
     events = [
         (e.key, e.self_device_time_total / 1e3, e.count)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
+        for e in averages
+        if e.device_type == DeviceType.CUDA and e.key not in ranges
     ]
-    return out, wall, sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
+    marked = {
+        r: sum(e.device_time_total for e in averages
+               if e.key == r and e.device_type == DeviceType.CPU) / 1e3
+        for r in ranges
+    }
+    kernels = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
+    return out, wall, kernels, marked
+
+
+def attention_errs(out, want):
+    """Max abs difference and the share of outputs that differ; a plain
+    NaN (a request or row that no key reaches) counts as 0, as the kernels
+    write it."""
+    want = want.nan_to_num()
+    return max_abs_err([out], [want]), float((out != want).float().mean())
 
 
 @contextlib.contextmanager
-def held_to_plain(errs):
-    """Within the block, every ``ops.paged_attention`` call also runs its
-    plain version on the same inputs (the layer's real q, pages, table and
-    lengths) and appends the max abs difference and the share of outputs
-    that differ to ``errs``; the plain calls launch no kernel."""
+def held_to_plain(errs, kernel="paged_attention", compare=attention_errs):
+    """Within the block, every ``ops.<kernel>`` call also runs its plain
+    version (``ref.<kernel>_ref``) on the same inputs (the layer's real
+    operands) and appends ``compare(kernel output, plain output)`` to
+    ``errs``; the plain calls launch no kernel."""
     from repro_torch.kernels import ops, ref
 
-    kernel = ops.paged_attention
+    launch, plain = getattr(ops, kernel), getattr(ref, f"{kernel}_ref")
 
-    def checked(*a):
-        out = kernel(*a)
-        want = ref.paged_attention_ref(*a).nan_to_num()
-        errs.append((max_abs_err([out], [want]), float((out != want).float().mean())))
+    def checked(*a, **kw):
+        out = launch(*a, **kw)
+        errs.append(compare(out, plain(*a, **kw)))
         return out
 
-    ops.paged_attention = checked
+    setattr(ops, kernel, checked)
     try:
         yield
     finally:
-        ops.paged_attention = kernel
+        setattr(ops, kernel, launch)
 
 
 class Request:
@@ -2202,7 +2281,7 @@ def phase_serving(seed):
         args = (cfg, params, tok_dev, kv.k_pages, kv.v_pages, table, lens)
         check = step % CHECK_EVERY == 0
         if step == prof_step:
-            (logits, k_new, v_new), _, prof = device_profile(
+            (logits, k_new, v_new), _, prof, _ = device_profile(
                 lambda: paged_decode_step(*args)
             )
         elif check:
@@ -2300,49 +2379,22 @@ def phase_serving(seed):
 
 def phase_prefill(params, replays, seed):
     """``prefill`` at full width (32 layers, bf16) over two sequences of
-    ``PREFILL_TOKENS``: prefill tokens/s and flash_attention's device ms per
-    call; then the two recorded requests of the serving run replayed
-    through ``prefill``: max |dlogit| / RMS against the decode's logits and
-    the share of greedy tokens that agree (reported, not gated)."""
+    ``PREFILL_TOKENS`` (``timed_prefill``: tokens/s, flash_attention's
+    device ms a call and share, every call held to its plain version, and
+    the device ms of ``sdpa``'s transposes); then the two recorded requests
+    of the serving run replayed through ``prefill``: max |dlogit| / RMS
+    against the decode's logits and the share of greedy tokens that agree
+    (reported, not gated)."""
     import torch
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import ops
     from repro_torch.serve.serve_step import prefill
 
     dev = torch.device("cuda")
     cfg = get_config(LM_ARCH)
     g = torch.Generator(device=dev).manual_seed(seed + 12)
     toks = torch.randint(0, cfg.vocab, (2, PREFILL_TOKENS), generator=g, device=dev)
-    prefill(cfg, params, toks)  # warm-up
-    ops.reset_launches()
-    times = []
-    for _ in range(PREFILL_RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits = prefill(cfg, params, toks)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(ops.LAUNCHES)
-    if launches["flash_attention"] != cfg.n_layers * PREFILL_RUNS:
-        fail(f"prefill: {launches['flash_attention']} flash_attention launches,"
-             f" expected {cfg.n_layers * PREFILL_RUNS}")
-    if not bool(torch.isfinite(logits).all()):
-        fail("prefill: logits are not finite")
-    del logits
-    _, wall, prof = device_profile(lambda: prefill(cfg, params, toks))
-    busy = sum(ms for _, ms, _ in prof)
-    flash = [(ms, n) for k, ms, n in prof if "flash_attention" in k]
-    med = float(np.median(times))
-    report = dict(
-        tokens=toks.numel(),
-        median_ms=med,
-        tokens_per_s=toks.numel() / med * 1e3,
-        device_busy_ms=busy,
-        idle_share=1 - busy / med,
-        flash_attention_ms_per_call=sum(m for m, _ in flash) / sum(n for _, n in flash),
-        flash_attention_share=sum(m for m, _ in flash) / busy,
-    )
+    report, launches = timed_prefill(cfg, params, toks, {"flash_attention": cfg.n_layers})
     for rid, (fed, gen, dec) in replays.items():
         n_prompt = len(fed) - len(gen) + 1
         pre = prefill(cfg, params, torch.from_numpy(fed[None]).to(dev))[0]
@@ -2605,34 +2657,17 @@ def phase_ssm_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
                   f" reset, max |dlogit| {err:.3e} (limit {tol:.3e}, RMS {rms:.3f})")
 
 
-@contextlib.contextmanager
-def mamba_held_to_plain(excess):
-    """Within the block, every ``ops.mamba_scan`` call also runs its plain
-    version on the same inputs and appends the largest excess over
-    ``1e-4 |plain|`` (see ``mamba_tol``) to ``excess``."""
-    from repro_torch.kernels import ops, ref
-
-    kernel = ops.mamba_scan
-
-    def checked(*a):
-        out = kernel(*a)
-        excess.append(mamba_tol(out, ref.mamba_scan_ref(*a)))
-        return out
-
-    ops.mamba_scan = checked
-    try:
-        yield
-    finally:
-        ops.mamba_scan = kernel
-
-
 def timed_prefill(cfg, params, toks, expect):
     """``PREFILL_RUNS`` timed ``prefill`` calls after a warm-up; the launch
     counts must equal ``expect`` (kernel -> launches a call) times the runs.
-    Returns (report, launches)."""
+    Where ``flash_attention`` runs, one more call holds each of its
+    launches to its plain version on the layer's own q, k and v (max abs
+    error <= 2e-2 in bf16, 1e-4 in f32), and the profiled call reports the
+    device ms of ``sdpa``'s transposes.  Returns (report, launches)."""
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.models.layers import SDPA_TRANSPOSES
     from repro_torch.serve.serve_step import prefill
 
     prefill(cfg, params, toks)  # warm-up
@@ -2652,7 +2687,18 @@ def timed_prefill(cfg, params, toks, expect):
     if not bool(torch.isfinite(logits).all()):
         fail(f"prefill {cfg.name}: logits are not finite")
     del logits
-    _, _, prof = device_profile(lambda: prefill(cfg, params, toks))
+    attention = "flash_attention" in expect
+    held = []
+    if attention:
+        with held_to_plain(held, "flash_attention"):
+            prefill(cfg, params, toks)
+        worst = max(e for e, _ in held)
+        if len(held) != expect["flash_attention"] or not worst <= ATTN_TOL[cfg.dtype]:
+            fail(f"prefill {cfg.name}: {len(held)} flash_attention calls held to their"
+                 f" plain version, max abs error {worst} (limit {ATTN_TOL[cfg.dtype]})")
+    _, _, prof, marked = device_profile(
+        lambda: prefill(cfg, params, toks), ranges=(SDPA_TRANSPOSES,) if attention else ()
+    )
     busy = sum(ms for _, ms, _ in prof)
     med = float(np.median(times))
     report = dict(
@@ -2667,6 +2713,14 @@ def timed_prefill(cfg, params, toks, expect):
         calls = [(ms, n) for name, ms, n in prof if k in name]
         report[f"{k}_ms_per_call"] = sum(m for m, _ in calls) / sum(n for _, n in calls)
         report[f"{k}_share"] = sum(m for m, _ in calls) / busy
+    if attention:
+        report["flash_attention_held_to_plain"] = dict(
+            calls=len(held),
+            max_abs_err=max(e for e, _ in held),
+            differing_share=float(np.mean([f for _, f in held])),
+        )
+        report["sdpa_transposes_device_ms"] = marked[SDPA_TRANSPOSES]
+        report["sdpa_transposes_share"] = marked[SDPA_TRANSPOSES] / busy
     return report, launches
 
 
@@ -2723,7 +2777,7 @@ def phase_ssm_serving(seed):
             r.fed.append(int(tok[b, 0]))
         tok_dev = torch.from_numpy(tok).to(dev)
         if step == prof_step:
-            (logits, _), _, prof = device_profile(
+            (logits, _), _, prof, _ = device_profile(
                 lambda: model.decode_step(cfg, params, tok_dev, cache, step)
             )
         else:
@@ -2784,7 +2838,7 @@ def phase_ssm_serving(seed):
     toks = torch.randint(0, cfg.vocab, (2, PREFILL_TOKENS), generator=g, device=dev)
     report["prefill"], launches = timed_prefill(cfg, params, toks, {"mamba_scan": cfg.n_layers})
     excess = []
-    with mamba_held_to_plain(excess):
+    with held_to_plain(excess, "mamba_scan", mamba_tol):
         prefill(cfg, params, toks)
     if len(excess) != cfg.n_layers or not max(excess) <= 1e-4:
         fail(f"ssm prefill: {len(excess)} layers' kernel calls held to plain, worst"

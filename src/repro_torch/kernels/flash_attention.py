@@ -1,4 +1,4 @@
-"""CUDA kernel: blocked prefill attention with an online softmax.
+"""CUDA kernels: blocked prefill attention with an online softmax.
 
 Replaces the TPU kernel ``flash_attention`` in
 ``src/repro/kernels/flash_attention.py``, the fused form of the model's
@@ -10,29 +10,43 @@ diagonal, and pointed each query head at its kv head by an index map; it
 asserted that the sequence lengths tile.
 
 What bounds it: operations.  Per (query, key) pair the causal mask keeps,
-``4 * D`` flops (QK^T and PV), against the card's dense bf16 peak.  Design:
-one CTA of 256 threads per (batch * head, 64-row q tile); the q tile is
-staged once in shared memory, pre-scaled; 64-row K and V tiles are staged
-per step and tiles above the diagonal are never visited; each thread owns a
-4 x 4 block of scores and a 4 x D/16 block of the output, in f32 on CUDA
-cores.  The kv head is ``h // (H // HKV)``.  Any Sq and Sk are taken: the
-tail tiles are masked.  No tensor cores yet (wgmma and TMA are later work),
-so it runs far above its bound.
+``4 * D`` flops (QK^T and PV); on this card only tensor cores reach the
+bf16 rate, so the bf16 kernel is built on them.  Design (bf16,
+``csrc/flash_attention.cu`` ``flash_attention_wgmma``): a persistent CTA of
+three warpgroups on each SM walks (batch * head, 128-row q tile) items,
+causal q tiles longest first; one producer thread brings K and V tiles by
+TMA into rings (3 slots up to a padded 128, 2 above) with full and empty
+mbarriers, K a tile ahead of V, and q once per item, so loads overlap the
+products and the previous item's epilogue; two consumer warpgroups of 64
+rows each start S_t = Q K_t^T and, behind it, O += P_{t-1} V_{t-1} as
+``wgmma`` (f32 accumulators in registers, P fed from registers), run the
+softmax of S_t (``ex2``, maxima by shuffles) while that product is in
+flight, and take turns with each other to start them.  P is split into two
+bf16 parts (hi and its rounding error) so that it keeps about 17 bits:
+hi alone moved outputs of minitron-4b's prefill by a bf16 step beyond the
+2e-2 tolerance.  The head dim is padded to a multiple of 64 by the tensor
+maps' zero fill, not by a copy (D = 80 runs as 128: 37.5% of its products
+are padding).  float32 stays on CUDA cores (``flash_attention_f32``: 64-row tiles staged in
+shared memory, ``fmaf``): on tensor cores it would run as TF32, about
+three decimal digits, which the f32 tolerance (1e-4) and the float32 gates
+refuse.  ``plan`` picks the kernel and its tiles by dtype and head dim;
+the C entry checks that the plan names a kernel it has.
 
 Contract (the TPU kernel's): ``flash_attention(q [B, H, Sq, D], k, v
 [B, HKV, Sk, D], causal=True, scale=None) -> [B, H, Sq, D]`` in q's dtype
-(float32 or bfloat16), f32 inside, causal offset ``Sk - Sq``; D a multiple
-of 8 up to 256.  A row that no key may reach (causal with Sk < Sq) is 0
-(NaN in the plain version).
+(float32 or bfloat16), f32 accumulation inside, causal offset ``Sk - Sq``;
+D a multiple of 8 up to 256; any Sq and Sk.  A row that no key may reach
+(causal with Sk < Sq) is 0 (NaN in the plain version).
 
 The plain version is ``repro_torch.kernels.ref.flash_attention_ref``; the
 dispatch, build and launch count are in ``kernels/ops.py``; the source is
-``csrc/flash_attention.cu``.
+``csrc/flash_attention.cu`` (with ``csrc/wgmma.cuh``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Optional
 
@@ -44,13 +58,49 @@ from repro_torch.kernels.ref import flash_attention_ref  # noqa: F401  (plain ve
 
 _P = ctypes.c_void_p
 
+#: q rows a CTA of the bf16 kernel: two consumer warpgroups of 64 (wgmma's M)
+BLOCK_Q = 128
+#: shared memory a CTA may use on an H100 (227 KB)
+SMEM_LIMIT = 232_448
+#: the bf16 kernel's shared bytes beyond its tiles: 1024-byte alignment of
+#: the swizzled tiles, and the mbarriers
+_SLACK = 1024 + 128
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one launch runs: the kernel (``route``), the head dim it computes
+    at, the q and kv rows of a tile, the stages of its K / V ring and its
+    dynamic shared memory in bytes."""
+
+    route: str  # "wgmma" (bf16, tensor cores) or "cuda-cores" (float32)
+    padded_d: int
+    block_q: int
+    block_kv: int
+    stages: int
+    smem_bytes: int
+
+
+def plan(d: int, dtype: torch.dtype) -> Plan:
+    """The launch plan for head dim ``d`` (a multiple of 8 up to 256).
+    bfloat16: D padded to a multiple of 64 (TMA boxes of 128 bytes); up to a
+    padded 128, kv tiles of 128 rows in three ring slots (three ran faster
+    than two on the card, most at D = 80), above it 64 rows in two, so q,
+    the K and V rings and the barriers fit in shared memory.  float32: the CUDA-core
+    kernel's 64-row tiles staged in shared memory as f32."""
+    if dtype == torch.float32:
+        smem = 4 * (2 * 64 * (d + 1) + 64 * d + 64 * 65)
+        return Plan("cuda-cores", d, 64, 64, 1, smem)
+    dp = -(-d // 64) * 64
+    bn, stages = (128, 3) if dp <= 128 else (64, 2)
+    smem = BLOCK_Q * dp * 2 + 2 * stages * bn * dp * 2 + _SLACK
+    return Plan("wgmma", dp, BLOCK_Q, bn, stages, smem)
+
 
 def bind(lib: ctypes.CDLL) -> None:
-    lib.dex_flash_attention.argtypes = [_P] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_float,
-        ctypes.c_int,
-        _P,
-    ]
+    lib.dex_flash_attention.argtypes = (
+        [_P] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 5 + [_P]
+    )
     lib.dex_flash_attention.restype = ctypes.c_int
 
 
@@ -67,9 +117,11 @@ def validate(q, k, v) -> None:
         raise ValueError(f"{h} query heads are not a multiple of {hkv} kv heads")
     if b * h > 65_535:
         raise ValueError(f"batch x heads must be at most 65,535, got {b * h}")
-    check(q, "q", q.dtype, (b, h, sq, d))
-    check(k, "k", q.dtype, (b, hkv, sk, d))
-    check(v, "v", q.dtype, (b, hkv, sk, d))
+    # the bf16 kernel's tensor maps need 16-byte aligned bases
+    tma = q.dtype == torch.bfloat16
+    check(q, "q", q.dtype, (b, h, sq, d), rows=tma)
+    check(k, "k", q.dtype, (b, hkv, sk, d), rows=tma)
+    check(v, "v", q.dtype, (b, hkv, sk, d), rows=tma)
     for t in (k, v):
         if t.device != q.device:
             raise ValueError("flash_attention inputs must lie on one device")
@@ -83,6 +135,7 @@ def launch(lib: ctypes.CDLL, q, k, v, causal: bool, scale: Optional[float]):
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got {q.device}")
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape
+    p = plan(d, q.dtype)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -100,8 +153,14 @@ def launch(lib: ctypes.CDLL, q, k, v, causal: bool, scale: Optional[float]):
         d,
         1.0 / math.sqrt(d) if scale is None else float(scale),
         int(causal),
+        p.padded_d,
+        p.block_kv,
+        p.stages,
+        p.smem_bytes,
         stream,
     )
+    if err < 0:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused a map: {-err}")
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     return out

@@ -117,21 +117,23 @@ def apply_rope(x, cos, sin):
 # ---------------------------------------------------------------------------
 
 
+#: profiler range around ``sdpa``'s layout copies
+SDPA_TRANSPOSES = "sdpa transposes"
+
+
 def sdpa(q, k, v, *, causal: bool, scale=None):
     """Attention through the ``flash_attention`` kernel.
 
     q: [B, Sq, H, D]; k, v: [B, Sk, HKV, D] (the reference's layout); the
     kernel takes heads before positions, so the operands are transposed into
-    contiguous copies and the output back.  The causal diagonal sits at
+    contiguous copies and the output back into one; the copies run under
+    the profiler range ``SDPA_TRANSPOSES``.  The causal diagonal sits at
     ``Sk - Sq`` (the reference's callers use Sq = Sk, offset 0)."""
-    o = ops.flash_attention(
-        q.transpose(1, 2).contiguous(),
-        k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(),
-        causal=causal,
-        scale=scale,
-    )
-    return o.transpose(1, 2)
+    with torch.autograd.profiler.record_function(SDPA_TRANSPOSES):
+        q, k, v = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    o = ops.flash_attention(q, k, v, causal=causal, scale=scale)
+    with torch.autograd.profiler.record_function(SDPA_TRANSPOSES):
+        return o.transpose(1, 2).contiguous()
 
 
 def _normal(shape, std, dt, gen, device):

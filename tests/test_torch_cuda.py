@@ -390,20 +390,31 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, d, page, p
     assert err <= TOL[dtype], err
 
 
+def flash_case(b, h, hkv, sq, sk, d, dtype, device):
+    rng = np.random.default_rng(sq + sk + d)
+    return [
+        torch.from_numpy(rng.standard_normal(s)).to(device, dtype)
+        for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))
+    ]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "b,h,hkv,sq,sk,d,causal",
     [(1, 4, 4, 128, 128, 64, True), (2, 6, 2, 100, 100, 32, True),
      (1, 3, 1, 64, 200, 128, True), (1, 4, 2, 70, 130, 8, False),
-     (1, 2, 2, 33, 33, 256, True), (1, 24, 8, 130, 130, 128, True)],
+     (1, 2, 2, 33, 33, 256, True), (1, 24, 8, 130, 130, 128, True),
+     # zamba2-2.7b's head dim (a padded 128), G = 1
+     (1, 32, 32, 300, 300, 80, True),
+     # head dims 8, 24 and 200 (padded 64, 64, 256) and 256, ragged lengths
+     (1, 4, 1, 129, 257, 8, True), (1, 6, 3, 200, 260, 24, True),
+     (2, 4, 2, 190, 190, 200, False), (1, 8, 2, 77, 333, 256, True),
+     # minitron-4b's prefill at one sequence: 24 heads over 8
+     (1, 24, 8, 2048, 2048, 128, True)],
 )
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, sq, sk, d, causal):
-    rng = np.random.default_rng(sq + sk + d)
-    q, k, v = (
-        torch.from_numpy(rng.standard_normal(s)).to(cuda, dtype)
-        for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))
-    )
+    q, k, v = flash_case(b, h, hkv, sq, sk, d, dtype, cuda)
     got = ops.flash_attention(q, k, v, causal=causal)
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -412,6 +423,38 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, sq, sk, d,
     scaled = ops.flash_attention(q, k, v, causal=causal, scale=0.3)
     err = (scaled.float() - ref.flash_attention_ref(
         q, k, v, causal=causal, scale=0.3).float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_zeroes_rows_no_key_reaches(cuda, dtype):
+    """Causal with Sk < Sq: query i sees keys up to i + Sk - Sq, so the
+    first Sq - Sk rows see none; the kernel writes them 0 (the plain version
+    NaN) and the rest match.  With no key at all (Sk = 0) every row is 0."""
+    q, k, v = flash_case(1, 4, 2, 300, 100, 64, dtype, cuda)
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert bool((got[:, :, :200] == 0).all())
+    assert bool(want[:, :, :200].isnan().all())
+    err = (got[:, :, 200:].float() - want[:, :, 200:].float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    for causal in (True, False):
+        empty = ops.flash_attention(q, k[:, :, :0], v[:, :, :0], causal=causal)
+        torch.cuda.synchronize()
+        assert empty.shape == q.shape and bool((empty == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_the_grid_limit(cuda, dtype):
+    """B * H at 65,535, the most ``validate`` takes."""
+    q, k, v = flash_case(3, 21_845, 257, 9, 9, 16, dtype, cuda)
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[dtype], err
 
 
