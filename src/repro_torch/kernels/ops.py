@@ -146,7 +146,10 @@ def node_search(
     values: Optional[torch.Tensor] = None,
 ):
     """``(slot [B] int32, found [B] bool, value [B] int64)`` for rows
-    ``[B, 64]`` int64 and queries ``[B]`` int64 (see ``ref.node_search_ref``)."""
+    ``[B, 64]`` int64 and queries ``[B]`` int64 (see ``ref.node_search_ref``).
+    Each row must be sorted non-decreasing, KEY_MAX padding at its tail:
+    the kernel searches it (``kernels/node_search.py``), and the CPU path
+    raises ``ValueError`` on an unsorted row."""
     if rows.device.type == "cpu":
         _node_search.validate(rows, queries, values)
         return ref.node_search_ref(rows, queries, values)
@@ -165,7 +168,10 @@ def node_search_prefix(
     """``slot [B] int32``: the lower bound of each query over its
     prefix-compressed row (``prefix [B]``, ``nbits [B]``, ``suffix [B, 64]``
     int32), the canonical row ``rows [B, 64]`` where ``nbits < 0`` (see
-    ``ref.node_search_prefix_ref``)."""
+    ``ref.node_search_prefix_ref``).  Each key row must be sorted
+    non-decreasing, and so must a compressible lane's suffix row
+    (``0x7FFFFFFF`` padding at its tail); the CPU path raises
+    ``ValueError`` on one that is not."""
     args = (prefix, nbits, suffix, rows, queries)
     if rows.device.type == "cpu":
         _node_search.validate_prefix(*args)

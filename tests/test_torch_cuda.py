@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import pool as t_pool  # noqa: E402
 from repro_torch.core.nodes import FANOUT, KEY_MAX, KEY_MIN  # noqa: E402
+from repro_torch.kernels import node_search as ns_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import model as t_model  # noqa: E402
 from repro_torch.serve.kv_cache import PagedKVCache  # noqa: E402
@@ -177,6 +178,101 @@ def test_node_search_kernel_matches_plain(cuda, b, with_values):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+def _run_rows(b, seed):
+    """Sorted rows with a run of one key across sector boundaries (2 to 40
+    slots from a random start), KEY_MAX padding with random values, and
+    queries on the run (KEY_MIN runs on every fifth row), beside the
+    ``_rows`` kinds."""
+    rows, q, vals = _rows(b, seed)
+    rng = np.random.default_rng(seed + 1)
+    for i in range(b):
+        a = int(rng.integers(0, FANOUT - 2))
+        e = min(FANOUT, a + int(rng.integers(2, 41)))
+        rows[i, a:e] = KEY_MIN if i % 5 == 0 else rows[i, a]
+        if i % 5 == 0:
+            rows[i, :a] = KEY_MIN
+        if i % 3 == 0:
+            q[i] = rows[i, a]
+    vals[::7] = 2**62  # runs whose values sum past 2**63
+    return rows, q, vals
+
+
+def engine_case(buckets, cap, live, seed, padding_rows="empty"):
+    """One descent level of the engine: ``buckets`` buckets of ``cap``
+    slots, the first ``live`` of each a lane of ``_rows``, the rest padding
+    with a KEY_MAX query and zero values, its row all KEY_MAX (the leaf
+    level) or, with ``padding_rows="real"``, a real row (the top walk and
+    the inner levels)."""
+    rows_l, q_l, vals_l = _rows(buckets * live, seed)
+    n = buckets * cap
+    if padding_rows == "empty":
+        rows = np.full((n, FANOUT), KEY_MAX, np.int64)
+    else:
+        rows = _rows(n, seed + 1)[0]
+    vals = np.zeros((n, FANOUT), np.int64)
+    q = np.full(n, KEY_MAX, np.int64)
+    slot = (np.arange(buckets)[:, None] * cap + np.arange(live)).reshape(-1)
+    rows[slot], vals[slot], q[slot] = rows_l, vals_l, q_l
+    return rows, q, vals
+
+
+def _check_node_search(rows, q, vals, variants):
+    want = ref.node_search_ref(rows, q, vals)
+    lib = ops.library()
+    for v in variants:
+        got = ns_kernel.launch(lib, rows, q, vals, variant=v)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), v
+
+
+ALL_VARIANTS = (None,) + ns_kernel.VARIANTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 31, 4097, 262144])
+@pytest.mark.parametrize("with_values", [True, False])
+def test_node_search_variants_match_plain(cuda, b, with_values):
+    rows, q, vals = (torch.from_numpy(a).to(cuda) for a in _rows(b, b + 1))
+    _check_node_search(rows, q, vals if with_values else None, ALL_VARIANTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 31, 4097])
+@pytest.mark.parametrize("with_values", [True, False])
+def test_node_search_variants_on_runs_across_sectors(cuda, b, with_values):
+    rows, q, vals = (torch.from_numpy(a).to(cuda) for a in _run_rows(b, b))
+    _check_node_search(rows, q, vals if with_values else None, ALL_VARIANTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding_rows", ["empty", "real"])
+@pytest.mark.parametrize("with_values", [True, False])
+def test_node_search_variants_on_the_engine_mix(cuda, padding_rows, with_values):
+    case = engine_case(16, 16_384, 4_096, 3, padding_rows)
+    rows, q, vals = (torch.from_numpy(a).to(cuda) for a in case)
+    assert float((q == KEY_MAX).float().mean()) > 0.75
+    _check_node_search(rows, q, vals if with_values else None, ALL_VARIANTS)
+
+
+@pytest.mark.cuda
+def test_node_search_at_the_top_walk_shape(cuda):
+    """65,536 lanes through the top tree of a built pool, level by level."""
+    rng = np.random.default_rng(12)
+    keys = np.sort(rng.choice(2**40, size=400_000, replace=False)) - 2**39
+    pool, meta = t_pool.build_pool(keys, keys, level_m=0, device=cuda)
+    q = torch.from_numpy(rng.choice(keys, 65_536)).to(cuda)
+    q[::9] = KEY_MAX
+    q[1::9] += 1
+    nodes = torch.full_like(q, pool.top_keys.shape[0] - 1)
+    assert meta.top_height >= 1
+    for _ in range(meta.top_height):
+        rows = pool.top_keys[nodes]
+        _check_node_search(rows, q, None, ALL_VARIANTS)
+        slot, _, _ = ops.node_search(rows, q)
+        nodes = pool.top_children[nodes, slot.long()].long()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("level_m", [0, 1, 2])
 def test_subtree_walk_kernel_matches_plain(cuda, level_m):
@@ -296,6 +392,18 @@ def test_node_search_prefix_kernel_matches_plain(cuda, b):
     slot, _, _ = ref.node_search_ref(case[3], case[4])
     live = case[4] != KEY_MAX
     assert torch.equal(got[live], slot[live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 31, 4097, 262144])
+def test_node_search_prefix_variants_match_plain(cuda, b):
+    case = [torch.from_numpy(a).to(cuda) for a in prefix_case(b, b + 2)]
+    want = ref.node_search_prefix_ref(*case)
+    lib = ops.library()
+    for v in (None,) + ns_kernel.PREFIX_VARIANTS:
+        got = ns_kernel.launch_prefix(lib, *case, variant=v)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), v
 
 
 @pytest.mark.cuda
