@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit (``nvidia-smi``), CUDA version;
   2. build: compile the CUDA kernels from ``src/repro_torch/csrc``; count
      the tensor-core products (HGMMA) and TMA loads (UTMALDG) in the bf16
-     ``flash_attention`` kernels' SASS, which must have both;
+     ``flash_attention`` kernels' SASS, which must have both, and the
+     ``mma.sync`` products (HMMA) and ``cp.async`` copies (LDGSTS) in the
+     bf16 ``paged_attention`` kernels', which must have both;
   3. kernels: ``node_search``, ``subtree_walk``, ``leaf_write``,
      ``leaf_scan``, ``leaf_split`` and ``node_search_prefix`` at the main
      path's shapes
@@ -37,7 +39,10 @@ Phases, in order; any failure exits non-zero:
      calls) and hot, beside ``torch.searchsorted``; then
      ``paged_attention`` (64 requests, 24 heads over 8 of 128, a pool of
      4,096 pages of 16 tokens with stale rows everywhere, lengths 0, 1, page
-     boundaries, partial pages and the whole 36-page table) and
+     boundaries, partial pages and the whole 36-page table; its
+     log-sum-exp within 1e-3 in bf16 and 1e-5 in f32, -inf at length 0;
+     timed as serving calls it, with the L2 cold and hot, beside a gather
+     plus SDPA, and again for 8 requests at the full table) and
      ``flash_attention`` ([2, 24, 2048, 128] against [2, 8, 2048, 128],
      causal; Sq < Sk; a length that is not a multiple of 64; non-causal;
      zamba2-2.7b's head dim of 80 at [2, 32, 2048, 80] and with Sq < Sk;
@@ -105,10 +110,11 @@ Phases, in order; any failure exits non-zero:
      live table entry every step, no page may be held twice, and every page
      is free at the end; at every 64th step each layer's kernel call is
      also run through its plain version on the same inputs (max abs error
-     <= 2e-2) and the step is repeated with the plain attention: RMS of the
-     logit difference <= 0.05 x RMS of the logits (its max and the greedy
-     agreement are reported: in bf16 over 32 layers the max sits near
-     0.1 x RMS for any attention that is not bit-identical).  Then ``prefill`` over two
+     <= 2e-2, log-sum-exp <= 1e-3) and the step is repeated with the plain
+     attention: RMS of the logit difference <= 0.05 x RMS of the logits
+     (its max and the greedy agreement are reported: in bf16 over 32
+     layers the max sits near 0.1 x RMS for any attention that is not
+     bit-identical).  Then ``prefill`` over two
      2,048-token sequences (tokens/s, ``flash_attention`` ms per call and
      share, one more call with every layer's kernel call held to its plain
      version within 2e-2, the device ms of ``sdpa``'s transposes) and
@@ -229,6 +235,9 @@ LM_ARCH = "minitron-4b"
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 # max abs error of an attention kernel against its plain version, by dtype
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: paged_attention's log-sum-exp: products of bf16 inputs are exact in f32,
+#: so only the order of the sums differs from the plain version
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 SERVE_SLOTS = 64  # requests decoded together
 PAGE_SIZE = 16
 N_PAGES = 4_096  # 65,536 tokens of KV, 8.6 GB at 32 layers in bf16
@@ -341,6 +350,17 @@ def max_abs_err(got, want):
     )
 
 
+def lse_err(got, want):
+    """Max abs difference of two log-sum-exps over their finite entries;
+    infinite unless both are -inf at the same places (length 0)."""
+    import torch
+
+    inf = torch.isinf(want)
+    if not torch.equal(inf, torch.isinf(got)):
+        return float("inf")
+    return max_abs_err([got[~inf]], [want[~inf]])
+
+
 def mesh_config(policy, cache_sets, factor=4.0, rt_slots=0):
     from repro_torch.core.dex import DexMeshConfig
 
@@ -403,14 +423,21 @@ def phase_build():
     sass_evidence(lib)
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "USETMAXREG")
+#: per kernel family: the SASS ops counted, and those every kernel must hold
+SASS_OPS = {
+    "flash_attention_wgmma": (("HGMMA", "UTMALDG", "USETMAXREG"), ("HGMMA", "UTMALDG")),
+    "paged_attention_split": (("HMMA", "LDGSTS", "LDSM", "MOVM"), ("HMMA", "LDGSTS")),
+}
 
 
 def sass_evidence(lib):
-    """Count the tensor-core products (``HGMMA``), TMA loads (``UTMALDG``)
-    and register hand-overs (``USETMAXREG``) in each bf16 flash_attention
-    kernel of the built library (``cuobjdump --dump-sass``); fails unless
-    every one has products and TMA loads."""
+    """Count, in each kernel of the built library (``cuobjdump
+    --dump-sass``): in the bf16 flash_attention kernels the tensor-core
+    products (``HGMMA``), TMA loads (``UTMALDG``) and register hand-overs
+    (``USETMAXREG``); in the bf16 paged_attention kernels the ``mma.sync``
+    products (``HMMA``), ``cp.async`` copies (``LDGSTS``), ``ldmatrix``
+    (``LDSM``) and ``movmatrix`` (``MOVM``).  Fails unless every kernel of
+    each family holds its required ops."""
     from repro_torch.kernels import ops
 
     cuobjdump = pathlib.Path(ops._nvcc()).with_name("cuobjdump")
@@ -418,18 +445,21 @@ def sass_evidence(lib):
         [str(cuobjdump), "--dump-sass", str(lib)],
         capture_output=True, text=True, check=True, timeout=300,
     ).stdout
-    counts, name = {}, None
+    counts, name, family = {}, None, None
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
-            if "flash_attention_wgmma" in name:
-                counts[name] = dict.fromkeys(SASS_OPS, 0)
+            family = next((f for f in SASS_OPS if f in name), None)
+            if family:
+                counts[name] = (family, dict.fromkeys(SASS_OPS[family][0], 0))
         elif name in counts:
-            for op in SASS_OPS:
-                counts[name][op] += line.count(op)
-    if not counts or not all(c["HGMMA"] and c["UTMALDG"] for c in counts.values()):
-        fail(f"flash_attention: a bf16 kernel lacks HGMMA or UTMALDG in its SASS: {counts}")
-    for name, c in counts.items():
+            for op in counts[name][1]:
+                counts[name][1][op] += line.count(op)
+    for family, (_, required) in SASS_OPS.items():
+        mine = [c for f, c in counts.values() if f == family]
+        if not mine or not all(c[op] for c in mine for op in required):
+            fail(f"{family}: a kernel lacks one of {required} in its SASS: {counts}")
+    for name, (_, c) in counts.items():
         print(f"sass {name}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
     return counts
 
@@ -2110,9 +2140,11 @@ def phase_repartition(args, keys, pool, meta, oracle, bounds):
 def lm_attention_kernels(seed):
     """``paged_attention`` and ``flash_attention`` at the serving shapes,
     in bf16 and f32, against their plain versions (max abs error <= 2e-2
-    in bf16, <= 1e-4 in f32), and timed in bf16 beside the plain version
-    and a PyTorch yardstick; flash at minitron-4b's and zamba2-2.7b's
-    prefill shapes (``per_arch``)."""
+    in bf16, <= 1e-4 in f32; paged's log-sum-exp <= 1e-3 and 1e-5), and
+    timed in bf16 beside the plain version and a PyTorch yardstick; paged
+    cold and hot (``device_ms``) as serving calls it (with its lse), also
+    for 8 requests at the full table (``per_shape``); flash at minitron-4b's
+    and zamba2-2.7b's prefill shapes (``per_arch``)."""
     import torch
     import torch.nn.functional as F
 
@@ -2124,59 +2156,99 @@ def lm_attention_kernels(seed):
     out = {}
     b, h, hkv, d = SERVE_SLOTS, 24, 8, 128
     ppr, page = PAGES_PER_REQ, PAGE_SIZE
-    errs = {}
+    errs, lse_errs = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         args = paged_inputs(dtype, seed + 10, dev)
-        got = ops.paged_attention(*args)
-        want = ref.paged_attention_ref(*args)
+        got, lse = ops.paged_attention(*args, with_lse=True)
+        want, want_lse = ref.paged_attention_ref(*args, with_lse=True)
         empty = args[4] == 0
-        if not bool((got[empty] == 0).all()):
-            fail("paged_attention: a request of length 0 must give zeros")
+        if not bool((got[empty] == 0).all()) or not bool((lse[empty] == float("-inf")).all()):
+            fail("paged_attention: a request of length 0 must give zeros and lse -inf")
         errs[dtype] = max_abs_err([got], [want.nan_to_num()])
-        if not errs[dtype] <= ATTN_TOL[dtype_name(dtype)]:
-            fail(f"paged_attention {dtype} differs from its plain version: {errs[dtype]}")
+        lse_errs[dtype] = lse_err(lse, want_lse)
+        name = dtype_name(dtype)
+        if not (errs[dtype] <= ATTN_TOL[name] and lse_errs[dtype] <= LSE_TOL[name]):
+            fail(f"paged_attention {dtype} differs from its plain version: out"
+                 f" {errs[dtype]}, lse {lse_errs[dtype]}")
     q, kp, vp, table, lens = args  # bf16, timed
-    item = q.element_size()
-    pages_used = int(((lens.long() + page - 1) // page).sum())
-    nbytes = (
-        int(lens.long().sum()) * hkv * d * 2 * item  # live K and V rows
-        + 2 * q.numel() * item  # q in, output out
-        + pages_used * 4
-        + lens.numel() * 4
-    )
+    full = ppr * page
+    long_args = (q[:8].contiguous(), kp, vp, table[:8].contiguous(),
+                 torch.full((8,), full, dtype=torch.int32, device=dev))
+    got, lse = ops.paged_attention(*long_args, with_lse=True)
+    want, want_lse = ref.paged_attention_ref(*long_args, with_lse=True)
+    if not (max_abs_err([got], [want]) <= ATTN_TOL["bfloat16"]
+            and lse_err(lse, want_lse) <= LSE_TOL["bfloat16"]):
+        fail("paged_attention at the full table differs from its plain version")
+    del got, lse, want, want_lse
 
-    def gather_sdpa():
-        k = kp[table.long()].reshape(b, ppr * page, hkv, d).transpose(1, 2)
-        v = vp[table.long()].reshape(b, ppr * page, hkv, d).transpose(1, 2)
-        mask = torch.arange(ppr * page, device=dev)[None, :] < lens[:, None]
-        return F.scaled_dot_product_attention(
-            q[:, :, None, :], k, v, attn_mask=mask[:, None, None, :], enable_gqa=True
+    def paged_row(args):
+        q, kp, vp, table, lens = args
+        item = q.element_size()
+        pages_used = int(((lens.long() + page - 1) // page).sum())
+        nbytes = (
+            int(lens.long().sum()) * hkv * d * 2 * item  # live K and V rows
+            + 2 * q.numel() * item  # q in, output out
+            + q.shape[0] * h * 4  # lse out
+            + pages_used * 4
+            + lens.numel() * 4
+        )
+        nb = q.shape[0]
+
+        def gather_sdpa():
+            k = kp[table.long()].reshape(nb, ppr * page, hkv, d).transpose(1, 2)
+            v = vp[table.long()].reshape(nb, ppr * page, hkv, d).transpose(1, 2)
+            mask = torch.arange(ppr * page, device=dev)[None, :] < lens[:, None]
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], k, v, attn_mask=mask[:, None, None, :], enable_gqa=True
+            )
+
+        t = cold_and_hot({"default": lambda: ops.paged_attention(*args, with_lse=True)},
+                         gather_sdpa)
+        return dict(
+            shape=(
+                f"q [{nb}, {h}, {d}] bf16 over {N_PAGES} pages of {page}, {ppr} a"
+                f" request, {int(lens.sum())} live tokens (lengths"
+                f" {int(lens.min())}-{int(lens.max())})"
+            ),
+            ms=t["cold_ms"],
+            hot_ms=t["hot_ms"],
+            yardstick_ms=t["library_cold_ms"],
+            yardstick_hot_ms=t["library_hot_ms"],
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         )
 
+    main = paged_row(args)
+    rows = {"serving": main, "8 requests, full table": paged_row(long_args)}
     out["paged_attention"] = dict(
         name="paged_attention",
         route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:76",
-        shape=(
-            f"q [{b}, {h}, {d}] bf16 over {N_PAGES} pages of {page}, {ppr} a"
-            f" request, {int(lens.sum())} live tokens (lengths 0-{ppr * page})"
-        ),
-        check="max abs err bf16 {:.2e}, f32 {:.2e}".format(
-            errs[torch.bfloat16], errs[torch.float32]
+        shape=main["shape"],
+        check="max abs err bf16 {:.2e}, f32 {:.2e}; lse bf16 {:.2e}, f32 {:.2e}".format(
+            errs[torch.bfloat16], errs[torch.float32],
+            lse_errs[torch.bfloat16], lse_errs[torch.float32],
         ),
         bit_equal=False,
         max_abs_err=errs[torch.bfloat16],
         max_abs_err_f32=errs[torch.float32],
-        ms=cuda_ms(lambda: ops.paged_attention(*args), 50),
-        plain_ms=cuda_ms(lambda: ref.paged_attention_ref(*args), 5),
+        lse_max_abs_err=lse_errs[torch.bfloat16],
+        lse_max_abs_err_f32=lse_errs[torch.float32],
+        ms=main["ms"],
+        hot_ms=main["hot_ms"],
+        plain_ms=cuda_ms(lambda: ref.paged_attention_ref(*args, with_lse=True), 5),
         library_ms=None,
-        yardstick_ms=cuda_ms(gather_sdpa, 10),
+        yardstick_ms=main["yardstick_ms"],
         yardstick="gather + F.scaled_dot_product_attention(enable_gqa=True), two calls",
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_ms=main["bound_ms"],
         bound_by="bytes",
+        per_shape=rows,
     )
-    del args, q, kp, vp, got, want
+    for label, r in rows.items():
+        print(f"kernel paged_attention {label}: {r['shape']}: kernel {r['ms']:.4f} ms cold,"
+              f" {r['hot_ms']:.4f} hot; yardstick {r['yardstick_ms']:.4f} cold,"
+              f" {r['yardstick_hot_ms']:.4f} hot; bound {r['bound_ms']:.4f} ms on {card}")
+    del args, long_args, q, kp, vp
 
     # flash: the prefill shape, a shorter q against a longer k, lengths that
     # are not a multiple of the tiles, non-causal at D = 128 and 64, and
@@ -2391,6 +2463,12 @@ def attention_errs(out, want):
     return max_abs_err([out], [want]), float((out != want).float().mean())
 
 
+def paged_errs(out, want):
+    """``attention_errs`` of the outputs, and ``lse_err`` of the
+    log-sum-exps, of two ``(out, lse)`` pairs."""
+    return (*attention_errs(out[0], want[0]), lse_err(out[1], want[1]))
+
+
 @contextlib.contextmanager
 def held_to_plain(errs, kernel="paged_attention", compare=attention_errs):
     """Within the block, every ``ops.<kernel>`` call also runs its plain
@@ -2445,15 +2523,17 @@ def phase_serving(seed):
     version on the same inputs and is repeated with the plain attention
     (RMS of the logit difference <= 0.05 x RMS; not timed); a host oracle of
     ``(request, page index) -> page`` holds the resolved tables every
-    step.  Returns the report, the launches of the path, the params
-    and the two recorded requests (tokens fed, decode logits)."""
+    step.  One kernel step and one plain step are profiled: device busy
+    ms, kernels, and the plain path's history regather (``REGATHER``).
+    Returns the report, the launches of the path, the params and the two
+    recorded requests (tokens fed, decode logits)."""
     import torch
 
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import model
     from repro_torch.serve.kv_cache import PagedKVCache
-    from repro_torch.serve.serve_step import paged_decode_step
+    from repro_torch.serve.serve_step import REGATHER, paged_decode_step
 
     dev = torch.device("cuda")
     cfg = get_config(LM_ARCH)
@@ -2479,6 +2559,8 @@ def phase_serving(seed):
     times, len_sum, releases, reused = [], 0, 0, 0
     prof, checks = None, []
     prof_step = DECODE_STEPS // 2 + 1  # not a step checked against the plain path
+    # the plain step profiled too, at the last check step before prof_step
+    plain_prof_step = prof_step // CHECK_EVERY * CHECK_EVERY
     ops.reset_launches()
     lookups0 = kv.lookups
     torch.cuda.reset_peak_memory_stats()
@@ -2512,24 +2594,31 @@ def phase_serving(seed):
             )
         elif check:
             layer_errs = []
-            with held_to_plain(layer_errs):
+            with held_to_plain(layer_errs, compare=paged_errs):
                 logits, k_new, v_new = paged_decode_step(*args)
         else:
             logits, k_new, v_new = paged_decode_step(*args)
         if check:  # the same inputs through the plain attention
-            plain, _, _ = paged_decode_step(*args, use_kernel=False)
+            if step == plain_prof_step:
+                (plain, _, _), _, plain_prof, marked = device_profile(
+                    lambda: paged_decode_step(*args, use_kernel=False), ranges=(REGATHER,)
+                )
+            else:
+                plain, _, _ = paged_decode_step(*args, use_kernel=False)
             d = logits - plain
             rms = float(plain.pow(2).mean().sqrt())
             c = dict(
                 step=step,
-                layer_max_abs_err=max(e for e, _ in layer_errs),
-                layer_differing_share=float(np.mean([f for _, f in layer_errs])),
+                layer_max_abs_err=max(e for e, _, _ in layer_errs),
+                layer_differing_share=float(np.mean([f for _, f, _ in layer_errs])),
+                layer_lse_max_abs_err=max(x for _, _, x in layer_errs),
                 max_over_rms=float(d.abs().max()) / rms,
                 rms_over_rms=float(d.pow(2).mean().sqrt()) / rms,
                 greedy_agree=float((logits.argmax(-1) == plain.argmax(-1)).float().mean()),
             )
             checks.append(c)
             if not (c["layer_max_abs_err"] <= ATTN_TOL["bfloat16"]
+                    and c["layer_lse_max_abs_err"] <= LSE_TOL["bfloat16"]
                     and c["rms_over_rms"] <= 0.05):
                 fail(f"serving step {step}: kernel vs plain {c}")
             del plain, d
@@ -2571,6 +2660,7 @@ def phase_serving(seed):
     med = float(np.median(times))
     busy = sum(ms for _, ms, _ in prof)
     paged = sum(ms for k, ms, _ in prof if "paged_attention" in k)
+    paged_calls = sum(n for k, _, n in prof if "paged_attention" in k)
     top = "; ".join(f"{k[:40]} {ms:.3f} ms x{n}" for k, ms, n in prof[:8])
     report = dict(
         steps=DECODE_STEPS,
@@ -2581,7 +2671,13 @@ def phase_serving(seed):
         p75_ms=float(np.percentile(times, 75)),
         device_busy_ms=busy,
         idle_share=1 - busy / med,
+        kernels_per_step=sum(n for _, _, n in prof),
+        plain_step_device_busy_ms=sum(ms for _, ms, _ in plain_prof),
+        plain_step_kernels=sum(n for _, _, n in plain_prof),
+        regather_device_ms=marked[REGATHER],
         paged_attention_ms=paged,
+        paged_attention_ms_per_call=paged / max(paged_calls, 1),
+        paged_attention_calls=paged_calls,
         paged_attention_share=paged / busy,
         lookups_per_step=lookups / DECODE_STEPS,
         mean_seq_len=len_sum / (DECODE_STEPS * SERVE_SLOTS),
@@ -3263,7 +3359,8 @@ def main(argv=None):
             bound_by=k["bound_by"],
             library_ms=k["library_ms"],
             bit_equal=k["bit_equal"],
-            **{x: k[x] for x in ("max_abs_err_f32", "yardstick_ms", "per_arch") if x in k},
+            **{x: k[x] for x in ("max_abs_err_f32", "lse_max_abs_err", "lse_max_abs_err_f32",
+                                 "hot_ms", "yardstick_ms", "per_arch", "per_shape") if x in k},
         ))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -271,15 +271,18 @@ def paged_attention(
     v_pages: torch.Tensor,
     page_table: torch.Tensor,
     seq_lens: torch.Tensor,
-) -> torch.Tensor:
+    *,
+    with_lse: bool = False,
+):
     """``[B, H, D]``: each request's one query token attended over its
     tokens below ``seq_lens[b]``, stored in the pages ``page_table[b]``
-    names (see ``ref.paged_attention_ref``)."""
+    names (see ``ref.paged_attention_ref``); with ``with_lse`` also the
+    log-sum-exp of its logits, ``[B, H]`` f32 (``-inf`` at length 0)."""
     args = (q, k_pages, v_pages, page_table, seq_lens)
     if q.device.type == "cpu":
         _paged_attention.validate(*args)
-        return ref.paged_attention_ref(*args)
-    out = _paged_attention.launch(library(), *args)
+        return ref.paged_attention_ref(*args, with_lse=with_lse)
+    out = _paged_attention.launch(library(), *args, with_lse=with_lse)
     LAUNCHES["paged_attention"] += 1
     return out
 

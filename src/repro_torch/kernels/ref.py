@@ -261,7 +261,9 @@ def paged_attention_ref(
     v_pages: torch.Tensor,
     page_table: torch.Tensor,
     seq_lens: torch.Tensor,
-) -> torch.Tensor:
+    *,
+    with_lse: bool = False,
+):
     """Decode attention over KV pages through a page table, one query token
     per request.
 
@@ -270,7 +272,9 @@ def paged_attention_ref(
     ``t`` of request ``b`` lies at ``k_pages[page_table[b, t // page], t %
     page]``; tokens at or past ``seq_lens[b]`` are masked.  In f32; returns
     q's dtype.  A request with ``seq_len = 0`` is NaN here (the kernel
-    writes 0 there)."""
+    writes 0 there).  ``with_lse`` also returns the log-sum-exp of the
+    masked logits, ``lse [B, H]`` f32 (``-inf`` at ``seq_len = 0``): the
+    history's weight in the decode step's blend."""
     b, h, d = q.shape
     page, hkv = k_pages.shape[1], k_pages.shape[2]
     group = h // hkv
@@ -286,7 +290,10 @@ def paged_attention_ref(
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bngs,bsnd->bngd", p, v.float())
-    return o.reshape(b, h, d).to(q.dtype)
+    o = o.reshape(b, h, d).to(q.dtype)
+    if not with_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(b, h)
 
 
 def mamba_scan_ref(

@@ -12,10 +12,11 @@ the reference, nothing prefills a prompt into that state: prompts are fed a
 token a step.
 
 The port of ``repro.serve.serve_step``.  The history and the fresh token are
-blended as the reference blends them: the kernel gives the softmax over the
-history, and the history's log-sum-exp comes from a dense regather of its
-logits (``kp[page_table]``), to weigh it against the fresh token's own
-logit.  Returning the log-sum-exp from the kernel would drop that regather.
+blended as the reference blends them: the softmax over the history, weighed
+against the fresh token's own logit by the history's log-sum-exp.  The
+kernel returns that log-sum-exp beside its output; the plain path
+(``use_kernel=False``) keeps the reference's dense regather of the history's
+logits (``kp[page_table]``), so it stays the reference's computation.
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ from repro_torch.kernels import ref as kref
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
+
+#: profiler range around the plain path's regather of the history's logits
+REGATHER = "history regather"
 
 F32 = torch.float32
 
@@ -72,10 +76,10 @@ def paged_decode_step(
     cos, sin = L.rope_freqs(hd, cfg.rope_theta, positions[:, None])  # [B, 1, hd/2]
     cos, sin = cos[..., None, :], sin[..., None, :]
     ppr, page = page_table.shape[1], k_pages.shape[2]
-    hist = torch.arange(ppr * page, device=x.device)[None] < positions[:, None]
+    if not use_kernel:  # the plain path regathers the history's logits
+        hist = torch.arange(ppr * page, device=x.device)[None] < positions[:, None]
     has_hist = (positions > 0)[:, None, None]
     scale = 1.0 / math.sqrt(hd)
-    attend = ops.paged_attention if use_kernel else kref.paged_attention_ref
     k_new, v_new = [], []
     for i in range(cfg.n_layers):
         p = M.layer_params(params["blocks"], i)
@@ -98,13 +102,22 @@ def paged_decode_step(
 
         # attend over the pool's pages, then blend in the fresh token as one
         # extra key with its own logit
-        o_hist = attend(q[:, 0].contiguous(), kp, vp, page_table, positions)
         qg = q[:, 0].reshape(b, hkv, g, hd).float() * scale
         s_self = torch.einsum("bngd,bnd->bng", qg, k[:, 0].float())
-        kh = kp[page_table.long()].reshape(b, ppr * page, hkv, hd)
-        sh = torch.einsum("bngd,bsnd->bngs", qg, kh.float())
-        sh = sh.masked_fill(~hist[:, None, None, :], float("-inf"))
-        lse_hist = torch.logsumexp(sh, dim=-1)  # [B, n, g]
+        if use_kernel:
+            o_hist, lse = ops.paged_attention(
+                q[:, 0].contiguous(), kp, vp, page_table, positions, with_lse=True
+            )
+            lse_hist = lse.reshape(b, hkv, g)
+        else:
+            o_hist = kref.paged_attention_ref(
+                q[:, 0].contiguous(), kp, vp, page_table, positions
+            )
+            with torch.autograd.profiler.record_function(REGATHER):
+                kh = kp[page_table.long()].reshape(b, ppr * page, hkv, hd)
+                sh = torch.einsum("bngd,bsnd->bngs", qg, kh.float())
+                sh = sh.masked_fill(~hist[:, None, None, :], float("-inf"))
+                lse_hist = torch.logsumexp(sh, dim=-1)  # [B, n, g]
         denom = torch.exp(lse_hist) + torch.exp(s_self)
         w_hist = torch.where(has_hist, torch.exp(lse_hist) / denom, 0.0)
         w_self = torch.where(has_hist, torch.exp(s_self) / denom, 1.0)

@@ -498,6 +498,104 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, d, page, p
     assert err <= TOL[dtype], err
 
 
+#: lse: products of bf16 inputs are exact in f32, so only the order of the
+#: sums differs from the plain version
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+def check_paged(args, dtype):
+    """The kernel's ``(out, lse)`` against the plain version's: zeros and
+    ``-inf`` at length 0, ``out`` within ``TOL``, ``lse`` within
+    ``LSE_TOL``."""
+    got, lse = ops.paged_attention(*args, with_lse=True)
+    want, want_lse = ref.paged_attention_ref(*args, with_lse=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and lse.dtype == torch.float32
+    empty = args[4] == 0
+    assert bool((got[empty] == 0).all()), "seq_len 0 must give zeros"
+    assert bool((lse[empty] == float("-inf")).all()), "seq_len 0 must give lse -inf"
+    err = (got.float() - want.float().nan_to_num()).abs().max().item()
+    assert err <= TOL[dtype], err
+    live = ~torch.isinf(want_lse)
+    assert torch.equal(live, ~torch.isinf(lse))
+    lse_err = (lse[live] - want_lse[live]).abs().max().item() if bool(live.any()) else 0.0
+    assert lse_err <= LSE_TOL[dtype], lse_err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,hkv,d,page,ppr",
+    [(6, 24, 8, 128, 16, 4), (5, 8, 2, 64, 16, 3), (5, 4, 4, 32, 8, 5),
+     (5, 8, 2, 256, 4, 3), (5, 8, 8, 8, 16, 2), (5, 16, 2, 96, 16, 2),
+     (5, 32, 2, 128, 16, 3),  # G = 16, two n tiles of heads
+     (2, 24, 8, 128, 16, 36)],  # a short batch of long requests, the full table
+)
+def test_paged_attention_kernel_lse_matches_plain(cuda, dtype, b, h, hkv, d, page, ppr):
+    args = [t.to(cuda) for t in paged_case(b, h, hkv, d, page, ppr, d + b, dtype)]
+    if b == 2:
+        args[4] = torch.tensor([ppr * page, ppr * page - 1], dtype=torch.int32, device=cuda)
+    check_paged(args, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_at_split_boundaries(cuda, dtype):
+    """Lengths on either side of the bf16 plan's split boundaries (64 and
+    128 positions at serving's shape), and of the table's end."""
+    from repro_torch.kernels import paged_attention as pa
+
+    split = pa.plan(8, 8, 3, 128, 16, 36, torch.bfloat16).split_tokens
+    args = [t.to(cuda) for t in paged_case(8, 24, 8, 128, 16, 36, 5, dtype)]
+    args[4] = torch.tensor(
+        [split - 1, split, split + 1, 2 * split - 1, 2 * split, 2 * split + 1, 575, 576],
+        dtype=torch.int32, device=cuda,
+    )
+    check_paged(args, dtype)
+
+
+@pytest.mark.cuda
+def test_paged_attention_counters_return_to_zero(cuda):
+    """Calls in a row at different B x HKV share the kept merge counters:
+    each is right, and the last CTA of every (request, kv head) leaves its
+    counter at 0."""
+    from repro_torch.kernels import paged_attention as pa
+
+    for i, (b, h, hkv) in enumerate(((64, 24, 8), (3, 8, 2), (200, 16, 4), (64, 24, 8))):
+        args = [t.to(cuda) for t in paged_case(b, h, hkv, 128, 16, 36, 40 + i, torch.bfloat16)]
+        for _ in range(2):
+            check_paged(args, torch.bfloat16)
+        counters = pa._COUNTERS[args[0].device, torch.cuda.current_stream().cuda_stream]
+        assert counters.numel() >= b * hkv
+        assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_paged_attention_counters_per_stream(cuda):
+    """Calls on two streams at once keep counters of their own, and both
+    are right."""
+    from repro_torch.kernels import paged_attention as pa
+
+    cases = [[t.to(cuda) for t in paged_case(64, 24, 8, 128, 16, 36, 50 + i, torch.bfloat16)]
+             for i in range(2)]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(4):
+        outs.append(ops.paged_attention(*cases[0], with_lse=True))
+        with torch.cuda.stream(side):
+            outs.append(ops.paged_attention(*cases[1], with_lse=True))
+    torch.cuda.synchronize()
+    for i, (out, lse) in enumerate(outs):
+        want, want_lse = ref.paged_attention_ref(*cases[i % 2], with_lse=True)
+        assert float((out.float() - want.nan_to_num().float()).abs().max()) <= TOL[torch.bfloat16]
+        live = torch.isfinite(want_lse)
+        assert float((lse[live] - want_lse[live]).abs().max()) <= LSE_TOL[torch.bfloat16]
+    dev = cases[0][0].device
+    for stream in (torch.cuda.current_stream(dev), side):
+        assert int(pa._COUNTERS[dev, stream.cuda_stream].abs().sum()) == 0
+
+
 def flash_case(b, h, hkv, sq, sk, d, dtype, device):
     rng = np.random.default_rng(sq + sk + d)
     return [
