@@ -13,7 +13,11 @@ Phases, in order; any failure exits non-zero:
      the tensor-core products (HGMMA) and TMA loads (UTMALDG) in the bf16
      ``flash_attention`` kernels' SASS, which must have both, and the
      ``mma.sync`` products (HMMA) and ``cp.async`` copies (LDGSTS) in the
-     bf16 ``paged_attention`` kernels', which must have both;
+     bf16 ``paged_attention`` kernels', which must have both, and the
+     ``cp.async`` copies (LDGSTS) in the ``mamba_scan`` kernels', which must
+     have them, with their exponentials (MUFU.EX2) and FP32 operations in
+     all and in the unrolled block of steps; ptxas' registers and spills of
+     each ``mamba_scan`` kernel beside the registers its plan assumes;
   3. kernels: ``node_search``, ``subtree_walk``, ``leaf_write``,
      ``leaf_scan``, ``leaf_split`` and ``node_search_prefix`` at the main
      path's shapes
@@ -53,8 +57,10 @@ Phases, in order; any failure exits non-zero:
      N = 16) and zamba2-2.7b's ([2, 2048, 5120], N = 64), operands in bf16
      and f32, at init scales with decay-heavy channels, plus a width off
      the block, L = 1 and ROADMAP queue 3 entry 14's input (2.313), y and
-     the final state within 1e-4 + 1e-4 |plain|, timed at each thread
-     layout;
+     the final state within 1e-4 + 1e-4 |plain|, timed at the default plan
+     and its variants (``mamba_scan.variants``; each held to the plain
+     version too) beside the bytes and exponential bounds and the issue
+     floor counted from the SASS;
   4. the port on the CPU and on the card give the same lane results and
      state planes (20k keys, 2x4 mesh, 3 batches): lookups under ``fetch``,
      ``fetch`` with shedding buckets and ``auto``; mixed lookups, updates
@@ -412,6 +418,7 @@ def phase_device():
 
 
 def phase_build():
+    from repro_torch.kernels import mamba_scan as mamba_mod
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
@@ -420,13 +427,79 @@ def phase_build():
     ops.library()
     took = time.perf_counter() - t0
     print(f"build: {took:.1f} s (nvcc {ops.BUILD_SECONDS[0]:.1f} s)")
-    sass_evidence(lib)
+    sass = sass_evidence(lib)
+    ptxas = ptxas_usage(log)
+    for name, (regs, stores, loads) in sorted(ptxas.items()):
+        inst = mamba_instance(name)
+        if inst:
+            print(f"ptxas mamba_scan_kernel<{inst[0]}, S = {inst[1]}, LPC = {inst[2]}>: {regs}"
+                  f" registers (the plan assumes {mamba_mod.regs(inst[1])}), spill stores"
+                  f" {stores} B, loads {loads} B")
+    return {"sass": sass, "ptxas": ptxas}
+
+
+def mamba_hot_block(lines):
+    """Op counts of the basic block with the most ``MUFU.EX2`` in a kernel's
+    SASS lines (blocks split at branches and branch targets): its
+    instructions, exponentials, FP32 operations and shifts (the
+    exponential's ``SHF.L`` or ``IMAD.SHL``)."""
+    import re
+
+    instrs = []
+    for line in lines:
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            instrs.append((int(m.group(1), 16), m.group(2)))
+    targets = {int(t, 16) for _, text in instrs for t in re.findall(r"BRA (0x[0-9a-f]+)", text)}
+    blocks, cur = [], []
+    for addr, text in instrs:
+        if addr in targets and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append(text)
+        if "BRA" in text or "EXIT" in text:
+            blocks.append(cur)
+            cur = []
+    blocks.append(cur)
+    best = max(blocks, key=lambda b: sum("MUFU.EX2" in t for t in b))
+
+    def n(*ops):
+        return sum(any(op in t for op in ops) for t in best)
+
+    return {"instructions": len(best), "MUFU.EX2": n("MUFU.EX2"),
+            "FP32": n("FFMA", "FMUL", "FADD"), "shifts": n("SHF.L", "IMAD.SHL")}
+
+
+def ptxas_usage(log):
+    """Registers and spill bytes of each kernel in ``ptxas -v``'s report:
+    name -> (registers, spill stores, spill loads)."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function '" in line:
+            name, spills = line.split("'")[1], (0, 0)
+        elif "bytes spill stores" in line and name:
+            w = line.split()
+            spills = (int(w[w.index("spill") - 2]), int(w[w.index("spill", w.index("spill") + 1) - 2]))
+        elif "Used " in line and " registers" in line and name:
+            out[name] = (int(line.split("Used ")[1].split()[0]), *spills)
+            name = None
+    return out
+
+
+def mamba_instance(name):
+    """(operand dtype, states a lane, threads a channel) of a mangled
+    ``mamba_scan_kernel`` instantiation, or None."""
+    import re
+
+    m = re.search(r"mamba_scan_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+    return m and ("float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)), int(m.group(3)))
 
 
 #: per kernel family: the SASS ops counted, and those every kernel must hold
 SASS_OPS = {
     "flash_attention_wgmma": (("HGMMA", "UTMALDG", "USETMAXREG"), ("HGMMA", "UTMALDG")),
     "paged_attention_split": (("HMMA", "LDGSTS", "LDSM", "MOVM"), ("HMMA", "LDGSTS")),
+    "mamba_scan": (("LDGSTS", "MUFU.EX2", "FFMA", "FMUL", "FADD"), ("LDGSTS",)),
 }
 
 
@@ -436,8 +509,12 @@ def sass_evidence(lib):
     products (``HGMMA``), TMA loads (``UTMALDG``) and register hand-overs
     (``USETMAXREG``); in the bf16 paged_attention kernels the ``mma.sync``
     products (``HMMA``), ``cp.async`` copies (``LDGSTS``), ``ldmatrix``
-    (``LDSM``) and ``movmatrix`` (``MOVM``).  Fails unless every kernel of
-    each family holds its required ops."""
+    (``LDSM``) and ``movmatrix`` (``MOVM``); in the mamba_scan kernels the
+    ``cp.async`` copies (``LDGSTS``), exponentials (``MUFU.EX2``) and FP32
+    operations, and the same in the basic block with the most exponentials
+    (the unrolled group of steps: ``mamba_hot_block``).  Fails unless every
+    kernel of each family holds its required ops.  Returns ``{name:
+    (family, counts)}``, the mamba kernels' counts with a ``hot`` entry."""
     from repro_torch.kernels import ops
 
     cuobjdump = pathlib.Path(ops._nvcc()).with_name("cuobjdump")
@@ -445,16 +522,21 @@ def sass_evidence(lib):
         [str(cuobjdump), "--dump-sass", str(lib)],
         capture_output=True, text=True, check=True, timeout=300,
     ).stdout
-    counts, name, family = {}, None, None
+    counts, name, family, code = {}, None, None, {}
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
             family = next((f for f in SASS_OPS if f in name), None)
             if family:
                 counts[name] = (family, dict.fromkeys(SASS_OPS[family][0], 0))
+                code[name] = []
         elif name in counts:
             for op in counts[name][1]:
                 counts[name][1][op] += line.count(op)
+            code[name].append(line)
+    for name, (family, c) in counts.items():
+        if family == "mamba_scan":
+            c["hot"] = mamba_hot_block(code[name])
     for family, (_, required) in SASS_OPS.items():
         mine = [c for f, c in counts.values() if f == family]
         if not mine or not all(c[op] for c in mine for op in required):
@@ -2838,13 +2920,29 @@ def sm_clock_hz():
     return float(smi) * 1e6
 
 
-def mamba_kernels(seed):
+def mamba_issue_floor(sass, states, lanes):
+    """Instructions a state and step of the bf16 kernel of ``states`` x
+    ``lanes``, from the SASS of its unrolled group of steps (one
+    ``MUFU.EX2`` a state and step): ``(arithmetic, all)``, the first its
+    FP32 operations, MUFUs and shifts, the second every instruction of the
+    block (the operand loads, the partial-y stores, the last group's y
+    sums); and the block's counts."""
+    name = next(k for k in sass if mamba_instance(k) == ("bfloat16", states, lanes))
+    hot = sass[name][1]["hot"]
+    arith = hot["FP32"] + hot["MUFU.EX2"] + hot["shifts"]
+    return arith / hot["MUFU.EX2"], hot["instructions"] / hot["MUFU.EX2"], hot
+
+
+def mamba_kernels(seed, build):
     """``mamba_scan`` at the prefill shapes of falcon-mamba-7b ([2, 2048,
     8192], N = 16) and zamba2-2.7b ([2, 2048, 5120], N = 64), operands in
-    bf16 and in f32; a channel width off the 32-channel block, L = 1 and
-    ROADMAP queue 3 entry 14's input (which must give 2.313); each case's
-    y and final state within ``1e-4 + 1e-4 |plain|`` of the plain version;
-    timed in bf16 beside the plain version and at each thread layout."""
+    bf16 and in f32; a channel width off the CTA's, L = 1 and ROADMAP
+    queue 3 entry 14's input (which must give 2.313); each case's y and
+    final state within ``1e-4 + 1e-4 |plain|`` of the plain version;
+    timed in bf16 beside the plain version at the default plan and its
+    variants (``mamba_scan.variants``), each variant held to the plain
+    version too; the bounds (bytes, exponentials) beside the issue floor
+    counted from the kernel's SASS (``build``: ``phase_build``'s counts)."""
     import torch
 
     from repro_torch.kernels import mamba_scan as mamba_mod
@@ -2853,7 +2951,9 @@ def mamba_kernels(seed):
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(dev)
     clock = sm_clock_hz()
-    exps_per_s = SFU_EXP_PER_CLOCK * torch.cuda.get_device_properties(dev).multi_processor_count * clock
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exps_per_s = SFU_EXP_PER_CLOCK * sms * clock
+    issue_per_s = 4 * 32 * sms * clock  # four warp instructions a clock an SM
     worst, errs, rows, state_equal = 0.0, {}, {}, 1.0
     cases = [(shape, dtype) for shape in MAMBA_SHAPES.values()
              for dtype in (torch.float32, torch.bfloat16)]
@@ -2878,13 +2978,27 @@ def mamba_kernels(seed):
     del args, got, want, y
     for arch, (b, l, d, n) in MAMBA_SHAPES.items():
         args = mamba_inputs(b, l, d, n, torch.bfloat16, seed + 30, dev)
+        want = ref.mamba_scan_ref(*args)
         nbytes = mamba_bytes(b, l, d, n, 2)
         exps = b * l * d * n
         bytes_ms, exps_ms = nbytes / HBM_BYTES_PER_S * 1e3, exps / exps_per_s * 1e3
-        lanes_ms = {
-            lanes: cuda_ms(lambda: mamba_mod.launch(ops.library(), *args, lanes=lanes), 10)
-            for lanes in mamba_mod.LANES if n <= 16 * lanes
-        }
+        plans = mamba_mod.variants(b, d, n, sms)
+        plan_ms, plan_rows = {}, {}
+        for label, p in plans.items():
+            tol = mamba_tol(mamba_mod.launch(ops.library(), *args, plan=p), want)
+            if not tol <= 1e-4:
+                fail(f"mamba_scan {arch} plan {label} differs from its plain version by {tol}")
+            plan_ms[label] = cuda_ms(lambda: mamba_mod.launch(ops.library(), *args, plan=p), 10)
+            per_state, per_state_all, counts = mamba_issue_floor(build["sass"], p.states, p.lanes)
+            plan_rows[label] = dict(
+                lanes=p.lanes, states=p.states, channels=p.channels, ctas=p.ctas,
+                chunk=p.chunk, regs=p.regs,
+                warps_per_sm=p.warps_per_sm, max_warps_per_sm=p.max_warps_per_sm,
+                one_wave=p.one_wave, smem=p.smem_bytes(2), ms=plan_ms[label],
+                issue_per_state=per_state, block_per_state=per_state_all, sass=counts,
+            )
+        floor_ms = exps * plan_rows["default"]["issue_per_state"] / issue_per_s * 1e3
+        block_ms = exps * plan_rows["default"]["block_per_state"] / issue_per_s * 1e3
         rows[arch] = dict(
             shape=f"[{b}, {l}, {d}], N = {n}, x / B / C bf16",
             ms=cuda_ms(lambda: ops.mamba_scan(*args), 10),
@@ -2893,9 +3007,11 @@ def mamba_kernels(seed):
             bound_by="bytes" if bytes_ms > exps_ms else "operations",
             bytes_ms=bytes_ms,
             exps_ms=exps_ms,
-            lanes_ms=lanes_ms,
+            issue_floor_ms=floor_ms,
+            block_issue_ms=block_ms,
+            plans=plan_rows,
         )
-        del args
+        del args, want
     main = rows[SSM_ARCH]
     out = dict(
         name="mamba_scan",
@@ -2917,11 +3033,20 @@ def mamba_kernels(seed):
         per_arch=rows,
     )
     for arch, r in rows.items():
-        print(f"kernel mamba_scan {arch} {r['shape']}: kernel {r['ms']:.4f} ms (threads a"
-              f" channel: {', '.join(f'{k}: {v:.4f} ms' for k, v in r['lanes_ms'].items())}),"
-              f" plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms"
-              f" (bytes {r['bytes_ms']:.4f}, exps {r['exps_ms']:.4f} at {clock / 1e6:.0f} MHz)"
-              f" on {card}")
+        print(f"kernel mamba_scan {arch} {r['shape']}: kernel {r['ms']:.4f} ms, plain"
+              f" {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms (bytes"
+              f" {r['bytes_ms']:.4f}, exps {r['exps_ms']:.4f} at {clock / 1e6:.0f} MHz),"
+              f" issue floor {r['issue_floor_ms']:.4f} ms (the steps' whole block at full"
+              f" issue {r['block_issue_ms']:.4f} ms) on {card}")
+        for label, q in r["plans"].items():
+            print(f"  plan {label}: {q['lanes']} lanes x {q['states']} states a channel,"
+                  f" {q['channels']} channels a CTA, {q['ctas']} CTAs, warps an SM"
+                  f" {q['warps_per_sm']:.2f} mean / {q['max_warps_per_sm']} max"
+                  f"{'' if q['one_wave'] else ' (more than one wave)'}, {q['regs']} registers"
+                  f" assumed, chunk {q['chunk']}, {q['smem']} B shared:"
+                  f" {q['ms']:.4f} ms; {q['issue_per_state']:.2f} arithmetic and"
+                  f" {q['block_per_state']:.2f} in all a state and step (SASS of the steps'"
+                  f" block {q['sass']})")
     print(f"kernel mamba_scan: {out['check']}, max abs err bf16 {errs['bfloat16']:.2e},"
           f" f32 {errs['float32']:.2e}")
     return {"mamba_scan": out}
@@ -3274,7 +3399,7 @@ def main(argv=None):
 
     t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    build = phase_build()
     dev = torch.device("cuda")
     if args.n_keys != FULL_KEYS:
         print("reduced: " + json.dumps(
@@ -3291,7 +3416,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     kernels = phase_kernels(pool, meta, keys, args.seed)
     kernels.update(lm_attention_kernels(args.seed))
-    kernels.update(mamba_kernels(args.seed))
+    kernels.update(mamba_kernels(args.seed, build))
     t1 = time.perf_counter()
     phase_cpu_vs_cuda(args.seed)
     phase_lm_cpu_vs_cuda(args.seed)

@@ -71,6 +71,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr float kNegInit = -1e30f;
@@ -86,26 +88,6 @@ constexpr int kSmemLimit = 232448;    // shared bytes a CTA may use (H100)
 // ---------------------------------------------------------------------------
 // PTX building blocks
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled where !live.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"

@@ -6,6 +6,8 @@ runs where only PyTorch and the CUDA toolkit are installed:
 
 Without a CUDA device every test skips with its reason."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -742,19 +744,59 @@ def mamba_case(b, l, d, n, seed, dtype):
 )
 def test_mamba_scan_kernel_matches_plain(cuda, dtype, b, l, d, n):
     """The phase-3 cases of ``chip_smoke.py`` cut down: y and the final state
-    within 1e-4 + 1e-4 |plain| at every thread layout the shape allows."""
+    within 1e-4 + 1e-4 |plain| at every plan variant of the shape."""
     from repro_torch.kernels import mamba_scan as mamba_mod
 
     args = [t.to(cuda) for t in mamba_case(b, l, d, n, l + d + n, dtype)]
     want = ref.mamba_scan_ref(*args)
-    for lanes in [None] + [k for k in mamba_mod.LANES if n <= 16 * k]:
-        got = ops.mamba_scan(*args) if lanes is None else mamba_mod.launch(
-            ops.library(), *args, lanes=lanes
+    sms, item = mamba_mod.device_sms(cuda), args[-1].element_size()
+    for label, p in [("ops", None), *mamba_mod.variants(b, d, n, sms, item).items()]:
+        got = ops.mamba_scan(*args) if p is None else mamba_mod.launch(
+            ops.library(), *args, plan=p
         )
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             excess = ((g - w).abs() - 1e-4 * w.abs()).max().item()
-            assert excess <= 1e-4, (lanes, excess)
+            assert excess <= 1e-4, (label, excess)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d,n", [(2, 256, 1024, 16), (2, 256, 640, 64), (1, 70, 333, 12)])
+def test_mamba_scan_state_bit_equal_where_decay_is_not_heavy(cuda, dtype, b, l, d, n):
+    """The state update rounds as the plain version's tensor operations do,
+    so the final state is bit-equal to the plain version's on every channel
+    outside the decay-heavy fifth (``mamba_case``), at every plan variant."""
+    from repro_torch.kernels import mamba_scan as mamba_mod
+
+    args = [t.to(cuda) for t in mamba_case(b, l, d, n, 7 + d, dtype)]
+    _, want = ref.mamba_scan_ref(*args)
+    calm = torch.arange(d, device=cuda) % 5 != 0
+    item = args[-1].element_size()
+    for label, p in mamba_mod.variants(b, d, n, mamba_mod.device_sms(cuda), item).items():
+        _, h = mamba_mod.launch(ops.library(), *args, plan=p)
+        torch.cuda.synchronize()
+        assert torch.equal(h[:, calm], want[:, calm]), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,change",
+    [(16, dict(channels=12)), (16, dict(channels=4)), (16, dict(chunk=12)),
+     (16, dict(chunk=128)), (16, dict(states=8, lanes=2)), (16, dict(lanes=32, states=1)),
+     (2, dict(lanes=2, states=1))],
+)
+def test_mamba_scan_entry_refuses_a_plan_it_cannot_run(cuda, n, change):
+    """A plan with no kernel (8 states x 2 lanes, 32 lanes, fewer than four
+    states a channel), a CTA of channels not a multiple of 8, or a chunk
+    not a multiple of 8 or past 64: the CUDA entry launches nothing and
+    reports CUDA error 1 (invalid value)."""
+    from repro_torch.kernels import mamba_scan as mamba_mod
+
+    args = [t.to(cuda) for t in mamba_case(2, 40, 64, n, 0, torch.float32)]
+    p = dataclasses.replace(mamba_mod.plan(2, 64, n, item=4), **change)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        mamba_mod.launch(ops.library(), *args, plan=p)
 
 
 @pytest.mark.cuda
