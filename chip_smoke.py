@@ -40,7 +40,13 @@ Phases, in order; any failure exits non-zero:
      rows, and ``node_search_prefix``,
      each with every variant of the kernel held to the plain version and
      timed with the L2 cold (a 256 MB scratch written and read between
-     calls) and hot, beside ``torch.searchsorted``; then
+     calls) and hot, beside ``torch.searchsorted``; ``subtree_walk`` the
+     same way on two mixes, (contract) 1,048,576 lanes that all walk and
+     (engine) the engine's exchange, 32 buckets of 32,768 slots, 2,048
+     live at each front, the rest KEY_MAX padding it does not walk
+     (``active``), its default, every variant and ``W`` (the first design,
+     a warp a lane) beside the bound and the bytes the default's reads
+     fetch in 32-byte sectors and 64-byte L2 granules; then
      ``paged_attention`` (64 requests, 24 heads over 8 of 128, a pool of
      4,096 pages of 16 tokens with stale rows everywhere, lengths 0, 1, page
      boundaries, partial pages and the whole 36-page table; its
@@ -77,10 +83,11 @@ Phases, in order; any failure exits non-zero:
      and 0.05 x RMS in bf16); reduced falcon-mamba-7b and zamba2-2.7b in
      f32 and bf16: a ``prefill``, then ten ``decode_step``s of three slots,
      one zeroed after a release (the same limits);
-  5. the main path at full size (one YCSB-C ``fetch`` warm-up batch
-     prints what each of its ``node_search`` calls sees: rows, KEY_MAX
-     share, all-KEY_MAX rows, values; each profiled batch, node_search's
-     device ms and share): 200M sorted int64 keys made on the card
+  5. the main path at full size (one YCSB-C ``fetch`` and one ``offload``
+     warm-up batch print what each of their ``node_search`` calls sees:
+     rows, KEY_MAX share, all-KEY_MAX rows, values; and each
+     ``subtree_walk`` call: lanes, share walked; each profiled batch,
+     node_search's and subtree_walk's device ms and share): 200M sorted int64 keys made on the card
      from ``--seed``, level-M = 1 subtree blocks at fill 0.7, a 2x4 virtual
      mesh split at the median key, 65,536 sets x 4 ways of cache per
      virtual device, 65,536-lane batches of YCSB workload C (100% reads)
@@ -337,12 +344,14 @@ def device_ms(fn, reps, cold):
     return sum(s.elapsed_time(e) for s, e in ev) / reps
 
 
-def cold_and_hot(runs, library):
-    """``device_ms`` of ``library`` and of each of ``runs`` (label -> call),
-    cold and hot, 20 calls each: keys ``cold_ms`` / ``hot_ms`` for the
-    label ``default``, ``<label>_cold_ms`` / ``<label>_hot_ms`` else."""
+def cold_and_hot(runs, library=None):
+    """``device_ms`` of ``library`` (where there is one) and of each of
+    ``runs`` (label -> call), cold and hot, 20 calls each: keys ``cold_ms``
+    / ``hot_ms`` for the label ``default``, ``<label>_cold_ms`` /
+    ``<label>_hot_ms`` else."""
     t = {}
-    for label, fn in (("library", library), *runs.items()):
+    lib = {} if library is None else {"library": library}
+    for label, fn in (*lib.items(), *runs.items()):
         for how in ("cold", "hot"):
             key = f"{how}_ms" if label == "default" else f"{label}_{how}_ms"
             t[key] = device_ms(fn, 20, cold=how == "cold")
@@ -652,13 +661,17 @@ def node_search_mix(name, rows, q, vals):
     return t
 
 
-def walk_bytes(pool, st, q, levels, found):
-    """Least bytes a walk must move: a binary search of each distinct row it
-    reads (``ROW_SEARCH_BYTES``), each distinct child id read (4 B), the
-    matched values (8 B), the per-lane inputs (subtree 4 B, query 8 B) and
-    outputs (9 B)."""
+def walk_bytes(pool, st, q, levels, found, active=None):
+    """Least bytes a walk must move: a binary search of each distinct row its
+    walked lanes read (``ROW_SEARCH_BYTES``), each distinct child id read
+    (4 B), the matched values (8 B), a walked lane's inputs (subtree 4 B,
+    query 8 B) and every lane's outputs (found, value, leaf: 13 B) and,
+    where there is one, its mask byte (``active``)."""
     import torch
 
+    n = q.numel()
+    if active is not None:
+        st, q, found = st[active], q[active], found[active]
     cap = pool.pool_keys.shape[1]
     local = torch.zeros_like(q)
     rows, kids = [], []
@@ -674,14 +687,112 @@ def walk_bytes(pool, st, q, levels, found):
     rows.append(stl * cap + local)
     n_rows = torch.unique(torch.cat(rows)).numel()
     n_kids = torch.unique(torch.cat(kids)).numel() if kids else 0
-    n = q.numel()
     return (
         ROW_SEARCH_BYTES * n_rows
         + 4 * n_kids
         + 8 * int(found.sum())
-        + 12 * n
-        + 13 * n
+        + 12 * q.numel()
+        + (13 + (active is not None)) * n
     )
+
+
+def walk_lanes(pool, meta, keys, n, g):
+    """``(subtree int32, queries)`` of ``n`` owner-walk lanes: keys of the
+    index, every fourth one above a key (a miss), KEY_MAX, KEY_MIN and -3
+    on every sixteenth; the first half on the subtree the top walk gives,
+    the rest on random blocks."""
+    import torch
+
+    from repro_torch.core import pool as pool_mod
+    from repro_torch.core.nodes import KEY_MAX, KEY_MIN
+
+    dev = keys.device
+    idx = torch.randint(0, keys.numel(), (n,), generator=g, device=dev)
+    q = keys[idx].clone()
+    lane = torch.arange(n, device=dev)
+    q = torch.where(lane % 4 == 1, q + 1, q)
+    q = torch.where(lane % 16 == 3, KEY_MAX, q)
+    q = torch.where(lane % 16 == 7, KEY_MIN, q)
+    q = torch.where(lane % 16 == 11, -3, q)
+    st = pool_mod.top_walk(pool, meta, q)
+    rand_st = torch.randint(0, meta.n_subtrees, (n,), generator=g, device=dev)
+    return torch.where(lane < n // 2, st, rand_st).to(torch.int32), q
+
+
+def walk_engine_mix(pool, meta, keys, cfg, wcap, live, g):
+    """Owner-walk lanes laid out as the engine's exchange hands them over:
+    one bucket of ``wcap`` slots for each (device, source column), the
+    first ``live`` a lane of ``walk_lanes`` (``pack_by_dest`` packs a
+    bucket's lanes to its front), the rest padding with a KEY_MAX query on
+    the device's column's first subtree.  ``active``: the lanes the engine
+    walks, those below KEY_MAX."""
+    import torch
+
+    from repro_torch.core import mesh
+    from repro_torch.core.nodes import KEY_MAX
+
+    dev = keys.device
+    nm = cfg.n_memory
+    buckets = cfg.n_devices * nm
+    l_st, l_q = walk_lanes(pool, meta, keys, buckets * live, g)
+    col = mesh.memory_linear_index(cfg, dev).long()  # [Dev]
+    s_per = pool.pool_keys.shape[0] // nm
+    st = (col.repeat_interleave(nm * wcap) * s_per).to(torch.int32)
+    q = torch.full((buckets * wcap,), KEY_MAX, dtype=torch.int64, device=dev)
+    slot = torch.arange(buckets, device=dev)[:, None] * wcap + torch.arange(
+        live, device=dev
+    )
+    slot = slot.reshape(-1)
+    st[slot], q[slot] = l_st, l_q
+    return st, q, q != KEY_MAX
+
+
+def walk_mix(name, pool, st, q, levels, active):
+    """``subtree_walk`` on one mix: the kernel (its default and every variant
+    of ``kernels/subtree_walk.py::VARIANTS``, ``W`` the first design) held
+    bit for bit to its plain version, then timed cold and hot beside the
+    mix's bound and the bytes the default design's reads fetch in 32-byte
+    sectors and in the L2's 64-byte granules (``read_sectors``)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import subtree_walk as sw
+
+    args = (pool.pool_keys, pool.pool_children, pool.pool_values, st, q)
+    want = ref.subtree_walk_ref(*args, levels=levels, active=active)
+    lib = ops.library()
+    runs = {"default": lambda: ops.subtree_walk(*args, levels=levels, active=active)}
+    for v in sw.VARIANTS:
+        runs[v] = lambda v=v: sw.launch(lib, *args, levels, active, variant=v)
+    err = 0.0
+    for v, fn in runs.items():
+        got = fn()
+        err = max(err, max_abs_err(got, want))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"subtree_walk {v} differs from its plain version on mix {name}"
+                 f" (max abs err {err})")
+    n = q.numel()
+    n_act = n if active is None else int(active.sum())
+    sectors, granules = sw.read_sectors(
+        pool.pool_keys, pool.pool_children, st, q, levels, active
+    )
+    lane_bytes = 12 * n_act + (13 + (active is not None)) * n
+    bound = walk_bytes(pool, st, q, levels, want[0], active)
+    t = dict(
+        max_abs_err=err,
+        bound_ms=bound / HBM_BYTES_PER_S * 1e3,
+        bound_bytes=bound,
+        sector_bytes=32 * int(sectors.sum()) + lane_bytes,
+        granule_bytes=64 * int(granules.sum()) + lane_bytes,
+    )
+    t["granule_ms"] = t["granule_bytes"] / HBM_BYTES_PER_S * 1e3
+    t.update(cold_and_hot(runs))
+    t.update(lanes=n, active_lanes=n_act, plain_ms=cuda_ms(
+        lambda: ref.subtree_walk_ref(*args, levels=levels, active=active), 3
+    ))
+    card = torch.cuda.get_device_name(q.device)
+    print(f"subtree_walk mix {name} on {card}: {json.dumps(t)}")
+    return t
 
 
 def leaf_write_inputs(q, seed, dev):
@@ -922,7 +1033,7 @@ def phase_kernels(pool, meta, keys, seed):
     import torch
 
     from repro_torch.core import pool as pool_mod
-    from repro_torch.core.nodes import KEY_MAX, KEY_MIN
+    from repro_torch.core.nodes import KEY_MAX
     from repro_torch.core.routing import route_capacity
     from repro_torch.kernels import node_search as ns_mod
     from repro_torch.kernels import ops, ref
@@ -977,43 +1088,38 @@ def phase_kernels(pool, meta, keys, seed):
         bound_by="bytes",
     )
 
-    # owner walks: real subtrees from the top walk, plus random blocks
+    # owner walks on two mixes: (contract) every lane walks, real subtrees
+    # from the top walk plus random blocks, the table's row; (engine) the
+    # engine's exchange, 2,048 live lanes at the front of each of its 32
+    # buckets, the rest KEY_MAX padding it does not walk
     g = torch.Generator(device=keys.device).manual_seed(seed + 1)
-    n_real = n_sw // 2
-    idx = torch.randint(0, keys.numel(), (n_sw,), generator=g, device=keys.device)
-    qw = keys[idx].clone()
-    lane = torch.arange(n_sw, device=keys.device)
-    qw = torch.where(lane % 4 == 1, qw + 1, qw)
-    qw = torch.where(lane % 16 == 3, KEY_MAX, qw)
-    qw = torch.where(lane % 16 == 7, KEY_MIN, qw)
-    qw = torch.where(lane % 16 == 11, -3, qw)
-    st = pool_mod.top_walk(pool, meta, qw)
-    rand_st = torch.randint(
-        0, meta.n_subtrees, (n_sw,), generator=g, device=keys.device
-    )
-    st = torch.where(lane < n_real, st, rand_st).to(torch.int32)
     levels = meta.levels_in_subtree
-    args = (pool.pool_keys, pool.pool_children, pool.pool_values, st, qw)
-    got = ops.subtree_walk(*args, levels=levels)
-    want = ref.subtree_walk_ref(*args, levels=levels)
-    equal = all(torch.equal(a, b) for a, b in zip(got, want))
-    err = max_abs_err(got, want)
-    if not equal:
-        fail(f"subtree_walk differs from its plain version (max abs err {err})")
-    nbytes = walk_bytes(pool, st, qw, levels, got[0])
+    st, qw = walk_lanes(pool, meta, keys, n_sw, g)
+    walks = {"contract": walk_mix("contract", pool, st, qw, levels, None)}
+    e_st, e_q, e_act = walk_engine_mix(
+        pool, meta, keys, cfg, wcap, BATCH // (cfg.n_devices * cfg.n_memory), g
+    )
+    walks["engine"] = walk_mix("engine", pool, e_st, e_q, levels, e_act)
+    del st, qw, e_st, e_q, e_act
+    t = walks["contract"]
     out["subtree_walk"] = dict(
         name="subtree_walk",
         route="cuda",
         source="src/repro_torch/csrc/subtree_walk.cu",
         replaces="src/repro/kernels/subtree_walk.py:119",
-        shape=f"{n_sw} lanes over pool {list(pool.pool_keys.shape)}",
+        shape=f"{n_sw} lanes over pool {list(pool.pool_keys.shape)}, contract mix, hot",
         bit_equal=True,
-        max_abs_err=err,
-        ms=cuda_ms(lambda: ops.subtree_walk(*args, levels=levels), 20),
-        plain_ms=cuda_ms(lambda: ref.subtree_walk_ref(*args, levels=levels), 3),
+        max_abs_err=max(w["max_abs_err"] for w in walks.values()),
+        ms=t["hot_ms"],
+        plain_ms=t["plain_ms"],
         library_ms=None,
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_ms=t["bound_ms"],
         bound_by="bytes",
+        per_mix={
+            m: {k: w[k] for k in ("cold_ms", "hot_ms", "W_cold_ms", "W_hot_ms",
+                                  "bound_ms", "granule_ms", "active_lanes")}
+            for m, w in walks.items()
+        },
     )
     # leaf writes: one staged row per request slot of every column's
     # gathered batch, as the write path stages them
@@ -1421,47 +1527,60 @@ def profile_batch(policy, eng, state, median_ms, *inputs):
     out, wall, events, _ = device_profile(lambda: eng(state, *inputs))
     busy = sum(ms for _, ms, _ in events)
     top = "; ".join(f"{k[:48]} {ms:.3f} ms x{n}" for k, ms, n in events[:8])
-    ns = [(ms, n) for k, ms, n in events if "node_search_kernel" in k]
-    ns_ms = sum(ms for ms, _ in ns)
+    shares = []
+    for name in ("node_search_kernel", "subtree_walk"):
+        mine = [(ms, n) for k, ms, n in events if name in k]
+        ms = sum(m for m, _ in mine)
+        shares.append(f"{name.removesuffix('_kernel')} {ms:.4f} ms"
+                      f" x{sum(n for _, n in mine)}, {ms / busy:.2%} of busy")
     print(
         f"profile {policy}: wall {wall:.2f} ms under the profiler, device busy"
         f" {busy:.2f} ms, idle {1 - busy / median_ms:.1%} of the unprofiled"
-        f" median {median_ms:.2f} ms; node_search {ns_ms:.4f} ms"
-        f" x{sum(n for _, n in ns)}, {ns_ms / busy:.2%} of busy; top: {top}"
+        f" median {median_ms:.2f} ms; {'; '.join(shares)}; top: {top}"
     )
     return (*out, 1 - busy / median_ms)
 
 
-def descent_calls(eng, state, inputs):
-    """One engine batch with every ``node_search`` call recorded: its rows,
-    the share of KEY_MAX queries, of all-KEY_MAX rows and of KEY_MAX
-    queries on other rows, and whether it reads values.  Prints them, so
-    the layout ``engine_mix`` gives phase 3 can be read against a real
-    one."""
+def recorded_calls(label, eng, state, inputs):
+    """One engine batch with every ``node_search`` and ``subtree_walk`` call
+    recorded and printed: a search's rows, the share of KEY_MAX queries, of
+    all-KEY_MAX rows and of KEY_MAX queries on other rows, and whether it
+    reads values; a walk's lanes and the share it walks (``active``).  So
+    the layouts phase 3 times (``engine_mix``, ``walk_engine_mix``) can be
+    read against real ones."""
     from repro_torch.core.nodes import KEY_MAX
     from repro_torch.kernels import ops
 
-    calls, search = [], ops.node_search
+    calls, search, walk = [], ops.node_search, ops.subtree_walk
 
-    def recorded(rows, queries, values=None):
+    def searched(rows, queries, values=None):
         top = queries == KEY_MAX
         empty = (rows == KEY_MAX).all(1)
-        calls.append(dict(
+        calls.append(("node_search", dict(
             rows=queries.numel(),
             keymax_share=float(top.float().mean()),
             empty_row_share=float(empty.float().mean()),
             keymax_on_other_rows=int((top & ~empty).sum()),
             values=values is not None,
-        ))
+        )))
         return search(rows, queries, values)
 
-    ops.node_search = recorded
+    def walked(*args, levels, active=None):
+        lanes = args[4].numel()
+        calls.append(("subtree_walk", dict(
+            lanes=lanes,
+            active_share=1.0 if active is None else float(active.float().mean()),
+            levels=levels,
+        )))
+        return walk(*args, levels=levels, active=active)
+
+    ops.node_search, ops.subtree_walk = searched, walked
     try:
         out = eng(state, *inputs)
     finally:
-        ops.node_search = search
-    for c in calls:
-        print(f"main read-only fetch: node_search call {json.dumps(c)}")
+        ops.node_search, ops.subtree_walk = search, walk
+    for kernel, c in calls:
+        print(f"main {label}: {kernel} call {json.dumps(c)}")
     return out
 
 
@@ -1625,9 +1744,10 @@ def phase_main(args, keys, pool, meta):
                 vals = kk ^ VALUE_XOR ^ stamp
                 inputs = [torch.from_numpy(a).to(dev) for a in (opc, kk, vals)]
                 torch.cuda.synchronize()
-                if (workload, policy, i) == ("read-only", "fetch", 0):
-                    # a warm-up batch: what each node_search call sees
-                    state, r = descent_calls(eng, state, inputs)
+                if workload == "read-only" and i == 0 and policy != "auto":
+                    # a warm-up batch: what each kernel call sees
+                    label = f"{workload} {policy}"
+                    state, r = recorded_calls(label, eng, state, inputs)
                 elif i == warm + timed:
                     # one more batch under the profiler: where the time goes
                     med = float(np.median(times))
@@ -3485,7 +3605,8 @@ def main(argv=None):
             library_ms=k["library_ms"],
             bit_equal=k["bit_equal"],
             **{x: k[x] for x in ("max_abs_err_f32", "lse_max_abs_err", "lse_max_abs_err_f32",
-                                 "hot_ms", "yardstick_ms", "per_arch", "per_shape") if x in k},
+                                 "hot_ms", "yardstick_ms", "per_arch", "per_shape", "per_mix")
+               if x in k},
         ))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

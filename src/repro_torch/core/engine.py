@@ -518,6 +518,7 @@ def make_dex_engine(
             st.reshape(-1).to(torch.int32),
             kf.reshape(-1).contiguous(),
             levels=levels,
+            active=walk.reshape(-1),
         )
         o_found = o_found.view(walk.shape) & walk
         o_val = torch.where(walk, o_val.view(walk.shape), 0)
@@ -579,6 +580,7 @@ def make_dex_engine(
                 st.to(torch.int32),
                 kf,
                 levels=levels,
+                active=walk,
             )
             o_found = o_found & walk
             off_w = (tagf == MSG_OFF_UPDATE) | (tagf == MSG_OFF_INSERT)

@@ -47,39 +47,12 @@ __global__ void __launch_bounds__(kThreads)
       static_cast<int64_t>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
   if (i >= n) return;  // the whole group leaves together
   const int64_t* row = rows + i * dex::kRowKeys;
-  const int64_t q = queries[i];
-  int count;
-  int64_t last = 0, prev = 0, first = 0;
-  if (q == dex::kKeyMax) {
-    count = dex::kRowKeys;
-    const longlong2 tail = reinterpret_cast<const longlong2*>(row)[31];
-    prev = tail.x;
-    last = tail.y;
-    if (values != nullptr) first = row[0];
-  } else {
-    count = dex::count_row<D>(g, row, q);
-    if (count > 0) last = row[count - 1];
-  }
-  const bool hit = count > 0 && last == q;
-  int64_t v = 0;
-  if (hit && values != nullptr) {
-    const int64_t* vrow = values + i * dex::kRowKeys;
-    if (q != dex::kKeyMax && count > 1) prev = row[count - 2];
-    if (count > 1 && prev == q) {
-      const bool from_0 = q == dex::kKeyMin || (q == dex::kKeyMax && first == q);
-      const int lo = from_0 ? 0 : dex::count_row<D>(g, row, q - 1);
-      unsigned long long s = 0;
-      for (int j = lo + g.rank; j < count; j += G)
-        s += static_cast<unsigned long long>(vrow[j]);
-      v = static_cast<int64_t>(g.sum(s));
-    } else {
-      v = vrow[count - 1];
-    }
-  }
+  const dex::Match m = dex::match_row<D>(
+      g, row, values == nullptr ? nullptr : values + i * dex::kRowKeys, queries[i]);
   if (g.rank == 0) {
-    slot[i] = count > 0 ? count - 1 : 0;
-    found[i] = hit;
-    value[i] = v;
+    slot[i] = m.count > 0 ? m.count - 1 : 0;
+    found[i] = m.hit;
+    value[i] = m.value;
   }
 }
 

@@ -143,4 +143,52 @@ __device__ __forceinline__ int count_suffix(const Group<G>& g,
   return 8 * t + count_le<8>(g, row, q, [t](int j) { return 4 * t + j; });
 }
 
+// The leaf of a search: count = #(row <= q), and the exact match of q with
+// the sum of the matched values (wrapping unsigned adds; 0 without
+// ``vrow``, the row's values).  node_search and subtree_walk share it; the
+// rules are node_search's (csrc/node_search.cu states why each read lies
+// in a sector the search read).  A KEY_MAX query needs no search: count =
+// 64, and found reads row[63].  A hit at count - 1 reads one value, unless
+// row[count - 2] == q too: then the run's start is found (row 0 for
+// KEY_MIN, or for KEY_MAX on an all-KEY_MAX row; else a second search for
+// q - 1) and the group sums values[lo:count].
+struct Match {
+  int count;
+  bool hit;
+  int64_t value;
+};
+
+template <char D, int G>
+__device__ __forceinline__ Match match_row(const Group<G>& g, const int64_t* row,
+                                           const int64_t* vrow, int64_t q) {
+  int count;
+  int64_t last = 0, prev = 0, first = 0;
+  if (q == kKeyMax) {
+    count = kRowKeys;
+    const longlong2 tail = reinterpret_cast<const longlong2*>(row)[31];
+    prev = tail.x;
+    last = tail.y;
+    if (vrow != nullptr) first = row[0];
+  } else {
+    count = count_row<D>(g, row, q);
+    if (count > 0) last = row[count - 1];
+  }
+  const bool hit = count > 0 && last == q;
+  int64_t v = 0;
+  if (hit && vrow != nullptr) {
+    if (q != kKeyMax && count > 1) prev = row[count - 2];
+    if (count > 1 && prev == q) {
+      const bool from_0 = q == kKeyMin || (q == kKeyMax && first == q);
+      const int lo = from_0 ? 0 : count_row<D>(g, row, q - 1);
+      unsigned long long s = 0;
+      for (int j = lo + g.rank; j < count; j += G)
+        s += static_cast<unsigned long long>(vrow[j]);
+      v = static_cast<int64_t>(g.sum(s));
+    } else {
+      v = vrow[count - 1];
+    }
+  }
+  return {count, hit, v};
+}
+
 }  // namespace dex

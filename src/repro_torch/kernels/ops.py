@@ -189,19 +189,19 @@ def subtree_walk(
     queries: torch.Tensor,
     *,
     levels: int,
+    active: Optional[torch.Tensor] = None,
 ):
     """``(found [B] bool, value [B] int64, leaf local id [B] int32)``: each
-    query walks its subtree block of the pool (see ``ref.subtree_walk_ref``)."""
+    query walks its subtree block of the pool (see ``ref.subtree_walk_ref``);
+    where ``active`` [B] bool is given, only its lanes walk and the others
+    return ``(False, 0, 0)``.  The pool's key rows must be sorted
+    non-decreasing: the kernel searches them (``kernels/subtree_walk.py``),
+    and the CPU path raises ``ValueError`` on an unsorted row."""
+    args = (pool_keys, pool_children, pool_values, subtree, queries)
     if pool_keys.device.type == "cpu":
-        _subtree_walk.validate(
-            pool_keys, pool_children, pool_values, subtree, queries, levels
-        )
-        return ref.subtree_walk_ref(
-            pool_keys, pool_children, pool_values, subtree, queries, levels=levels
-        )
-    out = _subtree_walk.launch(
-        library(), pool_keys, pool_children, pool_values, subtree, queries, levels
-    )
+        _subtree_walk.validate(*args, levels, active)
+        return ref.subtree_walk_ref(*args, levels=levels, active=active)
+    out = _subtree_walk.launch(library(), *args, levels, active)
     LAUNCHES["subtree_walk"] += 1
     return out
 

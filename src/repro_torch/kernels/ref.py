@@ -81,6 +81,7 @@ def subtree_walk_ref(
     queries: torch.Tensor,
     *,
     levels: int,
+    active: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Each query walks subtree block ``subtree[i]`` of the pool from its
     root (local id 0) down ``levels`` levels; returns ``(found, value,
@@ -91,7 +92,18 @@ def subtree_walk_ref(
     [S, C, F] int32, ``subtree`` [B] int32, ``queries`` [B] int64.  A
     negative subtree or child id counts from the end, as numpy indexing
     does; ``local`` keeps the id unwrapped, as the reference engine's walk
-    does."""
+    does.  ``active`` [B] bool, where given, names the lanes that walk;
+    the others return ``(False, 0, 0)``."""
+    if active is not None:
+        found = torch.zeros_like(active)
+        value = torch.zeros_like(queries)
+        local = torch.zeros_like(subtree)
+        sel = torch.nonzero(active)[:, 0]
+        found[sel], value[sel], local[sel] = subtree_walk_ref(
+            pool_keys, pool_children, pool_values, subtree[sel], queries[sel],
+            levels=levels,
+        )
+        return found, value, local
     st = subtree.long()
     q = queries[:, None]
     local = torch.zeros_like(st)

@@ -17,6 +17,7 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import pool as t_pool  # noqa: E402
 from repro_torch.core.nodes import FANOUT, KEY_MAX, KEY_MIN  # noqa: E402
 from repro_torch.kernels import node_search as ns_kernel  # noqa: E402
+from repro_torch.kernels import subtree_walk as sw_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import model as t_model  # noqa: E402
 from repro_torch.serve.kv_cache import PagedKVCache  # noqa: E402
@@ -314,6 +315,77 @@ def test_subtree_walk_kernel_returns_the_leaf_id(cuda, level_m):
     rows = pool.pool_keys[st.long(), leaf.long()]
     assert torch.equal((rows == q[:, None]).any(1), found)
     assert bool(found[: keys[::5].size].all())
+
+
+def walk_case(level_m, mask, device, n=40_000, seed=0):
+    """Lanes of the owner walk on a built pool: hits, misses, KEY_MIN,
+    KEY_MAX (NULL children at level M >= 1), -3, real and random subtrees
+    (negative ids too), under a lane mask: ``all``, ``none``, ``front``
+    (32-slot buckets, their live lanes first, as ``pack_by_dest`` leaves
+    them) or ``random``.  A masked lane names a subtree far past the pool,
+    so a kernel that read anything for it would fault."""
+    rng = np.random.default_rng(seed + level_m)
+    keys = np.sort(rng.choice(2**40, size=30_000, replace=False).astype(np.int64))
+    keys -= 2**39
+    pool, meta = t_pool.build_pool(
+        keys, keys * 3, level_m=level_m, subtree_leaves=None if level_m < 2 else 64,
+        device=device,
+    )
+    q = rng.choice(keys, n)
+    q[1::4] += 1
+    q[2::16] = KEY_MAX
+    q[3::16] = KEY_MIN
+    q[5::16] = -3
+    q = torch.from_numpy(q).to(device)
+    st = t_pool.top_walk(pool, meta, q).to(torch.int32)
+    lane = torch.arange(n, device=device)
+    rand = torch.from_numpy(
+        rng.integers(-meta.n_subtrees_padded, meta.n_subtrees, n).astype(np.int32)
+    ).to(device)
+    st = torch.where(lane % 3 == 0, rand, st)
+    if mask == "all":
+        active = torch.ones(n, dtype=torch.bool, device=device)
+    elif mask == "none":
+        active = torch.zeros(n, dtype=torch.bool, device=device)
+    elif mask == "front":
+        active = (lane % 32) < 7
+    else:
+        active = torch.from_numpy(rng.random(n) < 0.3).to(device)
+    st = torch.where(active, st, 2**30)
+    args = (pool.pool_keys, pool.pool_children, pool.pool_values, st, q)
+    return args, active, meta.levels_in_subtree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["all", "none", "front", "random"])
+@pytest.mark.parametrize("level_m", [1, 2])
+def test_subtree_walk_variants_match_plain(cuda, level_m, mask):
+    args, active, levels = walk_case(level_m, mask, cuda)
+    want = ref.subtree_walk_ref(*args, levels=levels, active=active)
+    if mask != "none":
+        assert bool((want[2][active] < 0).any())  # NULL children were reached
+    lib = ops.library()
+    for v in (None,) + sw_kernel.VARIANTS:
+        got = sw_kernel.launch(lib, *args, levels, active, variant=v)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), v
+
+
+@pytest.mark.cuda
+def test_subtree_walk_counts_one_launch_a_call(cuda):
+    args, active, levels = walk_case(1, "front", cuda, n=4_099)
+    before = ops.LAUNCHES["subtree_walk"]
+    ops.subtree_walk(*args, levels=levels, active=active)
+    # every lane active: the masked lanes' subtree ids made valid
+    st = torch.where(active, args[3], 0)
+    ops.subtree_walk(*args[:3], st, args[4], levels=levels, active=torch.ones_like(active))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["subtree_walk"] == before + 2
+    with pytest.raises(ValueError, match="unknown variant"):
+        sw_kernel.launch(ops.library(), *args, levels, active, variant="D4")
+    with pytest.raises(ValueError, match="active"):
+        ops.subtree_walk(*args, levels=levels, active=active.to(torch.uint8))
 
 
 @pytest.mark.cuda

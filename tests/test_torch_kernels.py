@@ -167,6 +167,68 @@ def test_subtree_walk_whole_pool_matches_per_block_walks(level_m):
     assert not t_found.numpy()[::4].any()
 
 
+@pytest.mark.parametrize("level_m", [0, 1, 2])
+def test_subtree_walk_all_active_matches_reference_kernel(level_m):
+    """``active`` all True keeps the contract: the Pallas kernel's answers
+    on the queries it takes (KEY_MAX aside, queue 3 entry 4)."""
+    keys, pool, meta = _block(level_m, seed=20 + level_m)
+    st = np.asarray(ref_pool.top_walk(pool, meta, keys))
+    q = keys[st == 0][:150].copy()
+    q[::3] += 1
+    q = np.concatenate([q, [KEY_MIN, -7, q[0] - 1]]).astype(np.int64)
+    bk, bc, bv = (
+        np.array(pool.pool_keys[0]),
+        np.array(pool.pool_children[0]),
+        np.array(pool.pool_values[0]),
+    )
+    found, value = ref_ops.subtree_walk(bk, bc, bv, q, levels=meta.levels_in_subtree)
+    t_found, t_value, _ = t_ops.subtree_walk(
+        torch.from_numpy(bk[None]),
+        torch.from_numpy(bc[None]),
+        torch.from_numpy(bv[None]),
+        torch.zeros(q.shape, dtype=torch.int32),
+        torch.from_numpy(q),
+        levels=meta.levels_in_subtree,
+        active=torch.ones(q.shape, dtype=torch.bool),
+    )
+    _eq(found, t_found)
+    _eq(value, t_value)
+
+
+@pytest.mark.parametrize("mask", ["front", "random", "none"])
+@pytest.mark.parametrize("level_m", [1, 2])
+def test_subtree_walk_masked_lanes(level_m, mask):
+    """With ``active``, the plain version equals the unmasked walk on the
+    active lanes and gives ``(False, 0, 0)`` on the others (KEY_MAX and
+    random subtrees included)."""
+    keys, pool, meta = _block(level_m, seed=30 + level_m)
+    rng = np.random.default_rng(level_m)
+    q = rng.choice(keys, size=160).astype(np.int64)
+    q[1::4] += 1
+    q[2::8] = KEY_MAX
+    q[3::8] = KEY_MIN
+    st = np.asarray(ref_pool.top_walk(pool, meta, q)).astype(np.int32)
+    st[::5] = rng.integers(0, meta.n_subtrees, st[::5].size)
+    if mask == "front":
+        active = np.arange(q.size) % 32 < 5
+    elif mask == "random":
+        active = rng.random(q.size) < 0.3
+    else:
+        active = np.zeros(q.size, bool)
+    args = tuple(
+        torch.from_numpy(np.array(a))
+        for a in (pool.pool_keys, pool.pool_children, pool.pool_values, st, q)
+    )
+    want = t_ops.subtree_walk(*args, levels=meta.levels_in_subtree)
+    got = t_ops.subtree_walk(
+        *args, levels=meta.levels_in_subtree, active=torch.from_numpy(active)
+    )
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy()[active], w.numpy()[active])
+        assert not g.numpy()[~active].any()
+
+
 def test_cpu_tensors_take_the_plain_version_without_counting():
     t_ops.reset_launches()
     rows, q, vals = _node_case(8, 9)
