@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's lookup, write, scan, split, separator, route-table
-and repartition paths, its paged-KV serving of minitron-4b, and its Mamba
-serving of falcon-mamba-7b and zamba2-2.7b, on one NVIDIA GPU and check
-them.
+and repartition paths, its paged-KV serving of minitron-4b and of the MoE
+model granite-moe-1b-a400m, and its Mamba serving of falcon-mamba-7b and
+zamba2-2.7b, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed 0] [--n-keys 200000000]
 
@@ -52,13 +52,16 @@ Phases, in order; any failure exits non-zero:
      boundaries, partial pages and the whole 36-page table; its
      log-sum-exp within 1e-3 in bf16 and 1e-5 in f32, -inf at length 0;
      timed as serving calls it, with the L2 cold and hot, beside a gather
-     plus SDPA, and again for 8 requests at the full table) and
+     plus SDPA, and again for 8 requests at the full table and for
+     granite-moe-1b-a400m's 16 heads over 8 of 64) and
      ``flash_attention`` ([2, 24, 2048, 128] against [2, 8, 2048, 128],
      causal; Sq < Sk; a length that is not a multiple of 64; non-causal;
      zamba2-2.7b's head dim of 80 at [2, 32, 2048, 80] and with Sq < Sk;
-     D = 64 non-causal), in bf16 and f32, within 2e-2 and 1e-4 of their
-     plain versions, flash timed at minitron-4b's and zamba2-2.7b's prefill
-     shapes beside SDPA and its bound at the true head dim; then
+     D = 64 non-causal; granite's [2, 16, 2048, 64] over [2, 8, 2048, 64]),
+     in bf16 and f32, within 2e-2 and 1e-4 of their plain versions, flash
+     timed cold and hot at minitron-4b's, zamba2-2.7b's
+     and granite's prefill shapes beside SDPA and its bound at the true head
+     dim; then
      ``mamba_scan`` at falcon-mamba-7b's prefill shape ([2, 2048, 8192],
      N = 16) and zamba2-2.7b's ([2, 2048, 5120], N = 64), operands in bf16
      and f32, at init scales with decay-heavy channels, plus a width off
@@ -80,7 +83,10 @@ Phases, in order; any failure exits non-zero:
      the LM path on reduced minitron-4b (2 layers, d_model 64) in f32 and
      bf16: ten paged decode steps of three requests, one admitted after a
      release, and one ``prefill`` (tables equal, logits within 1e-4 in f32
-     and 0.05 x RMS in bf16); reduced falcon-mamba-7b and zamba2-2.7b in
+     and 0.05 x RMS in bf16), and the same for reduced granite-moe-1b-a400m
+     and grok-1-314b (top-2 of 4 and of 8 experts; every routing choice
+     equal in f32; in bf16 the agreement reported and the logits held where
+     no flipped choice reaches); reduced falcon-mamba-7b and zamba2-2.7b in
      f32 and bf16: a ``prefill``, then ten ``decode_step``s of three slots,
      one zeroed after a release (the same limits);
   5. the main path at full size (one YCSB-C ``fetch`` and one ``offload``
@@ -130,7 +136,8 @@ Phases, in order; any failure exits non-zero:
      bit-identical).  Then ``prefill`` over two
      2,048-token sequences (tokens/s, ``flash_attention`` ms per call and
      share, one more call with every layer's kernel call held to its plain
-     version within 2e-2, the device ms of ``sdpa``'s transposes) and
+     version's f32 result, before its rounding to bf16, within 2e-2, the
+     device ms of ``sdpa``'s transposes) and
      two served requests replayed through it (max |dlogit| / RMS and greedy
      agreement, reported);
      6b. (minitron-4b freed) falcon-mamba-7b at full width, 64 layers, bf16:
@@ -146,15 +153,24 @@ Phases, in order; any failure exits non-zero:
      ``flash_attention`` at head dim 80 in the 9 shared-block calls, each
      held to its plain version once, as for minitron-4b), then 128 decode
      steps of 32 slots;
+     6d. (the earlier models freed) granite-moe-1b-a400m at full width, 24
+     layers, bf16, 32 experts top-8 at a capacity factor of 1.25: phase 6's
+     traffic and checks through the DEX page table (4,096 pages, 3.2 GB of
+     KV), the checked steps also reporting the routing agreement of the
+     kernel and plain steps and the pairs dropped, the profiled step the
+     MoE blocks' device ms (``MOE_BLOCK``); then ``prefill`` over 2 x 2,048
+     tokens as for minitron-4b, with its dropped pairs;
   7. the equivalence gates in float32: minitron-4b cut to 4 layers, four
      requests of 256 seeded tokens through paged decode, dense
      ``decode_step`` and ``prefill``, pairwise max |dlogit| <= 1e-3 x RMS;
      falcon-mamba-7b cut to 4 layers and zamba2-2.7b to 6 (one shared
      block), ``prefill`` against ``decode_step``, the same limit;
+     granite-moe-1b-a400m cut to 4 layers at a capacity factor of 4.0 (=
+     experts / top-k: no pair dropped), as for minitron-4b;
   8. one JSON line of per-kernel launches (summed over the paths of phases
      5 and 6, each counted from 0 just before it: the prefill paths of 6b
-     and 6c are ``prefill-ssm`` and ``prefill-hybrid``), errors and
-     times.
+     and 6c are ``prefill-ssm`` and ``prefill-hybrid``, 6d's
+     ``serving-moe`` and ``prefill-moe``), errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 prints no result and exits non-zero.
@@ -190,11 +206,14 @@ ROW_SEARCH_BYTES = 32 * 5
 LEAF_ROW_BYTES = 4 * 64 * 8 + 4 + 4 + 8
 STAGED_UPDATE_BYTES = 4 + 8
 STAGED_INSERT_BYTES = 8 + 8
-# leaf_split per row: its keys and values read and its left row written
-# (3 x 512 B), one probe of its staged list (8 B), occ_l, occ_r, sep and
-# did_split written (20 B); a row that splits writes its right row too.
-SPLIT_ROW_BYTES = 3 * 64 * 8 + 8 + 20
-SPLIT_RIGHT_BYTES = 2 * 64 * 8
+# leaf_split per row, as its contract has it: its keys and whole staged key
+# list read (active staged keys may sit anywhere in the list) and its left
+# and right key and value planes written, the right ones empty where the row
+# does not split (6 x 512 B), and occ_l, occ_r, sep and did_split written
+# (20 B); each live (not KEY_MAX) key's value is read, of the row's and of
+# the staged list's (8 B each): an empty slot's value reaches no output.
+SPLIT_ROW_BYTES = 6 * 64 * 8 + 20
+SPLIT_VALUE_BYTES = 8
 # node_search_prefix per lane: a compressible lane reads its prefix (8 B),
 # nbits (4 B) and query (8 B) and writes its slot (4 B), plus a binary
 # search of its 256-byte suffix row (ceil(log2(8 + 1)) = 4 of 8 sectors)
@@ -243,8 +262,10 @@ RT_ARMS = ("descent", "leaf-direct", "poisoned")
 # under tight buckets, static and with the controller
 REPART_PHASES = ((0.2, 5), (0.8, 5))
 REPART_FACTOR = 1.25
-# the LM plane: minitron-4b served through the DEX page table
+# the LM plane: minitron-4b and granite-moe-1b-a400m served through the DEX
+# page table; grok-1-314b (628 GB in bf16) runs reduced only
 LM_ARCH = "minitron-4b"
+MOE_ARCH, GROK_ARCH = "granite-moe-1b-a400m", "grok-1-314b"
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 # max abs error of an attention kernel against its plain version, by dtype
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -253,7 +274,7 @@ ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 SERVE_SLOTS = 64  # requests decoded together
 PAGE_SIZE = 16
-N_PAGES = 4_096  # 65,536 tokens of KV, 8.6 GB at 32 layers in bf16
+N_PAGES = 4_096  # 65,536 tokens of KV: 8.6 GB for minitron-4b, 3.2 GB for granite
 PAGES_PER_REQ = 36  # 576 tokens: the longest prompt plus the generated tokens
 PROMPT_RANGE = (32, 512)  # prompt lengths, uniform, fed a token a step
 GEN_TOKENS = 64  # greedy tokens a request
@@ -902,6 +923,18 @@ def leaf_split_inputs(q, seed, dev):
     return rows_k, rows_v, ins_key, ins_val
 
 
+def leaf_split_bytes(args):
+    """The bytes ``leaf_split``'s contract moves for ``args`` (rows_k,
+    rows_v, ins_key, ins_val): ``SPLIT_ROW_BYTES`` a row and
+    ``SPLIT_VALUE_BYTES`` for each live (not KEY_MAX) key's value, in the
+    rows and in the staged lists."""
+    from repro_torch.core.nodes import KEY_MAX
+
+    rows_k, _, ins_key, _ = args
+    n_live = int((rows_k != KEY_MAX).sum()) + int((ins_key != KEY_MAX).sum())
+    return rows_k.shape[0] * SPLIT_ROW_BYTES + n_live * SPLIT_VALUE_BYTES
+
+
 def leaf_scan_inputs(pool, meta, keys, n, seed):
     """Real windows of the index as the engine builds them for ``n`` routed
     slots: one slot in four is an active scan (the share a YCSB-E batch
@@ -1202,7 +1235,7 @@ def phase_kernels(pool, meta, keys, seed):
         fail(f"leaf_split differs from its plain version (max abs err {err})")
     n_ins = int((args[2] != KEY_MAX).sum())
     n_split = int(got[7].sum())
-    nbytes = n_sp * SPLIT_ROW_BYTES + n_split * SPLIT_RIGHT_BYTES + n_ins * 16
+    nbytes = leaf_split_bytes(args)
     out["leaf_split"] = dict(
         name="leaf_split",
         route="cuda",
@@ -2345,8 +2378,10 @@ def lm_attention_kernels(seed):
     in bf16, <= 1e-4 in f32; paged's log-sum-exp <= 1e-3 and 1e-5), and
     timed in bf16 beside the plain version and a PyTorch yardstick; paged
     cold and hot (``device_ms``) as serving calls it (with its lse), also
-    for 8 requests at the full table (``per_shape``); flash at minitron-4b's
-    and zamba2-2.7b's prefill shapes (``per_arch``)."""
+    for 8 requests at the full table and at granite-moe-1b-a400m's heads
+    (16 over 8 of 64, ``per_shape``); flash at minitron-4b's, zamba2-2.7b's
+    and granite-moe-1b-a400m's prefill shapes (``per_arch``), cold and
+    hot, beside SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -2356,22 +2391,29 @@ def lm_attention_kernels(seed):
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(dev)
     out = {}
-    b, h, hkv, d = SERVE_SLOTS, 24, 8, 128
+    d = 128
     ppr, page = PAGES_PER_REQ, PAGE_SIZE
+    moe_heads = (16, 8, 64)  # granite-moe-1b-a400m: a GQA group of 2 at D = 64
     errs, lse_errs = {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
-        args = paged_inputs(dtype, seed + 10, dev)
-        got, lse = ops.paged_attention(*args, with_lse=True)
-        want, want_lse = ref.paged_attention_ref(*args, with_lse=True)
-        empty = args[4] == 0
-        if not bool((got[empty] == 0).all()) or not bool((lse[empty] == float("-inf")).all()):
-            fail("paged_attention: a request of length 0 must give zeros and lse -inf")
-        errs[dtype] = max_abs_err([got], [want.nan_to_num()])
-        lse_errs[dtype] = lse_err(lse, want_lse)
-        name = dtype_name(dtype)
-        if not (errs[dtype] <= ATTN_TOL[name] and lse_errs[dtype] <= LSE_TOL[name]):
-            fail(f"paged_attention {dtype} differs from its plain version: out"
-                 f" {errs[dtype]}, lse {lse_errs[dtype]}")
+    for heads in (moe_heads, (24, 8, d)):  # minitron-4b's last: timed below
+        for dtype in (torch.float32, torch.bfloat16):
+            args = paged_inputs(dtype, seed + 10, dev, heads)
+            got, lse = ops.paged_attention(*args, with_lse=True)
+            want, want_lse = ref.paged_attention_ref(*args, with_lse=True)
+            empty = args[4] == 0
+            if not bool((got[empty] == 0).all()) or not bool(
+                (lse[empty] == float("-inf")).all()
+            ):
+                fail("paged_attention: a request of length 0 must give zeros and lse -inf")
+            err, l_err = max_abs_err([got], [want.nan_to_num()]), lse_err(lse, want_lse)
+            name = dtype_name(dtype)
+            if not (err <= ATTN_TOL[name] and l_err <= LSE_TOL[name]):
+                fail(f"paged_attention {dtype} heads {heads} differs from its plain"
+                     f" version: out {err}, lse {l_err}")
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+            lse_errs[dtype] = max(lse_errs.get(dtype, 0.0), l_err)
+            if heads == moe_heads and dtype == torch.bfloat16:
+                moe_args = args
     q, kp, vp, table, lens = args  # bf16, timed
     full = ppr * page
     long_args = (q[:8].contiguous(), kp, vp, table[:8].contiguous(),
@@ -2385,6 +2427,7 @@ def lm_attention_kernels(seed):
 
     def paged_row(args):
         q, kp, vp, table, lens = args
+        h, hkv, d = q.shape[1], kp.shape[2], q.shape[2]
         item = q.element_size()
         pages_used = int(((lens.long() + page - 1) // page).sum())
         nbytes = (
@@ -2420,7 +2463,8 @@ def lm_attention_kernels(seed):
         )
 
     main = paged_row(args)
-    rows = {"serving": main, "8 requests, full table": paged_row(long_args)}
+    rows = {"serving": main, "8 requests, full table": paged_row(long_args),
+            f"{MOE_ARCH} serving": paged_row(moe_args)}
     out["paged_attention"] = dict(
         name="paged_attention",
         route="cuda",
@@ -2450,16 +2494,18 @@ def lm_attention_kernels(seed):
         print(f"kernel paged_attention {label}: {r['shape']}: kernel {r['ms']:.4f} ms cold,"
               f" {r['hot_ms']:.4f} hot; yardstick {r['yardstick_ms']:.4f} cold,"
               f" {r['yardstick_hot_ms']:.4f} hot; bound {r['bound_ms']:.4f} ms on {card}")
-    del args, long_args, q, kp, vp
+    del args, long_args, moe_args, q, kp, vp
 
     # flash: the prefill shape, a shorter q against a longer k, lengths that
-    # are not a multiple of the tiles, non-causal at D = 128 and 64, and
-    # zamba2-2.7b's head dim of 80 (32 heads over 32) at its prefill shape
+    # are not a multiple of the tiles, non-causal at D = 128 and 64,
+    # zamba2-2.7b's head dim of 80 (32 heads over 32) and granite's D = 64
+    # (16 heads over 8) at their prefill shapes
     sq, sk = PREFILL_TOKENS, PREFILL_TOKENS
     cases = (((2, 24, sq, d), (2, 8, sk, d), True), ((1, 24, 300, d), (1, 8, sk, d), True),
              ((1, 24, 1000, d), (1, 8, 1000, d), True), ((1, 6, 130, d), (1, 2, 200, d), False),
              ((2, 32, sq, 80), (2, 32, sk, 80), True), ((1, 32, 300, 80), (1, 32, 700, 80), True),
-             ((1, 16, 700, 64), (1, 4, 900, 64), False))
+             ((1, 16, 700, 64), (1, 4, 900, 64), False),
+             ((2, 16, sq, 64), (2, 8, sk, 64), True))
     g = torch.Generator(device=dev).manual_seed(seed + 11)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -2476,7 +2522,9 @@ def lm_attention_kernels(seed):
                      f" version: {err}")
             errs[dtype] = max(errs.get(dtype, 0.0), err)
     rows = {}
-    for arch, (h, hkv, dh) in ((LM_ARCH, (24, 8, d)), (HYBRID_ARCH, (32, 32, 80))):
+    for arch, (h, hkv, dh) in (
+        (LM_ARCH, (24, 8, d)), (HYBRID_ARCH, (32, 32, 80)), (MOE_ARCH, (16, 8, 64))
+    ):
         q, k, v = (
             torch.randn(s, generator=g, device=dev, dtype=torch.bfloat16)
             for s in ((2, h, sq, dh), (2, hkv, sk, dh), (2, hkv, sk, dh))
@@ -2484,16 +2532,18 @@ def lm_attention_kernels(seed):
         pairs = sq * (sq + 1) // 2  # (query, key) pairs the causal mask keeps
         flops = 4 * 2 * h * dh * pairs  # at the true head dim, not the padded one
         nbytes = 2 * (2 * q.numel() + 2 * k.numel())  # q, k, v in, the output out
+
+        def sdpa_call():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=hkv != h)
+
+        t = cold_and_hot({"default": lambda: ops.flash_attention(q, k, v)}, sdpa_call)
         rows[arch] = dict(
             shape=f"q [2, {h}, {sq}, {dh}] bf16 over k, v [2, {hkv}, {sk}, {dh}], causal",
-            ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
+            ms=t["cold_ms"],
+            hot_ms=t["hot_ms"],
             plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3),
-            library_ms=cuda_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=hkv != h
-                ),
-                20,
-            ),
+            library_ms=t["library_cold_ms"],
+            library_hot_ms=t["library_hot_ms"],
             bound_ms=max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
             bound_by="operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
             else "bytes",
@@ -2517,8 +2567,9 @@ def lm_attention_kernels(seed):
         per_arch=rows,
     )
     for arch, r in rows.items():
-        print(f"kernel flash_attention {arch} {r['shape']}: kernel {r['ms']:.4f} ms, plain"
-              f" {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound"
+        print(f"kernel flash_attention {arch} {r['shape']}: kernel {r['ms']:.4f} ms cold,"
+              f" {r['hot_ms']:.4f} hot, plain {r['plain_ms']:.4f} ms, library"
+              f" {r['library_ms']:.4f} ms cold, {r['library_hot_ms']:.4f} hot, bound"
               f" {r['bound_ms']:.4f} ms ({r['bound_by']}), padded share of the products"
               f" {r['padded_share']:.3f} on {card}")
     for k_ in out.values():
@@ -2535,17 +2586,17 @@ def dtype_name(dtype):
     return str(dtype).removeprefix("torch.")
 
 
-def paged_inputs(dtype, seed, dev):
-    """``paged_attention`` at the serving shapes: 64 requests of 24 query
-    heads over 8 kv heads of 128, a pool of 4,096 pages of 16 tokens, 36
-    pages a request, every row random (so every page past a request's
-    length holds stale rows, as a recycled page does); lengths 0, 1, 16
-    and 32 (page boundaries), 17 and 575 (partial last pages), 576 (the
-    whole table), the rest uniform in 1-576."""
+def paged_inputs(dtype, seed, dev, heads=(24, 8, 128)):
+    """``paged_attention`` at the serving shapes: 64 requests of ``heads``
+    (query heads, kv heads, head dim: minitron-4b's by default), a pool of
+    4,096 pages of 16 tokens, 36 pages a request, every row random (so every
+    page past a request's length holds stale rows, as a recycled page
+    does); lengths 0, 1, 16 and 32 (page boundaries), 17 and 575 (partial
+    last pages), 576 (the whole table), the rest uniform in 1-576."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, h, hkv, d = SERVE_SLOTS, 24, 8, 128
+    b, (h, hkv, d) = SERVE_SLOTS, heads
     q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
     kp = torch.randn((N_PAGES, PAGE_SIZE, hkv, d), generator=g, device=dev).to(dtype)
     vp = torch.randn((N_PAGES, PAGE_SIZE, hkv, d), generator=g, device=dev).to(dtype)
@@ -2595,32 +2646,110 @@ def lm_trace(cfg, params, dev, seed):
 
 def phase_lm_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
     """The LM path on the CPU (plain versions) and on the card (kernels):
-    reduced minitron-4b (2 layers, d_model 64, 4 heads over 2, head dim 32)
-    in f32 and bf16, weights from ``seed`` carried bit for bit; page tables
-    identical, logits within 1e-4 (f32) or 0.05 x RMS (bf16)."""
+    reduced minitron-4b (2 layers, d_model 64, 4 heads over 2, head dim
+    32), granite-moe-1b-a400m (the same, top-2 of 4 experts) and
+    grok-1-314b (top-2 of 8), capacity factor 8.0, in f32 and bf16, weights
+    from ``seed`` carried bit for bit; page tables identical, logits within
+    1e-4 (f32) or 0.05 x RMS (bf16).  An MoE model's routing is recorded on
+    both: in f32 every choice must agree; in bf16 a choice may flip where
+    two probabilities nearly tie, and the logits are held where no flip
+    reaches (``clean_steps``), the agreement reported."""
     import torch
 
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model
 
-    for dtype in ("float32", "bfloat16"):
-        cfg = get_config(LM_ARCH).reduced(
-            n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=32, dtype=dtype
-        )
-        host = model.init_params(cfg, seed, device=devices[0])
-        card = model.params_from_numpy(cfg, model.params_to_numpy(host), devices[1])
-        t_cpu, l_cpu, p_cpu = lm_trace(cfg, host, devices[0], seed)
-        t_gpu, l_gpu, p_gpu = lm_trace(cfg, card, devices[1], seed)
-        for i, (a, b_) in enumerate(zip(t_cpu, t_gpu)):
-            if not torch.equal(a, b_):
-                fail(f"lm cpu-vs-cuda {dtype}: page tables differ at step {i}")
-        err = max_abs_err(l_gpu + [p_gpu], l_cpu + [p_cpu])
-        rms = float(np.sqrt(np.mean([float(x.double().pow(2).mean()) for x in l_cpu])))
-        tol = 1e-4 if dtype == "float32" else 0.05 * rms
-        if not err <= tol:
-            fail(f"lm cpu-vs-cuda {dtype}: logits differ by {err} (limit {tol})")
-        print(f"cpu-vs-cuda lm {dtype}: 10 paged steps + prefill, tables equal,"
-              f" max |dlogit| {err:.3e} (limit {tol:.3e}, RMS {rms:.3f})")
+    for arch in (LM_ARCH, MOE_ARCH, GROK_ARCH):
+        for dtype in ("float32", "bfloat16"):
+            cfg = get_config(arch).reduced(
+                n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=32, dtype=dtype,
+                **({"n_experts": 8} if arch == GROK_ARCH else {}),
+            )
+            host = model.init_params(cfg, seed, device=devices[0])
+            card = model.params_from_numpy(cfg, model.params_to_numpy(host), devices[1])
+            logs = [], []
+            with moe_recorded(logs[0]):
+                t_cpu, l_cpu, p_cpu = lm_trace(cfg, host, devices[0], seed)
+            with moe_recorded(logs[1]):
+                t_gpu, l_gpu, p_gpu = lm_trace(cfg, card, devices[1], seed)
+            for i, (a, b_) in enumerate(zip(t_cpu, t_gpu)):
+                if not torch.equal(a, b_):
+                    fail(f"lm cpu-vs-cuda {arch} {dtype}: page tables differ at step {i}")
+            l_cpu, l_gpu = torch.stack(l_cpu, 1), torch.stack(l_gpu, 1)  # [3, 10, V]
+            rms = float(l_cpu.double().pow(2).mean().sqrt())
+            tol = 1e-4 if dtype == "float32" else 0.05 * rms
+            note = ""
+            if cfg.moe:
+                agree, flips = routing_agreement(*logs)
+                n_dec = len(t_cpu) * cfg.n_layers  # the decode steps' calls, then prefill's
+                clean_dec = clean_steps(
+                    np.stack(flips[:n_dec]).reshape(len(t_cpu), cfg.n_layers, -1)
+                )
+                clean_pre = clean_steps(
+                    np.stack(flips[n_dec:]).reshape(cfg.n_layers, *p_cpu.shape[:2])
+                    .transpose(2, 0, 1)
+                )
+                if dtype == "float32" and agree < 1:
+                    fail(f"lm cpu-vs-cuda {arch} f32: routing agreement {agree}")
+                keep_dec, keep_pre = torch.from_numpy(clean_dec), torch.from_numpy(clean_pre)
+                l_cpu, l_gpu = l_cpu[keep_dec], l_gpu[keep_dec]
+                p_cpu, p_gpu = p_cpu[keep_pre], p_gpu[keep_pre]
+                note = (f", routing agreement {agree:.4f}, held at {clean_dec.mean():.3f}"
+                        f" of decode and {clean_pre.mean():.3f} of prefill positions")
+                if not (clean_dec.mean() >= 0.25 and clean_pre.mean() >= 0.25):
+                    fail(f"lm cpu-vs-cuda {arch} {dtype}: too few clean positions{note}")
+            err = max_abs_err([l_gpu, p_gpu], [l_cpu, p_cpu])
+            if not err <= tol:
+                fail(f"lm cpu-vs-cuda {arch} {dtype}: logits differ by {err} (limit {tol}){note}")
+            print(f"cpu-vs-cuda lm {arch} {dtype}: 10 paged steps + prefill, tables equal,"
+                  f" max |dlogit| {err:.3e} (limit {tol:.3e}, RMS {rms:.3f}){note}")
+
+
+@contextlib.contextmanager
+def moe_recorded(log):
+    """Within the block, every MoE block call appends ``(idx [T, k], dropped
+    pairs)`` to ``log``: its top-k choices and the pairs past its experts'
+    capacity, recomputed from the block's input on the host's request (a
+    wait for the card: record only steps that are not timed).  One dispatch
+    is assumed (at most 8,192 tokens)."""
+    from repro_torch.models import layers
+
+    block = layers.moe_block
+
+    def recorded(cfg, p, x, **kw):
+        xt = x.reshape(-1, x.shape[-1])
+        if xt.shape[0] > 8192:
+            fail(f"moe_recorded: {xt.shape[0]} tokens dispatch in chunks")
+        _, idx, _ = layers.moe_route(cfg, p["router"], xt)
+        keep = layers.moe_queue(idx, layers.moe_capacity(cfg, xt.shape[0]))[3]
+        log.append((idx.cpu(), int((~keep).sum())))
+        return block(cfg, p, x, **kw)
+
+    layers.moe_block = recorded
+    try:
+        yield
+    finally:
+        layers.moe_block = block
+
+
+def routing_agreement(log_a, log_b):
+    """The share of (call, token) top-k sets two ``moe_recorded`` logs agree
+    on, and each call's flips ``[T]`` (True where they differ)."""
+    if len(log_a) != len(log_b) or not log_a:
+        fail(f"routing: {len(log_a)} and {len(log_b)} MoE block calls")
+    flips = [
+        (a.sort(-1).values != b.sort(-1).values).any(-1).numpy()
+        for (a, _), (b, _) in zip(log_a, log_b)
+    ]
+    return 1.0 - float(np.concatenate(flips).mean()), flips
+
+
+def clean_steps(flips):
+    """``flips`` [steps, layers, slots] -> ``[slots, steps]``, True where no
+    layer's choice flipped for the slot at that step or before it (a
+    slot's logits depend on its own earlier steps alone when no pair is
+    dropped)."""
+    return np.cumprod(~flips.any(1), axis=0).astype(bool).T
 
 
 def device_profile(fn, ranges=()):
@@ -2658,11 +2787,13 @@ def device_profile(fn, ranges=()):
 
 
 def attention_errs(out, want):
-    """Max abs difference and the share of outputs that differ; a plain
-    NaN (a request or row that no key reaches) counts as 0, as the kernels
-    write it."""
+    """Max abs difference and the share of outputs that differ from
+    ``want`` rounded to the output's dtype (``want`` may be the plain
+    version's f32 result, before its one rounding to bf16); a plain NaN (a
+    request or row that no key reaches) counts as 0, as the kernels write
+    it."""
     want = want.nan_to_num()
-    return max_abs_err([out], [want]), float((out != want).float().mean())
+    return max_abs_err([out], [want]), float((out != want.to(out.dtype)).float().mean())
 
 
 def paged_errs(out, want):
@@ -2672,17 +2803,26 @@ def paged_errs(out, want):
 
 
 @contextlib.contextmanager
-def held_to_plain(errs, kernel="paged_attention", compare=attention_errs):
+def held_to_plain(errs, kernel="paged_attention", compare=attention_errs, exact=False):
     """Within the block, every ``ops.<kernel>`` call also runs its plain
     version (``ref.<kernel>_ref``) on the same inputs (the layer's real
     operands) and appends ``compare(kernel output, plain output)`` to
-    ``errs``; the plain calls launch no kernel."""
+    ``errs``; the plain calls launch no kernel.  ``exact``: the plain
+    version runs on the inputs' f32 copies, so its result is not rounded to
+    bf16 (it computes in f32 and rounds once at the end, so that rounding is
+    all that differs): a bf16 output is then held to the exact attention of
+    its inputs, where against the rounded plain output one bf16 step (2**-5
+    at magnitudes 4-8, above the 2e-2 limit) is the least disagreement."""
+    import torch
+
     from repro_torch.kernels import ops, ref
 
     launch, plain = getattr(ops, kernel), getattr(ref, f"{kernel}_ref")
 
     def checked(*a, **kw):
         out = launch(*a, **kw)
+        if exact:
+            a = [x.float() if torch.is_tensor(x) and x.is_floating_point() else x for x in a]
         errs.append(compare(out, plain(*a, **kw)))
         return out
 
@@ -2718,27 +2858,33 @@ class Request:
         return len(self.gen) >= GEN_TOKENS
 
 
-def phase_serving(seed):
-    """minitron-4b at full width (32 layers, bf16, weights from ``seed``)
-    served through the DEX page table for ``DECODE_STEPS`` steps; every
-    ``CHECK_EVERY``-th step holds each layer's kernel call to its plain
-    version on the same inputs and is repeated with the plain attention
-    (RMS of the logit difference <= 0.05 x RMS; not timed); a host oracle of
-    ``(request, page index) -> page`` holds the resolved tables every
-    step.  One kernel step and one plain step are profiled: device busy
-    ms, kernels, and the plain path's history regather (``REGATHER``).
-    Returns the report, the launches of the path, the params and the two
-    recorded requests (tokens fed, decode logits)."""
+def phase_serving(seed, arch=LM_ARCH):
+    """``arch`` (minitron-4b, or granite-moe-1b-a400m) at full width (bf16,
+    weights from ``seed``) served through the DEX page table for
+    ``DECODE_STEPS`` steps; every ``CHECK_EVERY``-th step holds each
+    layer's kernel call to its plain version on the same inputs and is
+    repeated with the plain attention (RMS of the logit difference <= 0.05 x
+    RMS; not timed); a host oracle of ``(request, page index) -> page``
+    holds the resolved tables every step.  One kernel step and one plain
+    step are profiled: device busy ms, kernels, and the plain path's history
+    regather (``REGATHER``).  For an MoE model the checked steps also record
+    both runs' routing (``moe_recorded``): the agreement of the kernel step
+    with the plain one and the pairs dropped, and the profiled step reports
+    the device ms under the ``MOE_BLOCK`` ranges.  Returns the report, the
+    launches of the path, the params and the two recorded requests (tokens
+    fed, decode logits)."""
     import torch
 
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import model
+    from repro_torch.models.layers import MOE_BLOCK
     from repro_torch.serve.kv_cache import PagedKVCache
     from repro_torch.serve.serve_step import REGATHER, paged_decode_step
 
     dev = torch.device("cuda")
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    ranges = (MOE_BLOCK,) if cfg.moe else ()
     t0 = time.perf_counter()
     params = model.init_params(cfg, seed, device=dev)
     torch.cuda.synchronize()
@@ -2791,24 +2937,34 @@ def phase_serving(seed):
         args = (cfg, params, tok_dev, kv.k_pages, kv.v_pages, table, lens)
         check = step % CHECK_EVERY == 0
         if step == prof_step:
-            (logits, k_new, v_new), _, prof, _ = device_profile(
-                lambda: paged_decode_step(*args)
+            (logits, k_new, v_new), _, prof, prof_marked = device_profile(
+                lambda: paged_decode_step(*args), ranges=ranges
             )
         elif check:
-            layer_errs = []
-            with held_to_plain(layer_errs, compare=paged_errs):
+            layer_errs, logs = [], ([], [])
+            with held_to_plain(layer_errs, compare=paged_errs), moe_recorded(logs[0]):
                 logits, k_new, v_new = paged_decode_step(*args)
         else:
             logits, k_new, v_new = paged_decode_step(*args)
         if check:  # the same inputs through the plain attention
-            if step == plain_prof_step:
-                (plain, _, _), _, plain_prof, marked = device_profile(
-                    lambda: paged_decode_step(*args, use_kernel=False), ranges=(REGATHER,)
-                )
-            else:
-                plain, _, _ = paged_decode_step(*args, use_kernel=False)
+            with moe_recorded(logs[1]):
+                if step == plain_prof_step:
+                    (plain, _, _), _, plain_prof, marked = device_profile(
+                        lambda: paged_decode_step(*args, use_kernel=False),
+                        ranges=(REGATHER,),
+                    )
+                else:
+                    plain, _, _ = paged_decode_step(*args, use_kernel=False)
             d = logits - plain
             rms = float(plain.pow(2).mean().sqrt())
+            moe = {}
+            if cfg.moe:
+                dropped = sum(n for _, n in logs[0])
+                moe = dict(
+                    routing_agree=routing_agreement(*logs)[0],
+                    dropped_pairs=dropped,
+                    dropped_share=dropped / (cfg.n_layers * SERVE_SLOTS * cfg.top_k),
+                )
             c = dict(
                 step=step,
                 layer_max_abs_err=max(e for e, _, _ in layer_errs),
@@ -2817,6 +2973,7 @@ def phase_serving(seed):
                 max_over_rms=float(d.abs().max()) / rms,
                 rms_over_rms=float(d.pow(2).mean().sqrt()) / rms,
                 greedy_agree=float((logits.argmax(-1) == plain.argmax(-1)).float().mean()),
+                **moe,
             )
             checks.append(c)
             if not (c["layer_max_abs_err"] <= ATTN_TOL["bfloat16"]
@@ -2888,8 +3045,16 @@ def phase_serving(seed):
         init_s=init_s,
         checks=checks,
     )
-    print(f"serving {LM_ARCH}: {json.dumps(report)}")
-    print(f"serving profile (step {prof_step}): top: {top}")
+    if cfg.moe:
+        report.update(
+            moe_block_device_ms=prof_marked[MOE_BLOCK],
+            moe_block_share=prof_marked[MOE_BLOCK] / busy,
+            routing_agree_min=min(c["routing_agree"] for c in checks),
+            dropped_pairs_per_step=float(np.mean([c["dropped_pairs"] for c in checks])),
+            dropped_share=float(np.mean([c["dropped_share"] for c in checks])),
+        )
+    print(f"serving {arch}: {json.dumps(report)}")
+    print(f"serving profile {arch} (step {prof_step}): top: {top}")
     del kv
     missing = set(record) - set(recorded)
     if missing:
@@ -2901,24 +3066,32 @@ def phase_serving(seed):
     return report, launches, params, replays
 
 
-def phase_prefill(params, replays, seed):
-    """``prefill`` at full width (32 layers, bf16) over two sequences of
+def phase_prefill(params, replays, seed, arch=LM_ARCH):
+    """``prefill`` of ``arch`` at full width (bf16) over two sequences of
     ``PREFILL_TOKENS`` (``timed_prefill``: tokens/s, flash_attention's
     device ms a call and share, every call held to its plain version, and
-    the device ms of ``sdpa``'s transposes); then the two recorded requests
-    of the serving run replayed through ``prefill``: max |dlogit| / RMS
-    against the decode's logits and the share of greedy tokens that agree
-    (reported, not gated)."""
+    the device ms of ``sdpa``'s transposes and, for an MoE model, of the
+    MoE blocks, with the pairs one call drops); then the two recorded
+    requests of the serving run replayed through ``prefill``: max |dlogit|
+    / RMS against the decode's logits and the share of greedy tokens that
+    agree (reported, not gated: an MoE model's prefill and decode drop
+    different pairs)."""
     import torch
 
     from repro_torch.configs.registry import get_config
     from repro_torch.serve.serve_step import prefill
 
     dev = torch.device("cuda")
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     g = torch.Generator(device=dev).manual_seed(seed + 12)
     toks = torch.randint(0, cfg.vocab, (2, PREFILL_TOKENS), generator=g, device=dev)
     report, launches = timed_prefill(cfg, params, toks, {"flash_attention": cfg.n_layers})
+    if cfg.moe:
+        log = []
+        with moe_recorded(log):
+            prefill(cfg, params, toks)
+        report["dropped_pairs"] = sum(n for _, n in log)
+        report["dropped_share"] = report["dropped_pairs"] / (len(log) * toks.numel() * cfg.top_k)
     for rid, (fed, gen, dec) in replays.items():
         n_prompt = len(fed) - len(gen) + 1
         pre = prefill(cfg, params, torch.from_numpy(fed[None]).to(dev))[0]
@@ -2930,15 +3103,18 @@ def phase_prefill(params, replays, seed):
             greedy_agree=float(np.mean(greedy == np.array(gen))),
         )
         del pre
-    print(f"prefill {LM_ARCH}: {json.dumps(report)}")
+    print(f"prefill {arch}: {json.dumps(report)}")
     return report, launches
 
 
-def phase_gate(seed):
-    """The equivalence gate at full width: minitron-4b cut to 4 layers in
-    float32 (no TF32), four requests of ``GATE_TOKENS`` seeded tokens
-    through paged decode (the kernel), dense ``decode_step`` (plain) and
-    ``prefill`` (the flash kernel); pairwise max |dlogit| <= 1e-3 x RMS."""
+def phase_gate(seed, arch=LM_ARCH, **overrides):
+    """The equivalence gate at full width: ``arch`` cut to 4 layers in
+    float32 (no TF32), with ``overrides`` (granite-moe-1b-a400m: a capacity
+    factor of n_experts / top_k = 4.0, so an expert holds every token and
+    decode and prefill drop nothing), four requests of ``GATE_TOKENS``
+    seeded tokens through paged decode (the kernel), dense ``decode_step``
+    (plain) and ``prefill`` (the flash kernel); pairwise max |dlogit| <=
+    1e-3 x RMS."""
     import dataclasses
 
     import torch
@@ -2953,7 +3129,7 @@ def phase_gate(seed):
     ):
         fail("gate: float32 products must not use TF32")
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=4, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=4, dtype="float32", **overrides)
     params = model.init_params(cfg, seed, device=dev)
     b, n = GATE_REQUESTS, GATE_TOKENS
     rng = np.random.default_rng(seed + 13)
@@ -2983,10 +3159,10 @@ def phase_gate(seed):
     }
     del paged_logits, dense_logits, params
     rms = float(paths["dense"].double().pow(2).mean().sqrt())
-    report = dict(layers=cfg.n_layers, requests=b, tokens=n, rms=rms)
+    report = dict(layers=cfg.n_layers, requests=b, tokens=n, rms=rms, **overrides)
     for x, y in (("paged", "dense"), ("paged", "prefill"), ("dense", "prefill")):
         report[f"{x}_vs_{y}"] = float((paths[x] - paths[y]).abs().max()) / rms
-    print(f"gate {LM_ARCH} 4 layers f32: {json.dumps(report)}")
+    print(f"gate {arch} 4 layers f32: {json.dumps(report)}")
     worst = max(v for k, v in report.items() if "_vs_" in k)
     if not worst <= 1e-3:
         fail(f"gate: max |dlogit| / RMS {worst} > 1e-3")
@@ -3228,13 +3404,15 @@ def timed_prefill(cfg, params, toks, expect):
     """``PREFILL_RUNS`` timed ``prefill`` calls after a warm-up; the launch
     counts must equal ``expect`` (kernel -> launches a call) times the runs.
     Where ``flash_attention`` runs, one more call holds each of its
-    launches to its plain version on the layer's own q, k and v (max abs
-    error <= 2e-2 in bf16, 1e-4 in f32), and the profiled call reports the
-    device ms of ``sdpa``'s transposes.  Returns (report, launches)."""
+    launches to its plain version on the layer's own q, k and v, run in f32
+    (``held_to_plain(exact=True)``; max abs error <= 2e-2 in bf16, 1e-4 in
+    f32), and the profiled call reports the device ms of ``sdpa``'s
+    transposes and, for an MoE model, of its MoE blocks.  Returns (report,
+    launches)."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.models.layers import SDPA_TRANSPOSES
+    from repro_torch.models.layers import MOE_BLOCK, SDPA_TRANSPOSES
     from repro_torch.serve.serve_step import prefill
 
     prefill(cfg, params, toks)  # warm-up
@@ -3257,15 +3435,14 @@ def timed_prefill(cfg, params, toks, expect):
     attention = "flash_attention" in expect
     held = []
     if attention:
-        with held_to_plain(held, "flash_attention"):
+        with held_to_plain(held, "flash_attention", exact=True):
             prefill(cfg, params, toks)
         worst = max(e for e, _ in held)
         if len(held) != expect["flash_attention"] or not worst <= ATTN_TOL[cfg.dtype]:
             fail(f"prefill {cfg.name}: {len(held)} flash_attention calls held to their"
                  f" plain version, max abs error {worst} (limit {ATTN_TOL[cfg.dtype]})")
-    _, _, prof, marked = device_profile(
-        lambda: prefill(cfg, params, toks), ranges=(SDPA_TRANSPOSES,) if attention else ()
-    )
+    ranges = ((SDPA_TRANSPOSES,) if attention else ()) + ((MOE_BLOCK,) if cfg.moe else ())
+    _, _, prof, marked = device_profile(lambda: prefill(cfg, params, toks), ranges=ranges)
     busy = sum(ms for _, ms, _ in prof)
     med = float(np.median(times))
     report = dict(
@@ -3288,6 +3465,9 @@ def timed_prefill(cfg, params, toks, expect):
         )
         report["sdpa_transposes_device_ms"] = marked[SDPA_TRANSPOSES]
         report["sdpa_transposes_share"] = marked[SDPA_TRANSPOSES] / busy
+    if cfg.moe:
+        report["moe_block_device_ms"] = marked[MOE_BLOCK]
+        report["moe_block_share"] = marked[MOE_BLOCK] / busy
     return report, launches
 
 
@@ -3581,6 +3761,20 @@ def main(argv=None):
     t11 = time.perf_counter()
     report["gate-ssm"] = phase_ssm_gate(args.seed)
     t12 = time.perf_counter()
+    # the MoE plane: granite-moe-1b-a400m, the earlier models freed
+    report["serving-moe"], per_path["serving-moe"], params, replays = phase_serving(
+        args.seed, MOE_ARCH
+    )
+    check_launches("serving-moe", per_path["serving-moe"], ("paged_attention", "node_search"))
+    report["prefill-moe"], per_path["prefill-moe"] = phase_prefill(
+        params, replays, args.seed, MOE_ARCH
+    )
+    check_launches("prefill-moe", per_path["prefill-moe"], ("flash_attention",))
+    del params, replays
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    report["gate-moe"] = phase_gate(args.seed, MOE_ARCH, moe_capacity_factor=4.0)
+    t14 = time.perf_counter()
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["read-only"]}
     print(f"main: launches {launches}")
     print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
@@ -3588,7 +3782,8 @@ def main(argv=None):
           f" route table {t5 - t4:.1f} s, repartition {t6 - t5:.1f} s,"
           f" serving {t7 - t6:.1f} s, prefill {t8 - t7:.1f} s, gate {t9 - t8:.1f} s,"
           f" ssm serving and prefill {t10 - t9:.1f} s, hybrid {t11 - t10:.1f} s,"
-          f" ssm gate {t12 - t11:.1f} s")
+          f" ssm gate {t12 - t11:.1f} s, moe serving and prefill {t13 - t12:.1f} s,"
+          f" moe gate {t14 - t13:.1f} s")
     rows = []
     for name, k in kernels.items():
         rows.append(dict(

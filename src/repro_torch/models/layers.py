@@ -1,9 +1,9 @@
-"""Model building blocks of the dense GQA and Mamba families: norms, RoPE,
-attention, the SwiGLU / GELU MLP and the Mamba block.
+"""Model building blocks of the dense GQA, MoE and Mamba families: norms,
+RoPE, attention, the SwiGLU / GELU MLP, the MoE block and the Mamba block.
 
-The port of ``repro.models.layers``' dense and Mamba parts.  Functions are pure
-(parameters in, activations out) over dicts of tensors with the reference's
-names, and follow its casts one for one:
+The port of ``repro.models.layers``' dense, MoE and Mamba parts.  Functions
+are pure (parameters in, activations out) over dicts of tensors with the
+reference's names, and follow its casts one for one:
 
 * ``_dot`` multiplies in the activation dtype with f32 accumulation and one
   rounding to that dtype (the reference's ``preferred_element_type=F32``
@@ -18,8 +18,14 @@ names, and follow its casts one for one:
 where the reference inlines a jnp double scan of the same function.  The
 kernel keeps the probabilities in f32 before P.V, as the TPU kernel and its
 oracle do; the reference's jnp form rounds them to bf16 first.  Its tensor-
-parallel hooks (``_tp``) are dropped: one card, no GSPMD.  MLA and MoE
-blocks come with later slices of the port.
+parallel hooks (``_tp``) are dropped: one card, no GSPMD.  MLA blocks
+come with a later slice of the port.
+
+``moe_block`` is the reference's sort-based capacity dispatch step for step:
+the same top-k order on ties (the lower expert first), a stable sort of the
+(token, choice) pairs by expert, the same capacity and so the same dropped
+pairs; its expert products are batched products with an f32 result
+(``_bmm_f32``), outside any kernel, as the reference leaves them to XLA.
 
 ``mamba_block``'s scan over a sequence is the ``mamba_scan`` kernel, the
 exact recurrence, where the reference calls its chunked jnp scan
@@ -263,6 +269,142 @@ def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
     return _dot(h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based top-k dispatch)
+# ---------------------------------------------------------------------------
+
+#: profiler range around each chunk's dispatch, expert products and combine
+MOE_BLOCK = "moe block"
+
+
+def init_moe(cfg: ArchConfig, gen: torch.Generator, *, layers: int, device=None) -> dict:
+    """An MoE block's leaves stacked ``[layers, ...]`` at the reference's
+    scales: the router ``[D, E]`` in f32 whatever the model's dtype, ``wi``
+    ``[E, D, 2F]`` (SwiGLU) or ``[E, D, F]``, ``wo`` ``[E, F, D]``."""
+    d, e, ffe = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    dt = torch_dtype(cfg)
+    s = 1.0 / math.sqrt(d)
+    width = 2 * ffe if cfg.act == "swiglu" else ffe
+    return {
+        "router": _stacked(layers, (d, e), s, F32, gen, device),
+        "wi": _stacked(layers, (e, d, width), s, dt, gen, device),
+        "wo": _stacked(
+            layers, (e, ffe, d), 1.0 / math.sqrt(ffe) / math.sqrt(2 * cfg.n_layers),
+            dt, gen, device,
+        ),
+    }
+
+
+def moe_capacity(cfg: ArchConfig, t: int) -> int:
+    """Slots an expert has for a chunk of ``t`` tokens."""
+    return max(1, int(t * cfg.top_k / cfg.n_experts * cfg.moe_capacity_factor))
+
+
+def moe_route(cfg: ArchConfig, router: torch.Tensor, xt: torch.Tensor):
+    """Top-k routing of the tokens ``xt`` [T, D]: ``(probs [T, E], idx [T,
+    k], gates [T, k])``, probabilities and gates in f32, the gates
+    renormalised over the k choices.  A stable descending sort takes the
+    lower expert first on ties, as ``lax.top_k`` does."""
+    probs = torch.softmax(torch.matmul(xt.float(), router), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = vals[:, : cfg.top_k], idx[:, : cfg.top_k]
+    return probs, idx, gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+
+
+def moe_queue(idx: torch.Tensor, cap: int):
+    """The (token, choice) pairs ``idx.reshape(-1)`` in each expert's queue:
+    ``(order, expert, rank, keep)``, the pairs sorted stably by expert (so
+    in token order within one), each one's rank in its expert's queue, and
+    whether that rank is within the capacity.  Nothing here waits for the
+    card (a ``bincount`` would: it sizes its output on the host)."""
+    expert, order = torch.sort(idx.reshape(-1), stable=True)
+    start = torch.searchsorted(expert, expert)  # the first pair of each one's expert
+    rank = torch.arange(expert.numel(), device=expert.device) - start
+    return order, expert, rank, rank < cap
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` with f32 accumulation and an f32 result (the
+    reference's ``preferred_element_type=F32``): on the card a bf16 product
+    asks for the f32 output directly; the CPU has no such product, so it
+    multiplies f32 copies."""
+    if a.dtype == F32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=F32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _moe_chunk(cfg: ArchConfig, p: dict, xt: torch.Tensor, with_aux: bool = True):
+    """One dispatch over the tokens ``xt`` [T, D]: ``(out [T, D], aux)``,
+    aux None unless ``with_aux``."""
+    t, d = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    dev = xt.device
+    probs, idx, gates = moe_route(cfg, p["router"], xt)
+    cap = moe_capacity(cfg, t)
+    order, expert, rank, keep = moe_queue(idx, cap)
+    # each kept pair's slot in the [E, cap] buffers; a dropped pair writes
+    # into an extra row, cut off after
+    slot_e = torch.where(keep, expert, e)
+    slot_c = torch.where(keep, rank, 0)
+    tok = torch.arange(t * k, device=dev) // k
+    tok_buf = torch.full((e + 1, cap), t, dtype=torch.long, device=dev)  # t: no token
+    tok_buf[slot_e, slot_c] = tok[order]
+    gate_buf = torch.zeros((e + 1, cap), dtype=F32, device=dev)
+    gate_buf[slot_e, slot_c] = gates.reshape(-1)[order]
+    tok_buf, gate_buf = tok_buf[:e], gate_buf[:e]
+
+    # each slot's token activations ([E, cap, D]; an empty slot reads zeros)
+    xt_pad = torch.cat([xt, xt.new_zeros((1, d))])
+    expert_in = xt_pad[tok_buf]
+    h = _bmm_f32(expert_in, p["wi"])
+    if cfg.act == "swiglu":
+        gate, up = h.chunk(2, dim=-1)
+        h = torch.nn.functional.silu(gate) * up
+    else:
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+    out_e = _bmm_f32(h.to(xt.dtype), p["wo"])
+
+    # combine: the gated expert outputs added back to their tokens in f32
+    out = torch.zeros((t + 1, d), dtype=F32, device=dev)
+    out.index_add_(0, tok_buf.reshape(-1), (out_e * gate_buf[..., None]).reshape(-1, d))
+
+    out = out[:t].to(xt.dtype)
+    if not with_aux:
+        return out, None
+    # load-balancing aux loss (Switch-style)
+    me = probs.mean(0)
+    ce = torch.nn.functional.one_hot(idx[:, 0], e).float().mean(0)
+    return out, (me * ce).sum() * e
+
+
+def moe_block(
+    cfg: ArchConfig, p: dict, x: torch.Tensor, *, with_aux: bool = True
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns ``(out [B, S, D], aux)``: the tokens dispatched in chunks of
+    at most 8,192 (cut down until they divide B x S), each chunk its own
+    capacity, so the chunking decides which pairs are dropped; ``aux`` is
+    the chunks' mean, or None without ``with_aux`` (serving never reads
+    it, so it launches none of its kernels).  Each chunk runs under the
+    profiler range ``MOE_BLOCK``."""
+    b, s, d = x.shape
+    t_full = b * s
+    chunk = min(t_full, 8192)
+    while t_full % chunk:
+        chunk -= 1
+    outs, auxes = [], []
+    for xt in x.reshape(t_full // chunk, chunk, d):
+        with torch.autograd.profiler.record_function(MOE_BLOCK):
+            o, a = _moe_chunk(cfg, p, xt, with_aux)
+        outs.append(o)
+        auxes.append(a)
+    out = torch.cat(outs).reshape(b, s, d)
+    if not with_aux:
+        return out, None
+    return out, sum(auxes) / len(auxes)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """The decoder: init, forward (train / prefill) and dense-cache decode for
-the dense GQA, SSM and hybrid families.
+the dense GQA, MoE, SSM and hybrid families.
 
 The port of ``repro.models.model``'s dense path (families ``dense`` and
 ``vlm``: pre-norm GQA with optional QKV bias or QK-norm, then a SwiGLU or
-GELU MLP), its SSM path (``ssm``: a pre-norm Mamba block a layer,
+GELU MLP), its MoE path (``moe``: the same attention, then an MoE block in
+place of the MLP, whose aux loss ``forward`` sums over the layers), its SSM
+path (``ssm``: a pre-norm Mamba block a layer,
 falcon-mamba-7b) and its hybrid path (a Mamba stack with one weight-shared
 GQA block applied after every ``hybrid_attn_every`` layers, zamba2-2.7b).
 Parameters are a dict of tensors with the reference's names and stacked
@@ -12,7 +14,7 @@ parameter pytree across (as ``jax.tree.map(np.asarray, params)`` gives it),
 the counterpart of ``dex.state_from_numpy``.  The layer stack is a Python
 loop over those leaves, where the reference scans.
 
-MLA, MoE and encoder-decoder configs resolve by name and raise
+MLA and encoder-decoder configs resolve by name and raise
 ``NotImplementedError`` here, naming the slice of the port that brings them.
 """
 
@@ -32,21 +34,20 @@ F32 = torch.float32
 #: what a config needs that the port does not serve yet, and the slice
 #: (``ROADMAP.md``, item 13) that brings it
 _LATER = (
-    ("moe", "MoE blocks come with the next slice of the port (item 13.b)"),
     ("encdec", "encoder-decoder models come after the MLA slice (item 13.d)"),
 )
 
 
 def check_served(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA, SSM or
-    hybrid model."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA, MoE, SSM
+    or hybrid model."""
     for field, why in _LATER:
         if getattr(cfg, field):
             raise NotImplementedError(f"{cfg.name}: {why}")
     if not cfg.ssm and cfg.attention != "gqa":
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.attention} attention (MLA) comes with the slice after MoE"
-            " (item 13.c)"
+            f"{cfg.name}: {cfg.attention} attention (MLA) comes with the next slice of"
+            " the port (item 13.c)"
         )
 
 
@@ -92,12 +93,18 @@ def init_params(cfg: ArchConfig, seed: int, device=None) -> Dict[str, Any]:
 
 
 def _init_attn_block(cfg: ArchConfig, gen, layers: int, device):
-    return {
+    """An attention block's leaves: ``moe`` in place of ``mlp`` for an MoE
+    config."""
+    p = {
         "ln1": L.init_norm(cfg, cfg.d_model, layers=layers, device=device),
         "attn": L.init_gqa(cfg, gen, layers=layers, device=device),
         "ln2": L.init_norm(cfg, cfg.d_model, layers=layers, device=device),
-        "mlp": L.init_mlp(cfg, gen, layers=layers, device=device),
     }
+    if cfg.moe:
+        p["moe"] = L.init_moe(cfg, gen, layers=layers, device=device)
+    else:
+        p["mlp"] = L.init_mlp(cfg, gen, layers=layers, device=device)
+    return p
 
 
 def params_from_numpy(cfg: ArchConfig, tree: Dict[str, Any], device=None):
@@ -164,15 +171,26 @@ def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), head.float())
 
 
-def _apply_block(cfg: ArchConfig, p, x, positions):
+def ffn(cfg: ArchConfig, p, x, *, with_aux: bool = False):
+    """The second half of an attention block: ``(x + MLP or MoE of the
+    normed x, the MoE aux loss or None)``; the loss is computed only
+    ``with_aux``."""
+    xin = L.apply_norm(cfg, x, p["ln2"])
+    if "moe" in p:
+        h, aux = L.moe_block(cfg, p["moe"], xin, with_aux=with_aux)
+        return x + h, aux
+    return x + L.mlp(cfg, p["mlp"], xin), None
+
+
+def _apply_block(cfg: ArchConfig, p, x, positions, with_aux: bool):
     """One decoder block (a Mamba block for an SSM config), training /
-    prefill path; also the hybrid's shared attention block."""
+    prefill path; also the hybrid's shared attention block.  Returns
+    ``(x, aux)``, aux None but for an MoE block ``with_aux``."""
     if "ssm" in p:
         h, _, _ = L.mamba_block(cfg, p["ssm"], L.apply_norm(cfg, x, p["ln1"]))
-        return x + h
+        return x + h, None
     h, _ = L.gqa_attention(cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions)
-    x = x + h
-    return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["ln2"]))
+    return ffn(cfg, p, x + h, with_aux=with_aux)
 
 
 def _schedule(cfg: ArchConfig):
@@ -194,21 +212,24 @@ def forward(
     *,
     positions: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(logits [B, S, V] f32, aux)`` (aux is the MoE loss, 0
-    here), or the final hidden states when ``return_hidden``.  Every
-    attention is the ``flash_attention`` kernel, every Mamba layer's scan the
-    ``mamba_scan`` kernel."""
+    with_aux: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns ``(logits [B, S, V] f32, aux)`` (aux is the MoE loss summed
+    over the layers, 0 without MoE blocks, None without ``with_aux``), or
+    the final hidden states when ``return_hidden``.  Every attention is the ``flash_attention`` kernel,
+    every Mamba layer's scan the ``mamba_scan`` kernel."""
     check_served(cfg)
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     if positions is None:
         positions = torch.arange(s, device=x.device)
+    aux = torch.zeros((), dtype=F32, device=x.device) if with_aux else None
     for kind, i in _schedule(cfg):
         p = params["shared_attn"] if kind == "shared" else layer_params(params["blocks"], i)
-        x = _apply_block(cfg, p, x, positions)
+        x, a = _apply_block(cfg, p, x, positions, with_aux)
+        if a is not None:
+            aux = aux + a
     x = L.apply_norm(cfg, x, params["final_norm"])
-    aux = torch.zeros((), dtype=F32, device=x.device)
     if return_hidden:
         return x, aux
     return _logits(x, _head_of(cfg, params)), aux
@@ -284,7 +305,6 @@ def decode_step(
             cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions,
             kv_cache=kv, cache_len=pos,
         )
-        x = x + h
-        x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["ln2"]))
+        x, _ = ffn(cfg, p, x + h)
     x = L.apply_norm(cfg, x, params["final_norm"])
     return _logits(x[:, 0], _head_of(cfg, params)), cache

@@ -1,5 +1,5 @@
-"""Serving steps: prefill (every served family) and paged decode (GQA
-families).
+"""Serving steps: prefill (every served family) and paged decode (the GQA
+and MoE families).
 
 ``paged_decode_step`` is the data-plane consumer of the DEX page table: one
 new token per request, attention over the paged pool through the
@@ -40,8 +40,9 @@ F32 = torch.float32
 
 def prefill(cfg: ArchConfig, params, tokens, cache=None):
     """Teacher-forced prefill through the training forward; returns the
-    logits [B, S, V] f32 (``cache`` is unused, as in the reference)."""
-    logits, _ = M.forward(cfg, params, tokens)
+    logits [B, S, V] f32 (``cache`` is unused, as in the reference; the
+    MoE aux loss is not computed)."""
+    logits, _ = M.forward(cfg, params, tokens, with_aux=False)
     return logits
 
 
@@ -127,8 +128,7 @@ def paged_decode_step(
         v_self = v[:, 0].float()[:, :, None, :]  # [B, n, 1, d]
         o = o_hist_g * w_hist[..., None] + v_self * w_self[..., None]
         o = o.reshape(b, 1, h * hd).to(x.dtype)
-        x = x + L._dot(o, ap["wo"])
-        x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["ln2"]))
+        x, _ = M.ffn(cfg, p, x + L._dot(o, ap["wo"]))
         k_new.append(k[:, 0])
         v_new.append(v[:, 0])
     x = L.apply_norm(cfg, x, params["final_norm"])

@@ -603,7 +603,8 @@ def check_paged(args, dtype):
     [(6, 24, 8, 128, 16, 4), (5, 8, 2, 64, 16, 3), (5, 4, 4, 32, 8, 5),
      (5, 8, 2, 256, 4, 3), (5, 8, 8, 8, 16, 2), (5, 16, 2, 96, 16, 2),
      (5, 32, 2, 128, 16, 3),  # G = 16, two n tiles of heads
-     (2, 24, 8, 128, 16, 36)],  # a short batch of long requests, the full table
+     (2, 24, 8, 128, 16, 36),  # a short batch of long requests, the full table
+     (64, 16, 8, 64, 16, 36)],  # granite-moe-1b-a400m's serving: G = 2 at D = 64
 )
 def test_paged_attention_kernel_lse_matches_plain(cuda, dtype, b, h, hkv, d, page, ppr):
     args = [t.to(cuda) for t in paged_case(b, h, hkv, d, page, ppr, d + b, dtype)]
@@ -691,7 +692,9 @@ def flash_case(b, h, hkv, sq, sk, d, dtype, device):
      (1, 4, 1, 129, 257, 8, True), (1, 6, 3, 200, 260, 24, True),
      (2, 4, 2, 190, 190, 200, False), (1, 8, 2, 77, 333, 256, True),
      # minitron-4b's prefill at one sequence: 24 heads over 8
-     (1, 24, 8, 2048, 2048, 128, True)],
+     (1, 24, 8, 2048, 2048, 128, True),
+     # granite-moe-1b-a400m's: 16 heads over 8 of 64, a GQA group of 2
+     (1, 16, 8, 2048, 2048, 64, True), (2, 16, 8, 300, 300, 64, True)],
 )
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, sq, sk, d, causal):
     q, k, v = flash_case(b, h, hkv, sq, sk, d, dtype, cuda)
@@ -792,6 +795,46 @@ def test_paged_decode_step_kernel_matches_plain(cuda, dtype):
     err = (got - want).abs().max().item()
     rms = want.pow(2).mean().sqrt().item()
     assert err <= (1e-4 if dtype == "float32" else 0.05 * rms), (err, rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, dtype):
+    """granite-moe-1b-a400m's MoE block at full width (d_model 1024, 32
+    experts of 512, top-8) over 3 x 7 tokens, random weights carried bit for
+    bit: the routing (top-k choices, and the pairs kept at the served
+    capacity factor of 1.25) equal on both, the output within 1e-5 in f32
+    and 2e-2 in bf16 (the products' sums and the scatter-add's order differ;
+    ``index_add_`` on the card adds in no fixed order), and in bf16 an RMS
+    difference of at most 1e-3 x RMS, the limit ``tests/test_torch_moe.py``
+    sets between the sound rounding order and ``mlp``'s."""
+    from repro_torch.models import layers as t_layers
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"), dtype=dtype, n_layers=1)
+    gen = torch.Generator().manual_seed(0)
+    host = t_model.layer_params(t_layers.init_moe(cfg, gen, layers=1, device="cpu"), 0)
+    card = {k: v.to(cuda) for k, v in host.items()}
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((3, 7, 1024)) + 0.5)
+    x = x.to(t_layers.torch_dtype(cfg))
+    routes = []
+    for p, xi in ((host, x), (card, x.to(cuda))):
+        xt = xi.reshape(-1, 1024)
+        _, idx, _ = t_layers.moe_route(cfg, p["router"], xt)
+        keep = t_layers.moe_queue(idx, t_layers.moe_capacity(cfg, xt.shape[0]))[3]
+        routes.append((idx.cpu(), keep.cpu()))
+    assert torch.equal(routes[0][0], routes[1][0]) and torch.equal(routes[0][1], routes[1][1])
+    want, want_aux = t_layers.moe_block(cfg, host, x)
+    got, aux = t_layers.moe_block(cfg, card, x.to(cuda))
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert got.dtype == want.dtype
+    diff = got.cpu().double() - want.double()
+    err = diff.abs().max().item()
+    assert err <= tol, err
+    if dtype == "bfloat16":
+        rms = (diff.pow(2).mean() / want.double().pow(2).mean()).sqrt().item()
+        assert rms <= 1e-3, rms
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
 
 
 def mamba_case(b, l, d, n, seed, dtype):

@@ -29,9 +29,9 @@ from repro_torch.serve.serve_step import paged_decode_step, prefill  # noqa: E40
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
-def small(dtype="bfloat16", **kw):
+def small(dtype="bfloat16", name="minitron-4b", **kw):
     kw = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, dtype=dtype, **kw)
-    return ref_config("minitron-4b").reduced(**kw), get_config("minitron-4b").reduced(**kw)
+    return ref_config(name).reduced(**kw), get_config(name).reduced(**kw)
 
 
 def cache(cfg, **kw):
@@ -143,15 +143,27 @@ def test_append_tokens_equals_the_reference():
     assert np.abs(kv.k_pages.numpy()).sum() > 0
 
 
-@pytest.mark.parametrize(
-    "dtype,use_kernel", [("float32", False), ("float32", True), ("bfloat16", True)]
-)
+STEP_CASES = [("float32", False), ("float32", True), ("bfloat16", True)]
+
+
+@pytest.mark.parametrize("dtype,use_kernel", STEP_CASES)
 def test_paged_decode_step_matches_reference(dtype, use_kernel):
     """Ten steps for three requests, one of them admitted after another's
     release, so its pages are recycled with stale rows; the reference runs
     its jnp oracle or its Pallas kernel (interpret), the port its wrapper
     (the plain version on the CPU)."""
-    rc, tc = small(dtype, head_dim=32)
+    check_paged_decode_step("minitron-4b", dtype, use_kernel)
+
+
+@pytest.mark.parametrize("dtype,use_kernel", STEP_CASES)
+def test_moe_paged_decode_step_matches_reference(dtype, use_kernel):
+    """The same for reduced granite-moe-1b-a400m: top-2 of 4 experts at a
+    capacity factor of 8.0, so no pair is dropped."""
+    check_paged_decode_step("granite-moe-1b-a400m", dtype, use_kernel)
+
+
+def check_paged_decode_step(name, dtype, use_kernel):
+    rc, tc = small(dtype, name, head_dim=32)
     rp = RM.init_params(rc, jax.random.PRNGKey(3))
     tp = TM.params_from_numpy(tc, jax.tree.map(np.asarray, rp), "cpu")
     kv = cache(tc, n_pages=16, page_size=4, max_batch=3)
