@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's lookup, write, scan, split, separator, route-table
 and repartition paths, its paged-KV serving of minitron-4b and of the MoE
-model granite-moe-1b-a400m, and its Mamba serving of falcon-mamba-7b and
-zamba2-2.7b, on one NVIDIA GPU and check them.
+model granite-moe-1b-a400m, its Mamba serving of falcon-mamba-7b and
+zamba2-2.7b, and its MLA serving of minicpm3-4b, on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py [--seed 0] [--n-keys 200000000]
 
@@ -57,11 +58,14 @@ Phases, in order; any failure exits non-zero:
      ``flash_attention`` ([2, 24, 2048, 128] against [2, 8, 2048, 128],
      causal; Sq < Sk; a length that is not a multiple of 64; non-causal;
      zamba2-2.7b's head dim of 80 at [2, 32, 2048, 80] and with Sq < Sk;
-     D = 64 non-causal; granite's [2, 16, 2048, 64] over [2, 8, 2048, 64]),
-     in bf16 and f32, within 2e-2 and 1e-4 of their plain versions, flash
-     timed cold and hot at minitron-4b's, zamba2-2.7b's
-     and granite's prefill shapes beside SDPA and its bound at the true head
-     dim; then
+     D = 64 non-causal; granite's [2, 16, 2048, 64] over [2, 8, 2048, 64];
+     D = 96 at [1, 40, 300, 96]), in bf16 and f32, within 2e-2 and 1e-4 of
+     their plain versions, flash timed cold and hot at minitron-4b's,
+     zamba2-2.7b's, granite's and minicpm3-4b's prefill shapes (the last
+     [2, 40, 2048, 96] with v 64 wide, zero-padded to 96 as ``sdpa`` passes
+     it, and held to its plain version) beside SDPA on the unpadded
+     operands and its bound at the true head dims, with the padded share of
+     each product; then
      ``mamba_scan`` at falcon-mamba-7b's prefill shape ([2, 2048, 8192],
      N = 16) and zamba2-2.7b's ([2, 2048, 5120], N = 64), operands in bf16
      and f32, at init scales with decay-heavy channels, plus a width off
@@ -88,7 +92,9 @@ Phases, in order; any failure exits non-zero:
      equal in f32; in bf16 the agreement reported and the logits held where
      no flipped choice reaches); reduced falcon-mamba-7b and zamba2-2.7b in
      f32 and bf16: a ``prefill``, then ten ``decode_step``s of three slots,
-     one zeroed after a release (the same limits);
+     one zeroed after a release (the same limits); reduced minicpm3-4b with
+     v 8 wide against q and k 16 (``sdpa`` pads v), a ``prefill`` and ten
+     ``decode_step``s, one slot zeroed after a release (the same limits);
   5. the main path at full size (one YCSB-C ``fetch`` and one ``offload``
      warm-up batch print what each of their ``node_search`` calls sees:
      rows, KEY_MAX share, all-KEY_MAX rows, values; and each
@@ -160,17 +166,30 @@ Phases, in order; any failure exits non-zero:
      kernel and plain steps and the pairs dropped, the profiled step the
      MoE blocks' device ms (``MOE_BLOCK``); then ``prefill`` over 2 x 2,048
      tokens as for minitron-4b, with its dropped pairs;
+     6e. (the earlier models freed) minicpm3-4b at full width, 62 layers,
+     bf16, MLA: ``prefill`` over 2 x 2,048 tokens as for minitron-4b
+     (``flash_attention`` at q, k 96 wide and v 64 padded to 96, 62 calls,
+     each held to its plain version once); then 256 ``decode_step``s of 64
+     slots in lockstep over the compressed cache (``c_kv``, ``k_rope``) of
+     256 positions, greedy after a seeded first token, logits finite, one
+     step profiled; two slots' 256 tokens replayed through ``prefill`` (max
+     |dlogit| / RMS and greedy agreement, reported);
   7. the equivalence gates in float32: minitron-4b cut to 4 layers, four
      requests of 256 seeded tokens through paged decode, dense
      ``decode_step`` and ``prefill``, pairwise max |dlogit| <= 1e-3 x RMS;
      falcon-mamba-7b cut to 4 layers and zamba2-2.7b to 6 (one shared
      block), ``prefill`` against ``decode_step``, the same limit;
      granite-moe-1b-a400m cut to 4 layers at a capacity factor of 4.0 (=
-     experts / top-k: no pair dropped), as for minitron-4b;
+     experts / top-k: no pair dropped), as for minitron-4b; minicpm3-4b cut
+     to 4 layers, ``prefill`` (the f32 flash kernel at D = 96, v padded
+     from 64) against ``decode_step`` over the compressed cache, the same
+     limit;
   8. one JSON line of per-kernel launches (summed over the paths of phases
      5 and 6, each counted from 0 just before it: the prefill paths of 6b
      and 6c are ``prefill-ssm`` and ``prefill-hybrid``, 6d's
-     ``serving-moe`` and ``prefill-moe``), errors and times.
+     ``serving-moe`` and ``prefill-moe``, 6e's ``prefill-mla`` and
+     ``serving-mla``, whose decode launches no kernel of the table), errors
+     and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 prints no result and exits non-zero.
@@ -292,6 +311,11 @@ SFU_EXP_PER_CLOCK = 16  # exponentials a clock an SM (H100 special-function unit
 SSM_SLOTS = 64  # falcon-mamba-7b requests decoded together
 SSM_REPLAYS = 8  # finished requests replayed through prefill
 HYBRID_SLOTS, HYBRID_STEPS = 32, 128  # zamba2-2.7b's decode run
+# the MLA plane: minicpm3-4b decoded through its compressed dense cache, all
+# slots in lockstep (the reference has no paged MLA step)
+MLA_ARCH = "minicpm3-4b"
+MLA_SLOTS, MLA_STEPS = 64, 256  # slots, and steps = cache positions
+MLA_REPLAYS = 2  # slots replayed through prefill
 
 
 def parse_args(argv):
@@ -2379,9 +2403,12 @@ def lm_attention_kernels(seed):
     timed in bf16 beside the plain version and a PyTorch yardstick; paged
     cold and hot (``device_ms``) as serving calls it (with its lse), also
     for 8 requests at the full table and at granite-moe-1b-a400m's heads
-    (16 over 8 of 64, ``per_shape``); flash at minitron-4b's, zamba2-2.7b's
-    and granite-moe-1b-a400m's prefill shapes (``per_arch``), cold and
-    hot, beside SDPA."""
+    (16 over 8 of 64, ``per_shape``); flash at minitron-4b's, zamba2-2.7b's,
+    granite-moe-1b-a400m's and minicpm3-4b's prefill shapes (``per_arch``;
+    minicpm3-4b's q and k 96 wide, v 64 zero-padded to 96 as ``sdpa``
+    passes it, its output held to the plain version's), cold and hot,
+    beside SDPA on the unpadded operands; the bound counts the products at
+    the true head dims, ``padded_share`` the padding of each product."""
     import torch
     import torch.nn.functional as F
 
@@ -2498,14 +2525,15 @@ def lm_attention_kernels(seed):
 
     # flash: the prefill shape, a shorter q against a longer k, lengths that
     # are not a multiple of the tiles, non-causal at D = 128 and 64,
-    # zamba2-2.7b's head dim of 80 (32 heads over 32) and granite's D = 64
-    # (16 heads over 8) at their prefill shapes
+    # zamba2-2.7b's head dim of 80 (32 heads over 32), granite's D = 64
+    # (16 heads over 8) at their prefill shapes, and minicpm3-4b's D = 96
     sq, sk = PREFILL_TOKENS, PREFILL_TOKENS
     cases = (((2, 24, sq, d), (2, 8, sk, d), True), ((1, 24, 300, d), (1, 8, sk, d), True),
              ((1, 24, 1000, d), (1, 8, 1000, d), True), ((1, 6, 130, d), (1, 2, 200, d), False),
              ((2, 32, sq, 80), (2, 32, sk, 80), True), ((1, 32, 300, 80), (1, 32, 700, 80), True),
              ((1, 16, 700, 64), (1, 4, 900, 64), False),
-             ((2, 16, sq, 64), (2, 8, sk, 64), True))
+             ((2, 16, sq, 64), (2, 8, sk, 64), True),
+             ((1, 40, 300, 96), (1, 40, 300, 96), True))
     g = torch.Generator(device=dev).manual_seed(seed + 11)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -2522,34 +2550,47 @@ def lm_attention_kernels(seed):
                      f" version: {err}")
             errs[dtype] = max(errs.get(dtype, 0.0), err)
     rows = {}
-    for arch, (h, hkv, dh) in (
-        (LM_ARCH, (24, 8, d)), (HYBRID_ARCH, (32, 32, 80)), (MOE_ARCH, (16, 8, 64))
+    for arch, (h, hkv, dh, dv) in (
+        (LM_ARCH, (24, 8, d, d)), (HYBRID_ARCH, (32, 32, 80, 80)), (MOE_ARCH, (16, 8, 64, 64)),
+        (MLA_ARCH, (40, 40, 96, 64)),
     ):
         q, k, v = (
             torch.randn(s, generator=g, device=dev, dtype=torch.bfloat16)
-            for s in ((2, h, sq, dh), (2, hkv, sk, dh), (2, hkv, sk, dh))
+            for s in ((2, h, sq, dh), (2, hkv, sk, dh), (2, hkv, sk, dv))
         )
+        vp = F.pad(v, (0, dh - dv))  # v zero-padded to q's width, as sdpa passes it
         pairs = sq * (sq + 1) // 2  # (query, key) pairs the causal mask keeps
-        flops = 4 * 2 * h * dh * pairs  # at the true head dim, not the padded one
-        nbytes = 2 * (2 * q.numel() + 2 * k.numel())  # q, k, v in, the output out
+        # QK^T and PV at the true head dims, not the padded ones
+        flops = 2 * 2 * h * (dh + dv) * pairs
+        # q, k, v in at their true widths, the output [2, h, sq, dv] out
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + 2 * h * sq * dv)
+        if dv != dh:
+            err = max_abs_err([ops.flash_attention(q, k, vp)[..., :dv]],
+                              [ref.flash_attention_ref(q, k, vp)[..., :dv]])
+            if not err <= ATTN_TOL["bfloat16"]:
+                fail(f"flash_attention {arch}'s shape, v padded from {dv}, differs from"
+                     f" its plain version: {err}")
+            errs[torch.bfloat16] = max(errs[torch.bfloat16], err)
 
         def sdpa_call():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=hkv != h)
 
-        t = cold_and_hot({"default": lambda: ops.flash_attention(q, k, v)}, sdpa_call)
+        t = cold_and_hot({"default": lambda: ops.flash_attention(q, k, vp)}, sdpa_call)
+        padded = fa_mod.plan(dh, torch.bfloat16).padded_d
         rows[arch] = dict(
-            shape=f"q [2, {h}, {sq}, {dh}] bf16 over k, v [2, {hkv}, {sk}, {dh}], causal",
+            shape=f"q [2, {h}, {sq}, {dh}] bf16 over k [2, {hkv}, {sk}, {dh}], v [2, {hkv},"
+            f" {sk}, {dv}]{f' padded to {dh}' if dv != dh else ''}, causal",
             ms=t["cold_ms"],
             hot_ms=t["hot_ms"],
-            plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3),
+            plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, vp), 3),
             library_ms=t["library_cold_ms"],
             library_hot_ms=t["library_hot_ms"],
             bound_ms=max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
             bound_by="operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
             else "bytes",
-            padded_share=1 - dh / fa_mod.plan(dh, torch.bfloat16).padded_d,
+            padded_share={"qk": 1 - dh / padded, "pv": 1 - dv / padded},
         )
-        del q, k, v
+        del q, k, v, vp
     main = rows[LM_ARCH]
     out["flash_attention"] = dict(
         name="flash_attention",
@@ -2557,8 +2598,8 @@ def lm_attention_kernels(seed):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:78",
         shape=main["shape"],
-        check="max abs err bf16 {:.2e}, f32 {:.2e} over {} cases".format(
-            errs[torch.bfloat16], errs[torch.float32], len(cases)
+        check="max abs err bf16 {:.2e}, f32 {:.2e} over {} cases and {}'s shape".format(
+            errs[torch.bfloat16], errs[torch.float32], len(cases), MLA_ARCH
         ),
         bit_equal=False,
         max_abs_err=errs[torch.bfloat16],
@@ -2571,7 +2612,7 @@ def lm_attention_kernels(seed):
               f" {r['hot_ms']:.4f} hot, plain {r['plain_ms']:.4f} ms, library"
               f" {r['library_ms']:.4f} ms cold, {r['library_hot_ms']:.4f} hot, bound"
               f" {r['bound_ms']:.4f} ms ({r['bound_by']}), padded share of the products"
-              f" {r['padded_share']:.3f} on {card}")
+              f" QK {r['padded_share']['qk']:.3f}, PV {r['padded_share']['pv']:.3f} on {card}")
     for k_ in out.values():
         print(
             f"kernel {k_['name']}: {k_['shape']}: {k_['check']}, kernel"
@@ -2650,7 +2691,9 @@ def phase_lm_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
     32), granite-moe-1b-a400m (the same, top-2 of 4 experts) and
     grok-1-314b (top-2 of 8), capacity factor 8.0, in f32 and bf16, weights
     from ``seed`` carried bit for bit; page tables identical, logits within
-    1e-4 (f32) or 0.05 x RMS (bf16).  An MoE model's routing is recorded on
+    1e-4 (f32) or 0.05 x RMS (bf16).  Then reduced minicpm3-4b with v
+    narrower than q and k (``v_head_dim=8`` against 16: ``sdpa`` pads v)
+    through ``dense_cache_trace``, the same limits.  An MoE model's routing is recorded on
     both: in f32 every choice must agree; in bf16 a choice may flip where
     two probabilities nearly tie, and the logits are held where no flip
     reaches (``clean_steps``), the agreement reported."""
@@ -2703,6 +2746,19 @@ def phase_lm_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
                 fail(f"lm cpu-vs-cuda {arch} {dtype}: logits differ by {err} (limit {tol}){note}")
             print(f"cpu-vs-cuda lm {arch} {dtype}: 10 paged steps + prefill, tables equal,"
                   f" max |dlogit| {err:.3e} (limit {tol:.3e}, RMS {rms:.3f}){note}")
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config(MLA_ARCH).reduced(v_head_dim=8, dtype=dtype)
+        host = model.init_params(cfg, seed, device=devices[0])
+        card = model.params_from_numpy(cfg, model.params_to_numpy(host), devices[1])
+        want = dense_cache_trace(cfg, host, devices[0], seed)
+        got = dense_cache_trace(cfg, card, devices[1], seed)
+        err = max_abs_err(got, want)
+        rms = float(np.sqrt(np.mean([float(x.double().pow(2).mean()) for x in want])))
+        tol = 1e-4 if dtype == "float32" else 0.05 * rms
+        if not err <= tol:
+            fail(f"lm cpu-vs-cuda {MLA_ARCH} {dtype}: logits differ by {err} (limit {tol})")
+        print(f"cpu-vs-cuda lm {MLA_ARCH} v 8 {dtype}: prefill + 10 decode steps, a slot"
+              f" reset, max |dlogit| {err:.3e} (limit {tol:.3e}, RMS {rms:.3f})")
 
 
 @contextlib.contextmanager
@@ -3348,10 +3404,11 @@ def mamba_kernels(seed, build):
     return {"mamba_scan": out}
 
 
-def ssm_trace(cfg, params, dev, seed):
+def dense_cache_trace(cfg, params, dev, seed):
     """One ``prefill`` of two 12-token sequences, then ten ``decode_step``s
-    of three slots; after step 5 slot 1's request is released and its
-    states zeroed for a new one.  Returns the logits on the host."""
+    of three slots over a dense cache; after step 5 slot 1's request is
+    released and its cache planes zeroed for a new one.  Returns the logits
+    on the host."""
     import torch
 
     from repro_torch.models import model
@@ -3370,8 +3427,9 @@ def ssm_trace(cfg, params, dev, seed):
 
 
 def release_slot(cache, slot):
-    """Zero one slot's recurrent states (and the hybrid's shared keys and
-    values) for the next request."""
+    """Zero one slot's planes of a dense cache (recurrent states, the
+    hybrid's shared keys and values, MLA's ``c_kv`` and ``k_rope``) for the
+    next request."""
     for plane in cache.values():
         plane[:, slot].zero_()
 
@@ -3389,8 +3447,8 @@ def phase_ssm_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
             cfg = get_config(arch).reduced(dtype=dtype)
             host = model.init_params(cfg, seed, device=devices[0])
             card = model.params_from_numpy(cfg, model.params_to_numpy(host), devices[1])
-            want = ssm_trace(cfg, host, devices[0], seed)
-            got = ssm_trace(cfg, card, devices[1], seed)
+            want = dense_cache_trace(cfg, host, devices[0], seed)
+            got = dense_cache_trace(cfg, card, devices[1], seed)
             err = max_abs_err(got, want)
             rms = float(np.sqrt(np.mean([float(x.double().pow(2).mean()) for x in want])))
             tol = 1e-4 if dtype == "float32" else 0.05 * rms
@@ -3645,12 +3703,99 @@ def phase_hybrid(seed):
     return report, launches
 
 
-def phase_ssm_gate(seed):
-    """The SSM equivalence gate at full width in float32 (no TF32):
-    falcon-mamba-7b cut to 4 layers and zamba2-2.7b to 6 (one shared block),
+def phase_mla(seed):
+    """minicpm3-4b at full width (62 layers, bf16, weights from ``seed``):
+    ``prefill`` over two ``PREFILL_TOKENS`` sequences (``timed_prefill``:
+    ``flash_attention`` at q, k 96 wide and v 64, padded to 96 by ``sdpa``,
+    in every layer, each call held to its plain version once), then
+    ``MLA_STEPS`` ``decode_step``s of ``MLA_SLOTS`` slots in lockstep over
+    a compressed cache of ``MLA_STEPS`` positions, greedy after a seeded
+    first token (one step profiled: device busy ms, idle share, kernels a
+    step); then ``MLA_REPLAYS`` slots' tokens replayed through ``prefill``
+    against the decode's logits (max |dlogit| / RMS and greedy agreement,
+    reported).  Returns (report, launches of the prefill path, launches of
+    the decode path, which runs no kernel of the table)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.serve.serve_step import prefill
+
+    dev = torch.device("cuda")
+    cfg = get_config(MLA_ARCH)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    report = {"arch": MLA_ARCH, "init_s": time.perf_counter() - t0}
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(seed + 22)
+    toks = torch.randint(0, cfg.vocab, (2, PREFILL_TOKENS), generator=g, device=dev)
+    report["prefill"], prefill_launches = timed_prefill(
+        cfg, params, toks, {"flash_attention": cfg.n_layers}
+    )
+    del toks
+    cache = model.init_decode_cache(cfg, MLA_SLOTS, MLA_STEPS, device=dev)
+    tok = torch.randint(0, cfg.vocab, (MLA_SLOTS, 1), generator=g, device=dev)
+    fed, record, times = [], [], []
+    prof_step = MLA_STEPS // 2 + 1
+    ops.reset_launches()
+    for step in range(MLA_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fed.append(tok[:MLA_REPLAYS, 0].clone())
+        if step == prof_step:
+            (logits, _), _, prof, _ = device_profile(
+                lambda: model.decode_step(cfg, params, tok, cache, step)
+            )
+        else:
+            logits, _ = model.decode_step(cfg, params, tok, cache, step)
+        tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        if step != prof_step:
+            times.append((time.perf_counter() - t0) * 1e3)
+        record.append(logits[:MLA_REPLAYS].clone())
+    decode_launches = dict(ops.LAUNCHES)
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"mla decode {MLA_ARCH}: logits are not finite")
+    med = float(np.median(times))
+    busy = sum(ms for _, ms, _ in prof)
+    report["decode"] = dict(
+        steps=MLA_STEPS,
+        slots=MLA_SLOTS,
+        cache_positions=MLA_STEPS,
+        tokens_per_s=MLA_SLOTS / med * 1e3,
+        median_ms=med,
+        p25_ms=float(np.percentile(times, 25)),
+        p75_ms=float(np.percentile(times, 75)),
+        device_busy_ms=busy,
+        idle_share=1 - busy / med,
+        kernels_per_step=sum(n for _, _, n in prof),
+        top=[(k[:48], ms, n) for k, ms, n in prof[:6]],
+    )
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del cache, logits
+    dec = torch.stack(record, 1)  # [replays, steps, V]
+    pre = prefill(cfg, params, torch.stack(fed, 1))
+    rms = float(dec.double().pow(2).mean().sqrt())
+    report["replays"] = dict(
+        slots=MLA_REPLAYS,
+        tokens=MLA_STEPS,
+        max_dlogit_over_rms=float((pre - dec).abs().max()) / rms,
+        greedy_agree=float((pre.argmax(-1) == dec.argmax(-1)).float().mean()),
+    )
+    del params, pre, dec
+    print(f"mla {MLA_ARCH}: {json.dumps(report)}")
+    return report, prefill_launches, decode_launches
+
+
+def phase_decode_gate(seed, models):
+    """The dense-cache equivalence gate at full width in float32 (no TF32):
+    each ``(arch, layers)`` of ``models`` cut to that depth (falcon-mamba-7b
+    to 4 layers, zamba2-2.7b to 6, one shared block; minicpm3-4b to 4),
     four requests of ``GATE_TOKENS`` seeded tokens through ``prefill`` (the
-    kernel) and ``decode_step`` a token at a time (the recurrence); max
-    |dlogit| <= 1e-3 x RMS."""
+    kernels) and ``decode_step`` a token at a time (the recurrence, or
+    MLA's compressed cache); max |dlogit| <= 1e-3 x RMS."""
     import dataclasses
 
     import torch
@@ -3659,13 +3804,14 @@ def phase_ssm_gate(seed):
     from repro_torch.models import model
     from repro_torch.serve.serve_step import prefill
 
+    names = ", ".join(a for a, _ in models)
     if torch.backends.cuda.matmul.allow_tf32 or (
         torch.get_float32_matmul_precision() != "highest"
     ):
-        fail("ssm gate: float32 products must not use TF32")
+        fail(f"gate {names}: float32 products must not use TF32")
     dev = torch.device("cuda")
     report = {}
-    for arch, layers in ((SSM_ARCH, 4), (HYBRID_ARCH, 6)):
+    for arch, layers in models:
         cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
         params = model.init_params(cfg, seed, device=dev)
         b, n = GATE_REQUESTS, GATE_TOKENS
@@ -3681,10 +3827,10 @@ def phase_ssm_gate(seed):
                             prefill_vs_decode=float((pre - dec).abs().max()) / rms)
         del params, cache, dec, pre
         torch.cuda.empty_cache()
-    print(f"gate ssm f32: {json.dumps(report)}")
+    print(f"gate {names} f32: {json.dumps(report)}")
     worst = max(r["prefill_vs_decode"] for r in report.values())
     if not worst <= 1e-3:
-        fail(f"ssm gate: max |dlogit| / RMS {worst} > 1e-3")
+        fail(f"gate {names}: max |dlogit| / RMS {worst} > 1e-3")
     return report
 
 
@@ -3759,7 +3905,7 @@ def main(argv=None):
                    ("mamba_scan", "flash_attention"))
     torch.cuda.empty_cache()
     t11 = time.perf_counter()
-    report["gate-ssm"] = phase_ssm_gate(args.seed)
+    report["gate-ssm"] = phase_decode_gate(args.seed, ((SSM_ARCH, 4), (HYBRID_ARCH, 6)))
     t12 = time.perf_counter()
     # the MoE plane: granite-moe-1b-a400m, the earlier models freed
     report["serving-moe"], per_path["serving-moe"], params, replays = phase_serving(
@@ -3775,6 +3921,14 @@ def main(argv=None):
     t13 = time.perf_counter()
     report["gate-moe"] = phase_gate(args.seed, MOE_ARCH, moe_capacity_factor=4.0)
     t14 = time.perf_counter()
+    # the MLA plane: minicpm3-4b, the earlier models freed
+    report["mla"], per_path["prefill-mla"], per_path["serving-mla"] = phase_mla(args.seed)
+    check_launches("prefill-mla", per_path["prefill-mla"], ("flash_attention",))
+    print(f"main serving-mla: launches {per_path['serving-mla']}")
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    report["gate-mla"] = phase_decode_gate(args.seed, ((MLA_ARCH, 4),))
+    t16 = time.perf_counter()
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["read-only"]}
     print(f"main: launches {launches}")
     print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
@@ -3783,7 +3937,8 @@ def main(argv=None):
           f" serving {t7 - t6:.1f} s, prefill {t8 - t7:.1f} s, gate {t9 - t8:.1f} s,"
           f" ssm serving and prefill {t10 - t9:.1f} s, hybrid {t11 - t10:.1f} s,"
           f" ssm gate {t12 - t11:.1f} s, moe serving and prefill {t13 - t12:.1f} s,"
-          f" moe gate {t14 - t13:.1f} s")
+          f" moe gate {t14 - t13:.1f} s, mla serving and prefill {t15 - t14:.1f} s,"
+          f" mla gate {t16 - t15:.1f} s")
     rows = []
     for name, k in kernels.items():
         rows.append(dict(

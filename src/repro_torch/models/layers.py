@@ -1,7 +1,8 @@
-"""Model building blocks of the dense GQA, MoE and Mamba families: norms,
-RoPE, attention, the SwiGLU / GELU MLP, the MoE block and the Mamba block.
+"""Model building blocks of the dense GQA, MLA, MoE and Mamba families:
+norms, RoPE, GQA and multi-head latent attention, the SwiGLU / GELU MLP, the
+MoE block and the Mamba block.
 
-The port of ``repro.models.layers``' dense, MoE and Mamba parts.  Functions
+The port of ``repro.models.layers``' dense, MLA, MoE and Mamba parts.  Functions
 are pure (parameters in, activations out) over dicts of tensors with the
 reference's names, and follow its casts one for one:
 
@@ -17,9 +18,17 @@ reference's names, and follow its casts one for one:
 ``sdpa`` is the ``flash_attention`` kernel (its plain version on the CPU),
 where the reference inlines a jnp double scan of the same function.  The
 kernel keeps the probabilities in f32 before P.V, as the TPU kernel and its
-oracle do; the reference's jnp form rounds them to bf16 first.  Its tensor-
-parallel hooks (``_tp``) are dropped: one card, no GSPMD.  MLA blocks
-come with a later slice of the port.
+oracle do; the reference's jnp form rounds them to bf16 first.  The kernel
+takes one head dim for q, k and v, as the TPU kernel does; where v is
+narrower (MLA: q and k 96 wide, v 64), ``sdpa`` zero-pads v to q's width in
+the copy it makes anyway and cuts the output back, which is exact: zero
+columns of V add nothing to the others of P.V.  Its tensor-parallel hooks
+(``_tp``) are dropped: one card, no GSPMD.
+
+``mla_attention`` is the reference's MLA step for step: prefill folds the
+no-position and rotary parts of q and k into one head dim for ``sdpa``;
+decode caches the compressed ``c_kv`` and the rotated ``k_rope`` a token,
+expands the whole cache through ``wkv_b`` and scores it in f32.
 
 ``moe_block`` is the reference's sort-based capacity dispatch step for step:
 the same top-k order on ties (the lower expert first), a stable sort of the
@@ -130,16 +139,29 @@ SDPA_TRANSPOSES = "sdpa transposes"
 def sdpa(q, k, v, *, causal: bool, scale=None):
     """Attention through the ``flash_attention`` kernel.
 
-    q: [B, Sq, H, D]; k, v: [B, Sk, HKV, D] (the reference's layout); the
-    kernel takes heads before positions, so the operands are transposed into
-    contiguous copies and the output back into one; the copies run under
-    the profiler range ``SDPA_TRANSPOSES``.  The causal diagonal sits at
-    ``Sk - Sq`` (the reference's callers use Sq = Sk, offset 0)."""
+    q: [B, Sq, H, Dq]; k: [B, Sk, HKV, Dq]; v: [B, Sk, HKV, Dv] with Dv <=
+    Dq (the reference's layout); returns [B, Sq, H, Dv].  The kernel takes
+    heads before positions and one head dim, so the operands are transposed
+    into contiguous copies, v's zero-padded to Dq, and the output's first Dv
+    columns copied back; the copies run under the profiler range
+    ``SDPA_TRANSPOSES``.  ``scale`` defaults to ``1 / sqrt(Dq)``.  The
+    causal diagonal sits at ``Sk - Sq`` (the reference's callers use Sq =
+    Sk, offset 0)."""
+    dq, dv = q.shape[-1], v.shape[-1]
+    if dv > dq:
+        raise ValueError(f"sdpa: v's head dim {dv} is wider than q's {dq}")
     with torch.autograd.profiler.record_function(SDPA_TRANSPOSES):
-        q, k, v = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        q, k = (x.transpose(1, 2).contiguous() for x in (q, k))
+        if dv < dq:
+            b, sk, hkv, _ = v.shape
+            vp = v.new_zeros((b, hkv, sk, dq))
+            vp[..., :dv] = v.transpose(1, 2)
+            v = vp
+        else:
+            v = v.transpose(1, 2).contiguous()
     o = ops.flash_attention(q, k, v, causal=causal, scale=scale)
     with torch.autograd.profiler.record_function(SDPA_TRANSPOSES):
-        return o.transpose(1, 2).contiguous()
+        return o[..., :dv].transpose(1, 2).contiguous()
 
 
 def _normal(shape, std, dt, gen, device):
@@ -240,6 +262,105 @@ def gqa_attention(
     else:
         o = sdpa(q, k, v, causal=causal)
     out = _dot(o.reshape(b, s, h * hd), p["wo"])
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek style)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg: ArchConfig, gen: torch.Generator, *, layers: int, device=None) -> dict:
+    """MLA projections stacked ``[layers, ...]`` at the reference's scales:
+    the q down- and up-projections ``wq_a`` [D, q_lora], ``wq_b`` [q_lora,
+    H (nope + rope)], the kv down-projection ``wkv_a`` [D, kv_lora + rope]
+    and up-projection ``wkv_b`` [kv_lora, H (nope + v)], ``wo`` [H v, D],
+    and the two norms' scales."""
+    d, h = cfg.d_model, cfg.n_heads
+    qlr, kvlr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    s = 1.0 / math.sqrt(d)
+    dt = torch_dtype(cfg)
+
+    def w(shape, std):
+        return _stacked(layers, shape, std, dt, gen, device)
+
+    return {
+        "wq_a": w((d, qlr), s),
+        "q_norm": torch.ones((layers, qlr), dtype=dt, device=device),
+        "wq_b": w((qlr, h * (nope + rope_d)), 1.0 / math.sqrt(qlr)),
+        "wkv_a": w((d, kvlr + rope_d), s),
+        "kv_norm": torch.ones((layers, kvlr), dtype=dt, device=device),
+        "wkv_b": w((kvlr, h * (nope + vd)), 1.0 / math.sqrt(kvlr)),
+        "wo": w((h * vd, d), s / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def mla_attention(
+    cfg: ArchConfig,
+    p: dict,
+    x: torch.Tensor,  # [B, S, D]
+    positions: torch.Tensor,  # [S] absolute positions
+    *,
+    causal: bool = True,
+    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_len: Optional[int] = None,
+):
+    """Returns ``(out [B, S, D], new_kv_cache or None)``.  With a
+    compressed ``kv_cache`` (``c_kv`` [B, Smax, kv_lora], ``k_rope`` [B,
+    Smax, rope]) the new token's normed ``c_kv`` and rotated ``k_rope`` are
+    written into it in place at ``cache_len``, the whole cache is expanded
+    through ``wkv_b`` and the queries score it in f32; without one, the
+    no-position and rotary parts fold into one head dim of nope + rope for
+    ``sdpa``, v keeping its own width."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvlr = cfg.kv_lora_rank
+
+    q = _dot(rmsnorm(_dot(x, p["wq_a"]), p["q_norm"], cfg.norm_eps), p["wq_b"])
+    q = q.reshape(b, s, h, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    kv_a = _dot(x, p["wkv_a"])  # [B, S, kv_lora + rope]
+    c_kv, k_rope = kv_a[..., :kvlr], kv_a[..., kvlr:]
+    c_kv = rmsnorm(c_kv, p["kv_norm"], cfg.norm_eps)
+
+    cos, sin = rope_freqs(rope_d, cfg.rope_theta, positions)
+    q_rope = apply_rope(q_rope, cos[:, None, :], sin[:, None, :])
+    k_rope = apply_rope(k_rope[:, :, None, :], cos[:, None, :], sin[:, None, :])[:, :, 0]
+
+    new_cache = None
+    if kv_cache is not None:
+        cc, cr = kv_cache
+        _dus(cc, c_kv, cache_len, axis=1)
+        _dus(cr, k_rope, cache_len, axis=1)
+        new_cache = (cc, cr)
+        c_all, r_all = cc, cr
+        smax = cc.shape[1]
+    else:
+        c_all, r_all = c_kv, k_rope
+        smax = s
+
+    kv = _dot(c_all, p["wkv_b"]).reshape(b, smax, h, nope + vd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    if kv_cache is None:
+        qh = torch.cat([q_nope, q_rope], dim=-1)
+        kh = torch.cat([k_nope, r_all[:, :, None, :].expand(b, smax, h, rope_d)], dim=-1)
+        o = sdpa(qh, kh, v, causal=causal, scale=scale)
+    else:
+        sc = (
+            torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+            + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), r_all.float())
+        ) * scale
+        kpos = torch.arange(smax, device=x.device)
+        mask = positions[:, None] >= kpos[None, :]
+        mask = mask & (kpos[None, :] < int(cache_len) + s)
+        sc = sc.masked_fill(~mask[None, None], float("-inf"))
+        pr = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", pr, v.float())
+    out = _dot(o.reshape(b, s, h * vd).to(x.dtype), p["wo"])
     return out, new_cache
 
 

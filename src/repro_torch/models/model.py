@@ -1,10 +1,13 @@
 """The decoder: init, forward (train / prefill) and dense-cache decode for
-the dense GQA, MoE, SSM and hybrid families.
+the dense GQA, MLA, MoE, SSM and hybrid families.
 
 The port of ``repro.models.model``'s dense path (families ``dense`` and
 ``vlm``: pre-norm GQA with optional QKV bias or QK-norm, then a SwiGLU or
-GELU MLP), its MoE path (``moe``: the same attention, then an MoE block in
-place of the MLP, whose aux loss ``forward`` sums over the layers), its SSM
+GELU MLP), its MLA path (``attention == "mla"``, minicpm3-4b: multi-head
+latent attention in place of GQA, whose dense decode cache holds the
+compressed ``c_kv`` and the rotated ``k_rope`` a token), its MoE path
+(``moe``: the same attention, then an MoE block in place of the MLP, whose
+aux loss ``forward`` sums over the layers), its SSM
 path (``ssm``: a pre-norm Mamba block a layer,
 falcon-mamba-7b) and its hybrid path (a Mamba stack with one weight-shared
 GQA block applied after every ``hybrid_attn_every`` layers, zamba2-2.7b).
@@ -14,8 +17,8 @@ parameter pytree across (as ``jax.tree.map(np.asarray, params)`` gives it),
 the counterpart of ``dex.state_from_numpy``.  The layer stack is a Python
 loop over those leaves, where the reference scans.
 
-MLA and encoder-decoder configs resolve by name and raise
-``NotImplementedError`` here, naming the slice of the port that brings them.
+Encoder-decoder configs resolve by name and raise ``NotImplementedError``
+here, naming the slice of the port that brings them.
 """
 
 from __future__ import annotations
@@ -34,21 +37,17 @@ F32 = torch.float32
 #: what a config needs that the port does not serve yet, and the slice
 #: (``ROADMAP.md``, item 13) that brings it
 _LATER = (
-    ("encdec", "encoder-decoder models come after the MLA slice (item 13.d)"),
+    ("encdec", "encoder-decoder models come with the next slice of the port (item 13.d)"),
 )
 
 
 def check_served(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA, MoE, SSM
-    or hybrid model."""
+    """Raise ``NotImplementedError`` for a config of a family the port does
+    not serve yet (every family but encoder-decoder is served: dense GQA,
+    MLA, MoE, SSM and hybrid)."""
     for field, why in _LATER:
         if getattr(cfg, field):
             raise NotImplementedError(f"{cfg.name}: {why}")
-    if not cfg.ssm and cfg.attention != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.attention} attention (MLA) comes with the next slice of"
-            " the port (item 13.c)"
-        )
 
 
 def layer_params(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -93,11 +92,12 @@ def init_params(cfg: ArchConfig, seed: int, device=None) -> Dict[str, Any]:
 
 
 def _init_attn_block(cfg: ArchConfig, gen, layers: int, device):
-    """An attention block's leaves: ``moe`` in place of ``mlp`` for an MoE
-    config."""
+    """An attention block's leaves: ``attn`` from ``init_mla`` for an MLA
+    config, ``moe`` in place of ``mlp`` for an MoE one."""
+    init_attn = L.init_mla if cfg.attention == "mla" else L.init_gqa
     p = {
         "ln1": L.init_norm(cfg, cfg.d_model, layers=layers, device=device),
-        "attn": L.init_gqa(cfg, gen, layers=layers, device=device),
+        "attn": init_attn(cfg, gen, layers=layers, device=device),
         "ln2": L.init_norm(cfg, cfg.d_model, layers=layers, device=device),
     }
     if cfg.moe:
@@ -189,8 +189,14 @@ def _apply_block(cfg: ArchConfig, p, x, positions, with_aux: bool):
     if "ssm" in p:
         h, _, _ = L.mamba_block(cfg, p["ssm"], L.apply_norm(cfg, x, p["ln1"]))
         return x + h, None
-    h, _ = L.gqa_attention(cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions)
+    h, _ = _attention(cfg)(cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions)
     return ffn(cfg, p, x + h, with_aux=with_aux)
+
+
+def _attention(cfg: ArchConfig):
+    """The config's attention layer: ``mla_attention`` or ``gqa_attention``
+    (the hybrid's shared block is GQA)."""
+    return L.mla_attention if cfg.attention == "mla" else L.gqa_attention
 
 
 def _schedule(cfg: ArchConfig):
@@ -244,8 +250,10 @@ def init_decode_cache(
     cfg: ArchConfig, batch: int, max_len: int, device=None
 ) -> Dict[str, torch.Tensor]:
     """Dense (contiguous) decode cache: ``k``, ``v`` [L, B, max_len, HKV,
-    Dh] for a GQA model; for an SSM or hybrid one the recurrent ``ssm``
-    [L, B, Di, N] and ``conv`` [L, B, conv - 1, Di] states in f32, and for
+    Dh] for a GQA model; ``c_kv`` [L, B, max_len, kv_lora] and ``k_rope``
+    [L, B, max_len, rope] for an MLA one, in the model's dtype; for an SSM
+    or hybrid one the recurrent ``ssm`` [L, B, Di, N] and ``conv`` [L, B,
+    conv - 1, Di] states in f32, and for
     the hybrid ``shared_k``, ``shared_v`` [groups, B, max_len, HKV, Dh] (one
     per application of the shared block).  The DEX-paged variant is
     ``serve/kv_cache.py``."""
@@ -265,6 +273,12 @@ def init_decode_cache(
             cache["shared_k"] = torch.zeros(shape, dtype=dt, device=device)
             cache["shared_v"] = torch.zeros(shape, dtype=dt, device=device)
         return cache
+    if cfg.attention == "mla":
+        shape = (cfg.n_layers, batch, max_len)
+        return {
+            "c_kv": torch.zeros((*shape, cfg.kv_lora_rank), dtype=dt, device=device),
+            "k_rope": torch.zeros((*shape, cfg.qk_rope_dim), dtype=dt, device=device),
+        }
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
@@ -282,7 +296,8 @@ def decode_step(
     """One token for every sequence.  Returns ``(logits [B, V], cache)``;
     the cache is written in place (the reference returns a new one).  A
     Mamba layer takes the inline one-token recurrence; an attention block
-    (the hybrid's shared one too) attends over its dense cache."""
+    (the hybrid's shared one too) attends over its dense cache, an MLA block
+    over its compressed one."""
     check_served(cfg)
     x = _embed(cfg, params, tokens)
     positions = torch.full((1,), int(pos), dtype=torch.int32, device=x.device)
@@ -300,8 +315,11 @@ def decode_step(
                 cache["conv"][i].copy_(new_conv)
                 x = x + h
                 continue
-            kv = (cache["k"][i], cache["v"][i])
-        h, _ = L.gqa_attention(
+            if cfg.attention == "mla":
+                kv = (cache["c_kv"][i], cache["k_rope"][i])
+            else:
+                kv = (cache["k"][i], cache["v"][i])
+        h, _ = _attention(cfg)(
             cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions,
             kv_cache=kv, cache_len=pos,
         )

@@ -43,7 +43,8 @@ def _keys(req_ids, page_idx) -> np.ndarray:
 @dataclasses.dataclass
 class PagedKVCache:
     """Host-controlled paged pool with a DEX page-table index; pools and
-    index live on ``device`` (``None`` means CUDA)."""
+    index live on ``device`` (``None`` means CUDA).  An MLA config raises
+    ``ValueError``: its cache is the compressed dense one."""
 
     cfg: ArchConfig
     n_pages: int
@@ -53,6 +54,11 @@ class PagedKVCache:
 
     def __post_init__(self):
         c = self.cfg
+        if c.attention == "mla":
+            raise ValueError(
+                f"{c.name}: the paged pool holds GQA keys and values; an MLA model"
+                " decodes through model.decode_step over its compressed cache"
+            )
         self.device = resolve_device(self.device)
         shape = (c.n_layers, self.n_pages, self.page_size, c.n_kv_heads, c.head_dim)
         self.k_pages = torch.zeros(shape, dtype=torch_dtype(c), device=self.device)

@@ -9,7 +9,9 @@ is the ``flash_attention`` kernel and its Mamba layers' scans the
 ``mamba_scan`` kernel.  An SSM or hybrid model decodes through
 ``models/model.py::decode_step``, whose recurrent state has no pages; like
 the reference, nothing prefills a prompt into that state: prompts are fed a
-token a step.
+token a step.  An MLA model decodes through ``decode_step`` too, over its
+compressed dense cache: the reference's paged step reads the GQA
+projections ``wq``, ``wk`` and ``wv``, which an MLA block does not have.
 
 The port of ``repro.serve.serve_step``.  The history and the fresh token are
 blended as the reference blends them: the softmax over the history, weighed
@@ -68,6 +70,11 @@ def paged_decode_step(
         raise ValueError(
             f"{cfg.name}: paged decode serves attention models; an SSM or hybrid"
             " model decodes through model.decode_step"
+        )
+    if cfg.attention == "mla":
+        raise ValueError(
+            f"{cfg.name}: paged decode serves GQA models; an MLA model decodes"
+            " through model.decode_step over its compressed cache"
         )
     b = tokens.shape[0]
     hkv, hd, h = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads

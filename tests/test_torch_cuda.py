@@ -711,6 +711,66 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, sq, sk, d,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_with_v_padded_from_64(cuda, dtype):
+    """minicpm3-4b's prefill attention at one sequence of 300: q and k 96
+    wide over 40 heads, v 64 wide zero-padded to 96 as ``sdpa`` passes it,
+    MLA's scale 1 / sqrt(96); the padded columns of the output are 0 and
+    the rest match the plain version."""
+    q, k, v = flash_case(1, 40, 40, 300, 300, 96, dtype, cuda)
+    v = torch.nn.functional.pad(v[..., :64], (0, 32))
+    scale = 1 / np.sqrt(96)
+    got = ops.flash_attention(q, k, v, scale=scale)
+    want = ref.flash_attention_ref(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert bool((got[..., 64:] == 0).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_layer_on_the_card_matches_the_cpu(cuda, dtype):
+    """minicpm3-4b's MLA layer at full width (d_model 2560, 40 heads, q and
+    k 96 wide, v 64), random weights carried bit for bit: a prefill of 2 x
+    40 tokens (``sdpa``: the flash kernel on the card, its plain version on
+    the CPU), then three one-token steps into a compressed cache of 8
+    positions; outputs and both cache planes within 1e-4 in f32 and 2e-2 in
+    bf16."""
+    from repro_torch.models import layers as t_layers
+
+    cfg = dataclasses.replace(get_config("minicpm3-4b"), dtype=dtype, n_layers=1)
+    dt = t_layers.torch_dtype(cfg)
+    gen = torch.Generator().manual_seed(0)
+    host = t_model.layer_params(t_layers.init_mla(cfg, gen, layers=1, device="cpu"), 0)
+    card = {k: v.to(cuda) for k, v in host.items()}
+    rng = np.random.default_rng(1)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+
+    def check(got, want):
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype
+        err = (got.cpu().float() - want.float()).abs().max().item()
+        assert err <= tol, err
+
+    x = torch.from_numpy(rng.standard_normal((2, 40, 2560))).to(dt)
+    want, _ = t_layers.mla_attention(cfg, host, x, torch.arange(40))
+    got, _ = t_layers.mla_attention(cfg, card, x.to(cuda), torch.arange(40, device=cuda))
+    check(got, want)
+    planes = [(torch.zeros((2, 8, 256), dtype=dt), torch.zeros((2, 8, 32), dtype=dt))]
+    planes.append(tuple(p.to(cuda) for p in planes[0]))
+    for t in range(3):
+        x = torch.from_numpy(rng.standard_normal((2, 1, 2560))).to(dt)
+        want, _ = t_layers.mla_attention(cfg, host, x, torch.tensor([t]), kv_cache=planes[0],
+                                         cache_len=t)
+        got, _ = t_layers.mla_attention(cfg, card, x.to(cuda), torch.tensor([t], device=cuda),
+                                        kv_cache=planes[1], cache_len=t)
+        check(got, want)
+        for a, b in zip(planes[1], planes[0]):
+            check(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_zeroes_rows_no_key_reaches(cuda, dtype):
     """Causal with Sk < Sq: query i sees keys up to i + Sk - Sq, so the
     first Sq - Sk rows see none; the kernel writes them 0 (the plain version
