@@ -2,8 +2,8 @@
 """Drive the PyTorch port's lookup, write, scan, split, separator, route-table
 and repartition paths, its paged-KV serving of minitron-4b and of the MoE
 model granite-moe-1b-a400m, its Mamba serving of falcon-mamba-7b and
-zamba2-2.7b, and its MLA serving of minicpm3-4b, on one NVIDIA GPU and
-check them.
+zamba2-2.7b, its MLA serving of minicpm3-4b and its encoder-decoder
+serving of whisper-small, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed 0] [--n-keys 200000000]
 
@@ -65,7 +65,12 @@ Phases, in order; any failure exits non-zero:
      [2, 40, 2048, 96] with v 64 wide, zero-padded to 96 as ``sdpa`` passes
      it, and held to its plain version) beside SDPA on the unpadded
      operands and its bound at the true head dims, with the padded share of
-     each product; then
+     each product, and at whisper-small's three non-causal shapes (D = 64,
+     12 heads over 12), each held in bf16 and f32 and timed the same way:
+     the encoder's [64, 12, 1500, 64], the prefill's cross attention [8,
+     12, 448, 64] over [8, 12, 1500, 64] and the decode step's [64, 12, 1,
+     64] over [64, 12, 1500, 64] (with the padded share of the 128-row q
+     tiles); then
      ``mamba_scan`` at falcon-mamba-7b's prefill shape ([2, 2048, 8192],
      N = 16) and zamba2-2.7b's ([2, 2048, 5120], N = 64), operands in bf16
      and f32, at init scales with decay-heavy channels, plus a width off
@@ -95,6 +100,10 @@ Phases, in order; any failure exits non-zero:
      one zeroed after a release (the same limits); reduced minicpm3-4b with
      v 8 wide against q and k 16 (``sdpa`` pads v), a ``prefill`` and ten
      ``decode_step``s, one slot zeroed after a release (the same limits);
+     reduced whisper-small (2 + 2 layers) over 48 frames a request: a
+     ``prefill`` with the frames, ``prefill_cross_kv`` and ten
+     ``decode_step``s of three slots (the logits and the cross planes, the
+     same limits);
   5. the main path at full size (one YCSB-C ``fetch`` and one ``offload``
      warm-up batch print what each of their ``node_search`` calls sees:
      rows, KEY_MAX share, all-KEY_MAX rows, values; and each
@@ -174,6 +183,19 @@ Phases, in order; any failure exits non-zero:
      256 positions, greedy after a seeded first token, logits finite, one
      step profiled; two slots' 256 tokens replayed through ``prefill`` (max
      |dlogit| / RMS and greedy agreement, reported);
+     6f. (the earlier models freed) whisper-small at full width, 12 encoder
+     and 12 decoder layers, bf16: the encoder over 64 slots x 1,500 seeded
+     frames into a 3.5 GB cross cache (``prefill_cross_kv``, frames/s, a
+     profile with ``flash_attention`` by shape and ``sdpa``'s transposes);
+     ``prefill`` over 8 x 448 tokens with their frames as for minitron-4b
+     (36 flash calls: the encoder's, the decoder's causal ones and the
+     cross attention's), profiled by shape; 448 ``decode_step``s of the 64
+     slots in lockstep over the cross cache and a self cache of 448
+     positions, greedy after a seeded first token, logits finite, one step
+     profiled, one step's 12 cross-attention calls (one query row over
+     1,500 keys) held to their plain version; two slots replayed through
+     ``prefill`` with their frames (max |dlogit| / RMS and greedy
+     agreement, reported);
   7. the equivalence gates in float32: minitron-4b cut to 4 layers, four
      requests of 256 seeded tokens through paged decode, dense
      ``decode_step`` and ``prefill``, pairwise max |dlogit| <= 1e-3 x RMS;
@@ -183,13 +205,16 @@ Phases, in order; any failure exits non-zero:
      experts / top-k: no pair dropped), as for minitron-4b; minicpm3-4b cut
      to 4 layers, ``prefill`` (the f32 flash kernel at D = 96, v padded
      from 64) against ``decode_step`` over the compressed cache, the same
-     limit;
+     limit; whisper-small cut to 4 encoder and 4 decoder layers over 1,500
+     frames, ``prefill`` against ``prefill_cross_kv`` and ``decode_step``,
+     the same limit;
   8. one JSON line of per-kernel launches (summed over the paths of phases
      5 and 6, each counted from 0 just before it: the prefill paths of 6b
      and 6c are ``prefill-ssm`` and ``prefill-hybrid``, 6d's
      ``serving-moe`` and ``prefill-moe``, 6e's ``prefill-mla`` and
-     ``serving-mla``, whose decode launches no kernel of the table), errors
-     and times.
+     ``serving-mla``, whose decode launches no kernel of the table, 6f's
+     ``prefill-encdec`` and ``serving-encdec``, whose encodes and decode
+     launch ``flash_attention``, 12 calls each), errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 prints no result and exits non-zero.
@@ -316,6 +341,24 @@ HYBRID_SLOTS, HYBRID_STEPS = 32, 128  # zamba2-2.7b's decode run
 MLA_ARCH = "minicpm3-4b"
 MLA_SLOTS, MLA_STEPS = 64, 256  # slots, and steps = cache positions
 MLA_REPLAYS = 2  # slots replayed through prefill
+# the encoder-decoder plane: whisper-small, its encoder run once over each
+# slot's 1,500 frames into the cross cache, then decoded through dense
+# decode_step, all slots in lockstep (the reference has no paged
+# encoder-decoder step)
+ENCDEC_ARCH = "whisper-small"
+ENCDEC_SLOTS = 64
+ENCDEC_STEPS = 448  # Whisper's max_target_positions: steps = self-cache positions
+ENCDEC_PREFILL = (8, 448)  # requests x decoder tokens of the timed prefill
+ENCDEC_REPLAYS = 2  # slots replayed through prefill
+ENCODE_RUNS = 3  # timed prefill_cross_kv calls
+ENCDEC_TRACE_FRAMES = 48  # frames a request of phase 4's reduced whisper-small
+# flash_attention at whisper-small's shapes (D = 64, 12 heads over 12, all
+# non-causal): (batch, query rows, keys) of rows 8e, 8f and 8g
+ENCDEC_FLASH = {
+    "encoder": (64, 1500, 1500),
+    "prefill cross": (8, 448, 1500),
+    "decode cross": (64, 1, 1500),
+}
 
 
 def parse_args(argv):
@@ -2591,6 +2634,44 @@ def lm_attention_kernels(seed):
             padded_share={"qk": 1 - dh / padded, "pv": 1 - dv / padded},
         )
         del q, k, v, vp
+    # whisper-small's shapes, non-causal at D = 64, G = 1: the encoder's
+    # self-attention and the cross attention of prefill and of one decode
+    # step (one query row), each held in f32 and bf16
+    h, dh = 12, 64
+    for label, (b, sq_, sk_) in ENCDEC_FLASH.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (
+                torch.randn(s, generator=g, device=dev).to(dtype)
+                for s in ((b, h, sq_, dh), (b, h, sk_, dh), (b, h, sk_, dh))
+            )
+            err = max_abs_err([ops.flash_attention(q, k, v, causal=False)],
+                              [ref.flash_attention_ref(q, k, v, causal=False)])
+            if not err <= ATTN_TOL[dtype_name(dtype)]:
+                fail(f"flash_attention {dtype} {ENCDEC_ARCH} {label} [{b}, {h}, {sq_}, {dh}]"
+                     f" over {sk_} keys differs from its plain version: {err}")
+            errs[dtype] = max(errs[dtype], err)
+        # bf16, timed: every (query, key) pair, 2 (Dq + Dv) flops a head; q,
+        # k, v read and the output written once
+        flops = 2 * 2 * h * dh * b * sq_ * sk_
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        t = cold_and_hot({"default": lambda: ops.flash_attention(q, k, v, causal=False)},
+                         lambda: F.scaled_dot_product_attention(q, k, v))
+        q_rows = -(-sq_ // fa_mod.BLOCK_Q) * fa_mod.BLOCK_Q
+        rows[f"{ENCDEC_ARCH} {label}"] = dict(
+            shape=f"q [{b}, {h}, {sq_}, {dh}] bf16 over k, v [{b}, {h}, {sk_}, {dh}],"
+            " non-causal",
+            ms=t["cold_ms"],
+            hot_ms=t["hot_ms"],
+            plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=False), 3),
+            library_ms=t["library_cold_ms"],
+            library_hot_ms=t["library_hot_ms"],
+            bound_ms=max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+            bound_by="operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
+            else "bytes",
+            padded_share={"qk": 0.0, "pv": 0.0},
+            q_tile_padding_share=1 - sq_ / q_rows,
+        )
+        del q, k, v
     main = rows[LM_ARCH]
     out["flash_attention"] = dict(
         name="flash_attention",
@@ -2598,8 +2679,9 @@ def lm_attention_kernels(seed):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:78",
         shape=main["shape"],
-        check="max abs err bf16 {:.2e}, f32 {:.2e} over {} cases and {}'s shape".format(
-            errs[torch.bfloat16], errs[torch.float32], len(cases), MLA_ARCH
+        check="max abs err bf16 {:.2e}, f32 {:.2e} over {} cases, {}'s shape and {}'s {}".format(
+            errs[torch.bfloat16], errs[torch.float32], len(cases), MLA_ARCH, ENCDEC_ARCH,
+            len(ENCDEC_FLASH),
         ),
         bit_equal=False,
         max_abs_err=errs[torch.bfloat16],
@@ -2612,7 +2694,9 @@ def lm_attention_kernels(seed):
               f" {r['hot_ms']:.4f} hot, plain {r['plain_ms']:.4f} ms, library"
               f" {r['library_ms']:.4f} ms cold, {r['library_hot_ms']:.4f} hot, bound"
               f" {r['bound_ms']:.4f} ms ({r['bound_by']}), padded share of the products"
-              f" QK {r['padded_share']['qk']:.3f}, PV {r['padded_share']['pv']:.3f} on {card}")
+              f" QK {r['padded_share']['qk']:.3f}, PV {r['padded_share']['pv']:.3f}"
+              + (f", padded share of the q tiles' rows {r['q_tile_padding_share']:.4f}"
+                 if "q_tile_padding_share" in r else "") + f" on {card}")
     for k_ in out.values():
         print(
             f"kernel {k_['name']}: {k_['shape']}: {k_['check']}, kernel"
@@ -2759,6 +2843,50 @@ def phase_lm_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
             fail(f"lm cpu-vs-cuda {MLA_ARCH} {dtype}: logits differ by {err} (limit {tol})")
         print(f"cpu-vs-cuda lm {MLA_ARCH} v 8 {dtype}: prefill + 10 decode steps, a slot"
               f" reset, max |dlogit| {err:.3e} (limit {tol:.3e}, RMS {rms:.3f})")
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config(ENCDEC_ARCH).reduced(dtype=dtype)
+        host = model.init_params(cfg, seed, device=devices[0])
+        card = model.params_from_numpy(cfg, model.params_to_numpy(host), devices[1])
+        want_logits, want_planes = encdec_trace(cfg, host, devices[0], seed)
+        got_logits, got_planes = encdec_trace(cfg, card, devices[1], seed)
+        report = []
+        for what, got, want in (("logits", got_logits, want_logits),
+                                ("cross planes", got_planes, want_planes)):
+            err = max_abs_err(got, want)
+            rms = float(np.sqrt(np.mean([float(x.double().pow(2).mean()) for x in want])))
+            tol = 1e-4 if dtype == "float32" else 0.05 * rms
+            if not err <= tol:
+                fail(f"lm cpu-vs-cuda {ENCDEC_ARCH} {dtype}: {what} differ by {err}"
+                     f" (limit {tol})")
+            report.append(f"{what} max abs diff {err:.3e} (limit {tol:.3e}, RMS {rms:.3f})")
+        print(f"cpu-vs-cuda lm {ENCDEC_ARCH} {dtype}: prefill, prefill_cross_kv + 10 decode"
+              f" steps over {ENCDEC_TRACE_FRAMES} frames, " + "; ".join(report))
+
+
+def encdec_trace(cfg, params, dev, seed):
+    """An encoder-decoder model's paths at ``ENCDEC_TRACE_FRAMES`` seeded
+    frames a request: one ``prefill`` of three 12-token requests with their
+    frames, then ``prefill_cross_kv`` over the same frames and ten
+    ``decode_step``s of the three slots.  Returns the logits and the cross
+    planes (``xk``, ``xv``), on the host."""
+    import torch
+
+    from repro_torch.models import model
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.serve.serve_step import prefill
+
+    rng = np.random.default_rng(seed)
+    shape = (3, ENCDEC_TRACE_FRAMES, cfg.d_model)
+    emb = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    emb = emb.to(dev, torch_dtype(cfg))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(3, 12))).to(dev)
+    logits = [prefill(cfg, params, toks, enc_emb=emb).cpu()]
+    cache = model.init_decode_cache(cfg, 3, 10, device=dev, enc_len=ENCDEC_TRACE_FRAMES)
+    model.prefill_cross_kv(cfg, params, emb, cache)
+    for t in range(10):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(3, 1))).to(dev)
+        logits.append(model.decode_step(cfg, params, tok, cache, t)[0].cpu())
+    return logits, [cache["xk"].cpu(), cache["xv"].cpu()]
 
 
 @contextlib.contextmanager
@@ -2808,13 +2936,15 @@ def clean_steps(flips):
     return np.cumprod(~flips.any(1), axis=0).astype(bool).T
 
 
-def device_profile(fn, ranges=()):
+def device_profile(fn, ranges=(), kernel_log=None):
     """``fn()`` under ``torch.profiler``: its result, the wall milliseconds
     under the profiler, the kernels as ``(name, device ms, count)`` sorted
     by device time (kernels only: an operator's row repeats its kernels'
     time), and the device ms of the kernels launched under each profiler
     range named in ``ranges`` (``record_function``, as ``models/layers.py``
-    ``sdpa`` marks its copies)."""
+    ``sdpa`` marks its copies; a kernel launched through ``ctypes`` belongs
+    to no range).  A list ``kernel_log`` receives every kernel launch as
+    ``(name, device ms)``, in the order they ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2839,6 +2969,10 @@ def device_profile(fn, ranges=()):
         for r in ranges
     }
     kernels = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
+    if kernel_log is not None:
+        runs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        kernel_log.extend((e.name, e.time_range.elapsed_us() / 1e3) for e in runs)
     return out, wall, kernels, marked
 
 
@@ -3458,14 +3592,15 @@ def phase_ssm_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
                   f" reset, max |dlogit| {err:.3e} (limit {tol:.3e}, RMS {rms:.3f})")
 
 
-def timed_prefill(cfg, params, toks, expect):
+def timed_prefill(cfg, params, toks, expect, enc_emb=None):
     """``PREFILL_RUNS`` timed ``prefill`` calls after a warm-up; the launch
     counts must equal ``expect`` (kernel -> launches a call) times the runs.
     Where ``flash_attention`` runs, one more call holds each of its
     launches to its plain version on the layer's own q, k and v, run in f32
     (``held_to_plain(exact=True)``; max abs error <= 2e-2 in bf16, 1e-4 in
     f32), and the profiled call reports the device ms of ``sdpa``'s
-    transposes and, for an MoE model, of its MoE blocks.  Returns (report,
+    transposes and, for an MoE model, of its MoE blocks.  An
+    encoder-decoder model takes its frames ``enc_emb``.  Returns (report,
     launches)."""
     import torch
 
@@ -3473,13 +3608,16 @@ def timed_prefill(cfg, params, toks, expect):
     from repro_torch.models.layers import MOE_BLOCK, SDPA_TRANSPOSES
     from repro_torch.serve.serve_step import prefill
 
-    prefill(cfg, params, toks)  # warm-up
+    def run():
+        return prefill(cfg, params, toks, enc_emb=enc_emb)
+
+    run()  # warm-up
     ops.reset_launches()
     times = []
     for _ in range(PREFILL_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = prefill(cfg, params, toks)
+        logits = run()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = dict(ops.LAUNCHES)
@@ -3494,13 +3632,13 @@ def timed_prefill(cfg, params, toks, expect):
     held = []
     if attention:
         with held_to_plain(held, "flash_attention", exact=True):
-            prefill(cfg, params, toks)
+            run()
         worst = max(e for e, _ in held)
         if len(held) != expect["flash_attention"] or not worst <= ATTN_TOL[cfg.dtype]:
             fail(f"prefill {cfg.name}: {len(held)} flash_attention calls held to their"
                  f" plain version, max abs error {worst} (limit {ATTN_TOL[cfg.dtype]})")
     ranges = ((SDPA_TRANSPOSES,) if attention else ()) + ((MOE_BLOCK,) if cfg.moe else ())
-    _, _, prof, marked = device_profile(lambda: prefill(cfg, params, toks), ranges=ranges)
+    _, _, prof, marked = device_profile(run, ranges=ranges)
     busy = sum(ms for _, ms, _ in prof)
     med = float(np.median(times))
     report = dict(
@@ -3789,13 +3927,227 @@ def phase_mla(seed):
     return report, prefill_launches, decode_launches
 
 
+def flash_label(q_shape, k_shape, causal):
+    """A ``flash_attention`` call's shapes, as ``flash_calls`` records them."""
+    return (f"flash_attention q {list(q_shape)} over {k_shape[2]} keys"
+            f"{', causal' if causal else ''}")
+
+
+@contextlib.contextmanager
+def flash_calls(order):
+    """Within the block, every ``ops.flash_attention`` call appends its
+    ``flash_label`` to ``order``."""
+    from repro_torch.kernels import ops
+
+    launch = ops.flash_attention
+
+    def recorded(q, k, v, *, causal=True, scale=None):
+        order.append(flash_label(q.shape, k.shape, causal))
+        return launch(q, k, v, causal=causal, scale=scale)
+
+    ops.flash_attention = recorded
+    try:
+        yield
+    finally:
+        ops.flash_attention = launch
+
+
+def encdec_profile(fn, name, shapes):
+    """``fn()`` profiled, with its ``flash_attention`` calls by shape:
+    ``shapes`` lists the (q shape, k shape, causal, calls) it should make;
+    the profile's flash kernels, in the order they ran, are the calls in
+    the order ``flash_calls`` recorded them.  Returns the result and a
+    report: wall and device busy ms, kernels, top kernels, each shape's
+    calls, device ms a call and share of busy, and ``sdpa``'s transposes'
+    device ms and share."""
+    from repro_torch.models.layers import SDPA_TRANSPOSES
+
+    order, log = [], []
+    with flash_calls(order):
+        out, wall, prof, marked = device_profile(fn, (SDPA_TRANSPOSES,), kernel_log=log)
+    flash_ms = [ms for kernel, ms in log if "flash_attention" in kernel]
+    labels = [flash_label(q, k, causal) for q, k, causal, _ in shapes]
+    want = {flash_label(q, k, causal): n for q, k, causal, n in shapes}
+    if len(flash_ms) != len(order) or {c: order.count(c) for c in order} != want:
+        fail(f"{name}: {len(flash_ms)} flash_attention kernels profiled, calls {order}")
+    busy = sum(ms for _, ms, _ in prof)
+    by_shape = {}
+    for label in labels:
+        ms = sum(t for t, c in zip(flash_ms, order) if c == label)
+        by_shape[label] = dict(calls=order.count(label), ms_per_call=ms / order.count(label),
+                               share=ms / busy)
+    report = dict(
+        wall_ms=wall,
+        device_busy_ms=busy,
+        kernels=sum(n for _, _, n in prof),
+        top=[(k[:48], ms, n) for k, ms, n in prof[:6]],
+        flash_by_shape=by_shape,
+        sdpa_transposes_device_ms=marked[SDPA_TRANSPOSES],
+        sdpa_transposes_share=marked[SDPA_TRANSPOSES] / busy,
+    )
+    return out, report
+
+
+def phase_encdec(seed):
+    """whisper-small at full width (12 encoder and 12 decoder layers, bf16,
+    weights from ``seed``).  Encode: ``prefill_cross_kv`` over
+    ``ENCDEC_SLOTS`` slots of 1,500 seeded frames (``ENCODE_RUNS`` timed
+    calls after a warm-up, one profiled: frames/s, ``flash_attention`` by
+    shape, ``sdpa``'s transposes), filling a cross cache of 3.5 GB.
+    Prefill: ``timed_prefill`` over ``ENCDEC_PREFILL`` requests x tokens
+    with their frames (36 flash calls a call, each held to its plain
+    version once), and one call profiled by shape.  Decode:
+    ``ENCDEC_STEPS`` ``decode_step``s of the slots in lockstep over that
+    cross cache and a self cache of ``ENCDEC_STEPS`` positions, greedy
+    after a seeded first token; one step profiled, and one step's 12
+    cross-attention calls held to their plain version (run in f32, within
+    2e-2).  Replays: ``ENCDEC_REPLAYS`` slots' tokens through ``prefill``
+    with their frames against the decode's logits (max |dlogit| / RMS and
+    greedy agreement, reported).  Returns (report, launches of the prefill
+    path, launches of the serving path: the timed and profiled encodes and
+    the decode)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.serve.serve_step import prefill
+
+    dev = torch.device("cuda")
+    cfg = get_config(ENCDEC_ARCH)
+    h, d, t_src = cfg.n_heads, cfg.head_dim, cfg.max_source_positions
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    report = {"arch": ENCDEC_ARCH, "init_s": time.perf_counter() - t0}
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    b = ENCDEC_SLOTS
+    emb = torch.randn((b, t_src, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    cache = model.init_decode_cache(cfg, b, ENCDEC_STEPS, device=dev, enc_len=t_src)
+
+    def encode():
+        return model.prefill_cross_kv(cfg, params, emb, cache)
+
+    encode()  # warm-up
+    ops.reset_launches()
+    times = []
+    for _ in range(ENCODE_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    enc_shape = (b, h, t_src, d)
+    _, prof = encdec_profile(
+        encode, ENCDEC_ARCH, [(enc_shape, enc_shape, False, cfg.enc_layers)]
+    )
+    med = float(np.median(times))
+    report["encode"] = dict(
+        slots=b, frames=t_src, median_ms=med, frames_per_s=b * t_src / med * 1e3,
+        cross_cache_gb=2 * cache["xk"].numel() * 2 / 1e9,
+        idle_share=1 - prof["device_busy_ms"] / med,
+        **prof,
+    )
+
+    # decode: every slot in lockstep, greedy after a seeded first token
+    tok = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=dev)
+    fed, record, times, held = [], [], [], []
+    prof_step, held_step = ENCDEC_STEPS // 2 + 1, ENCDEC_STEPS // 2 + 2
+    for step in range(ENCDEC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fed.append(tok[:ENCDEC_REPLAYS, 0].clone())
+        if step == prof_step:
+            (logits, _), prof = encdec_profile(
+                lambda: model.decode_step(cfg, params, tok, cache, step), ENCDEC_ARCH,
+                [((b, h, 1, d), (b, h, t_src, d), False, cfg.n_layers)],
+            )
+        elif step == held_step:
+            with held_to_plain(held, "flash_attention", exact=True):
+                logits, _ = model.decode_step(cfg, params, tok, cache, step)
+        else:
+            logits, _ = model.decode_step(cfg, params, tok, cache, step)
+        tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        if step not in (prof_step, held_step):
+            times.append((time.perf_counter() - t0) * 1e3)
+        record.append(logits[:ENCDEC_REPLAYS].clone())
+    serving_launches = dict(ops.LAUNCHES)
+    want = (ENCODE_RUNS + 1) * cfg.enc_layers + ENCDEC_STEPS * cfg.n_layers
+    if serving_launches["flash_attention"] != want:
+        fail(f"{ENCDEC_ARCH} serving: {serving_launches['flash_attention']} flash_attention"
+             f" launches, expected {want}")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{ENCDEC_ARCH} decode: logits are not finite")
+    worst = max(e for e, _ in held)
+    if len(held) != cfg.n_layers or not worst <= ATTN_TOL["bfloat16"]:
+        fail(f"{ENCDEC_ARCH} decode: {len(held)} cross-attention calls held to their plain"
+             f" version, max abs error {worst}")
+    med = float(np.median(times))
+    report["decode"] = dict(
+        steps=ENCDEC_STEPS,
+        slots=b,
+        cache_positions=ENCDEC_STEPS,
+        source_frames=t_src,
+        tokens_per_s=b / med * 1e3,
+        median_ms=med,
+        p25_ms=float(np.percentile(times, 25)),
+        p75_ms=float(np.percentile(times, 75)),
+        idle_share=1 - prof["device_busy_ms"] / med,
+        cross_held_to_plain=dict(calls=len(held), max_abs_err=worst,
+                                 differing_share=float(np.mean([f for _, f in held]))),
+        **prof,
+    )
+    del cache, logits
+    dec = torch.stack(record, 1)  # [replays, steps, V]
+    replay_emb = emb[:ENCDEC_REPLAYS].contiguous()
+    del emb
+    torch.cuda.empty_cache()
+
+    # prefill: ENCDEC_PREFILL requests x tokens, each with its frames
+    n_req, n_tok = ENCDEC_PREFILL
+    toks = torch.randint(0, cfg.vocab, (n_req, n_tok), generator=g, device=dev)
+    frames = torch.randn((n_req, t_src, cfg.d_model), generator=g, device=dev)
+    frames = frames.to(torch.bfloat16)
+    per_call = cfg.enc_layers + 2 * cfg.n_layers
+    report["prefill"], prefill_launches = timed_prefill(
+        cfg, params, toks, {"flash_attention": per_call}, enc_emb=frames
+    )
+    report["prefill"]["frames"] = n_req * t_src
+    self_shape, src_shape = (n_req, h, n_tok, d), (n_req, h, t_src, d)
+    _, report["prefill"]["profile_by_shape"] = encdec_profile(
+        lambda: prefill(cfg, params, toks, enc_emb=frames), ENCDEC_ARCH,
+        [(src_shape, src_shape, False, cfg.enc_layers),
+         (self_shape, self_shape, True, cfg.n_layers),
+         (self_shape, src_shape, False, cfg.n_layers)],
+    )
+    del toks, frames
+
+    pre = prefill(cfg, params, torch.stack(fed, 1), enc_emb=replay_emb)
+    rms = float(dec.double().pow(2).mean().sqrt())
+    report["replays"] = dict(
+        slots=ENCDEC_REPLAYS,
+        tokens=ENCDEC_STEPS,
+        max_dlogit_over_rms=float((pre - dec).abs().max()) / rms,
+        greedy_agree=float((pre.argmax(-1) == dec.argmax(-1)).float().mean()),
+    )
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params, pre, dec, replay_emb
+    print(f"encdec {ENCDEC_ARCH}: {json.dumps(report)}")
+    return report, prefill_launches, serving_launches
+
+
 def phase_decode_gate(seed, models):
     """The dense-cache equivalence gate at full width in float32 (no TF32):
     each ``(arch, layers)`` of ``models`` cut to that depth (falcon-mamba-7b
-    to 4 layers, zamba2-2.7b to 6, one shared block; minicpm3-4b to 4),
-    four requests of ``GATE_TOKENS`` seeded tokens through ``prefill`` (the
-    kernels) and ``decode_step`` a token at a time (the recurrence, or
-    MLA's compressed cache); max |dlogit| <= 1e-3 x RMS."""
+    to 4 layers, zamba2-2.7b to 6, one shared block; minicpm3-4b to 4;
+    whisper-small to 4 encoder and 4 decoder layers), four requests of
+    ``GATE_TOKENS`` seeded tokens through ``prefill`` (the kernels) and
+    ``decode_step`` a token at a time (the recurrence, or MLA's compressed
+    cache; for an encoder-decoder model, with ``max_source_positions``
+    seeded frames a request, through the cross cache ``prefill_cross_kv``
+    fills); max |dlogit| <= 1e-3 x RMS."""
     import dataclasses
 
     import torch
@@ -3812,20 +4164,29 @@ def phase_decode_gate(seed, models):
     dev = torch.device("cuda")
     report = {}
     for arch, layers in models:
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+        cut = {"enc_layers": layers} if get_config(arch).encdec else {}
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32", **cut)
         params = model.init_params(cfg, seed, device=dev)
         b, n = GATE_REQUESTS, GATE_TOKENS
         rng = np.random.default_rng(seed + 21)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(b, n))).to(dev)
-        cache = model.init_decode_cache(cfg, b, n, device=dev)
+        emb, frames = None, cfg.max_source_positions if cfg.encdec else 0
+        cache = model.init_decode_cache(cfg, b, n, device=dev, enc_len=frames)
+        if cfg.encdec:
+            emb = torch.from_numpy(
+                rng.standard_normal((b, frames, cfg.d_model)).astype(np.float32)
+            ).to(dev)
+            model.prefill_cross_kv(cfg, params, emb, cache)
         dec = torch.stack(
             [model.decode_step(cfg, params, toks[:, t : t + 1], cache, t)[0] for t in range(n)], 1
         )
-        pre = prefill(cfg, params, toks)
+        pre = prefill(cfg, params, toks, enc_emb=emb)
         rms = float(dec.double().pow(2).mean().sqrt())
         report[arch] = dict(layers=layers, requests=b, tokens=n, rms=rms,
-                            prefill_vs_decode=float((pre - dec).abs().max()) / rms)
-        del params, cache, dec, pre
+                            prefill_vs_decode=float((pre - dec).abs().max()) / rms, **cut)
+        if cfg.encdec:
+            report[arch]["source_frames"] = frames
+        del params, cache, dec, pre, emb
         torch.cuda.empty_cache()
     print(f"gate {names} f32: {json.dumps(report)}")
     worst = max(r["prefill_vs_decode"] for r in report.values())
@@ -3929,6 +4290,16 @@ def main(argv=None):
     t15 = time.perf_counter()
     report["gate-mla"] = phase_decode_gate(args.seed, ((MLA_ARCH, 4),))
     t16 = time.perf_counter()
+    # the encoder-decoder plane: whisper-small, the earlier models freed
+    report["encdec"], per_path["prefill-encdec"], per_path["serving-encdec"] = phase_encdec(
+        args.seed
+    )
+    check_launches("prefill-encdec", per_path["prefill-encdec"], ("flash_attention",))
+    check_launches("serving-encdec", per_path["serving-encdec"], ("flash_attention",))
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    report["gate-encdec"] = phase_decode_gate(args.seed, ((ENCDEC_ARCH, 4),))
+    t18 = time.perf_counter()
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["read-only"]}
     print(f"main: launches {launches}")
     print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
@@ -3938,7 +4309,8 @@ def main(argv=None):
           f" ssm serving and prefill {t10 - t9:.1f} s, hybrid {t11 - t10:.1f} s,"
           f" ssm gate {t12 - t11:.1f} s, moe serving and prefill {t13 - t12:.1f} s,"
           f" moe gate {t14 - t13:.1f} s, mla serving and prefill {t15 - t14:.1f} s,"
-          f" mla gate {t16 - t15:.1f} s")
+          f" mla gate {t16 - t15:.1f} s, encdec serving and prefill {t17 - t16:.1f} s,"
+          f" encdec gate {t18 - t17:.1f} s")
     rows = []
     for name, k in kernels.items():
         rows.append(dict(

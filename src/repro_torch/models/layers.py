@@ -1,6 +1,7 @@
-"""Model building blocks of the dense GQA, MLA, MoE and Mamba families:
-norms, RoPE, GQA and multi-head latent attention, the SwiGLU / GELU MLP, the
-MoE block and the Mamba block.
+"""Model building blocks of the dense GQA, MLA, MoE, Mamba and
+encoder-decoder families: norms, RoPE, GQA (with the encoder-decoder's cross
+attention) and multi-head latent attention, the SwiGLU / GELU MLP, the MoE
+block and the Mamba block.
 
 The port of ``repro.models.layers``' dense, MLA, MoE and Mamba parts.  Functions
 are pure (parameters in, activations out) over dicts of tensors with the
@@ -220,23 +221,34 @@ def gqa_attention(
     causal: bool = True,
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_len: Optional[int] = None,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """Returns ``(out [B, S, D], new_kv_cache or None)``.  With a dense
     ``kv_cache`` ([B, Smax, HKV, Dh] k and v) the new keys and values are
     written into it in place at ``cache_len`` and the queries attend over
-    it; without one, ``sdpa``."""
+    it; without one, ``sdpa``.  With ``cross_kv`` (an encoder-decoder's
+    cross attention: k and v [B, T, HKV, Dh], projected from the encoder's
+    output by the caller) only q is projected, neither side is rotated nor
+    k normed, and the queries attend over all of k through ``sdpa``,
+    whatever ``causal`` says."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _dot(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(b, s, h, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    if cross_kv is not None:
+        o = sdpa(q, *cross_kv, causal=False)
+        return _dot(o.reshape(b, s, h * hd), p["wo"]), None
     k = _dot(x, p["wk"])
     v = _dot(x, p["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
+        k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
     q = apply_rope(q, cos[:, None, :], sin[:, None, :])

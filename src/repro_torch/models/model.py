@@ -1,5 +1,5 @@
-"""The decoder: init, forward (train / prefill) and dense-cache decode for
-the dense GQA, MLA, MoE, SSM and hybrid families.
+"""The model: init, forward (train / prefill) and dense-cache decode for
+the dense GQA, MLA, MoE, SSM, hybrid and encoder-decoder families.
 
 The port of ``repro.models.model``'s dense path (families ``dense`` and
 ``vlm``: pre-norm GQA with optional QKV bias or QK-norm, then a SwiGLU or
@@ -10,15 +10,17 @@ compressed ``c_kv`` and the rotated ``k_rope`` a token), its MoE path
 aux loss ``forward`` sums over the layers), its SSM
 path (``ssm``: a pre-norm Mamba block a layer,
 falcon-mamba-7b) and its hybrid path (a Mamba stack with one weight-shared
-GQA block applied after every ``hybrid_attn_every`` layers, zamba2-2.7b).
+GQA block applied after every ``hybrid_attn_every`` layers, zamba2-2.7b) and
+its encoder-decoder path (``encdec``, whisper-small: a non-causal GQA
+encoder over the caller's frame embeddings, the conv front end being a stub
+as in the reference, and a cross-attention sublayer in every decoder block
+over the encoder's output, whose keys and values the dense decode cache
+holds a layer, ``xk`` / ``xv``, filled once by ``prefill_cross_kv``).
 Parameters are a dict of tensors with the reference's names and stacked
 ``[L, ...]`` leaves; ``params_from_numpy`` carries the reference's
 parameter pytree across (as ``jax.tree.map(np.asarray, params)`` gives it),
 the counterpart of ``dex.state_from_numpy``.  The layer stack is a Python
 loop over those leaves, where the reference scans.
-
-Encoder-decoder configs resolve by name and raise ``NotImplementedError``
-here, naming the slice of the port that brings them.
 """
 
 from __future__ import annotations
@@ -33,22 +35,6 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
 F32 = torch.float32
-
-#: what a config needs that the port does not serve yet, and the slice
-#: (``ROADMAP.md``, item 13) that brings it
-_LATER = (
-    ("encdec", "encoder-decoder models come with the next slice of the port (item 13.d)"),
-)
-
-
-def check_served(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config of a family the port does
-    not serve yet (every family but encoder-decoder is served: dense GQA,
-    MLA, MoE, SSM and hybrid)."""
-    for field, why in _LATER:
-        if getattr(cfg, field):
-            raise NotImplementedError(f"{cfg.name}: {why}")
-
 
 def layer_params(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i``'s slice of stacked ``[L, ...]`` leaves (views)."""
@@ -68,7 +54,6 @@ def init_params(cfg: ArchConfig, seed: int, device=None) -> Dict[str, Any]:
     ``seed``.  The numbers differ from the reference's ``jax.random`` ones;
     tests carry the reference's parameters across with
     ``params_from_numpy``."""
-    check_served(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = L.torch_dtype(cfg)
@@ -88,12 +73,15 @@ def init_params(cfg: ArchConfig, seed: int, device=None) -> Dict[str, Any]:
         params["blocks"] = _init_attn_block(cfg, gen, n, device)
     if cfg.hybrid_attn_every:  # one weight-shared block, unstacked
         params["shared_attn"] = layer_params(_init_attn_block(cfg, gen, 1, device), 0)
+    if cfg.encdec:
+        params["encoder"] = _init_encoder(cfg, gen, device)
     return params
 
 
 def _init_attn_block(cfg: ArchConfig, gen, layers: int, device):
-    """An attention block's leaves: ``attn`` from ``init_mla`` for an MLA
-    config, ``moe`` in place of ``mlp`` for an MoE one."""
+    """A decoder block's leaves: ``attn`` from ``init_mla`` for an MLA
+    config, ``moe`` in place of ``mlp`` for an MoE one, and the cross
+    attention ``lnx`` / ``xattn`` for an encoder-decoder one."""
     init_attn = L.init_mla if cfg.attention == "mla" else L.init_gqa
     p = {
         "ln1": L.init_norm(cfg, cfg.d_model, layers=layers, device=device),
@@ -104,14 +92,37 @@ def _init_attn_block(cfg: ArchConfig, gen, layers: int, device):
         p["moe"] = L.init_moe(cfg, gen, layers=layers, device=device)
     else:
         p["mlp"] = L.init_mlp(cfg, gen, layers=layers, device=device)
+    if cfg.encdec:
+        p["lnx"] = L.init_norm(cfg, cfg.d_model, layers=layers, device=device)
+        p["xattn"] = L.init_gqa(cfg, gen, layers=layers, device=device)
     return p
+
+
+def _init_encoder(cfg: ArchConfig, gen, device):
+    """The encoder's leaves: learned source positions ``pos``
+    [max_source_positions, D] of N(0, 0.02), ``enc_layers`` stacked
+    pre-norm GQA + MLP ``blocks`` and a ``final_norm``.  The encoder shares
+    the config, so its output projections take the decoder's depth in their
+    ``1 / sqrt(2 n_layers)`` scale, as the reference's do."""
+    n = cfg.enc_layers
+    return {
+        "pos": L._normal(
+            (cfg.max_source_positions, cfg.d_model), 0.02, L.torch_dtype(cfg), gen, device
+        ),
+        "blocks": {
+            "ln1": L.init_norm(cfg, cfg.d_model, layers=n, device=device),
+            "attn": L.init_gqa(cfg, gen, layers=n, device=device),
+            "ln2": L.init_norm(cfg, cfg.d_model, layers=n, device=device),
+            "mlp": L.init_mlp(cfg, gen, layers=n, device=device),
+        },
+        "final_norm": L.init_norm(cfg, cfg.d_model, device=device),
+    }
 
 
 def params_from_numpy(cfg: ArchConfig, tree: Dict[str, Any], device=None):
     """The reference's parameter pytree, leaves as numpy arrays, as tensors
     on ``device``.  bfloat16 leaves (``ml_dtypes.bfloat16`` in numpy, or
     their ``uint16`` bit patterns) are carried bit for bit."""
-    check_served(cfg)
     device = resolve_device(device)
 
     def leaf(a):
@@ -182,15 +193,68 @@ def ffn(cfg: ArchConfig, p, x, *, with_aux: bool = False):
     return x + L.mlp(cfg, p["mlp"], xin), None
 
 
-def _apply_block(cfg: ArchConfig, p, x, positions, with_aux: bool):
+def _apply_block(cfg: ArchConfig, p, x, positions, with_aux: bool, enc_x=None):
     """One decoder block (a Mamba block for an SSM config), training /
-    prefill path; also the hybrid's shared attention block.  Returns
-    ``(x, aux)``, aux None but for an MoE block ``with_aux``."""
+    prefill path; also the hybrid's shared attention block.  With the
+    encoder's output ``enc_x`` [B, T, D], the block's cross attention runs
+    between its self-attention and its MLP, over keys and values projected
+    from ``enc_x`` (no bias: the reference adds none).  Returns ``(x,
+    aux)``, aux None but for an MoE block ``with_aux``."""
     if "ssm" in p:
         h, _, _ = L.mamba_block(cfg, p["ssm"], L.apply_norm(cfg, x, p["ln1"]))
         return x + h, None
     h, _ = _attention(cfg)(cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions)
-    return ffn(cfg, p, x + h, with_aux=with_aux)
+    x = x + h
+    if enc_x is not None:
+        h, _ = L.gqa_attention(
+            cfg, p["xattn"], L.apply_norm(cfg, x, p["lnx"]), positions,
+            cross_kv=_cross_kv(cfg, p["xattn"], enc_x),
+        )
+        x = x + h
+    return ffn(cfg, p, x, with_aux=with_aux)
+
+
+def _cross_kv(cfg: ArchConfig, p, enc_x: torch.Tensor):
+    """One decoder layer's cross-attention keys and values, ``[B, T, HKV,
+    Dh]`` each, projected from the encoder's output ``enc_x`` [B, T, D] by
+    the layer's ``xattn`` leaves ``p``."""
+    b, t, _ = enc_x.shape
+    shape = (b, t, cfg.n_kv_heads, cfg.head_dim)
+    return L._dot(enc_x, p["wk"]).reshape(shape), L._dot(enc_x, p["wv"]).reshape(shape)
+
+
+def _encode(cfg: ArchConfig, params, enc_emb: torch.Tensor) -> torch.Tensor:
+    """The encoder over the caller's frame embeddings ``enc_emb`` [B, T, D]
+    in the model's dtype (the conv front end is a stub): the learned source
+    positions added, ``enc_layers`` pre-norm blocks of non-causal GQA (with
+    RoPE, as the reference has it) and the MLP, then the final norm.
+    Raises ``ValueError`` without ``enc_emb`` or when T exceeds
+    ``max_source_positions``."""
+    if enc_emb is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder model needs enc_emb [B, T, D]")
+    shape = tuple(enc_emb.shape)
+    if len(shape) != 3 or shape[2] != cfg.d_model or enc_emb.dtype != L.torch_dtype(cfg):
+        raise ValueError(
+            f"{cfg.name}: enc_emb must be [B, T, {cfg.d_model}] {cfg.dtype}, got"
+            f" {shape} {enc_emb.dtype}"
+        )
+    t = shape[1]
+    if t > cfg.max_source_positions:
+        raise ValueError(
+            f"{cfg.name}: {t} source frames, more than max_source_positions"
+            f" {cfg.max_source_positions}"
+        )
+    enc = params["encoder"]
+    x = enc_emb + enc["pos"][:t][None]
+    positions = torch.arange(t, device=x.device)
+    for i in range(cfg.enc_layers):
+        p = layer_params(enc["blocks"], i)
+        h, _ = L.gqa_attention(
+            cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions, causal=False
+        )
+        x = x + h
+        x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["ln2"]))
+    return L.apply_norm(cfg, x, enc["final_norm"])
 
 
 def _attention(cfg: ArchConfig):
@@ -216,23 +280,26 @@ def forward(
     params: Dict[str, Any],
     tokens: torch.Tensor,  # [B, S] int
     *,
+    enc_emb: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
     with_aux: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns ``(logits [B, S, V] f32, aux)`` (aux is the MoE loss summed
     over the layers, 0 without MoE blocks, None without ``with_aux``), or
-    the final hidden states when ``return_hidden``.  Every attention is the ``flash_attention`` kernel,
-    every Mamba layer's scan the ``mamba_scan`` kernel."""
-    check_served(cfg)
+    the final hidden states when ``return_hidden``.  An encoder-decoder
+    model runs its encoder over ``enc_emb`` [B, T, D] first (``ValueError``
+    without it).  Every attention is the ``flash_attention`` kernel, every
+    Mamba layer's scan the ``mamba_scan`` kernel."""
     s = tokens.shape[1]
+    enc_x = _encode(cfg, params, enc_emb) if cfg.encdec else None
     x = _embed(cfg, params, tokens)
     if positions is None:
         positions = torch.arange(s, device=x.device)
     aux = torch.zeros((), dtype=F32, device=x.device) if with_aux else None
     for kind, i in _schedule(cfg):
         p = params["shared_attn"] if kind == "shared" else layer_params(params["blocks"], i)
-        x, a = _apply_block(cfg, p, x, positions, with_aux)
+        x, a = _apply_block(cfg, p, x, positions, with_aux, enc_x)
         if a is not None:
             aux = aux + a
     x = L.apply_norm(cfg, x, params["final_norm"])
@@ -247,7 +314,7 @@ def forward(
 
 
 def init_decode_cache(
-    cfg: ArchConfig, batch: int, max_len: int, device=None
+    cfg: ArchConfig, batch: int, max_len: int, device=None, enc_len: int = 0
 ) -> Dict[str, torch.Tensor]:
     """Dense (contiguous) decode cache: ``k``, ``v`` [L, B, max_len, HKV,
     Dh] for a GQA model; ``c_kv`` [L, B, max_len, kv_lora] and ``k_rope``
@@ -255,9 +322,10 @@ def init_decode_cache(
     or hybrid one the recurrent ``ssm`` [L, B, Di, N] and ``conv`` [L, B,
     conv - 1, Di] states in f32, and for
     the hybrid ``shared_k``, ``shared_v`` [groups, B, max_len, HKV, Dh] (one
-    per application of the shared block).  The DEX-paged variant is
+    per application of the shared block); an encoder-decoder one adds the
+    cross-attention ``xk``, ``xv`` [L, B, enc_len, HKV, Dh], which
+    ``prefill_cross_kv`` fills.  The DEX-paged variant is
     ``serve/kv_cache.py``."""
-    check_served(cfg)
     device = resolve_device(device)
     dt = L.torch_dtype(cfg)
     if cfg.ssm:
@@ -280,10 +348,35 @@ def init_decode_cache(
             "k_rope": torch.zeros((*shape, cfg.qk_rope_dim), dtype=dt, device=device),
         }
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {
+    cache = {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
     }
+    if cfg.encdec:
+        shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        cache["xk"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["xv"] = torch.zeros(shape, dtype=dt, device=device)
+    return cache
+
+
+def prefill_cross_kv(cfg: ArchConfig, params, enc_emb: torch.Tensor, cache):
+    """Run the encoder once over ``enc_emb`` [B, T, D] and write every
+    decoder layer's cross-attention keys and values into ``cache["xk"]`` /
+    ``cache["xv"]`` in place, a layer at a time (the reference builds new
+    planes); returns the cache, whose planes must be [L, B, T, HKV, Dh]
+    (``init_decode_cache(..., enc_len=T)``)."""
+    enc_x = _encode(cfg, params, enc_emb)
+    b, t, _ = enc_x.shape
+    want = (cfg.n_layers, b, t, cfg.n_kv_heads, cfg.head_dim)
+    for key in ("xk", "xv"):
+        got = tuple(cache[key].shape) if key in cache else None
+        if got != want:
+            raise ValueError(f"{cfg.name}: cache[{key!r}] must be {want}, got {got}")
+    for i in range(cfg.n_layers):
+        kx, vx = _cross_kv(cfg, layer_params(params["blocks"], i)["xattn"], enc_x)
+        cache["xk"][i].copy_(kx)
+        cache["xv"][i].copy_(vx)
+    return cache
 
 
 def decode_step(
@@ -297,8 +390,8 @@ def decode_step(
     the cache is written in place (the reference returns a new one).  A
     Mamba layer takes the inline one-token recurrence; an attention block
     (the hybrid's shared one too) attends over its dense cache, an MLA block
-    over its compressed one."""
-    check_served(cfg)
+    over its compressed one; an encoder-decoder block then attends over its
+    layer's ``xk`` / ``xv`` (``sdpa``, one query row)."""
     x = _embed(cfg, params, tokens)
     positions = torch.full((1,), int(pos), dtype=torch.int32, device=x.device)
     for kind, i in _schedule(cfg):
@@ -323,6 +416,13 @@ def decode_step(
             cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions,
             kv_cache=kv, cache_len=pos,
         )
-        x, _ = ffn(cfg, p, x + h)
+        x = x + h
+        if cfg.encdec:
+            h, _ = L.gqa_attention(
+                cfg, p["xattn"], L.apply_norm(cfg, x, p["lnx"]), positions,
+                cross_kv=(cache["xk"][i], cache["xv"][i]),
+            )
+            x = x + h
+        x, _ = ffn(cfg, p, x)
     x = L.apply_norm(cfg, x, params["final_norm"])
     return _logits(x[:, 0], _head_of(cfg, params)), cache

@@ -44,7 +44,9 @@ def _keys(req_ids, page_idx) -> np.ndarray:
 class PagedKVCache:
     """Host-controlled paged pool with a DEX page-table index; pools and
     index live on ``device`` (``None`` means CUDA).  An MLA config raises
-    ``ValueError``: its cache is the compressed dense one."""
+    ``ValueError`` (its cache is the compressed dense one), and so does an
+    encoder-decoder one (it decodes through the dense cache with its cross
+    planes)."""
 
     cfg: ArchConfig
     n_pages: int
@@ -58,6 +60,11 @@ class PagedKVCache:
             raise ValueError(
                 f"{c.name}: the paged pool holds GQA keys and values; an MLA model"
                 " decodes through model.decode_step over its compressed cache"
+            )
+        if c.encdec:
+            raise ValueError(
+                f"{c.name}: the paged pool has no cross-attention planes; an"
+                " encoder-decoder model decodes through model.decode_step"
             )
         self.device = resolve_device(self.device)
         shape = (c.n_layers, self.n_pages, self.page_size, c.n_kv_heads, c.head_dim)

@@ -1,5 +1,5 @@
-"""Serving steps: prefill (every served family) and paged decode (the GQA
-and MoE families).
+"""Serving steps: prefill (every family) and paged decode (the GQA and MoE
+families).
 
 ``paged_decode_step`` is the data-plane consumer of the DEX page table: one
 new token per request, attention over the paged pool through the
@@ -11,7 +11,11 @@ is the ``flash_attention`` kernel and its Mamba layers' scans the
 the reference, nothing prefills a prompt into that state: prompts are fed a
 token a step.  An MLA model decodes through ``decode_step`` too, over its
 compressed dense cache: the reference's paged step reads the GQA
-projections ``wq``, ``wk`` and ``wv``, which an MLA block does not have.
+projections ``wq``, ``wk`` and ``wv``, which an MLA block does not have.  An
+encoder-decoder model decodes through ``decode_step`` too, over its dense
+self and cross caches (``prefill_cross_kv`` fills the cross one): the
+reference's paged step never reads a block's cross attention, so it would
+decode without it (``ROADMAP.md``, queue 3); the port refuses it.
 
 The port of ``repro.serve.serve_step``.  The history and the fresh token are
 blended as the reference blends them: the softmax over the history, weighed
@@ -40,11 +44,12 @@ REGATHER = "history regather"
 F32 = torch.float32
 
 
-def prefill(cfg: ArchConfig, params, tokens, cache=None):
+def prefill(cfg: ArchConfig, params, tokens, cache=None, *, enc_emb=None):
     """Teacher-forced prefill through the training forward; returns the
     logits [B, S, V] f32 (``cache`` is unused, as in the reference; the
-    MoE aux loss is not computed)."""
-    logits, _ = M.forward(cfg, params, tokens, with_aux=False)
+    MoE aux loss is not computed).  An encoder-decoder model takes its
+    frame embeddings ``enc_emb`` [B, T, D]."""
+    logits, _ = M.forward(cfg, params, tokens, enc_emb=enc_emb, with_aux=False)
     return logits
 
 
@@ -65,7 +70,6 @@ def paged_decode_step(
     scatters k_new / v_new into the pool with
     ``PagedKVCache.append_tokens`` (the token attends to itself here, so
     the scatter may land after the step)."""
-    M.check_served(cfg)
     if cfg.ssm:
         raise ValueError(
             f"{cfg.name}: paged decode serves attention models; an SSM or hybrid"
@@ -75,6 +79,11 @@ def paged_decode_step(
         raise ValueError(
             f"{cfg.name}: paged decode serves GQA models; an MLA model decodes"
             " through model.decode_step over its compressed cache"
+        )
+    if cfg.encdec:
+        raise ValueError(
+            f"{cfg.name}: paged decode has no cross attention; an encoder-decoder"
+            " model decodes through model.decode_step over its cross cache"
         )
     b = tokens.shape[0]
     hkv, hd, h = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads

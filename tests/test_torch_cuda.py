@@ -1007,3 +1007,62 @@ def test_ssm_forward_matches_decode_on_the_card(cuda, name):
         [t_model.decode_step(cfg, params, toks[:, t : t + 1], cache, t)[0] for t in range(20)], 1
     )
     assert (dec - full).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,sq,sk",
+    # whisper-small's shapes, 12 heads over 12 of 64, non-causal: the
+    # encoder's 1,500 frames (11 whole 128-row kv tiles and a masked tail of
+    # 92), the prefill's cross attention, and the decode step's, one query
+    # row over the 1,500-frame cross cache
+    [(64, 1500, 1500), (8, 448, 1500), (64, 1, 1500)],
+    ids=["encoder", "prefill-cross", "decode-cross"],
+)
+def test_flash_attention_kernel_at_whisper_shapes(cuda, dtype, b, sq, sk):
+    q, k, v = flash_case(b, 12, 12, sq, sk, 64, dtype, cuda)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=False)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_decode_on_the_card_matches_the_cpu(cuda, dtype):
+    """Reduced whisper-small (2 encoder and 2 decoder layers) over 48
+    frames: ``prefill_cross_kv`` and six ``decode_step``s of three slots on
+    the card (the flash kernel, one query row in the cross attention)
+    against the CPU (its plain version), weights carried bit for bit; the
+    logits and the cross planes within 1e-4 in f32 and 2e-2 in bf16, and
+    the card's decode against its own ``forward``."""
+    from repro_torch.models import layers as t_layers
+
+    cfg = get_config("whisper-small").reduced(dtype=dtype)
+    dt = t_layers.torch_dtype(cfg)
+    host = t_model.init_params(cfg, seed=0, device="cpu")
+    card = t_model.params_from_numpy(cfg, t_model.params_to_numpy(host), cuda)
+    rng = np.random.default_rng(0)
+    emb = torch.from_numpy(rng.standard_normal((3, 48, cfg.d_model))).to(dt)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 6)))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    runs = []
+    for params, dev in ((host, "cpu"), (card, cuda)):
+        cache = t_model.init_decode_cache(cfg, 3, 6, device=dev, enc_len=48)
+        t_model.prefill_cross_kv(cfg, params, emb.to(dev), cache)
+        logits = torch.stack([
+            t_model.decode_step(cfg, params, toks[:, t : t + 1].to(dev), cache, t)[0]
+            for t in range(6)
+        ], 1)
+        runs.append((logits.cpu(), cache["xk"].cpu(), cache["xv"].cpu()))
+    torch.cuda.synchronize()
+    for got, want in zip(runs[1], runs[0]):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, err
+    full, _ = t_model.forward(cfg, card, toks.to(cuda), enc_emb=emb.to(cuda))
+    err = (full.cpu() - runs[1][0]).abs().max().item()
+    assert err <= tol, err

@@ -24,6 +24,7 @@ least a quarter of them, and a failure reports the routing agreement
 about 6e-3)."""
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -219,17 +220,18 @@ def test_init_params_has_the_reference_tree(name):
     assert abs(tp["embed"].float().std().item() / 0.02 - 1) < 0.1
 
 
-@pytest.mark.parametrize(
-    "name",
-    sorted(
-        set(ARCHS)
-        - {"minitron-4b", "qwen1.5-110b", "chameleon-34b", "llama3-405b",
-           "falcon-mamba-7b", "zamba2-2.7b", "granite-moe-1b-a400m", "grok-1-314b",
-           "minicpm3-4b"}
-    ),
-)
-def test_other_families_resolve_then_raise(name):
-    cfg = get_config(name)
-    assert cfg.name == name
-    with pytest.raises(NotImplementedError, match="slice"):
-        TM.init_params(cfg.reduced(), seed=0, device="cpu")
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_every_config_inits_the_reference_tree(name):
+    """Every family is served: each reduced config's ``init_params`` gives
+    the reference's parameter tree (traced by ``jax.eval_shape``, nothing
+    drawn), key for key, with its shapes and dtypes."""
+    rc, tc = ref_config(name).reduced(), get_config(name).reduced()
+    assert tc.name == name and tc == dataclasses.replace(tc, **dataclasses.asdict(rc))
+    rp = jax.eval_shape(lambda k: RM.init_params(rc, k), jax.random.PRNGKey(0))
+    tp = TM.init_params(tc, seed=0, device="cpu")
+    want = {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_flatten_with_path(rp)[0]}
+    got = {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_flatten_with_path(tp)[0]}
+    assert set(got) == set(want)
+    for key, w in want.items():
+        assert tuple(got[key].shape) == w.shape, key
+        assert got[key].dtype == getattr(torch, w.dtype.name), key
