@@ -2,8 +2,9 @@
 """Drive the PyTorch port's lookup, write, scan, split, separator, route-table
 and repartition paths, its paged-KV serving of minitron-4b and of the MoE
 model granite-moe-1b-a400m, its Mamba serving of falcon-mamba-7b and
-zamba2-2.7b, its MLA serving of minicpm3-4b and its encoder-decoder
-serving of whisper-small, on one NVIDIA GPU and check them.
+zamba2-2.7b, its MLA serving of minicpm3-4b, its encoder-decoder
+serving of whisper-small and its training of minitron-4b, on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py [--seed 0] [--n-keys 200000000]
 
@@ -70,7 +71,16 @@ Phases, in order; any failure exits non-zero:
      the encoder's [64, 12, 1500, 64], the prefill's cross attention [8,
      12, 448, 64] over [8, 12, 1500, 64] and the decode step's [64, 12, 1,
      64] over [64, 12, 1500, 64] (with the padded share of the 128-row q
-     tiles); then
+     tiles); then the ``flash_attention`` backward kernel against its plain
+     version on the forward kernel's own output and log-sum-exp (each of
+     dq, dk, dv within 2e-2 of its largest magnitude in bf16, 1e-4 in f32;
+     two launches bit-equal; the forward's log-sum-exp within 1e-3 and
+     1e-5) at minitron-4b's training shape [2, 24, 4096, 128] over 8 kv
+     heads, granite's [2, 16, 2048, 64] over 8 (both causal), whisper's
+     non-causal [8, 12, 448, 64] over [8, 12, 1500, 64], and two small f32
+     cases, the bf16 ones timed cold and hot beside the plain version, the
+     bound (10 D flops a kept pair and head) and ``torch.autograd.grad`` of
+     SDPA's output for the same dO; then
      ``mamba_scan`` at falcon-mamba-7b's prefill shape ([2, 2048, 8192],
      N = 16) and zamba2-2.7b's ([2, 2048, 5120], N = 64), operands in bf16
      and f32, at init scales with decay-heavy channels, plus a width off
@@ -196,6 +206,16 @@ Phases, in order; any failure exits non-zero:
      1,500 keys) held to their plain version; two slots replayed through
      ``prefill`` with their frames (max |dlogit| / RMS and greedy
      agreement, reported);
+     6g. (the earlier models freed) training of minitron-4b at full width,
+     32 layers, bf16, remat: weights from ``--seed`` on the card,
+     ``make_train_step`` with AdamW (bf16 moments, 3 steps, 1 of warm-up)
+     on three 2 x 4,096-token batches of the port's ``TokenPipeline``;
+     first batch 0's gradients with each of the 32 backward kernel calls
+     held to its plain version, every leaf's gradient finite and not all
+     zero; each step's loss, ms and tokens/s, the peak memory, the loss on
+     batch 0 after the updates (must fall), one step profiled (device busy,
+     the shares of the flash forward and backward and ``sdpa``'s
+     transposes) and the flops a step (6 N tokens, reported);
   7. the equivalence gates in float32: minitron-4b cut to 4 layers, four
      requests of 256 seeded tokens through paged decode, dense
      ``decode_step`` and ``prefill``, pairwise max |dlogit| <= 1e-3 x RMS;
@@ -207,14 +227,20 @@ Phases, in order; any failure exits non-zero:
      from 64) against ``decode_step`` over the compressed cache, the same
      limit; whisper-small cut to 4 encoder and 4 decoder layers over 1,500
      frames, ``prefill`` against ``prefill_cross_kv`` and ``decode_step``,
-     the same limit;
+     the same limit; minitron-4b cut to 4 layers, one train step's loss
+     and gradients over 2 x 2,048 pipeline tokens with the flash kernels
+     against the same with every flash call, forward and backward, run as
+     its plain version: the loss within 1e-5 relative, each gradient within
+     1e-3 x its RMS;
   8. one JSON line of per-kernel launches (summed over the paths of phases
      5 and 6, each counted from 0 just before it: the prefill paths of 6b
      and 6c are ``prefill-ssm`` and ``prefill-hybrid``, 6d's
      ``serving-moe`` and ``prefill-moe``, 6e's ``prefill-mla`` and
      ``serving-mla``, whose decode launches no kernel of the table, 6f's
      ``prefill-encdec`` and ``serving-encdec``, whose encodes and decode
-     launch ``flash_attention``, 12 calls each), errors and times.
+     launch ``flash_attention``, 12 calls each, 6g's ``train``, 64
+     ``flash_attention`` and 32 ``flash_attention_bwd`` launches a step),
+     errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 prints no result and exits non-zero.
@@ -359,6 +385,21 @@ ENCDEC_FLASH = {
     "prefill cross": (8, 448, 1500),
     "decode cross": (64, 1, 1500),
 }
+# training: minitron-4b at full width (bf16, remat), batches of the port's
+# token pipeline, and its float32 gate cut to 4 layers
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4_096, 3  # 8,192 tokens a step
+TRAIN_GATE_LAYERS, TRAIN_GATE_SEQ = 4, 2_048
+#: a gradient of the flash backward against its plain version: the largest
+#: |difference| over the largest |plain| of each of dq, dk, dv (bf16: P and
+#: dS are rounded to bf16 as the products' operands)
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the flash backward's phase-3 shapes: q, k and v, causal
+FLASH_BWD_SHAPES = {
+    f"{LM_ARCH} training": ((2, 24, TRAIN_SEQ, 128), (2, 8, TRAIN_SEQ, 128), True),
+    f"{MOE_ARCH} training": ((2, 16, 2048, 64), (2, 8, 2048, 64), True),
+    f"{ENCDEC_ARCH} prefill cross": ((8, 12, 448, 64), (8, 12, 1500, 64), False),
+}
+FLASH_BWD_F32 = (((1, 6, 300, 96), (1, 2, 400, 96), True), ((1, 4, 130, 64), (1, 4, 90, 64), False))
 
 
 def parse_args(argv):
@@ -2707,6 +2748,130 @@ def lm_attention_kernels(seed):
     return out
 
 
+def kept_pairs(sq, sk, causal):
+    """(query, key) pairs of one head that the mask keeps (causal offset
+    ``Sk - Sq``)."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
+
+
+def grad_err(got, want):
+    """The largest |difference| over the largest |want| of each of the
+    three gradients, and the largest |difference| itself."""
+    rel = max(
+        float((g.double() - w.double()).abs().max() / w.double().abs().max().clamp(min=1e-30))
+        for g, w in zip(got, want)
+    )
+    return rel, max_abs_err(got, want)
+
+
+def flash_bwd_kernel(seed):
+    """The ``flash_attention`` backward kernel against its plain version
+    (``flash_attention_bwd_ref``) on the forward kernel's own output and
+    log-sum-exp, at ``FLASH_BWD_SHAPES`` in bf16 and ``FLASH_BWD_F32`` in
+    f32 (``GRAD_TOL``); two launches bit-equal; the forward's log-sum-exp
+    against the plain version's (``LSE_TOL``); the bf16 shapes timed cold
+    and hot beside the plain version, the bound (``10 D`` flops a kept
+    pair and head) and the library: ``torch.autograd.grad`` of SDPA's
+    output for the same dO, one call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    cases = [(label, *c, torch.bfloat16) for label, c in FLASH_BWD_SHAPES.items()]
+    cases += [(f"f32 {c[0]} over {c[1]}", *c, torch.float32) for c in FLASH_BWD_F32]
+    errs, abs_errs, lse_errs, rows = {}, {}, {}, {}
+    for label, qs, ks, causal, dtype in cases:
+        q, k, v = (torch.randn(s, generator=g, device=dev).to(dtype) for s in (qs, ks, ks))
+        do = torch.randn(qs, generator=g, device=dev).to(dtype)
+        o, lse = ops.flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
+        l_err = lse_err(lse, ref.flash_attention_ref(q, k, v, causal=causal, with_lse=True)[1])
+        got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+        again = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"flash_attention_bwd {label}: two launches differ")
+        err, a_err = grad_err(got, ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                                causal=causal))
+        name = dtype_name(dtype)
+        if not (err <= GRAD_TOL[name] and l_err <= LSE_TOL[name]):
+            fail(f"flash_attention_bwd {label} {name} differs from its plain version:"
+                 f" {err} of the largest gradient; forward lse {l_err}")
+        errs[name] = max(errs.get(name, 0.0), err)
+        abs_errs[name] = max(abs_errs.get(name, 0.0), a_err)
+        lse_errs[name] = max(lse_errs.get(name, 0.0), l_err)
+        del got, again
+        if dtype != torch.bfloat16:
+            continue
+        b, h, sq, d = qs
+        hkv, sk = ks[1], ks[2]
+        flops = 10 * d * kept_pairs(sq, sk, causal) * b * h
+        # q, o, dO and dq like q, k, v, dk and dv like k, lse in f32
+        nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        so = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal, enable_gqa=hkv != h)
+        t = cold_and_hot(
+            {"default": lambda: ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)},
+            lambda: torch.autograd.grad(so, (qq, kk, vv), do, retain_graph=True),
+        )
+        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        rows[label] = dict(
+            shape=f"q [{b}, {h}, {sq}, {d}] bf16 over k, v [{b}, {hkv}, {sk}, {d}]"
+            + (", causal" if causal else ", non-causal"),
+            ms=t["cold_ms"],
+            hot_ms=t["hot_ms"],
+            plain_ms=cuda_ms(
+                lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal), 3
+            ),
+            library_ms=t["library_cold_ms"],
+            library_hot_ms=t["library_hot_ms"],
+            bound_ms=bound,
+            bound_by="operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
+            else "bytes",
+            gflop=flops / 1e9,
+            tflops_per_s=flops / t["cold_ms"] / 1e9,
+        )
+        del so, qq, kk, vv, q, k, v, do, o, lse
+    main = rows[f"{LM_ARCH} training"]
+    out = dict(
+        name="flash_attention_bwd",
+        route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="none: the reference differentiates its jnp sdpa"
+        " (src/repro/models/layers.py:144)",
+        shape=main["shape"],
+        check="largest |difference| / largest |gradient| bf16 {:.2e}, f32 {:.2e} over {}"
+        " cases, bit-equal launches; forward lse bf16 {:.2e}, f32 {:.2e}".format(
+            errs["bfloat16"], errs["float32"], len(cases), lse_errs["bfloat16"],
+            lse_errs["float32"],
+        ),
+        bit_equal=False,
+        deterministic=True,
+        max_abs_err=abs_errs["bfloat16"],
+        max_abs_err_f32=abs_errs["float32"],
+        max_rel_err=errs["bfloat16"],
+        max_rel_err_f32=errs["float32"],
+        lse_max_abs_err=lse_errs["bfloat16"],
+        lse_max_abs_err_f32=lse_errs["float32"],
+        **{x: main[x] for x in ("ms", "hot_ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")},
+        library="torch.autograd.grad of F.scaled_dot_product_attention's output, one call",
+        per_shape=rows,
+    )
+    for label, r in rows.items():
+        print(f"kernel flash_attention_bwd {label} {r['shape']}: kernel {r['ms']:.4f} ms"
+              f" cold, {r['hot_ms']:.4f} hot ({r['tflops_per_s']:.1f} TFLOP/s), plain"
+              f" {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms cold,"
+              f" {r['library_hot_ms']:.4f} hot, bound {r['bound_ms']:.4f} ms"
+              f" ({r['bound_by']}) on {card}")
+    print(f"kernel flash_attention_bwd: {out['check']}")
+    return {"flash_attention_bwd": out}
+
+
 def dtype_name(dtype):
     return str(dtype).removeprefix("torch.")
 
@@ -4195,6 +4360,242 @@ def phase_decode_gate(seed, models):
     return report
 
 
+@contextlib.contextmanager
+def plain_flash():
+    """Within the block, every ``flash_attention`` forward and backward runs
+    its plain version (``flash_attention_ref(with_lse=True)``,
+    ``flash_attention_bwd_ref``) in place of the kernel, through the same
+    ``FlashAttention`` function."""
+    from repro_torch.kernels import ops, ref
+
+    fwd, bwd = ops.flash_attention_fwd, ops.flash_attention_bwd
+    ops.flash_attention_fwd = ref.flash_attention_ref
+    ops.flash_attention_bwd = ref.flash_attention_bwd_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention_fwd, ops.flash_attention_bwd = fwd, bwd
+
+
+def grad_check(params, grads, what):
+    """Every parameter leaf has a finite gradient of its shape that is not
+    all zero (a gradient cut at a kernel would be zero or missing)."""
+    import torch
+
+    from repro_torch.train.optimizer import leaves
+
+    n = 0
+    for p, g in zip(leaves(params), leaves(grads)):
+        if g is None or g.shape != p.shape or not bool(torch.isfinite(g).all()):
+            fail(f"{what}: a gradient is missing or not finite")
+        if not bool((g != 0).any()):
+            fail(f"{what}: a leaf of shape {tuple(p.shape)} has an all-zero gradient")
+        n += 1
+    return n
+
+
+def phase_train(seed):
+    """Phase 6g: minitron-4b at full width (32 layers, bf16, remat), weights
+    from ``seed`` on the card, trained by ``make_train_step`` with
+    ``OptConfig(total_steps=3, warmup_steps=1)`` for ``TRAIN_STEPS`` steps
+    on ``TokenPipeline(batch=2, seq_len=4096)`` batches (8,192 tokens a
+    step).  First the gradients of batch 0 (step 1's) with each of the 32
+    backward calls held to its plain version (``GRAD_TOL``): every leaf's
+    gradient finite and not all zero.  Then the steps, each timed (ms,
+    tokens/s) with its loss; the peak memory; the loss on batch 0 after
+    the updates, which must be below step 1's; one more step profiled:
+    device busy ms, the shares of the flash forward, the flash backward and
+    ``sdpa``'s transposes, the weight products' ms and the optimizer's
+    (``ADAMW_UPDATE``) beside its bytes' bound; the flops a step, ``6 N
+    tokens`` with N the non-embedding parameters plus the head (reported).
+    Returns (report, launches of the timed steps)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenPipeline, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.models.layers import SDPA_TRANSPOSES
+    from repro_torch.train.optimizer import ADAMW_UPDATE, OptConfig, init_opt_state
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        fail(f"train: {LM_ARCH} should train in bf16 with remat")
+    params = model.init_params(cfg, seed, device=dev)
+    ocfg = OptConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    state = init_opt_state(params, ocfg)
+    pipe = TokenPipeline(cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed)
+    batches = [to_device(pipe.next_batch(), cfg, dev) for _ in range(TRAIN_STEPS + 1)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(p.numel() for k, p in model_leaves(params) if k != "embed")
+    # the optimizer's least bytes: each parameter and its gradient (of the
+    # parameter's dtype) read, the parameter written; each moment read and
+    # written
+    opt_bytes = sum(
+        p.numel() * (3 * p.element_size() + 4 * m.element_size())
+        for (_, p), (_, m) in zip(model_leaves(params), model_leaves(state.mu))
+    )
+
+    held = []
+    with held_to_plain(held, "flash_attention_bwd", compare=grad_err):
+        loss0, _, grads = loss_and_grads(cfg, params, batches[0])
+    leaves_checked = grad_check(params, grads, "train")
+    worst = max(e for e, _ in held) if held else float("inf")
+    if len(held) != cfg.n_layers or not worst <= GRAD_TOL[cfg.dtype]:
+        fail(f"train: {len(held)} flash_attention_bwd calls held to their plain version,"
+             f" worst {worst} of the largest gradient (limit {GRAD_TOL[cfg.dtype]})")
+    del grads
+    torch.cuda.empty_cache()
+
+    step = make_train_step(cfg, ocfg)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[i])
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append(dict(loss=loss, ms=ms, tokens_per_s=tokens / ms * 1e3,
+                          grad_norm=float(m["grad_norm"]), lr=float(m["lr"])))
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k, per_step in (("flash_attention", 2 * cfg.n_layers),
+                        ("flash_attention_bwd", cfg.n_layers)):
+        if launches[k] != per_step * TRAIN_STEPS:
+            fail(f"train: {launches[k]} {k} launches, expected {per_step * TRAIN_STEPS}")
+    if not all(np.isfinite(x["loss"]) for x in steps):
+        fail(f"train: a loss is not finite: {[x['loss'] for x in steps]}")
+    if abs(steps[0]["loss"] - float(loss0)) > 1e-3 * abs(float(loss0)):
+        fail(f"train: step 1's loss {steps[0]['loss']} is not batch 0's {float(loss0)}")
+    with torch.no_grad():
+        after = float(model.loss_fn(cfg, params, batches[0])[0])
+    if not after < steps[0]["loss"]:
+        fail(f"train: batch 0's loss {after} after {TRAIN_STEPS} updates is not below"
+             f" step 1's {steps[0]['loss']}")
+
+    log = []
+    _, wall, prof, marked = device_profile(
+        lambda: step(params, state, batches[TRAIN_STEPS]),
+        ranges=(SDPA_TRANSPOSES, ADAMW_UPDATE), kernel_log=log,
+    )
+    # the kernels' sum (``log`` also holds the ranges' own spans)
+    busy = sum(ms for _, ms, _ in prof)
+    fwd = sum(ms for name, ms in log if "flash_attention_wgmma" in name)
+    bwd = sum(ms for name, ms in log if "bwd_" in name)
+    products = sum(ms for name, ms in log if any(x in name for x in ("nvjet", "gemm", "cutlass")))
+    med = float(np.median([x["ms"] for x in steps[1:]]))
+    flops = 6 * n_params * tokens
+    report = dict(
+        arch=LM_ARCH,
+        layers=cfg.n_layers,
+        batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ,
+        tokens_per_step=tokens,
+        steps=steps,
+        median_ms=med,
+        tokens_per_s=tokens / med * 1e3,
+        batch0_loss_after=after,
+        peak_gib=peak,
+        leaves_with_grad=leaves_checked,
+        flash_attention_bwd_held_to_plain=dict(calls=len(held), max_rel_err=worst,
+                                               max_abs_err=max(a for _, a in held)),
+        profiled_step=dict(
+            wall_ms=wall,
+            device_busy_ms=busy,
+            idle_share=1 - busy / wall,
+            flash_fwd_ms=fwd,
+            flash_fwd_share=fwd / busy,
+            flash_bwd_ms=bwd,
+            flash_bwd_share=bwd / busy,
+            sdpa_transposes_ms=marked[SDPA_TRANSPOSES],
+            sdpa_transposes_share=marked[SDPA_TRANSPOSES] / busy,
+            rest_share=1 - (fwd + bwd + marked[SDPA_TRANSPOSES]) / busy,
+            # within the rest: the matrix products (cuBLAS), the optimizer
+            weight_products_ms=products,
+            adamw_update_ms=marked[ADAMW_UPDATE],
+            adamw_update_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3,
+            kernels=sum(n for _, _, n in prof),
+            top=[(k[:48], ms, n) for k, ms, n in prof[:12]],
+        ),
+        params_non_embedding_plus_head=n_params,
+        flops_per_step=flops,
+        tflops_per_s=flops / med / 1e9,
+    )
+    print(f"train {LM_ARCH}: {json.dumps(report)}")
+    del params, state, batches
+    return report, launches
+
+
+def model_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from model_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def phase_train_gate(seed):
+    """Phase 7's training gate: minitron-4b cut to ``TRAIN_GATE_LAYERS``
+    layers at full width in float32 (no TF32), one batch of the token
+    pipeline (2 x ``TRAIN_GATE_SEQ`` tokens), the loss and every gradient
+    of one train step with the kernels against the same step with every
+    flash call, forward and backward, run as its plain version
+    (``plain_flash``): the loss within 1e-5 relative, each leaf's gradient
+    within 1e-3 x its RMS."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenPipeline, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.train.train_step import loss_and_grads
+
+    if torch.backends.cuda.matmul.allow_tf32 or (
+        torch.get_float32_matmul_precision() != "highest"
+    ):
+        fail("train gate: float32 products must not use TF32")
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_GATE_LAYERS, dtype="float32")
+    params = model.init_params(cfg, seed, device=dev)
+    batch = to_device(
+        TokenPipeline(cfg, global_batch=2, seq_len=TRAIN_GATE_SEQ, seed=seed + 41).next_batch(),
+        cfg, dev,
+    )
+    before = dict(ops.LAUNCHES)
+    loss_k, _, grads_k = loss_and_grads(cfg, params, batch)
+    launched = ops.LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"]
+    with plain_flash():
+        loss_p, _, grads_p = loss_and_grads(cfg, params, batch)
+    if launched != cfg.n_layers or ops.LAUNCHES["flash_attention_bwd"] != before[
+        "flash_attention_bwd"
+    ] + launched:
+        fail(f"train gate: {launched} backward launches with the kernels, expected"
+             f" {cfg.n_layers}, and none with the plain versions")
+    grad_check(params, grads_k, "train gate")
+    per_leaf = {}
+    for (name, gk), (_, gp) in zip(model_leaves(grads_k), model_leaves(grads_p)):
+        rms = float(gp.double().pow(2).mean().sqrt())
+        per_leaf[name] = float((gk - gp).abs().max()) / rms
+    worst = max(per_leaf.values())
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    report = dict(layers=cfg.n_layers, tokens=batch["tokens"].numel(), loss=float(loss_p),
+                  loss_rel_diff=loss_rel, max_grad_diff_over_rms=worst,
+                  grad_diff_over_rms=per_leaf)
+    print(f"gate train {LM_ARCH} {cfg.n_layers} layers f32: {json.dumps(report)}")
+    if not (loss_rel <= 1e-5 and worst <= 1e-3):
+        fail(f"train gate: loss differs by {loss_rel} (limit 1e-5), a gradient by {worst}"
+             " x its RMS (limit 1e-3)")
+    del params, grads_k, grads_p
+    return report
+
+
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
     import torch
@@ -4223,6 +4624,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     kernels = phase_kernels(pool, meta, keys, args.seed)
     kernels.update(lm_attention_kernels(args.seed))
+    kernels.update(flash_bwd_kernel(args.seed))
     kernels.update(mamba_kernels(args.seed, build))
     t1 = time.perf_counter()
     phase_cpu_vs_cuda(args.seed)
@@ -4300,6 +4702,13 @@ def main(argv=None):
     t17 = time.perf_counter()
     report["gate-encdec"] = phase_decode_gate(args.seed, ((ENCDEC_ARCH, 4),))
     t18 = time.perf_counter()
+    # training: minitron-4b at full width, the earlier models freed
+    report["train"], per_path["train"] = phase_train(args.seed)
+    check_launches("train", per_path["train"], ("flash_attention", "flash_attention_bwd"))
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    report["gate-train"] = phase_train_gate(args.seed)
+    t20 = time.perf_counter()
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["read-only"]}
     print(f"main: launches {launches}")
     print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
@@ -4310,7 +4719,8 @@ def main(argv=None):
           f" ssm gate {t12 - t11:.1f} s, moe serving and prefill {t13 - t12:.1f} s,"
           f" moe gate {t14 - t13:.1f} s, mla serving and prefill {t15 - t14:.1f} s,"
           f" mla gate {t16 - t15:.1f} s, encdec serving and prefill {t17 - t16:.1f} s,"
-          f" encdec gate {t18 - t17:.1f} s")
+          f" encdec gate {t18 - t17:.1f} s, train {t19 - t18:.1f} s,"
+          f" train gate {t20 - t19:.1f} s")
     rows = []
     for name, k in kernels.items():
         rows.append(dict(
@@ -4326,7 +4736,8 @@ def main(argv=None):
             bound_by=k["bound_by"],
             library_ms=k["library_ms"],
             bit_equal=k["bit_equal"],
-            **{x: k[x] for x in ("max_abs_err_f32", "lse_max_abs_err", "lse_max_abs_err_f32",
+            **{x: k[x] for x in ("max_abs_err_f32", "max_rel_err", "max_rel_err_f32",
+                                 "deterministic", "lse_max_abs_err", "lse_max_abs_err_f32",
                                  "hot_ms", "yardstick_ms", "per_arch", "per_shape", "per_mix")
                if x in k},
         ))

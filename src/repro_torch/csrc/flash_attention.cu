@@ -8,7 +8,11 @@
 // and loops over the kv tiles itself; the kv head is h / (H / HKV), so GQA
 // needs no copy of K or V.  Tiles wholly above the causal diagonal (offset
 // Sk - Sq) are never loaded; any Sq and Sk are taken, the last tiles masked.
-// A row that no key may reach (causal with Sk < Sq) comes out 0.
+// A row that no key may reach (causal with Sk < Sq) comes out 0.  Given an
+// lse pointer, both kernels also write each row's natural log-sum-exp of
+// its scaled, masked logits (-inf for a row no key reaches), which the
+// backward (flash_attention_bwd.cu) rebuilds the probabilities from; a null
+// pointer writes nothing more.
 //
 // Bound: operations.  Per (query, key) pair the causal mask keeps, 4 * D
 // flops (QK^T and PV); at minitron-4b's prefill shape that is 51.5 GFLOP,
@@ -50,7 +54,9 @@
 //     are 64 columns (128 bytes, 128B-swizzled) and the tensor maps' inner
 //     extent is the true D, so columns >= D, rows >= Sq or Sk of the last
 //     tiles, are zero-filled in shared memory (D = 80 runs as 128); the
-//     epilogue writes O / l in bf16, 0 where l = 0.
+//     epilogue writes O / l in bf16, 0 where l = 0, and, asked for, the
+//     natural log-sum-exp (m2 + log2 l) ln 2 of the base-2 running max m2
+//     and sum l.
 // The plan (padded D, tile sizes, stages, shared bytes) comes from
 // kernels/flash_attention.py::plan and must match an instantiation here.
 //
@@ -82,6 +88,7 @@ constexpr int kWgThreads = 128;
 constexpr int kThreadsWg = kWgThreads * (kConsumers + 1);
 constexpr int kBox = 64;        // columns of a TMA box: 128 bytes of bf16
 constexpr int kSmemSlack = 1024 + 128;  // 1024-byte alignment, barriers
+constexpr float kLn2 = 0.693147180559945309f;
 
 template <int DP, int BN, int ST>
 struct Tiles {
@@ -304,8 +311,9 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
     flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
-                    __nv_bfloat16* __restrict__ out, int bh_total, int h, int hkv, int sq,
-                    int sk, int d, float scale_log2, int causal, int n_qt) {
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int bh_total,
+                    int h, int hkv, int sq, int sk, int d, float scale_log2, int causal,
+                    int n_qt) {
   using T = Tiles<DP, BN, ST>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
@@ -445,6 +453,11 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
       }
       const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
       const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+      if (lse != nullptr && (lane & 3) == 0) {  // one thread of the four a row
+        float* lb = lse + static_cast<int64_t>(it.bh) * sq;
+        if (r0 < sq) lb[r0] = l0 > 0.f ? (sm.m0 + log2f(l0)) * kLn2 : -CUDART_INF_F;
+        if (r1 < sq) lb[r1] = l1 > 0.f ? (sm.m1 + log2f(l1)) * kLn2 : -CUDART_INF_F;
+      }
       __nv_bfloat16* ob = out + static_cast<int64_t>(it.bh) * sq * d;
 #pragma unroll
       for (int x = 0; x < DP / 8; ++x) {
@@ -503,8 +516,8 @@ CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int heads,
 
 // Returns a cudaError_t, or -(CUresult) when a tensor map is refused.
 template <int DP, int BN, int ST>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b, int h,
-                 int hkv, int sq, int sk, int d, float scale, int causal, int smem,
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                 int h, int hkv, int sq, int sk, int d, float scale, int causal, int smem,
                  cudaStream_t stream) {
   using T = Tiles<DP, BN, ST>;
   if (smem != T::kBytes) return cudaErrorInvalidValue;  // the plan disagrees
@@ -529,7 +542,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b, 
   if (err != cudaSuccess) return err;
   const int64_t blocks = std::min<int64_t>(items, sms);
   kern<<<static_cast<unsigned>(blocks), kThreadsWg, T::kBytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), b * h, h, hkv, sq, sk, d,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, b * h, h, hkv, sq, sk, d,
       scale * 1.4426950408889634f, causal, n_qt);
   return cudaGetLastError();
 }
@@ -551,8 +564,9 @@ int f32_smem(int d) {
 template <int NJ>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out, int h, int hkv,
-                  int sq, int sk, int d, float scale, int causal) {
+                  const float* __restrict__ v, float* __restrict__ out,
+                  float* __restrict__ lse, int h, int hkv, int sq, int sk, int d, float scale,
+                  int causal) {
   extern __shared__ float smem[];
   const int dp = d + 1;  // padded row stride of Qs and Ks: no bank conflicts
   float* qs = smem;                   // [64][d + 1]
@@ -678,6 +692,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= sq) continue;
+    // m and l are the same in the 16 threads of a row: one writes
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<int64_t>(bh) * sq + qpos] = l[i] > 0.f ? m[i] + logf(l[i]) : -CUDART_INF_F;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -688,9 +705,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int NJ>
-cudaError_t launch_f32_nj(const void* q, const void* k, const void* v, void* out, int b,
-                          int h, int hkv, int sq, int sk, int d, float scale, int causal,
-                          cudaStream_t stream) {
+cudaError_t launch_f32_nj(const void* q, const void* k, const void* v, void* out, float* lse,
+                          int b, int h, int hkv, int sq, int sk, int d, float scale,
+                          int causal, cudaStream_t stream) {
   const int smem = f32_smem(d);
   auto kern = flash_attention_f32<NJ>;
   cudaError_t err =
@@ -699,47 +716,58 @@ cudaError_t launch_f32_nj(const void* q, const void* k, const void* v, void* out
   dim3 grid((sq + kBlock - 1) / kBlock, b * h);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), h, hkv, sq, sk, d, scale,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, h, hkv, sq, sk, d, scale,
       causal);
   return cudaGetLastError();
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int b, int h,
-               int hkv, int sq, int sk, int d, float scale, int causal, int smem,
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+               int h, int hkv, int sq, int sk, int d, float scale, int causal, int smem,
                cudaStream_t stream) {
   if (smem != f32_smem(d)) return cudaErrorInvalidValue;  // the plan disagrees
   if (d <= 32)
-    return launch_f32_nj<2>(q, k, v, out, b, h, hkv, sq, sk, d, scale, causal, stream);
+    return launch_f32_nj<2>(q, k, v, out, lse, b, h, hkv, sq, sk, d, scale, causal, stream);
   if (d <= 64)
-    return launch_f32_nj<4>(q, k, v, out, b, h, hkv, sq, sk, d, scale, causal, stream);
+    return launch_f32_nj<4>(q, k, v, out, lse, b, h, hkv, sq, sk, d, scale, causal, stream);
   if (d <= 128)
-    return launch_f32_nj<8>(q, k, v, out, b, h, hkv, sq, sk, d, scale, causal, stream);
-  return launch_f32_nj<16>(q, k, v, out, b, h, hkv, sq, sk, d, scale, causal, stream);
+    return launch_f32_nj<8>(q, k, v, out, lse, b, h, hkv, sq, sk, d, scale, causal, stream);
+  return launch_f32_nj<16>(q, k, v, out, lse, b, h, hkv, sq, sk, d, scale, causal, stream);
+}
+
+// lse[0, n) = -inf: the log-sum-exp of rows that no key reaches.
+__global__ void fill_neg_inf(float* __restrict__ lse, int64_t n) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    lse[i] = -CUDART_INF_F;
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  q [b, h,
 // sq, d]; k, v [b, hkv, sk, d]; out like q; all contiguous, 16-byte
-// aligned.  d is a multiple of 8, at most 256; h is a multiple of hkv.  The
+// aligned; lse [b, h, sq] f32, or null to write no log-sum-exp.  d is a multiple of 8, at most 256; h is a multiple of hkv.  The
 // plan (padded_d, block_kv, stages, smem_bytes) is
 // kernels/flash_attention.py::plan's: a bf16 plan names one instantiation of
 // flash_attention_wgmma, and smem_bytes must be that kernel's.  Returns 0, a
 // cudaError_t, or -(CUresult) when a tensor map is refused.
 extern "C" int dex_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                   int dtype, int b, int h, int hkv, int sq, int sk, int d,
-                                   float scale, int causal, int padded_d, int block_kv,
+                                   float* lse, int dtype, int b, int h, int hkv, int sq, int sk,
+                                   int d, float scale, int causal, int padded_d, int block_kv,
                                    int stages, int smem_bytes, void* stream) {
   if (b == 0 || h == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32(q, k, v, out, b, h, hkv, sq, sk, d, scale, causal, smem_bytes, s);
-  if (sk == 0)  // no key at all: every row is 0 (a tensor map cannot be empty)
-    return cudaMemsetAsync(out, 0, static_cast<size_t>(b) * h * sq * d * 2, s);
+    return launch_f32(q, k, v, out, lse, b, h, hkv, sq, sk, d, scale, causal, smem_bytes, s);
+  if (sk == 0) {  // no key at all: every row is 0 (a tensor map cannot be empty)
+    cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(b) * h * sq * d * 2, s);
+    if (err != cudaSuccess || lse == nullptr) return err;
+    fill_neg_inf<<<128, 256, 0, s>>>(lse, static_cast<int64_t>(b) * h * sq);
+    return cudaGetLastError();
+  }
 #define DEX_FLASH_PLAN(DP, BN, ST)                                                        \
   if (padded_d == DP && block_kv == BN && stages == ST)                                   \
-    return launch_wgmma<DP, BN, ST>(q, k, v, out, b, h, hkv, sq, sk, d, scale, causal,    \
-                                    smem_bytes, s);
+    return launch_wgmma<DP, BN, ST>(q, k, v, out, lse, b, h, hkv, sq, sk, d, scale,       \
+                                    causal, smem_bytes, s);
   DEX_FLASH_PLAN(64, 128, 3)
   DEX_FLASH_PLAN(128, 128, 3)
   DEX_FLASH_PLAN(192, 64, 2)

@@ -72,6 +72,7 @@
 #include <cstdint>
 
 #include "cp_async.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -84,58 +85,6 @@ constexpr int kTileTokens = 16;       // positions a tile: mma.sync's M
 constexpr int kRowPad = 8;            // bf16 elements after each staged row
 constexpr int kMaxWarps = 4;          // warps a CTA, a tile each
 constexpr int kSmemLimit = 232448;    // shared bytes a CTA may use (H100)
-
-// ---------------------------------------------------------------------------
-// PTX building blocks
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// The 8x8 b16 matrix held one row a quad (lane / 4), two elements a lane,
-// transposed in registers.
-__device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
-  uint32_t y;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
-  return y;
-}
-
-// c += a b: a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// (a, b) rounded to a bf16 pair `hi` (a in the low half) and the rounding
-// errors rounded to a second pair `lo`: hi + lo is (a, b) to about 2^-17.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 // ---------------------------------------------------------------------------
 // bf16: split-KV on tensor cores

@@ -36,7 +36,26 @@ Contract (the TPU kernel's): ``flash_attention(q [B, H, Sq, D], k, v
 [B, HKV, Sk, D], causal=True, scale=None) -> [B, H, Sq, D]`` in q's dtype
 (float32 or bfloat16), f32 accumulation inside, causal offset ``Sk - Sq``;
 D a multiple of 8 up to 256; any Sq and Sk.  A row that no key may reach
-(causal with Sk < Sq) is 0 (NaN in the plain version).
+(causal with Sk < Sq) is 0 (NaN in the plain version).  Asked for it,
+either kernel also writes each row's natural log-sum-exp, ``lse [B, H,
+Sq]`` f32 (``-inf`` for a row no key reaches): the bf16 kernel's softmax
+runs in base 2, so it stores ``(m2 + log2 l) ln 2``; without the pointer
+it writes nothing more, so serving does not pay for it.
+
+The backward (``csrc/flash_attention_bwd.cu``, ``launch_bwd``) replaces no
+TPU kernel: the reference has no backward Pallas kernel and trains through
+its jnp ``sdpa``, which XLA differentiates, but here the attention is the
+kernel, so its gradient is a kernel too.  What bounds it: operations,
+``10 D`` flops a kept (query, key) pair and head (S recomputed, dV, dP,
+dQ, dK).  Design: a pre-pass writes ``Delta = rowsum(dO o O)`` and the
+base-2 log-sum-exp a row; a dK / dV pass runs one CTA a (batch, kv head,
+64-key tile), looping over the group's G query heads and the q tiles the
+causal mask keeps; a dQ pass runs one CTA a (batch, head, 64-row q tile),
+looping over the k tiles.  Each output element is summed by one thread in
+a fixed order, with no atomics, so two launches are bit-equal (the remat
+recompute of a block relies on this).  bf16 runs on ``mma.sync.m16n8k16``
+(bf16 in, f32 accumulate), f32 on CUDA cores.  Head dims 64, 80, 96 and
+128; causal (offset ``Sk - Sq``) or not; any G, Sq and Sk.
 
 The plain version is ``repro_torch.kernels.ref.flash_attention_ref``; the
 dispatch, build and launch count are in ``kernels/ops.py``; the source is
@@ -65,6 +84,10 @@ SMEM_LIMIT = 232_448
 #: the bf16 kernel's shared bytes beyond its tiles: 1024-byte alignment of
 #: the swizzled tiles, and the mbarriers
 _SLACK = 1024 + 128
+#: head dims the backward kernel is built for
+BWD_HEAD_DIMS = (64, 80, 96, 128)
+#: the CPU path's dtypes: the kernel's, and float64 for ``gradcheck``
+CPU_DTYPES = (*DTYPES, torch.float64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,18 +122,23 @@ def plan(d: int, dtype: torch.dtype) -> Plan:
 
 def bind(lib: ctypes.CDLL) -> None:
     lib.dex_flash_attention.argtypes = (
-        [_P] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 5 + [_P]
+        [_P] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 5 + [_P]
     )
     lib.dex_flash_attention.restype = ctypes.c_int
+    lib.dex_flash_attention_bwd.argtypes = (
+        [_P] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, _P]
+    )
+    lib.dex_flash_attention_bwd.restype = ctypes.c_int
 
 
-def validate(q, k, v) -> None:
+def validate(q, k, v, dtypes=DTYPES) -> None:
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention takes q [B, H, Sq, D] and k, v [B, HKV, Sk, D]")
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape
-    if q.dtype not in DTYPES:
-        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if q.dtype not in dtypes:
+        names = " or ".join(str(t).removeprefix("torch.") for t in dtypes)
+        raise ValueError(f"q must be {names}, got {q.dtype}")
     if d % 8 or not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim must be a multiple of 8 up to 256, got {d}")
     if hkv == 0 or h % hkv:
@@ -127,9 +155,22 @@ def validate(q, k, v) -> None:
             raise ValueError("flash_attention inputs must lie on one device")
 
 
-def launch(lib: ctypes.CDLL, q, k, v, causal: bool, scale: Optional[float]):
-    """Launch the kernel on the current stream; the output is allocated
-    here."""
+def _check_err(err: int, what: str) -> None:
+    if err < 0:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a map: {-err}")
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    with torch.cuda.device(t.device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def launch(lib: ctypes.CDLL, q, k, v, causal: bool, scale: Optional[float],
+           with_lse: bool = False):
+    """Launch the kernel on the current stream; the output (and, with
+    ``with_lse``, the log-sum-exp ``[B, H, Sq]`` f32) is allocated here."""
     validate(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got {q.device}")
@@ -137,13 +178,13 @@ def launch(lib: ctypes.CDLL, q, k, v, causal: bool, scale: Optional[float]):
     _, hkv, sk, _ = k.shape
     p = plan(d, q.dtype)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     err = lib.dex_flash_attention(
         q.data_ptr(),
         k.data_ptr(),
         v.data_ptr(),
         out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         DTYPES[q.dtype],
         b,
         h,
@@ -157,10 +198,51 @@ def launch(lib: ctypes.CDLL, q, k, v, causal: bool, scale: Optional[float]):
         p.block_kv,
         p.stages,
         p.smem_bytes,
-        stream,
+        _stream(q),
     )
-    if err < 0:
-        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused a map: {-err}")
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    return out
+    _check_err(err, "flash_attention")
+    return out if lse is None else (out, lse)
+
+
+def validate_bwd(q, k, v, o, do, lse, dtypes=DTYPES) -> None:
+    """The backward's operands: the forward's q, k, v (``validate``), its
+    output ``o`` and the output's gradient ``do`` like q, and ``lse`` [B, H,
+    Sq] (f32, or float64 beside float64 operands on the CPU)."""
+    validate(q, k, v, dtypes)
+    b, h, sq, d = q.shape
+    tma = q.dtype == torch.bfloat16
+    check(o, "o", q.dtype, (b, h, sq, d), rows=tma)
+    check(do, "do", q.dtype, (b, h, sq, d), rows=tma)
+    want = torch.float64 if q.dtype == torch.float64 else torch.float32
+    check(lse, "lse", want, (b, h, sq))
+    for t in (o, do, lse):
+        if t.device != q.device:
+            raise ValueError("flash_attention_bwd inputs must lie on one device")
+
+
+def launch_bwd(lib: ctypes.CDLL, q, k, v, o, do, lse, causal: bool,
+               scale: Optional[float]):
+    """Launch the backward on the current stream: ``(dq, dk, dv)`` like q,
+    k, v, and the pre-pass's scratch (Delta and the base-2 log-sum-exp, [B,
+    H, Sq] f32 each), are allocated here.  Raises on a head dim outside
+    ``BWD_HEAD_DIMS``."""
+    validate_bwd(q, k, v, o, do, lse)
+    b, h, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd takes head dims {BWD_HEAD_DIMS}, got {d}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd kernel needs CUDA tensors, got {q.device}")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    scratch = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)
+    err = lib.dex_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        scratch[0].data_ptr(), scratch[1].data_ptr(),
+        DTYPES[q.dtype], b, h, hkv, sq, sk, d,
+        1.0 / math.sqrt(d) if scale is None else float(scale), int(causal), _stream(q),
+    )
+    _check_err(err, "flash_attention_bwd")
+    return dq, dk, dv

@@ -12,6 +12,12 @@ named by a hash of the sources, so an edited source is rebuilt.
 
 ``LAUNCHES`` counts each kernel's launches: a wrapper adds one where it
 launches its kernel and nowhere else.
+
+``flash_attention`` is differentiable: under grad it runs as the
+``FlashAttention`` function, whose backward is ``flash_attention_bwd``
+(the kernel on the card, its plain version on the CPU).  Every other
+kernel refuses an input that requires grad while grad mode is on, on both
+devices, so that no trainer gets a gradient that silently stops at it.
 """
 
 from __future__ import annotations
@@ -49,12 +55,33 @@ LAUNCHES = {
     "leaf_split": 0,
     "paged_attention": 0,
     "flash_attention": 0,
+    "flash_attention_bwd": 0,
     "mamba_scan": 0,
 }
+
+#: where a kernel without a backward is said to get one, or why it has none
+NO_BACKWARD = {
+    "mamba_scan": "SSM and hybrid training wait for a mamba_scan backward kernel,"
+    " ROADMAP.md queue 1, item 13.h",
+    "paged_attention": "it serves decode only, and no trainer calls it (ROADMAP.md queue 1,"
+    " item 13.f)",
+}
+_INDEX_PLANE = "the index plane is not trained (ROADMAP.md queue 1, item 13.f)"
 #: seconds the last build took (0.0 when the library came from the cache)
 BUILD_SECONDS = [0.0]
 
 _LIB: list = []
+
+
+def _refuse_grad(kernel: str, *tensors) -> None:
+    """Raise where grad mode is on and an input requires grad: ``kernel``
+    has no backward."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{kernel} has no backward: {NO_BACKWARD.get(kernel, _INDEX_PLANE)}"
+        )
 
 
 def reset_launches() -> None:
@@ -150,6 +177,7 @@ def node_search(
     Each row must be sorted non-decreasing, KEY_MAX padding at its tail:
     the kernel searches it (``kernels/node_search.py``), and the CPU path
     raises ``ValueError`` on an unsorted row."""
+    _refuse_grad("node_search", rows, queries, values)
     if rows.device.type == "cpu":
         _node_search.validate(rows, queries, values)
         return ref.node_search_ref(rows, queries, values)
@@ -173,6 +201,7 @@ def node_search_prefix(
     (``0x7FFFFFFF`` padding at its tail); the CPU path raises
     ``ValueError`` on one that is not."""
     args = (prefix, nbits, suffix, rows, queries)
+    _refuse_grad("node_search_prefix", *args)
     if rows.device.type == "cpu":
         _node_search.validate_prefix(*args)
         return ref.node_search_prefix_ref(*args)
@@ -198,6 +227,7 @@ def subtree_walk(
     non-decreasing: the kernel searches them (``kernels/subtree_walk.py``),
     and the CPU path raises ``ValueError`` on an unsorted row."""
     args = (pool_keys, pool_children, pool_values, subtree, queries)
+    _refuse_grad("subtree_walk", *args, active)
     if pool_keys.device.type == "cpu":
         _subtree_walk.validate(*args, levels, active)
         return ref.subtree_walk_ref(*args, levels=levels, active=active)
@@ -218,6 +248,7 @@ def leaf_write(
     staged updates and inserts applied to each leaf row (see
     ``ref.leaf_write_ref``)."""
     args = (rows_k, rows_v, upd_slot, upd_val, ins_key, ins_val)
+    _refuse_grad("leaf_write", *args)
     if rows_k.device.type == "cpu":
         _leaf_write.validate(*args)
         return ref.leaf_write_ref(*args)
@@ -238,6 +269,7 @@ def leaf_scan(
     to ``counts[b]`` records with key >= ``start_keys[b]`` out of each lane's
     leaf window (see ``ref.leaf_scan_ref``)."""
     args = (window_keys, window_values, start_keys, counts)
+    _refuse_grad("leaf_scan", *args)
     if window_keys.device.type == "cpu":
         _leaf_scan.validate(*args, max_count)
         return ref.leaf_scan_ref(*args, max_count=max_count)
@@ -257,6 +289,7 @@ def leaf_split(
     each leaf row, split where the merge overflows (see
     ``ref.leaf_split_ref``)."""
     args = (rows_k, rows_v, ins_key, ins_val)
+    _refuse_grad("leaf_split", *args)
     if rows_k.device.type == "cpu":
         _leaf_split.validate(*args)
         return ref.leaf_split_ref(*args)
@@ -279,6 +312,7 @@ def paged_attention(
     names (see ``ref.paged_attention_ref``); with ``with_lse`` also the
     log-sum-exp of its logits, ``[B, H]`` f32 (``-inf`` at length 0)."""
     args = (q, k_pages, v_pages, page_table, seq_lens)
+    _refuse_grad("paged_attention", *args)
     if q.device.type == "cpu":
         _paged_attention.validate(*args)
         return ref.paged_attention_ref(*args, with_lse=with_lse)
@@ -297,12 +331,82 @@ def flash_attention(
 ) -> torch.Tensor:
     """``[B, H, Sq, D]``: attention of ``q`` over ``k``, ``v`` ``[B, HKV,
     Sk, D]`` (GQA), causal with offset ``Sk - Sq`` (see
-    ``ref.flash_attention_ref``)."""
+    ``ref.flash_attention_ref``).  Where grad mode is on and an input
+    requires grad it runs as ``FlashAttention`` (the forward keeps its
+    log-sum-exp for the backward kernel); else the forward alone, without
+    the log-sum-exp."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, scale)
+    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the forward keeps q, k, v, the
+    output and its log-sum-exp; the backward is ``flash_attention_bwd``.
+    Both are looked up in this module at each call, so a caller may hold
+    them to, or swap them for, their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, do.contiguous(), lse, causal=ctx.causal, scale=ctx.scale
+        )
+        return dq, dk, dv, None, None
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    with_lse: bool = False,
+):
+    """The forward of ``flash_attention``: ``o``, or ``(o, lse [B, H, Sq]
+    f32)`` ``with_lse`` (the natural log-sum-exp of each row's scaled
+    logits, ``-inf`` where no key is reached).  On the CPU float64 is taken
+    too, for ``gradcheck``."""
     if q.device.type == "cpu":
-        _flash_attention.validate(q, k, v)
-        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    out = _flash_attention.launch(library(), q, k, v, causal, scale)
+        _flash_attention.validate(q, k, v, dtypes=_flash_attention.CPU_DTYPES)
+        return ref.flash_attention_ref(
+            q, k, v, causal=causal, scale=scale, with_lse=with_lse
+        )
+    out = _flash_attention.launch(library(), q, k, v, causal, scale, with_lse=with_lse)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+):
+    """``(dq, dk, dv)``: the gradients of ``flash_attention``'s output ``o``
+    for the output gradient ``do``, from the forward's inputs, ``o`` and its
+    log-sum-exp ``lse`` [B, H, Sq] (see ``ref.flash_attention_bwd_ref``).
+    The kernel takes head dims 64, 80, 96 and 128
+    (``kernels/flash_attention.py``)."""
+    args = (q, k, v, o, do, lse)
+    if q.device.type == "cpu":
+        _flash_attention.validate_bwd(*args, dtypes=_flash_attention.CPU_DTYPES)
+        return ref.flash_attention_bwd_ref(*args, causal=causal, scale=scale)
+    out = _flash_attention.launch_bwd(library(), *args, causal, scale)
+    LAUNCHES["flash_attention_bwd"] += 1
     return out
 
 
@@ -317,6 +421,7 @@ def mamba_scan(
     ``x`` [B, L, D] with steps ``delta`` [B, L, D], diagonal ``A`` [D, N]
     and ``Bmat``, ``C`` [B, L, N] (see ``ref.mamba_scan_ref``)."""
     args = (delta, A, Bmat, C, x)
+    _refuse_grad("mamba_scan", *args)
     if delta.device.type == "cpu":
         _mamba_scan.validate(*args)
         return ref.mamba_scan_ref(*args)

@@ -241,30 +241,91 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """Blocked prefill attention's function, unblocked.
 
     ``q`` [B, H, Sq, D]; ``k``, ``v`` [B, HKV, Sk, D] with H % HKV == 0
-    (query head ``h`` reads kv head ``h // (H // HKV)``).  In f32; causal
-    masks key ``j`` from query ``i`` where ``j > i + Sk - Sq``.  Returns
-    q's dtype.  A row that no key may reach is NaN here (the kernel writes
-    0 there)."""
+    (query head ``h`` reads kv head ``h // (H // HKV)``).  In f32 (float64
+    stays float64); causal masks key ``j`` from query ``i`` where ``j > i +
+    Sk - Sq``.  Returns q's dtype.  A row that no key may reach is NaN here
+    (the kernel writes 0 there).  ``with_lse`` also returns the natural
+    log-sum-exp of each row's scaled, masked logits, ``lse [B, H, Sq]`` f32
+    (``-inf`` where no key is reached): what the backward needs to rebuild
+    the probabilities."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = h // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qf = q.float() * scale
-    kf = k.float().repeat_interleave(group, dim=1)
-    vf = v.float().repeat_interleave(group, dim=1)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(ct) * scale
+    kf = k.to(ct).repeat_interleave(group, dim=1)
+    vf = v.to(ct).repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
     if causal:
-        dev = q.device
-        mask = torch.arange(sq, device=dev)[:, None] + (sk - sq) >= torch.arange(
-            sk, device=dev
-        )[None, :]
-        s = s.masked_fill(~mask, float("-inf"))
+        s = s.masked_fill(~_causal_mask(sq, sk, q.device), float("-inf"))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    if not with_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1)
+    return o, lse
+
+
+def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
+    """``[Sq, Sk]`` bool, True where query ``i`` may see key ``j``: ``j <= i
+    + Sk - Sq``."""
+    rows = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    return rows >= torch.arange(sk, device=device)[None, :]
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients of ``flash_attention_ref``'s output, by the formulas
+    the backward kernel computes (not by autograd).
+
+    ``q``, ``o``, ``do`` [B, H, Sq, D]; ``k``, ``v`` [B, HKV, Sk, D]; ``lse``
+    [B, H, Sq] the forward's natural log-sum-exp.  In f32 (float64 stays
+    float64), one kv head at a time so that no [B, H, Sq, Sk] tensor is
+    held: ``P = exp(S scale - lse)`` with ``S = Q K^T``, ``dV = P^T dO``,
+    ``dP = dO V^T``, ``Delta = rowsum(dO * O)``, ``dS = P * (dP - Delta)``,
+    ``dQ = dS K scale``, ``dK = dS^T Q scale``; dK and dV summed over each kv
+    head's G query heads.  A row no key reaches (``lse = -inf``) has P = 0
+    and Delta = 0, so its dQ is 0 and it adds nothing to dK and dV, whatever
+    its ``o`` holds.  Returns ``(dq, dk, dv)`` in q's, k's and v's dtypes."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    dq = torch.empty(q.shape, dtype=ct, device=q.device)
+    dk = torch.empty(k.shape, dtype=ct, device=q.device)
+    dv = torch.empty(v.shape, dtype=ct, device=q.device)
+    keep = _causal_mask(sq, sk, q.device) if causal else None
+    for n in range(hkv):
+        hs = slice(n * group, (n + 1) * group)
+        qf, of, dof = (t[:, hs].to(ct) for t in (q, o, do))  # [B, G, Sq, D]
+        kf, vf = k[:, n].to(ct), v[:, n].to(ct)  # [B, Sk, D]
+        none = torch.isinf(lse[:, hs]).unsqueeze(-1)  # rows no key reaches
+        s = torch.einsum("bgqd,bkd->bgqk", qf, kf) * scale
+        if keep is not None:
+            s = s.masked_fill(~keep, float("-inf"))
+        p = torch.exp(s - lse[:, hs].to(ct).unsqueeze(-1).masked_fill(none, 0.0))
+        delta = (dof * of).sum(-1, keepdim=True).masked_fill(none, 0.0)
+        ds = p * (torch.einsum("bgqd,bkd->bgqk", dof, vf) - delta)
+        dv[:, n] = torch.einsum("bgqk,bgqd->bkd", p, dof)
+        dk[:, n] = torch.einsum("bgqk,bgqd->bkd", ds, qf) * scale
+        dq[:, hs] = torch.einsum("bgqk,bkd->bgqd", ds, kf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def paged_attention_ref(

@@ -20,15 +20,21 @@ Parameters are a dict of tensors with the reference's names and stacked
 ``[L, ...]`` leaves; ``params_from_numpy`` carries the reference's
 parameter pytree across (as ``jax.tree.map(np.asarray, params)`` gives it),
 the counterpart of ``dex.state_from_numpy``.  The layer stack is a Python
-loop over those leaves, where the reference scans.
+loop over those leaves, where the reference scans; ``forward`` unbinds each
+stacked leaf once (``unbind_layers``), so a backward stacks each leaf's
+gradient once, and under grad it checkpoints each block where
+``cfg.remat`` asks (the reference's ``jax.checkpoint``).  The training
+loss is ``loss_fn``, its cross entropy ``chunked_ce`` (chunks of positions,
+each chunk's f32 logits recomputed in the backward).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.mesh import resolve_device
 from repro_torch.models import layers as L
@@ -41,6 +47,40 @@ def layer_params(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
     return {
         k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()
     }
+
+
+def unbind_layers(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """The ``n`` layers' slices of stacked ``[n, ...]`` leaves, each leaf
+    unbound once (views).  Its backward stacks each leaf's gradient once,
+    where ``layer_params`` would allocate a zero tensor as large as the
+    whole stack in every layer's backward (32 of about 7 GB a step for
+    minitron-4b)."""
+    layers: List[Dict[str, Any]] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = unbind_layers(v, n) if isinstance(v, dict) else torch.unbind(v)
+        for i in range(n):
+            layers[i][k] = parts[i]
+    return layers
+
+
+def _tracks_grad(x: torch.Tensor, p: Dict[str, Any]) -> bool:
+    """Whether autograd records a block of ``p`` applied to ``x``."""
+    if not torch.is_grad_enabled():
+        return False
+    if x.requires_grad:
+        return True
+    return any(
+        _tracks_grad(x, v) if isinstance(v, dict) else v.requires_grad for v in p.values()
+    )
+
+
+def _remat(cfg: ArchConfig, fn, p, x, *args):
+    """``fn(cfg, p, x, *args)``, checkpointed where ``cfg.remat`` asks and
+    autograd records it: its activations are recomputed in the backward,
+    as the reference's ``jax.checkpoint`` of each block does."""
+    if cfg.remat and _tracks_grad(x, p):
+        return checkpoint(fn, cfg, p, x, *args, use_reentrant=False)
+    return fn(cfg, p, x, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -171,15 +211,40 @@ def _head_of(cfg: ArchConfig, params) -> torch.Tensor:
 def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """``x @ head`` with f32 accumulation and an f32 result, not rounded
     back (the reference's ``preferred_element_type=F32``).  On the card a
-    bf16 product asks cuBLAS for the f32 output directly (``out_dtype``),
-    which spares an f32 copy of the 256k-row head on every decode step; the
-    CPU has no such product, so it multiplies f32 copies."""
+    bf16 product asks cuBLAS for the f32 output directly (``HeadProduct``),
+    which spares an f32 copy of the 256k-row head on every decode step and
+    every cross-entropy chunk; the CPU has no such product, so it
+    multiplies f32 copies."""
     if x.dtype == F32:
         return torch.matmul(x, head)
     if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), head, out_dtype=F32)
+        out = HeadProduct.apply(x.reshape(-1, x.shape[-1]), head)
         return out.reshape(*x.shape[:-1], head.shape[-1])
     return torch.matmul(x.float(), head.float())
+
+
+class HeadProduct(torch.autograd.Function):
+    """``x [N, D] @ head [D, V]`` in bf16 with an f32 result
+    (``torch.mm(..., out_dtype=float32)``), and its gradient: the f32
+    output gradient is rounded once to bf16, then ``dx = g head^T`` and
+    ``dhead = x^T g`` are bf16 products with f32 accumulation, each
+    rounded once to bf16.  The reference multiplies the f32 gradient by the
+    bf16 operand in f32; that would cost an f32 copy of the head and an f32
+    product of 26 TFLOP a minitron-4b step, so only this rounding of the
+    gradient (2^-9 relative) differs."""
+
+    @staticmethod
+    def forward(ctx, x, head):
+        ctx.save_for_backward(x, head)
+        return torch.mm(x, head, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = torch.mm(g, head.T) if ctx.needs_input_grad[0] else None
+        dhead = torch.mm(x.T, g) if ctx.needs_input_grad[1] else None
+        return dx, dhead
 
 
 def ffn(cfg: ArchConfig, p, x, *, with_aux: bool = False):
@@ -247,14 +312,18 @@ def _encode(cfg: ArchConfig, params, enc_emb: torch.Tensor) -> torch.Tensor:
     enc = params["encoder"]
     x = enc_emb + enc["pos"][:t][None]
     positions = torch.arange(t, device=x.device)
-    for i in range(cfg.enc_layers):
-        p = layer_params(enc["blocks"], i)
-        h, _ = L.gqa_attention(
-            cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions, causal=False
-        )
-        x = x + h
-        x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["ln2"]))
+    for p in unbind_layers(enc["blocks"], cfg.enc_layers):
+        x = _remat(cfg, _encoder_block, p, x, positions)
     return L.apply_norm(cfg, x, enc["final_norm"])
+
+
+def _encoder_block(cfg: ArchConfig, p, x, positions):
+    """One pre-norm encoder block: non-causal GQA, then the MLP."""
+    h, _ = L.gqa_attention(
+        cfg, p["attn"], L.apply_norm(cfg, x, p["ln1"]), positions, causal=False
+    )
+    x = x + h
+    return x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, x, p["ln2"]))
 
 
 def _attention(cfg: ArchConfig):
@@ -290,22 +359,83 @@ def forward(
     the final hidden states when ``return_hidden``.  An encoder-decoder
     model runs its encoder over ``enc_emb`` [B, T, D] first (``ValueError``
     without it).  Every attention is the ``flash_attention`` kernel, every
-    Mamba layer's scan the ``mamba_scan`` kernel."""
+    Mamba layer's scan the ``mamba_scan`` kernel.  Under grad, each layer
+    of the stack (and of the encoder) is checkpointed where ``cfg.remat``
+    asks; the hybrid's shared block is not, as in the reference."""
     s = tokens.shape[1]
     enc_x = _encode(cfg, params, enc_emb) if cfg.encdec else None
     x = _embed(cfg, params, tokens)
     if positions is None:
         positions = torch.arange(s, device=x.device)
     aux = torch.zeros((), dtype=F32, device=x.device) if with_aux else None
+    layers = unbind_layers(params["blocks"], cfg.n_layers)
     for kind, i in _schedule(cfg):
-        p = params["shared_attn"] if kind == "shared" else layer_params(params["blocks"], i)
-        x, a = _apply_block(cfg, p, x, positions, with_aux, enc_x)
+        if kind == "shared":
+            x, a = _apply_block(cfg, params["shared_attn"], x, positions, with_aux, enc_x)
+        else:
+            x, a = _remat(cfg, _apply_block, layers[i], x, positions, with_aux, enc_x)
         if a is not None:
             aux = aux + a
     x = L.apply_norm(cfg, x, params["final_norm"])
     if return_hidden:
         return x, aux
     return _logits(x, _head_of(cfg, params)), aux
+
+
+# ---------------------------------------------------------------------------
+# the training loss
+# ---------------------------------------------------------------------------
+
+
+def _ce_chunk(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor):
+    """One chunk's ``(sum of the NLL f32, count int32)`` over its positions
+    whose label is not -100; its logits [B, c, V] are f32."""
+    logits = _logits(h, head)
+    valid = labels != -100
+    safe = torch.where(valid, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    return ((logz - gold) * valid).sum(), valid.sum(dtype=torch.int32)
+
+
+def chunked_ce(cfg: ArchConfig, params, hidden, labels, *, chunk: int = 512):
+    """Cross entropy without the whole [B, S, V] f32 logits: the positions
+    in chunks of ``chunk`` (cut down until it divides S), each chunk's
+    logits checkpointed under grad, so its backward recomputes them, as the
+    reference's ``jax.checkpoint`` of its scan body does.  Returns
+    ``(sum_nll f32, count int32)``."""
+    s = hidden.shape[1]
+    c = min(chunk, s)
+    while s % c:
+        c -= 1
+    head = _head_of(cfg, params)
+    nll = torch.zeros((), dtype=F32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    grad = torch.is_grad_enabled() and (hidden.requires_grad or head.requires_grad)
+    for h, lab in zip(hidden.split(c, dim=1), labels.split(c, dim=1)):
+        if grad:
+            n, k = checkpoint(_ce_chunk, h, head, lab, use_reentrant=False)
+        else:
+            n, k = _ce_chunk(h, head, lab)
+        nll = nll + n
+        cnt = cnt + k
+    return nll, cnt
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, ce_chunk: int = 512):
+    """Next-token cross entropy plus 0.01 x the MoE aux loss: ``(total,
+    {"ce", "moe_aux", "tokens"})``, all 0-dim tensors.  ``batch`` holds
+    ``tokens`` [B, S] and ``labels`` [B, S] (-100 = ignore) on the
+    parameters' device, and ``enc_emb`` [B, T, D] for an encoder-decoder
+    model."""
+    hidden, aux = forward(
+        cfg, params, batch["tokens"], enc_emb=batch.get("enc_emb"), return_hidden=True
+    )
+    nll_sum, cnt = chunked_ce(cfg, params, hidden, batch["labels"], chunk=ce_chunk)
+    denom = torch.clamp(cnt, min=1)
+    ce = nll_sum / denom
+    total = ce + 0.01 * aux
+    return total, {"ce": ce, "moe_aux": aux, "tokens": denom}
 
 
 # ---------------------------------------------------------------------------

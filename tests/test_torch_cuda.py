@@ -1066,3 +1066,143 @@ def test_encdec_decode_on_the_card_matches_the_cpu(cuda, dtype):
     full, _ = t_model.forward(cfg, card, toks.to(cuda), enc_emb=emb.to(cuda))
     err = (full.cpu() - runs[1][0]).abs().max().item()
     assert err <= tol, err
+
+
+# the backward of flash_attention: each gradient within this share of its
+# largest magnitude (bf16: P and dS are rounded to bf16 as mma.sync
+# operands, measured about 5e-3; f32: sums in another order, about 1e-6)
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def grad_err(got, want):
+    return max(
+        float((g.double() - w.double()).abs().max() / w.double().abs().max().clamp(min=1e-30))
+        for g, w in zip(got, want)
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,hkv,sq,sk,d,causal",
+    [  # minitron-4b's training shape, cut to 512 positions: 24 heads over 8
+     (1, 24, 8, 512, 512, 128, True),
+     # granite-moe-1b-a400m's: 16 heads over 8 of 64
+     (2, 16, 8, 256, 256, 64, True),
+     # whisper-small's cross attention, non-causal, G = 1, cut
+     (2, 12, 12, 100, 300, 64, False),
+     # zamba2-2.7b's and minicpm3-4b's head dims, ragged lengths, Sq < Sk
+     (1, 4, 4, 150, 230, 80, True), (1, 6, 2, 77, 129, 96, True),
+     # Sq > Sk: rows no key reaches get dq = 0
+     (1, 4, 2, 150, 70, 64, True)],
+)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, b, h, hkv, sq, sk, d, causal):
+    """The backward kernel against ``flash_attention_bwd_ref`` on the
+    forward kernel's own output and log-sum-exp; two launches bit-equal,
+    one launch counted each."""
+    q, k, v = flash_case(b, h, hkv, sq, sk, d, dtype, cuda)
+    do = flash_case(b, h, h, sq, sq, d, dtype, cuda)[0]
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert [t.dtype for t in got] == [dtype] * 3
+    assert grad_err(got, want) <= GRAD_TOL[dtype]
+    if causal and sq > sk:
+        assert bool((got[0][:, :, : sq - sk] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_forward_lse_matches_plain(cuda, dtype):
+    """Both forward kernels' natural log-sum-exp (the bf16 one from its
+    base-2 softmax) within 1e-5 in f32 and 1e-3 in bf16 of the plain
+    version's, -inf at rows no key reaches; without the pointer the output
+    is the same."""
+    q, k, v = flash_case(1, 4, 2, 300, 200, 128, dtype, cuda)
+    o, lse = ops.flash_attention_fwd(q, k, v, with_lse=True, scale=0.2)
+    want_o, want = ref.flash_attention_ref(q, k, v, with_lse=True, scale=0.2)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (1, 4, 300)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    live = torch.isfinite(want)
+    assert float((lse[live] - want[live]).abs().max()) <= LSE_TOL[dtype]
+    assert torch.equal(o, ops.flash_attention_fwd(q, k, v, scale=0.2))
+    empty = ops.flash_attention_fwd(q, k[:, :, :0], v[:, :, :0], with_lse=True)
+    assert bool((empty[0] == 0).all()) and bool(torch.isinf(empty[1]).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_refuses_other_head_dims(cuda):
+    q, k, v = flash_case(1, 2, 2, 16, 16, 32, torch.bfloat16, cuda)
+    o, lse = ops.flash_attention_fwd(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention_bwd(q, k, v, o, o, lse)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """A reduced minitron-4b (2 layers, head dim 64, float32, remat) train
+    step on the card (the flash kernels, forward and backward) against the
+    same step on the CPU (their plain versions), weights carried bit for
+    bit: the loss within 1e-5 relative, every gradient within 1e-3 x its
+    RMS, the parameters after the update within 5% of the learning rate;
+    every gradient finite and not all zero."""
+    from repro_torch.data.pipeline import TokenPipeline, to_device
+    from repro_torch.train import optimizer as t_opt
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+
+    cfg = dataclasses.replace(
+        get_config("minitron-4b").reduced(d_model=128, n_heads=4, n_kv_heads=2, head_dim=64,
+                                          dtype="float32"), remat=True)
+    host = t_model.init_params(cfg, seed=0, device="cpu")
+    batch = TokenPipeline(cfg, global_batch=2, seq_len=96, seed=1).next_batch()
+    runs = []
+    for dev in ("cpu", cuda):
+        params = t_model.params_from_numpy(cfg, t_model.params_to_numpy(host), dev)
+        before = ops.LAUNCHES["flash_attention_bwd"]
+        loss, _, grads = loss_and_grads(cfg, params, to_device(batch, cfg, dev))
+        launched = ops.LAUNCHES["flash_attention_bwd"] - before
+        assert launched == (cfg.n_layers if dev != "cpu" else 0)
+        ocfg = t_opt.OptConfig(warmup_steps=1, total_steps=3)
+        step = make_train_step(cfg, ocfg)
+        params, _, m = step(params, t_opt.init_opt_state(params, ocfg), to_device(batch, cfg, dev))
+        runs.append((loss.cpu(), t_opt.tree_map(lambda t: t.cpu(), grads),
+                     t_opt.tree_map(lambda t: t.cpu(), params), float(m["loss"])))
+    torch.cuda.synchronize()
+    (l0, g0, p0, m0), (l1, g1, p1, m1) = runs
+    assert abs(float(l1) - float(l0)) <= 1e-5 * abs(float(l0))
+    assert abs(m1 - m0) <= 1e-5 * abs(m0)
+    for a, b in zip(t_opt.leaves(g0), t_opt.leaves(g1)):
+        rms = float(a.double().pow(2).mean().sqrt())
+        assert bool(torch.isfinite(b).all()) and rms > 0
+        assert float((a - b).abs().max()) <= 1e-3 * rms
+    for a, b in zip(t_opt.leaves(p0), t_opt.leaves(p1)):
+        assert float((a - b).abs().max()) <= 0.05 * 3e-4
+
+
+@pytest.mark.cuda
+def test_head_product_gradient_on_the_card(cuda):
+    """The bf16 head product keeps its f32 result, and its backward is the
+    f32 product of the operands with the output gradient rounded once to
+    bf16 (the design's one rounding), within 1e-2 of the largest
+    magnitude (each result is rounded to bf16 once)."""
+    rng = np.random.default_rng(7)
+    x, head = (torch.from_numpy(rng.standard_normal(s)).to(cuda, torch.bfloat16)
+               for s in ((2, 24, 128), (128, 1000)))
+    g = torch.from_numpy(rng.standard_normal((2, 24, 1000)).astype(np.float32)).to(cuda)
+    xs, hs = x.clone().requires_grad_(), head.clone().requires_grad_()
+    out = t_model._logits(xs, hs)
+    assert out.dtype == torch.float32
+    out.backward(g)
+    xf, hf = x.float().requires_grad_(), head.float().requires_grad_()
+    want = xf @ hf
+    want.backward(g.to(torch.bfloat16).float())
+    assert float((out - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    for got, ref_ in ((xs.grad, xf.grad), (hs.grad, hf.grad)):
+        assert got.dtype == torch.bfloat16
+        assert float((got.float() - ref_).abs().max()) <= 1e-2 * float(ref_.abs().max())

@@ -34,7 +34,8 @@ assert {
     "repro_torch.serve.kv_cache", "repro_torch.serve.serve_step",
     "repro_torch.kernels.paged_attention", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.mamba_scan", "repro_torch.configs.falcon_mamba_7b",
-    "repro_torch.configs.zamba2_2_7b",
+    "repro_torch.configs.zamba2_2_7b", "repro_torch.train.optimizer",
+    "repro_torch.train.train_step", "repro_torch.data.pipeline",
 } <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
@@ -48,6 +49,7 @@ from repro_torch.core import dex, engine, pool, scan, smo
 from repro_torch.configs.registry import get_config
 from repro_torch.models import model
 from repro_torch.serve.kv_cache import PagedKVCache
+from repro_torch.data.pipeline import TokenPipeline, to_device
 small = get_config("minitron-4b").reduced()
 ssm = get_config("falcon-mamba-7b").reduced()
 if not torch.cuda.is_available():
@@ -60,6 +62,7 @@ if not torch.cuda.is_available():
         lambda: engine.make_dex_engine(None, dex.DexMeshConfig()),
         lambda: scan.make_dex_scan(None, dex.DexMeshConfig()),
         lambda: smo.make_dex_smo(None, dex.DexMeshConfig()),
+        lambda: to_device(TokenPipeline(small, 1, 4).next_batch(), small),
     ):
         try:
             call()

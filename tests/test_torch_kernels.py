@@ -247,6 +247,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
         torch.zeros((2, 1), dtype=torch.int32), torch.ones(2, dtype=torch.int32),
     )
     t_ops.flash_attention(q[None], q[None, :2], q[None, :2])
+    qg = q[None].clone().requires_grad_()
+    t_ops.flash_attention(qg, q[None, :2], q[None, :2]).sum().backward()
     t_ops.mamba_scan(q, torch.zeros((8, 16)), torch.zeros((2, 4, 16)),
                      torch.zeros((2, 4, 16)), q)
     assert t_ops.LAUNCHES == {
@@ -258,5 +260,6 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
         "leaf_split": 0,
         "paged_attention": 0,
         "flash_attention": 0,
+        "flash_attention_bwd": 0,
         "mamba_scan": 0,
     }
