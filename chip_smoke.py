@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit (``nvidia-smi``), CUDA version;
   2. build: compile the CUDA kernels from ``src/repro_torch/csrc``; count
      the tensor-core products (HGMMA) and TMA loads (UTMALDG) in the bf16
-     ``flash_attention`` kernels' SASS, which must have both, and the
+     ``flash_attention`` kernels' SASS and in its backward's dK / dV and dQ
+     kernels', which must have both (the backward's no ``mma.sync``
+     product, HMMA), and the
      ``mma.sync`` products (HMMA) and ``cp.async`` copies (LDGSTS) in the
      bf16 ``paged_attention`` kernels', which must have both, and the
      ``cp.async`` copies (LDGSTS) in the ``mamba_scan`` kernels', which must
@@ -77,10 +79,12 @@ Phases, in order; any failure exits non-zero:
      two launches bit-equal; the forward's log-sum-exp within 1e-3 and
      1e-5) at minitron-4b's training shape [2, 24, 4096, 128] over 8 kv
      heads, granite's [2, 16, 2048, 64] over 8 (both causal), whisper's
-     non-causal [8, 12, 448, 64] over [8, 12, 1500, 64], and two small f32
-     cases, the bf16 ones timed cold and hot beside the plain version, the
-     bound (10 D flops a kept pair and head) and ``torch.autograd.grad`` of
-     SDPA's output for the same dO; then
+     non-causal [8, 12, 448, 64] over [8, 12, 1500, 64], zamba2-2.7b's
+     [2, 32, 2048, 80] and minicpm3-4b's [2, 40, 2048, 96] (causal, G = 1),
+     and two small f32 cases, the bf16 ones timed cold and hot beside the
+     plain version, the bound (10 D flops a kept pair and head; the rate
+     printed at 10 D and at the 14 D the kernels execute) and
+     ``torch.autograd.grad`` of SDPA's output for the same dO; then
      ``mamba_scan`` at falcon-mamba-7b's prefill shape ([2, 2048, 8192],
      N = 16) and zamba2-2.7b's ([2, 2048, 5120], N = 64), operands in bf16
      and f32, at init scales with decay-heavy channels, plus a width off
@@ -398,7 +402,12 @@ FLASH_BWD_SHAPES = {
     f"{LM_ARCH} training": ((2, 24, TRAIN_SEQ, 128), (2, 8, TRAIN_SEQ, 128), True),
     f"{MOE_ARCH} training": ((2, 16, 2048, 64), (2, 8, 2048, 64), True),
     f"{ENCDEC_ARCH} prefill cross": ((8, 12, 448, 64), (8, 12, 1500, 64), False),
+    f"{HYBRID_ARCH} shared block": ((2, 32, 2048, 80), (2, 32, 2048, 80), True),
+    f"{MLA_ARCH} prefill": ((2, 40, 2048, 96), (2, 40, 2048, 96), True),
 }
+#: flops the backward kernels execute a kept pair and head, over the 10 D of
+#: the bound: the dQ pass recomputes S and dP
+BWD_EXECUTED = 14 / 10
 FLASH_BWD_F32 = (((1, 6, 300, 96), (1, 2, 400, 96), True), ((1, 4, 130, 64), (1, 4, 90, 64), False))
 
 
@@ -634,18 +643,23 @@ def mamba_instance(name):
 
 
 #: per kernel family: the SASS ops counted, and those every kernel must hold
+#: (``SASS_ABSENT``: those none may hold)
 SASS_OPS = {
     "flash_attention_wgmma": (("HGMMA", "UTMALDG", "USETMAXREG"), ("HGMMA", "UTMALDG")),
+    "bwd_dkdv_wgmma": (("HGMMA", "UTMALDG", "USETMAXREG", "HMMA"), ("HGMMA", "UTMALDG")),
+    "bwd_dq_wgmma": (("HGMMA", "UTMALDG", "USETMAXREG", "HMMA"), ("HGMMA", "UTMALDG")),
     "paged_attention_split": (("HMMA", "LDGSTS", "LDSM", "MOVM"), ("HMMA", "LDGSTS")),
     "mamba_scan": (("LDGSTS", "MUFU.EX2", "FFMA", "FMUL", "FADD"), ("LDGSTS",)),
 }
+SASS_ABSENT = {"bwd_dkdv_wgmma": ("HMMA",), "bwd_dq_wgmma": ("HMMA",)}
 
 
 def sass_evidence(lib):
     """Count, in each kernel of the built library (``cuobjdump
-    --dump-sass``): in the bf16 flash_attention kernels the tensor-core
-    products (``HGMMA``), TMA loads (``UTMALDG``) and register hand-overs
-    (``USETMAXREG``); in the bf16 paged_attention kernels the ``mma.sync``
+    --dump-sass``): in the bf16 flash_attention kernels and its backward's
+    dK / dV and dQ kernels the tensor-core products (``HGMMA``), TMA loads
+    (``UTMALDG``) and register hand-overs (``USETMAXREG``), and in the
+    backward's the ``mma.sync`` products (``HMMA``), which must be none; in the bf16 paged_attention kernels the ``mma.sync``
     products (``HMMA``), ``cp.async`` copies (``LDGSTS``), ``ldmatrix``
     (``LDSM``) and ``movmatrix`` (``MOVM``); in the mamba_scan kernels the
     ``cp.async`` copies (``LDGSTS``), exponentials (``MUFU.EX2``) and FP32
@@ -679,6 +693,9 @@ def sass_evidence(lib):
         mine = [c for f, c in counts.values() if f == family]
         if not mine or not all(c[op] for c in mine for op in required):
             fail(f"{family}: a kernel lacks one of {required} in its SASS: {counts}")
+        absent = SASS_ABSENT.get(family, ())
+        if any(c[op] for c in mine for op in absent):
+            fail(f"{family}: a kernel holds one of {absent} in its SASS: {counts}")
     for name, (_, c) in counts.items():
         print(f"sass {name}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
     return counts
@@ -2834,6 +2851,7 @@ def flash_bwd_kernel(seed):
             else "bytes",
             gflop=flops / 1e9,
             tflops_per_s=flops / t["cold_ms"] / 1e9,
+            executed_tflops_per_s=BWD_EXECUTED * flops / t["cold_ms"] / 1e9,
         )
         del so, qq, kk, vv, q, k, v, do, o, lse
     main = rows[f"{LM_ARCH} training"]
@@ -2864,7 +2882,8 @@ def flash_bwd_kernel(seed):
     )
     for label, r in rows.items():
         print(f"kernel flash_attention_bwd {label} {r['shape']}: kernel {r['ms']:.4f} ms"
-              f" cold, {r['hot_ms']:.4f} hot ({r['tflops_per_s']:.1f} TFLOP/s), plain"
+              f" cold, {r['hot_ms']:.4f} hot ({r['tflops_per_s']:.1f} TFLOP/s at 10 D,"
+              f" {r['executed_tflops_per_s']:.1f} at 14 D), plain"
               f" {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms cold,"
               f" {r['library_hot_ms']:.4f} hot, bound {r['bound_ms']:.4f} ms"
               f" ({r['bound_by']}) on {card}")

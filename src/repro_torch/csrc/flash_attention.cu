@@ -74,6 +74,7 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -86,7 +87,7 @@ constexpr int kBM = 128;        // q rows a CTA: two consumer warpgroups of 64
 constexpr int kConsumers = 2;   // consumer warpgroups
 constexpr int kWgThreads = 128;
 constexpr int kThreadsWg = kWgThreads * (kConsumers + 1);
-constexpr int kBox = 64;        // columns of a TMA box: 128 bytes of bf16
+constexpr int kBox = tma::kBoxCols;  // columns of a TMA box: 128 bytes of bf16
 constexpr int kSmemSlack = 1024 + 128;  // 1024-byte alignment, barriers
 constexpr float kLn2 = 0.693147180559945309f;
 
@@ -475,45 +476,6 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the library links no libcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A rank-3 map over [heads, rows, d] bf16, boxes of 64 columns x box_rows,
-// 128B-swizzled; out-of-bounds elements read as zero.
-CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int heads, int rows,
-                  int d, int box_rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(rows) * d * 2};
-  const cuuint32_t box[3] = {kBox, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 // Returns a cudaError_t, or -(CUresult) when a tensor map is refused.
 template <int DP, int BN, int ST>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int b,
@@ -521,12 +483,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* 
                  cudaStream_t stream) {
   using T = Tiles<DP, BN, ST>;
   if (smem != T::kBytes) return cudaErrorInvalidValue;  // the plan disagrees
-  EncodeTiled enc = encoder();
+  tma::EncodeTiled enc = tma::encoder();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
-  CUresult r = make_map(enc, &tq, q, b * h, sq, d, kBM);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &tk, k, b * hkv, sk, d, BN);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &tv, v, b * hkv, sk, d, BN);
+  CUresult r = tma::make_map(enc, &tq, q, b * h, sq, d, kBM);
+  if (r == CUDA_SUCCESS) r = tma::make_map(enc, &tk, k, b * hkv, sk, d, BN);
+  if (r == CUDA_SUCCESS) r = tma::make_map(enc, &tv, v, b * hkv, sk, d, BN);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   auto kern = flash_attention_wgmma<DP, BN, ST>;
   cudaError_t err =

@@ -1,7 +1,7 @@
-// mma.sync building blocks shared by the kernels that multiply bf16 tiles
-// staged in shared memory on tensor cores with warp-level products
-// (paged_attention, flash_attention_bwd): ldmatrix loads, the in-register
-// transpose, the m16n8k16 product and the hi / lo bf16 split.
+// mma.sync building blocks for the kernels that multiply bf16 tiles staged
+// in shared memory on tensor cores with warp-level products
+// (paged_attention): ldmatrix loads, the in-register transpose, the
+// m16n8k16 product and the hi / lo bf16 split.
 #pragma once
 
 #include <cuda_bf16.h>

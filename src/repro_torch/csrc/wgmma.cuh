@@ -1,6 +1,6 @@
 // Hopper building blocks for the tensor-core kernels: wgmma wrappers,
 // shared-memory matrix descriptors, mbarriers and TMA loads, as inline PTX
-// for sm_90a.  Included by flash_attention.cu.
+// for sm_90a.  Included by flash_attention.cu and flash_attention_bwd.cu.
 //
 // The wgmma wrappers write out every accumulator register because inline
 // PTX needs a literal operand list.  Accumulator layout (m64nNk16, f32):

@@ -47,19 +47,28 @@ TPU kernel: the reference has no backward Pallas kernel and trains through
 its jnp ``sdpa``, which XLA differentiates, but here the attention is the
 kernel, so its gradient is a kernel too.  What bounds it: operations,
 ``10 D`` flops a kept (query, key) pair and head (S recomputed, dV, dP,
-dQ, dK).  Design: a pre-pass writes ``Delta = rowsum(dO o O)`` and the
-base-2 log-sum-exp a row; a dK / dV pass runs one CTA a (batch, kv head,
-64-key tile), looping over the group's G query heads and the q tiles the
-causal mask keeps; a dQ pass runs one CTA a (batch, head, 64-row q tile),
-looping over the k tiles.  Each output element is summed by one thread in
-a fixed order, with no atomics, so two launches are bit-equal (the remat
-recompute of a block relies on this).  bf16 runs on ``mma.sync.m16n8k16``
-(bf16 in, f32 accumulate), f32 on CUDA cores.  Head dims 64, 80, 96 and
-128; causal (offset ``Sk - Sq``) or not; any G, Sq and Sk.
+dQ, dK); the design executes ``14 D`` (the dQ pass recomputes S and dP).
+Design: a pre-pass writes ``Delta = rowsum(dO o O)`` and the base-2
+log-sum-exp a row; then two persistent bf16 kernels of three warpgroups, in
+the forward's style (``bwd_dkdv_wgmma``, ``bwd_dq_wgmma``).  A producer
+warpgroup brings tiles by TMA into a ring of mbarrier-guarded slots; two
+consumer warpgroups of 64 rows each run the products as ``wgmma`` (SS for
+S and dP, RS with P or dS from registers for dV, dK and dQ).  dK / dV
+takes (128-key tile, batch * kv head) items, holds K and V and streams the
+group's G query heads' 64-row Q and dO tiles (with their lse and Delta);
+dQ takes (128-row q tile, batch * head) items, holds Q and dO and streams
+64-key K and V tiles up to the causal diagonal.  Each output element is
+summed by one warpgroup in a fixed order, with no atomics, so two launches
+are bit-equal (the remat recompute of a block relies on this).  float32
+runs on CUDA cores.  Head dims 64, 80, 96 and 128 (80 and 96 padded to 128
+in the dV, dK and dQ products by the tensor maps' zero fill); causal
+(offset ``Sk - Sq``) or not; any G, Sq and Sk.  ``plan_bwd`` gives the
+tiles; the C entry ``dex_flash_attention_bwd_plan`` checks that they name
+a kernel it has.
 
 The plain version is ``repro_torch.kernels.ref.flash_attention_ref``; the
 dispatch, build and launch count are in ``kernels/ops.py``; the source is
-``csrc/flash_attention.cu`` (with ``csrc/wgmma.cuh``).
+``csrc/flash_attention.cu`` (with ``csrc/wgmma.cuh`` and ``csrc/tma.cuh``).
 """
 
 from __future__ import annotations
@@ -86,6 +95,12 @@ SMEM_LIMIT = 232_448
 _SLACK = 1024 + 128
 #: head dims the backward kernel is built for
 BWD_HEAD_DIMS = (64, 80, 96, 128)
+#: rows of a backward item (keys of a dK / dV CTA, q rows of a dQ CTA), of
+#: each of its two consumer warpgroups (wgmma's M), and of a ring slot (q
+#: rows for dK / dV, keys for dQ); the slots of the ring; the buffers of an
+#: item's held tiles (K and V, or Q and dO), two so that the next item's
+#: tiles load under this one's last products and epilogue
+BWD_BLOCK, BWD_CONSUMER_ROWS, BWD_STEP, BWD_STAGES, BWD_HOLD = 128, 64, 64, 3, 2
 #: the CPU path's dtypes: the kernel's, and float64 for ``gradcheck``
 CPU_DTYPES = (*DTYPES, torch.float64)
 
@@ -120,6 +135,49 @@ def plan(d: int, dtype: torch.dtype) -> Plan:
     return Plan("wgmma", dp, BLOCK_Q, bn, stages, smem)
 
 
+@dataclasses.dataclass(frozen=True)
+class PlanBwd:
+    """How one backward launch runs: the kernels (``route``), the head dim
+    their dV, dK and dQ products run at, the rows of an item and of each
+    consumer warpgroup's tile, the rows of a ring slot, the slots, and each
+    pass's dynamic shared memory in bytes.  ``padding`` is the share of the
+    executed work spent on padded columns: S and dP in both passes run over
+    the true D (``8 D`` a pair), dV, dK and dQ over ``padded_d`` (``6
+    padded_d``)."""
+
+    route: str  # "wgmma" (bf16, tensor cores) or "cuda-cores" (float32)
+    padded_d: int
+    block_rows: int
+    consumer_rows: int
+    step_rows: int
+    stages: int
+    smem_dkdv: int
+    smem_dq: int
+    padding: float
+
+
+def plan_bwd(d: int, dtype: torch.dtype) -> PlanBwd:
+    """The backward's launch plan at head dim ``d`` (one of
+    ``BWD_HEAD_DIMS``).  bfloat16: D padded to a multiple of 64 (a TMA box
+    is 128 bytes); dK / dV holds its 128 keys' K and V (two buffers) and a
+    ring of Q, dO and 64 lse and Delta values a slot; dQ holds its 128
+    rows' Q and dO (two buffers) and a ring of K and V.  float32: the CUDA-core kernels' 64-row tiles, staged
+    in shared memory as f32."""
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd takes head dims {BWD_HEAD_DIMS}, got {d}")
+    if dtype == torch.float32:
+        dkdv = 4 * (4 * 64 * (d + 1) + 2 * 64 * 65 + 2 * 64)
+        dq = 4 * (4 * 64 * (d + 1) + 64 * 65)
+        return PlanBwd("cuda-cores", d, 64, 64, 64, 1, dkdv, dq, 0.0)
+    dp = -(-d // 64) * 64
+    big, small = BWD_BLOCK * dp * 2, BWD_STEP * dp * 2
+    dkdv = BWD_HOLD * 2 * big + BWD_STAGES * (2 * small + 2 * BWD_STEP * 4) + _SLACK
+    dq = BWD_HOLD * 2 * big + BWD_STAGES * 2 * small + _SLACK
+    padding = 1 - 14 * d / (8 * d + 6 * dp)
+    return PlanBwd("wgmma", dp, BWD_BLOCK, BWD_CONSUMER_ROWS, BWD_STEP, BWD_STAGES, dkdv, dq,
+                   padding)
+
+
 def bind(lib: ctypes.CDLL) -> None:
     lib.dex_flash_attention.argtypes = (
         [_P] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 5 + [_P]
@@ -129,6 +187,8 @@ def bind(lib: ctypes.CDLL) -> None:
         [_P] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, _P]
     )
     lib.dex_flash_attention_bwd.restype = ctypes.c_int
+    lib.dex_flash_attention_bwd_plan.argtypes = [ctypes.c_int] * 8
+    lib.dex_flash_attention_bwd_plan.restype = ctypes.c_int
 
 
 def validate(q, k, v, dtypes=DTYPES) -> None:
@@ -225,14 +285,18 @@ def launch_bwd(lib: ctypes.CDLL, q, k, v, o, do, lse, causal: bool,
     """Launch the backward on the current stream: ``(dq, dk, dv)`` like q,
     k, v, and the pre-pass's scratch (Delta and the base-2 log-sum-exp, [B,
     H, Sq] f32 each), are allocated here.  Raises on a head dim outside
-    ``BWD_HEAD_DIMS``."""
+    ``BWD_HEAD_DIMS``, or where the library has no kernel for the plan."""
     validate_bwd(q, k, v, o, do, lse)
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd takes head dims {BWD_HEAD_DIMS}, got {d}")
+    p = plan_bwd(d, q.dtype)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd kernel needs CUDA tensors, got {q.device}")
+    err = lib.dex_flash_attention_bwd_plan(
+        DTYPES[q.dtype], d, p.padded_d, p.block_rows, p.step_rows, p.stages, p.smem_dkdv,
+        p.smem_dq,
+    )
+    _check_err(err, "flash_attention_bwd plan")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

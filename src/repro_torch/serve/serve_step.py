@@ -19,7 +19,9 @@ decode without it (``ROADMAP.md``, queue 3); the port refuses it.
 
 The port of ``repro.serve.serve_step``.  The history and the fresh token are
 blended as the reference blends them: the softmax over the history, weighed
-against the fresh token's own logit by the history's log-sum-exp.  The
+against the fresh token's own logit by the history's log-sum-exp, but
+max-shifted (``blend``), where the reference's exponentials overflow float32
+above 88.7 and give NaN.  The
 kernel returns that log-sum-exp beside its output; the plain path
 (``use_kernel=False``) keeps the reference's dense regather of the history's
 logits (``kp[page_table]``), so it stays the reference's computation.
@@ -51,6 +53,22 @@ def prefill(cfg: ArchConfig, params, tokens, cache=None, *, enc_emb=None):
     frame embeddings ``enc_emb`` [B, T, D]."""
     logits, _ = M.forward(cfg, params, tokens, enc_emb=enc_emb, with_aux=False)
     return logits
+
+
+def blend(o_hist, lse_hist, s_self, v_self, has_hist):
+    """``[B, n, g, d]`` f32: the attention output over a request's history
+    and its fresh token, each row the softmax over both.  ``o_hist`` [B, n,
+    g, d] f32 is the history's output, ``lse_hist`` [B, n, g] its
+    log-sum-exp, ``s_self`` [B, n, g] the fresh key's logit, ``v_self`` [B,
+    n, 1, d] its value, ``has_hist`` [B, 1, 1] whether the history is
+    non-empty (if not, the fresh value alone).  The weights are
+    max-shifted: ``exp(lse) / (exp(lse) + exp(s)) = sigmoid(lse - s)``,
+    finite where either exponential would overflow float32 (above 88.7)."""
+    w_hist = torch.where(has_hist, torch.sigmoid(lse_hist - s_self), 0.0)
+    w_self = torch.where(has_hist, 1.0 - w_hist, 1.0)
+    # an empty history's softmax is NaN in the plain version (0 from the
+    # kernel); it has weight 0, so sanitise before the blend
+    return torch.nan_to_num(o_hist) * w_hist[..., None] + v_self * w_self[..., None]
 
 
 def paged_decode_step(
@@ -135,14 +153,8 @@ def paged_decode_step(
                 sh = torch.einsum("bngd,bsnd->bngs", qg, kh.float())
                 sh = sh.masked_fill(~hist[:, None, None, :], float("-inf"))
                 lse_hist = torch.logsumexp(sh, dim=-1)  # [B, n, g]
-        denom = torch.exp(lse_hist) + torch.exp(s_self)
-        w_hist = torch.where(has_hist, torch.exp(lse_hist) / denom, 0.0)
-        w_self = torch.where(has_hist, torch.exp(s_self) / denom, 1.0)
-        # an empty history's softmax is NaN in the plain version (0 from the
-        # kernel); it has weight 0, so sanitise before the blend
-        o_hist_g = torch.nan_to_num(o_hist.reshape(b, hkv, g, hd).float())
-        v_self = v[:, 0].float()[:, :, None, :]  # [B, n, 1, d]
-        o = o_hist_g * w_hist[..., None] + v_self * w_self[..., None]
+        o = blend(o_hist.reshape(b, hkv, g, hd).float(), lse_hist, s_self,
+                  v[:, 0].float()[:, :, None, :], has_hist)
         o = o.reshape(b, 1, h * hd).to(x.dtype)
         x, _ = M.ffn(cfg, p, x + L._dot(o, ap["wo"]))
         k_new.append(k[:, 0])

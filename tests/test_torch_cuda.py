@@ -1069,7 +1069,7 @@ def test_encdec_decode_on_the_card_matches_the_cpu(cuda, dtype):
 
 
 # the backward of flash_attention: each gradient within this share of its
-# largest magnitude (bf16: P and dS are rounded to bf16 as mma.sync
+# largest magnitude (bf16: P and dS are rounded to bf16 as wgmma
 # operands, measured about 5e-3; f32: sums in another order, about 1e-6)
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -1094,7 +1094,13 @@ def grad_err(got, want):
      # zamba2-2.7b's and minicpm3-4b's head dims, ragged lengths, Sq < Sk
      (1, 4, 4, 150, 230, 80, True), (1, 6, 2, 77, 129, 96, True),
      # Sq > Sk: rows no key reaches get dq = 0
-     (1, 4, 2, 150, 70, 64, True)],
+     (1, 4, 2, 150, 70, 64, True),
+     # lengths off the 64- and 128-row tiles: G = 3 causal, G = 1 not
+     (1, 6, 2, 200, 333, 128, True), (2, 4, 4, 130, 190, 64, False),
+     # one query row over a 1,500-frame source, non-causal, G = 1
+     (1, 6, 6, 1, 1500, 64, False),
+     # G = 6 at D = 96; and Sq > Sk at D = 128, rows no key reaches
+     (1, 6, 1, 100, 300, 96, True), (1, 6, 1, 257, 130, 128, True)],
 )
 def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, b, h, hkv, sq, sk, d, causal):
     """The backward kernel against ``flash_attention_bwd_ref`` on the

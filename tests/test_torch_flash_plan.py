@@ -1,5 +1,5 @@
-"""The bf16 ``flash_attention`` kernel's launch plan, and the plain version
-at zamba2-2.7b's head dim of 80, on the CPU.
+"""The bf16 ``flash_attention`` kernel's launch plan, its backward's, and the
+plain version at zamba2-2.7b's head dim of 80, on the CPU.
 
 The plan (``kernels/flash_attention.py::plan``) is what the CUDA entry
 checks against its instantiations: every head dim ``validate`` takes (8 to
@@ -7,6 +7,12 @@ checks against its instantiations: every head dim ``validate`` takes (8 to
 multiple of 64 (the TMA boxes are 128 bytes of bf16) by less than 64, and
 fits in the 232,448 bytes of shared memory a CTA may use; float32 gets the
 CUDA-core kernel.
+
+The backward's plan (``plan_bwd``) is what ``dex_flash_attention_bwd_plan``
+checks: every head dim it takes gets 64-row consumer tiles, the tile
+constants of ``csrc/flash_attention_bwd.cu``, an instantiation there, and
+both passes' shared bytes within the limit; D = 80 and 96 report the share
+of the executed work their padding to 128 costs.
 
 D = 80 runs as a padded 128 on the card; here the plain version is held to
 the reference's ``flash_attention_ref`` and, where the lengths tile, to the
@@ -60,6 +66,51 @@ def test_head_dim_80_pads_to_128():
     p = t_flash.plan(80, torch.bfloat16)
     assert (p.padded_d, p.block_kv) == (128, 128)
     assert 1 - 80 / p.padded_d == 0.375  # the padded share of the products
+
+
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
+
+
+def bwd_source():
+    """The backward's integer constants and its bf16 kernels' (D, padded
+    D), read out of the source."""
+    text = BWD_SOURCE.read_text()
+    const = {n: int(v) for n, v in re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+    built = {
+        tuple(int(x) for x in m)
+        for m in re.findall(r"^\s*DEX_FLASH_BWD_PLAN\((\d+), (\d+)\)\s*$", text, re.M)
+    }
+    return const, built
+
+
+@pytest.mark.parametrize("d", t_flash.BWD_HEAD_DIMS)
+def test_every_bwd_head_dim_gets_a_plan_that_fits(d):
+    const, built = bwd_source()
+    assert {x for x, _ in built} == set(t_flash.BWD_HEAD_DIMS)
+    p = t_flash.plan_bwd(d, torch.bfloat16)
+    assert p.route == "wgmma" and (d, p.padded_d) in built
+    assert p.padded_d % 64 == 0 and d <= p.padded_d < d + 64
+    assert p.consumer_rows == 64 and p.block_rows == 2 * p.consumer_rows == const["kTile"]
+    assert p.step_rows == const["kStep"] == 64 and p.stages == const["kStages"] >= 3
+    big, small = 2 * p.block_rows * p.padded_d, 2 * p.step_rows * p.padded_d
+    held = const["kHold"] * 2 * big
+    assert p.smem_dkdv == held + p.stages * (2 * small + 8 * p.step_rows) + t_flash._SLACK
+    assert p.smem_dq == held + p.stages * 2 * small + t_flash._SLACK
+    assert max(p.smem_dkdv, p.smem_dq) <= t_flash.SMEM_LIMIT
+    f = t_flash.plan_bwd(d, torch.float32)
+    assert f.route == "cuda-cores" and f.padded_d == d and f.padding == 0
+    assert max(f.smem_dkdv, f.smem_dq) <= t_flash.SMEM_LIMIT
+
+
+def test_bwd_plan_reports_its_padding():
+    padding = {d: t_flash.plan_bwd(d, torch.bfloat16).padding for d in t_flash.BWD_HEAD_DIMS}
+    assert padding[64] == padding[128] == 0
+    # S and dP over the true D in both passes (8 D a pair), dV, dK and dQ
+    # over the padded 128 (6 x 128)
+    assert padding[80] == pytest.approx(1 - 14 * 80 / (8 * 80 + 6 * 128))
+    assert padding[96] == pytest.approx(0.125)
+    with pytest.raises(ValueError, match="head dims"):
+        t_flash.plan_bwd(72, torch.bfloat16)
 
 
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

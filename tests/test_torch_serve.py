@@ -24,7 +24,7 @@ from repro.serve.serve_step import paged_decode_step as ref_step  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serve.kv_cache import PAGE_BITS, PagedKVCache, page_key  # noqa: E402
-from repro_torch.serve.serve_step import paged_decode_step, prefill  # noqa: E402
+from repro_torch.serve.serve_step import blend, paged_decode_step, prefill  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -228,3 +228,76 @@ def test_paged_decode_matches_dense_decode():
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
     full = prefill(tc, tp, torch.from_numpy(toks))
     np.testing.assert_allclose(full[:, -1].numpy(), got.numpy(), atol=1e-5, rtol=1e-5)
+
+
+# -- the blend of history and fresh token past float32's exp range -----------
+
+
+def test_blend_matches_float64_past_exp_overflow():
+    """``blend`` where the history's log-sum-exp and the fresh logit exceed
+    88.7, above which exp overflows float32: the reference's weights,
+    exp(lse) / (exp(lse) + exp(s)) in float32, are NaN there; the port's
+    max-shifted ones match a float64 host computation of the same softmax
+    (float32 rounding of the weights and products: 1e-6)."""
+    lse = np.array([[[95.0, 100.0], [120.5, 300.0]], [[89.0, 100.5], [88.8, 250.0]],
+                    [[-np.inf, -np.inf], [-np.inf, -np.inf]]], np.float32)
+    s = np.array([[[100.0, 95.0], [130.0, 290.0]], [[89.5, 100.0], [95.0, 250.0]],
+                  [[120.0, -3.0], [99.0, 400.0]]], np.float32)
+    has = np.array([True, True, False])[:, None, None]
+    rng = np.random.default_rng(7)
+    o_hist = rng.standard_normal((3, 2, 2, 8)).astype(np.float32)
+    o_hist[2] = np.nan  # an empty history's plain softmax
+    v_self = rng.standard_normal((3, 2, 1, 8)).astype(np.float32)
+    got = blend(*(torch.from_numpy(a) for a in (o_hist, lse, s, v_self, has)))
+    e_h, e_s = np.exp(lse.astype(np.float64)), np.exp(s.astype(np.float64))
+    w_h = np.where(has, e_h / (e_h + e_s), 0.0)
+    w_s = np.where(has, e_s / (e_h + e_s), 1.0)
+    want = np.nan_to_num(o_hist.astype(np.float64)) * w_h[..., None] + v_self * w_s[..., None]
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    jl, js = jnp.asarray(lse[:2]), jnp.asarray(s[:2])
+    assert np.isnan(np.asarray(jnp.exp(jl) / (jnp.exp(jl) + jnp.exp(js)))).any()
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_paged_decode_step_past_exp_overflow(use_kernel):
+    """float32 decode steps whose fresh logits exceed 88.7: wq and wk are
+    scaled by 8 and made equal, so a fresh token's logit is |q|^2 /
+    sqrt(d), and each history holds earlier copies of the fresh token
+    beside other tokens.  The reference's step gives NaN logits; the
+    port's stay finite and match ``prefill`` over the same tokens (a dense
+    softmax, max-shifted) at the dense test's 1e-5."""
+    kw = dict(n_layers=1, d_model=64, n_heads=4, n_kv_heads=4, dtype="float32")
+    rc, tc = ref_config("minitron-4b").reduced(**kw), get_config("minitron-4b").reduced(**kw)
+    tree = jax.tree.map(np.asarray, RM.init_params(rc, jax.random.PRNGKey(3)))
+    attn = tree["blocks"]["attn"]
+    attn["wq"] = attn["wq"] * 8.0
+    attn["wk"] = attn["wq"].copy()
+    tp = TM.params_from_numpy(tc, tree, "cpu")
+    rp = jax.tree.map(jnp.asarray, tree)
+    kv = cache(tc, n_pages=8, page_size=4, max_batch=2)
+    ref = rkv.PagedKVCache(cfg=rc, n_pages=8, page_size=4, max_batch=2)
+    req = np.array([1, 2])
+    for r in req:
+        kv.admit_request(int(r), prompt_len=0)
+        ref.admit_request(int(r), prompt_len=0)
+    toks = np.array([[5, 9, 5, 12, 5], [7, 3, 7, 7, 1]], np.int32)
+    for t in range(toks.shape[1]):
+        for r in req:
+            kv.extend_request(int(r))
+            ref.extend_request(int(r))
+        tok = toks[:, t : t + 1]
+        got, k_new, v_new = paged_decode_step(
+            tc, tp, torch.from_numpy(tok), kv.k_pages, kv.v_pages, kv.resolve_tables(req, 2),
+            kv.batch_seq_lens(req), use_kernel=use_kernel,
+        )
+        want, rk, rv = ref_step(
+            rc, rp, jnp.asarray(tok), ref.k_pages, ref.v_pages, ref.resolve_tables(req, 2),
+            ref.batch_seq_lens(req), use_kernel=False,
+        )
+        kv.append_tokens(req, k_new, v_new)
+        ref.append_tokens(req, rk, rv)
+        assert bool(torch.isfinite(got).all())
+        assert np.isnan(np.asarray(want)).any() == (t > 0)
+        dense = prefill(tc, tp, torch.from_numpy(toks[:, : t + 1]))[:, -1]
+        np.testing.assert_allclose(got.numpy(), dense.numpy(), atol=1e-5, rtol=1e-5)
