@@ -3,8 +3,8 @@
 and repartition paths, its paged-KV serving of minitron-4b and of the MoE
 model granite-moe-1b-a400m, its Mamba serving of falcon-mamba-7b and
 zamba2-2.7b, its MLA serving of minicpm3-4b, its encoder-decoder
-serving of whisper-small and its training of minitron-4b, on one NVIDIA
-GPU and check them.
+serving of whisper-small and its training of minitron-4b and zamba2-2.7b,
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed 0] [--n-keys 200000000]
 
@@ -20,8 +20,13 @@ Phases, in order; any failure exits non-zero:
      bf16 ``paged_attention`` kernels', which must have both, and the
      ``cp.async`` copies (LDGSTS) in the ``mamba_scan`` kernels', which must
      have them, with their exponentials (MUFU.EX2) and FP32 operations in
-     all and in the unrolled block of steps; ptxas' registers and spills of
-     each ``mamba_scan`` kernel beside the registers its plan assumes;
+     all and in the unrolled block of steps, and in its backward's
+     (``mamba_scan_bwd_kernel``) the ``cp.async`` copies (LDGSTS) and
+     exponentials (MUFU.EX2), which it must have, its shuffles, and
+     atomics (ATOM, RED), which neither it nor the launch that adds its
+     partials may have; ptxas' registers and spills of each ``mamba_scan``
+     kernel and of each of its backward's beside the registers their plans
+     assume;
   3. kernels: ``node_search``, ``subtree_walk``, ``leaf_write``,
      ``leaf_scan``, ``leaf_split`` and ``node_search_prefix`` at the main
      path's shapes
@@ -92,7 +97,17 @@ Phases, in order; any failure exits non-zero:
      the final state within 1e-4 + 1e-4 |plain|, timed at the default plan
      and its variants (``mamba_scan.variants``; each held to the plain
      version too) beside the bytes and exponential bounds and the issue
-     floor counted from the SASS;
+     floor counted from the SASS; then the ``mamba_scan`` backward kernel
+     on the forward kernel's saved states against its plain version at
+     zamba2-2.7b's training shape ([2, 4096, 5120], N = 64),
+     falcon-mamba-7b's ([2, 4096, 8192], N = 16) and an odd one ([2, 67,
+     333], N = 8: L off the 32-step chunk, D off the CTA), operands in bf16
+     and f32, ``dh_last`` null and not (each gradient within 1e-4 of its
+     largest plain magnitude; two launches bit-equal; the odd shape equal
+     to the kernel's torch decomposition bit for bit; the forward with its
+     states bit-equal to the forward without), the training shapes timed
+     cold and hot beside the plain version and the bound (bytes, or ``B L
+     D N`` exponentials; and the 1.75 a state and step the design runs);
   4. the port on the CPU and on the card give the same lane results and
      state planes (20k keys, 2x4 mesh, 3 batches): lookups under ``fetch``,
      ``fetch`` with shedding buckets and ``auto``; mixed lookups, updates
@@ -220,6 +235,19 @@ Phases, in order; any failure exits non-zero:
      batch 0 after the updates (must fall), one step profiled (device busy,
      the shares of the flash forward and backward and ``sdpa``'s
      transposes) and the flops a step (6 N tokens, reported);
+     6h. (minitron-4b freed) training of zamba2-2.7b at full width, 54
+     Mamba layers, d_model 2560, the shared GQA block after every 6, bf16,
+     remat, as 6g: batch 0's gradients with one in three ``mamba_scan_bwd``
+     calls (18, at least one in each group of six layers) held to the
+     plain version within 1e-4 and all 9 ``flash_attention_bwd`` calls
+     within 2e-2; every gradient finite and not all zero; each step's loss,
+     ms and tokens/s, the peak memory, batch 0's loss after step 1's update
+     on it (must fall; after the 3 updates it is reported: under this
+     schedule it swings back up), one step profiled (device busy, the
+     shares of the ``mamba_scan`` forward and backward, the flash forward
+     and backward, the weight products and ``ADAMW_UPDATE``), the flops a
+     step (6 N tokens, and with the shared block counted at each
+     application);
   7. the equivalence gates in float32: minitron-4b cut to 4 layers, four
      requests of 256 seeded tokens through paged decode, dense
      ``decode_step`` and ``prefill``, pairwise max |dlogit| <= 1e-3 x RMS;
@@ -231,11 +259,12 @@ Phases, in order; any failure exits non-zero:
      from 64) against ``decode_step`` over the compressed cache, the same
      limit; whisper-small cut to 4 encoder and 4 decoder layers over 1,500
      frames, ``prefill`` against ``prefill_cross_kv`` and ``decode_step``,
-     the same limit; minitron-4b cut to 4 layers, one train step's loss
-     and gradients over 2 x 2,048 pipeline tokens with the flash kernels
-     against the same with every flash call, forward and backward, run as
-     its plain version: the loss within 1e-5 relative, each gradient within
-     1e-3 x its RMS;
+     the same limit; minitron-4b cut to 4 layers, falcon-mamba-7b to 4 and
+     zamba2-2.7b to 6 (one shared block), one train step's loss and
+     gradients over 2 x 2,048 pipeline tokens with the kernels against the
+     same with every flash and ``mamba_scan`` call, forward and backward,
+     run as its plain version: the loss within 1e-5 relative, each
+     gradient within 1e-3 x its RMS;
   8. one JSON line of per-kernel launches (summed over the paths of phases
      5 and 6, each counted from 0 just before it: the prefill paths of 6b
      and 6c are ``prefill-ssm`` and ``prefill-hybrid``, 6d's
@@ -243,8 +272,10 @@ Phases, in order; any failure exits non-zero:
      ``serving-mla``, whose decode launches no kernel of the table, 6f's
      ``prefill-encdec`` and ``serving-encdec``, whose encodes and decode
      launch ``flash_attention``, 12 calls each, 6g's ``train``, 64
-     ``flash_attention`` and 32 ``flash_attention_bwd`` launches a step),
-     errors and times.
+     ``flash_attention`` and 32 ``flash_attention_bwd`` launches a step,
+     6h's ``train-hybrid``, 108 ``mamba_scan`` (54 forwards and remat's 54
+     recomputes), 54 ``mamba_scan_bwd``, 9 ``flash_attention`` and 9
+     ``flash_attention_bwd`` a step), errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 prints no result and exits non-zero.
@@ -409,6 +440,22 @@ FLASH_BWD_SHAPES = {
 #: the bound: the dQ pass recomputes S and dP
 BWD_EXECUTED = 14 / 10
 FLASH_BWD_F32 = (((1, 6, 300, 96), (1, 2, 400, 96), True), ((1, 4, 130, 64), (1, 4, 90, 64), False))
+# the mamba_scan backward's phase-3 shapes, (B, L, D = d_inner, N): each SSM
+# model's training shape (2 x TRAIN_SEQ tokens), and an odd one (L off the
+# 32-step chunk, D off the CTA's channels, N = 8)
+MAMBA_BWD_SHAPES = {
+    f"{HYBRID_ARCH} training": (2, TRAIN_SEQ, 5120, 64),
+    f"{SSM_ARCH} training": (2, TRAIN_SEQ, 8192, 16),
+    "odd": (2, 67, 333, 8),
+}
+# training of zamba2-2.7b at full width (phase 6h): one in HYBRID_HOLD_EVERY
+# of batch 0's mamba_scan_bwd calls is held to its plain version (its
+# sequential loop takes about 1.7 s a call on an H100), which holds at
+# least one in each group of six layers; every flash_attention_bwd call is
+# held
+HYBRID_HOLD_EVERY = 3
+#: the phase-7 training gates: (arch, layers) at full width in float32
+TRAIN_GATES = ((LM_ARCH, TRAIN_GATE_LAYERS), (SSM_ARCH, 4), (HYBRID_ARCH, 6))
 
 
 def parse_args(argv):
@@ -577,11 +624,13 @@ def phase_build():
     sass = sass_evidence(lib)
     ptxas = ptxas_usage(log)
     for name, (regs, stores, loads) in sorted(ptxas.items()):
-        inst = mamba_instance(name)
-        if inst:
-            print(f"ptxas mamba_scan_kernel<{inst[0]}, S = {inst[1]}, LPC = {inst[2]}>: {regs}"
-                  f" registers (the plan assumes {mamba_mod.regs(inst[1])}), spill stores"
-                  f" {stores} B, loads {loads} B")
+        for kernel, assumed in (("mamba_scan_kernel", mamba_mod.regs),
+                                ("mamba_scan_bwd_kernel", lambda s: mamba_mod.regs_bwd())):
+            inst = mamba_instance(name, kernel)
+            if inst:
+                print(f"ptxas {kernel}<{inst[0]}, S = {inst[1]}, LPC = {inst[2]}>: {regs}"
+                      f" registers (the plan assumes {assumed(inst[1])}), spill stores"
+                      f" {stores} B, loads {loads} B")
     return {"sass": sass, "ptxas": ptxas}
 
 
@@ -633,25 +682,32 @@ def ptxas_usage(log):
     return out
 
 
-def mamba_instance(name):
+def mamba_instance(name, kernel="mamba_scan_kernel"):
     """(operand dtype, states a lane, threads a channel) of a mangled
-    ``mamba_scan_kernel`` instantiation, or None."""
+    ``kernel`` instantiation (the forward's, or ``mamba_scan_bwd_kernel``),
+    or None."""
     import re
 
-    m = re.search(r"mamba_scan_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+    m = re.search(rf"{kernel}I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
     return m and ("float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)), int(m.group(3)))
 
 
 #: per kernel family: the SASS ops counted, and those every kernel must hold
 #: (``SASS_ABSENT``: those none may hold)
 SASS_OPS = {
+    # the mamba_scan backward's first (the forward's family name is in theirs)
+    "mamba_scan_bwd_kernel": (("LDGSTS", "MUFU.EX2", "SHFL", "ATOM", "RED."),
+                              ("LDGSTS", "MUFU.EX2")),
+    "mamba_bwd_partials_sum": (("ATOM", "RED."), ()),
     "flash_attention_wgmma": (("HGMMA", "UTMALDG", "USETMAXREG"), ("HGMMA", "UTMALDG")),
     "bwd_dkdv_wgmma": (("HGMMA", "UTMALDG", "USETMAXREG", "HMMA"), ("HGMMA", "UTMALDG")),
     "bwd_dq_wgmma": (("HGMMA", "UTMALDG", "USETMAXREG", "HMMA"), ("HGMMA", "UTMALDG")),
     "paged_attention_split": (("HMMA", "LDGSTS", "LDSM", "MOVM"), ("HMMA", "LDGSTS")),
     "mamba_scan": (("LDGSTS", "MUFU.EX2", "FFMA", "FMUL", "FADD"), ("LDGSTS",)),
 }
-SASS_ABSENT = {"bwd_dkdv_wgmma": ("HMMA",), "bwd_dq_wgmma": ("HMMA",)}
+SASS_ABSENT = {"bwd_dkdv_wgmma": ("HMMA",), "bwd_dq_wgmma": ("HMMA",),
+               "mamba_scan_bwd_kernel": ("ATOM", "RED."),
+               "mamba_bwd_partials_sum": ("ATOM", "RED.")}
 
 
 def sass_evidence(lib):
@@ -664,8 +720,11 @@ def sass_evidence(lib):
     (``LDSM``) and ``movmatrix`` (``MOVM``); in the mamba_scan kernels the
     ``cp.async`` copies (``LDGSTS``), exponentials (``MUFU.EX2``) and FP32
     operations, and the same in the basic block with the most exponentials
-    (the unrolled group of steps: ``mamba_hot_block``).  Fails unless every
-    kernel of each family holds its required ops.  Returns ``{name:
+    (the unrolled group of steps: ``mamba_hot_block``); in the mamba_scan
+    backward's kernels their ``LDGSTS``, ``MUFU.EX2`` and shuffles, and
+    the atomics (``ATOM``, ``RED``), which must be none, as in the kernel
+    that adds its partials.  Fails unless every kernel of each family holds
+    its required ops.  Returns ``{name:
     (family, counts)}``, the mamba kernels' counts with a ``hot`` entry."""
     from repro_torch.kernels import ops
 
@@ -3177,11 +3236,13 @@ def paged_errs(out, want):
 
 
 @contextlib.contextmanager
-def held_to_plain(errs, kernel="paged_attention", compare=attention_errs, exact=False):
-    """Within the block, every ``ops.<kernel>`` call also runs its plain
-    version (``ref.<kernel>_ref``) on the same inputs (the layer's real
-    operands) and appends ``compare(kernel output, plain output)`` to
-    ``errs``; the plain calls launch no kernel.  ``exact``: the plain
+def held_to_plain(errs, kernel="paged_attention", compare=attention_errs, exact=False,
+                  plain=None, every=1):
+    """Within the block, every ``ops.<kernel>`` call (every ``every``-th,
+    from the first) also runs its plain version (``plain``, else
+    ``ref.<kernel>_ref``) on the same inputs (the layer's real operands)
+    and appends ``compare(kernel output, plain output)`` to ``errs``; the
+    plain calls launch no kernel.  ``exact``: the plain
     version runs on the inputs' f32 copies, so its result is not rounded to
     bf16 (it computes in f32 and rounds once at the end, so that rounding is
     all that differs): a bf16 output is then held to the exact attention of
@@ -3191,10 +3252,15 @@ def held_to_plain(errs, kernel="paged_attention", compare=attention_errs, exact=
 
     from repro_torch.kernels import ops, ref
 
-    launch, plain = getattr(ops, kernel), getattr(ref, f"{kernel}_ref")
+    launch = getattr(ops, kernel)
+    plain = plain or getattr(ref, f"{kernel}_ref")
+    calls = [0]
 
     def checked(*a, **kw):
         out = launch(*a, **kw)
+        calls[0] += 1
+        if (calls[0] - 1) % every:
+            return out
         if exact:
             a = [x.float() if torch.is_tensor(x) and x.is_floating_point() else x for x in a]
         errs.append(compare(out, plain(*a, **kw)))
@@ -3721,6 +3787,132 @@ def mamba_kernels(seed, build):
           f" f32 {errs['float32']:.2e}")
     return {"mamba_scan": out}
 
+
+
+def mamba_bwd_bytes(b, l, d, n, item, dh_last):
+    """The least bytes of one backward: its inputs read once (delta, dy f32
+    and x at [B, L, D], B and C at [B, L, N] of ``item`` bytes, A and, where
+    given, dh_last f32) and its outputs written once in f32 (ddelta, dx,
+    dB, dC, dA); not the forward's saved states, which another design may
+    not need."""
+    return (b * l * d * (4 + 4 + item + 4 + 4) + b * l * n * (2 * item + 8) + 2 * d * n * 4
+            + (b * d * n * 4 if dh_last else 0))
+
+
+def mamba_bwd_kernel(seed):
+    """The ``mamba_scan`` backward kernel against its plain version
+    (``mamba_scan_bwd_ref``) on the forward kernel's saved states, at
+    ``MAMBA_BWD_SHAPES`` (zamba2-2.7b's and falcon-mamba-7b's training
+    shapes and an odd one), operands in bf16 and in f32, ``dh_last`` null
+    and not: each gradient within ``GRAD_TOL["float32"]`` of its largest
+    plain magnitude (the kernel computes in f32 whatever its operands),
+    two launches bit-equal, at the odd shape the kernel's torch
+    decomposition (``lane_scan_bwd``) bit for bit; the forward with its
+    states bit-equal to the forward without.  The bf16 training shapes
+    timed cold and hot (``dh_last`` null, as the model's loss gives it)
+    beside the plain version and the bound: bytes (``mamba_bwd_bytes``) or
+    ``B L D N`` exponentials at 16 a clock an SM, and the exponentials the
+    design executes (1.75 a state and step)."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan as mamba_mod
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(dev)
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exps_per_s = SFU_EXP_PER_CLOCK * sms * clock
+    tol = GRAD_TOL["float32"]
+    errs, abs_errs, rows, cases = {}, {}, {}, 0
+    for i, (label, (b, l, d, n)) in enumerate(MAMBA_BWD_SHAPES.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = mamba_inputs(b, l, d, n, dtype, seed + 40 + i, dev)
+            g = torch.Generator(device=dev).manual_seed(seed + 50 + i)
+            dy = torch.randn((b, l, d), generator=g, device=dev)
+            dh = torch.randn((b, d, n), generator=g, device=dev)
+            y0, h0 = ops.mamba_scan(*args)
+            y, h, states = ops.mamba_scan_fwd(*args, with_states=True)
+            if not (torch.equal(y, y0) and torch.equal(h, h0)):
+                fail(f"mamba_scan {label}: the forward with its states differs from the forward")
+            del y0, h0, y, h
+            for dh_last in (None, dh):
+                got = ops.mamba_scan_bwd(*args, dy, dh_last, states=states)
+                again = ops.mamba_scan_bwd(*args, dy, dh_last, states=states)
+                if not all(torch.equal(x, z) for x, z in zip(got, again)):
+                    fail(f"mamba_scan_bwd {label}: two launches differ")
+                del again
+                err, a_err = grad_err(got, ref.mamba_scan_bwd_ref(*args, dy, dh_last))
+                key = dtype_name(dtype)
+                if not err <= tol:
+                    fail(f"mamba_scan_bwd {label} {key} differs from its plain version by {err}"
+                         f" of the largest gradient (limit {tol})")
+                if label == "odd":
+                    p = mamba_mod.plan_bwd(b, d, n, sms, item=dtype.itemsize)
+                    mirror = mamba_mod.lane_scan_bwd(*args, dy, dh_last, p)
+                    if not all(torch.equal(x, z) for x, z in zip(got, mirror)):
+                        fail(f"mamba_scan_bwd {label} {key}: not its decomposition bit for bit")
+                errs[key] = max(errs.get(key, 0.0), err)
+                abs_errs[key] = max(abs_errs.get(key, 0.0), a_err)
+                cases += 1
+                del got
+            if dtype == torch.bfloat16 and label != "odd":
+                p = mamba_mod.plan_bwd(b, d, n, sms, item=2)
+                t = cold_and_hot({"default": lambda: ops.mamba_scan_bwd(*args, dy, states=states)})
+                nbytes = mamba_bwd_bytes(b, l, d, n, 2, False)
+                exps = b * l * d * n
+                bytes_ms, exps_ms = nbytes / HBM_BYTES_PER_S * 1e3, exps / exps_per_s * 1e3
+                chunks = -(-l // mamba_mod.BWD_CHUNK)
+                subs = mamba_mod.BWD_CHUNK // mamba_mod.BWD_SUB
+                executed = exps * (1 + (subs - 1) / subs)  # the chunk pass skips its last sub-block
+                rows[label] = dict(
+                    shape=f"[{b}, {l}, {d}], N = {n}, x / B / C bf16, dh_last null",
+                    ms=t["cold_ms"],
+                    hot_ms=t["hot_ms"],
+                    plain_ms=cuda_ms(lambda: ref.mamba_scan_bwd_ref(*args, dy), 1, warmup=0),
+                    bound_ms=max(bytes_ms, exps_ms),
+                    bound_by="bytes" if bytes_ms > exps_ms else "operations",
+                    bytes_ms=bytes_ms,
+                    exps_ms=exps_ms,
+                    executed_exps_ms=executed / exps_per_s * 1e3,
+                    partial_bytes=p.partial_bytes(b, l, n),
+                    saved_state_bytes=b * chunks * d * n * 4,
+                    plan=dict(lanes=p.lanes, states=p.states, channels=p.channels,
+                              ctas=p.ctas, regs=p.regs, smem=p.smem,
+                              warps_per_sm=p.warps_per_sm),
+                )
+            del args, dy, dh, states
+            torch.cuda.empty_cache()
+    main = rows[f"{HYBRID_ARCH} training"]
+    out = dict(
+        name="mamba_scan_bwd",
+        route="cuda",
+        source="src/repro_torch/csrc/mamba_scan_bwd.cu",
+        replaces="none: the reference differentiates its jnp chunked scan"
+        " (src/repro/models/layers.py:551)",
+        shape=main["shape"],
+        check="largest |difference| / largest |gradient| bf16 operands {:.2e}, f32 {:.2e} over"
+        " {} cases, bit-equal launches, the odd shape bit-equal to lane_scan_bwd".format(
+            errs["bfloat16"], errs["float32"], cases),
+        bit_equal=False,
+        deterministic=True,
+        max_abs_err=abs_errs["bfloat16"],
+        max_abs_err_f32=abs_errs["float32"],
+        max_rel_err=errs["bfloat16"],
+        max_rel_err_f32=errs["float32"],
+        **{x: main[x] for x in ("ms", "hot_ms", "plain_ms", "bound_ms", "bound_by")},
+        library_ms=None,
+        per_shape=rows,
+    )
+    for label, r in rows.items():
+        print(f"kernel mamba_scan_bwd {label} {r['shape']}: kernel {r['ms']:.4f} ms cold,"
+              f" {r['hot_ms']:.4f} hot, plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f}"
+              f" ms ({r['bound_by']}; bytes {r['bytes_ms']:.4f}, exps {r['exps_ms']:.4f}, the"
+              f" design's 1.75 a state and step {r['executed_exps_ms']:.4f} at"
+              f" {clock / 1e6:.0f} MHz), partials {r['partial_bytes'] / 1e6:.1f} MB, saved states"
+              f" {r['saved_state_bytes'] / 1e6:.1f} MB, plan {r['plan']} on {card}")
+    print(f"kernel mamba_scan_bwd: {out['check']}")
+    return {"mamba_scan_bwd": out}
 
 def dense_cache_trace(cfg, params, dev, seed):
     """One ``prefill`` of two 12-token sequences, then ten ``decode_step``s
@@ -4379,21 +4571,41 @@ def phase_decode_gate(seed, models):
     return report
 
 
+def plain_mamba_fwd(*args, with_states=False):
+    """``ops.mamba_scan_fwd``'s plain version: no states to keep."""
+    from repro_torch.kernels import ref
+
+    out = ref.mamba_scan_ref(*args)
+    return (*out, None) if with_states else out
+
+
+def plain_mamba_bwd(*args, states=None):
+    """``ops.mamba_scan_bwd``'s plain version, which needs no states."""
+    from repro_torch.kernels import ref
+
+    return ref.mamba_scan_bwd_ref(*args)
+
+
 @contextlib.contextmanager
-def plain_flash():
-    """Within the block, every ``flash_attention`` forward and backward runs
-    its plain version (``flash_attention_ref(with_lse=True)``,
-    ``flash_attention_bwd_ref``) in place of the kernel, through the same
-    ``FlashAttention`` function."""
+def plain_kernels():
+    """Within the block, every ``flash_attention`` and ``mamba_scan``
+    forward and backward runs its plain version (``flash_attention_ref(
+    with_lse=True)``, ``flash_attention_bwd_ref``, ``mamba_scan_ref``,
+    ``mamba_scan_bwd_ref``) in place of the kernel, through the same
+    ``FlashAttention`` and ``MambaScan`` functions."""
     from repro_torch.kernels import ops, ref
 
-    fwd, bwd = ops.flash_attention_fwd, ops.flash_attention_bwd
+    names = ("flash_attention_fwd", "flash_attention_bwd", "mamba_scan_fwd", "mamba_scan_bwd")
+    kept = {k: getattr(ops, k) for k in names}
     ops.flash_attention_fwd = ref.flash_attention_ref
     ops.flash_attention_bwd = ref.flash_attention_bwd_ref
+    ops.mamba_scan_fwd = plain_mamba_fwd
+    ops.mamba_scan_bwd = plain_mamba_bwd
     try:
         yield
     finally:
-        ops.flash_attention_fwd, ops.flash_attention_bwd = fwd, bwd
+        for k, v in kept.items():
+            setattr(ops, k, v)
 
 
 def grad_check(params, grads, what):
@@ -4413,21 +4625,45 @@ def grad_check(params, grads, what):
     return n
 
 
-def phase_train(seed):
-    """Phase 6g: minitron-4b at full width (32 layers, bf16, remat), weights
-    from ``seed`` on the card, trained by ``make_train_step`` with
-    ``OptConfig(total_steps=3, warmup_steps=1)`` for ``TRAIN_STEPS`` steps
-    on ``TokenPipeline(batch=2, seq_len=4096)`` batches (8,192 tokens a
-    step).  First the gradients of batch 0 (step 1's) with each of the 32
-    backward calls held to its plain version (``GRAD_TOL``): every leaf's
-    gradient finite and not all zero.  Then the steps, each timed (ms,
-    tokens/s) with its loss; the peak memory; the loss on batch 0 after
-    the updates, which must be below step 1's; one more step profiled:
-    device busy ms, the shares of the flash forward, the flash backward and
-    ``sdpa``'s transposes, the weight products' ms and the optimizer's
-    (``ADAMW_UPDATE``) beside its bytes' bound; the flops a step, ``6 N
-    tokens`` with N the non-embedding parameters plus the head (reported).
-    Returns (report, launches of the timed steps)."""
+def train_expect(cfg):
+    """Kernel -> launches of one train step of ``cfg`` with remat: a
+    checkpointed layer's forward kernel runs twice (the checkpoint's
+    forward, the recompute) and its backward once; the hybrid's shared
+    block is not checkpointed, so its flash forward runs once an
+    application."""
+    n = cfg.n_layers
+    if not cfg.ssm:
+        return {"flash_attention": 2 * n, "flash_attention_bwd": n}
+    out = {"mamba_scan": 2 * n, "mamba_scan_bwd": n}
+    if cfg.hybrid_attn_every:
+        groups = n // cfg.hybrid_attn_every
+        out.update(flash_attention=groups, flash_attention_bwd=groups)
+    return out
+
+
+def phase_train(seed, arch=LM_ARCH):
+    """Phase 6g (minitron-4b, 32 layers) and 6h (zamba2-2.7b, 54 Mamba
+    layers and the shared GQA block after every 6): ``arch`` at full width
+    (bf16, remat), weights from ``seed`` on the card, trained by
+    ``make_train_step`` with ``OptConfig(total_steps=3, warmup_steps=1)``
+    for ``TRAIN_STEPS`` steps on ``TokenPipeline(batch=2, seq_len=4096)``
+    batches (8,192 tokens a step).  First the gradients of batch 0 (step
+    1's) with each backward kernel call held to its plain version (every
+    ``flash_attention_bwd`` within ``GRAD_TOL`` of the model's dtype; one
+    in ``HYBRID_HOLD_EVERY`` ``mamba_scan_bwd`` calls, from the last
+    layer's, within ``GRAD_TOL["float32"]``, as it computes in f32): every
+    leaf's gradient finite and not all zero.  Then the steps, each timed
+    (ms, tokens/s) with its loss, their launches (``train_expect``); the
+    peak memory; the loss on batch 0 after step 1's update and after all
+    the updates, the last (minitron-4b) or the first (zamba2-2.7b) below
+    step 1's; one more step profiled: device busy ms, the shares of
+    the flash forward and backward, of the ``mamba_scan`` forward and
+    backward, and of ``sdpa``'s transposes, the weight products' ms and
+    the optimizer's (``ADAMW_UPDATE``) beside its bytes' bound; the flops a
+    step, ``6 N tokens`` with N the non-embedding parameters plus the head
+    (the tied embedding where it is the head), and with the hybrid's
+    shared block counted at each application (reported).  Returns (report,
+    launches of the timed steps)."""
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -4439,16 +4675,20 @@ def phase_train(seed):
     from repro_torch.train.train_step import loss_and_grads, make_train_step
 
     dev = torch.device("cuda")
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     if not cfg.remat or cfg.dtype != "bfloat16":
-        fail(f"train: {LM_ARCH} should train in bf16 with remat")
+        fail(f"train: {arch} should train in bf16 with remat")
+    expect = train_expect(cfg)
     params = model.init_params(cfg, seed, device=dev)
     ocfg = OptConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
     state = init_opt_state(params, ocfg)
     pipe = TokenPipeline(cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed)
     batches = [to_device(pipe.next_batch(), cfg, dev) for _ in range(TRAIN_STEPS + 1)]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    n_params = sum(p.numel() for k, p in model_leaves(params) if k != "embed")
+    n_params = sum(p.numel() for k, p in model_leaves(params)
+                   if k != "embed" or cfg.tie_embeddings)
+    shared = sum(p.numel() for k, p in model_leaves(params) if k.startswith("shared_attn."))
+    applied = n_params + shared * (expect.get("flash_attention", 1) - 1)
     # the optimizer's least bytes: each parameter and its gradient (of the
     # parameter's dtype) read, the parameter written; each moment read and
     # written
@@ -4457,14 +4697,33 @@ def phase_train(seed):
         for (_, p), (_, m) in zip(model_leaves(params), model_leaves(state.mu))
     )
 
-    held = []
-    with held_to_plain(held, "flash_attention_bwd", compare=grad_err):
+    held, held_scan = [], []
+    with contextlib.ExitStack() as stack:
+        if "flash_attention_bwd" in expect:
+            stack.enter_context(held_to_plain(held, "flash_attention_bwd", compare=grad_err))
+        if "mamba_scan_bwd" in expect:
+            stack.enter_context(held_to_plain(held_scan, "mamba_scan_bwd", compare=grad_err,
+                                              plain=plain_mamba_bwd, every=HYBRID_HOLD_EVERY))
         loss0, _, grads = loss_and_grads(cfg, params, batches[0])
-    leaves_checked = grad_check(params, grads, "train")
-    worst = max(e for e, _ in held) if held else float("inf")
-    if len(held) != cfg.n_layers or not worst <= GRAD_TOL[cfg.dtype]:
-        fail(f"train: {len(held)} flash_attention_bwd calls held to their plain version,"
-             f" worst {worst} of the largest gradient (limit {GRAD_TOL[cfg.dtype]})")
+    leaves_checked = grad_check(params, grads, f"train {arch}")
+    held_report = {}
+    for kernel, errs, tol, calls in (
+        ("flash_attention_bwd", held, GRAD_TOL[cfg.dtype], expect.get("flash_attention_bwd", 0)),
+        ("mamba_scan_bwd", held_scan, GRAD_TOL["float32"],
+         -(-expect.get("mamba_scan_bwd", 0) // HYBRID_HOLD_EVERY)),
+    ):
+        if not calls:
+            continue
+        worst = max(e for e, _ in errs) if errs else float("inf")
+        if len(errs) != calls or not worst <= tol:
+            fail(f"train {arch}: {len(errs)} {kernel} calls held to their plain version"
+                 f" (expected {calls}), worst {worst} of the largest gradient (limit {tol})")
+        held_report[kernel] = dict(calls=len(errs), max_rel_err=worst,
+                                   max_abs_err=max(a for _, a in errs))
+    if held_scan:
+        # the backward runs from the last layer: call i is layer n - 1 - i x every
+        held_report["mamba_scan_bwd"]["layers"] = [
+            cfg.n_layers - 1 - i * HYBRID_HOLD_EVERY for i in range(len(held_scan))]
     del grads
     torch.cuda.empty_cache()
 
@@ -4481,21 +4740,35 @@ def phase_train(seed):
         ms = (time.perf_counter() - t0) * 1e3
         steps.append(dict(loss=loss, ms=ms, tokens_per_s=tokens / ms * 1e3,
                           grad_norm=float(m["grad_norm"]), lr=float(m["lr"])))
+        if i == 0:  # batch 0's loss after the update on it, outside the timing
+            launches = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with torch.no_grad():
+                after_first = float(model.loss_fn(cfg, params, batches[0])[0])
+            ops.LAUNCHES.update(launches)
+            torch.cuda.reset_peak_memory_stats()
     launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    for k, per_step in (("flash_attention", 2 * cfg.n_layers),
-                        ("flash_attention_bwd", cfg.n_layers)):
+    peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+    for k, per_step in expect.items():
         if launches[k] != per_step * TRAIN_STEPS:
-            fail(f"train: {launches[k]} {k} launches, expected {per_step * TRAIN_STEPS}")
+            fail(f"train {arch}: {launches[k]} {k} launches, expected {per_step * TRAIN_STEPS}")
     if not all(np.isfinite(x["loss"]) for x in steps):
-        fail(f"train: a loss is not finite: {[x['loss'] for x in steps]}")
+        fail(f"train {arch}: a loss is not finite: {[x['loss'] for x in steps]}")
     if abs(steps[0]["loss"] - float(loss0)) > 1e-3 * abs(float(loss0)):
-        fail(f"train: step 1's loss {steps[0]['loss']} is not batch 0's {float(loss0)}")
+        fail(f"train {arch}: step 1's loss {steps[0]['loss']} is not batch 0's {float(loss0)}")
     with torch.no_grad():
         after = float(model.loss_fn(cfg, params, batches[0])[0])
-    if not after < steps[0]["loss"]:
-        fail(f"train: batch 0's loss {after} after {TRAIN_STEPS} updates is not below"
-             f" step 1's {steps[0]['loss']}")
+    # Batch 0's loss must fall: minitron-4b's after all the updates,
+    # zamba2-2.7b's after the update on batch 0.  Under this schedule (no
+    # warm-up, three steps, random tokens) the loss swings between the
+    # first steps, in float32 as in bf16, and the two models swing the
+    # other way round: minitron-4b's rises after step 1 and falls after
+    # step 3, zamba2-2.7b's falls after step 1 and rises after step 2
+    # (PERF.md, section 6).
+    fell = after if arch == LM_ARCH else after_first
+    if not fell < steps[0]["loss"]:
+        fail(f"train {arch}: batch 0's loss {after_first} after step 1's update on it,"
+             f" {after} after {TRAIN_STEPS} updates; step 1's was {steps[0]['loss']}")
 
     log = []
     _, wall, prof, marked = device_profile(
@@ -4504,13 +4777,44 @@ def phase_train(seed):
     )
     # the kernels' sum (``log`` also holds the ranges' own spans)
     busy = sum(ms for _, ms, _ in prof)
-    fwd = sum(ms for name, ms in log if "flash_attention_wgmma" in name)
-    bwd = sum(ms for name, ms in log if "bwd_" in name)
-    products = sum(ms for name, ms in log if any(x in name for x in ("nvjet", "gemm", "cutlass")))
+
+    def kernel_ms(*parts):
+        return sum(ms for name, ms in log if any(x in name for x in parts))
+
+    fwd = kernel_ms("flash_attention_wgmma")
+    bwd = kernel_ms("bwd_prepass", "bwd_dkdv", "bwd_dq")
+    scan = kernel_ms("mamba_scan_kernel")
+    scan_bwd = kernel_ms("mamba_scan_bwd_kernel", "mamba_bwd_partials_sum")
+    products = kernel_ms("nvjet", "gemm", "cutlass")
     med = float(np.median([x["ms"] for x in steps[1:]]))
     flops = 6 * n_params * tokens
+    profiled = dict(
+        wall_ms=wall,
+        device_busy_ms=busy,
+        idle_share=1 - busy / wall,
+        flash_fwd_ms=fwd,
+        flash_fwd_share=fwd / busy,
+        flash_bwd_ms=bwd,
+        flash_bwd_share=bwd / busy,
+        sdpa_transposes_ms=marked[SDPA_TRANSPOSES],
+        sdpa_transposes_share=marked[SDPA_TRANSPOSES] / busy,
+    )
+    if cfg.ssm:
+        profiled.update(mamba_scan_ms=scan, mamba_scan_share=scan / busy,
+                        mamba_scan_bwd_ms=scan_bwd, mamba_scan_bwd_share=scan_bwd / busy)
+    profiled.update(
+        rest_share=1 - (fwd + bwd + scan + scan_bwd + marked[SDPA_TRANSPOSES]) / busy,
+        # within the rest: the matrix products (cuBLAS), the optimizer
+        weight_products_ms=products,
+        weight_products_share=products / busy,
+        adamw_update_ms=marked[ADAMW_UPDATE],
+        adamw_update_share=marked[ADAMW_UPDATE] / busy,
+        adamw_update_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3,
+        kernels=sum(n for _, _, n in prof),
+        top=[(k[:48], ms, n) for k, ms, n in prof[:12]],
+    )
     report = dict(
-        arch=LM_ARCH,
+        arch=arch,
         layers=cfg.n_layers,
         batch=TRAIN_BATCH,
         seq_len=TRAIN_SEQ,
@@ -4518,34 +4822,20 @@ def phase_train(seed):
         steps=steps,
         median_ms=med,
         tokens_per_s=tokens / med * 1e3,
+        batch0_loss_after_first=after_first,
         batch0_loss_after=after,
         peak_gib=peak,
         leaves_with_grad=leaves_checked,
-        flash_attention_bwd_held_to_plain=dict(calls=len(held), max_rel_err=worst,
-                                               max_abs_err=max(a for _, a in held)),
-        profiled_step=dict(
-            wall_ms=wall,
-            device_busy_ms=busy,
-            idle_share=1 - busy / wall,
-            flash_fwd_ms=fwd,
-            flash_fwd_share=fwd / busy,
-            flash_bwd_ms=bwd,
-            flash_bwd_share=bwd / busy,
-            sdpa_transposes_ms=marked[SDPA_TRANSPOSES],
-            sdpa_transposes_share=marked[SDPA_TRANSPOSES] / busy,
-            rest_share=1 - (fwd + bwd + marked[SDPA_TRANSPOSES]) / busy,
-            # within the rest: the matrix products (cuBLAS), the optimizer
-            weight_products_ms=products,
-            adamw_update_ms=marked[ADAMW_UPDATE],
-            adamw_update_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3,
-            kernels=sum(n for _, _, n in prof),
-            top=[(k[:48], ms, n) for k, ms, n in prof[:12]],
-        ),
+        held_to_plain=held_report,
+        profiled_step=profiled,
         params_non_embedding_plus_head=n_params,
         flops_per_step=flops,
         tflops_per_s=flops / med / 1e9,
     )
-    print(f"train {LM_ARCH}: {json.dumps(report)}")
+    if applied != n_params:
+        report.update(params_applied=applied, flops_per_step_applied=6 * applied * tokens,
+                      tflops_per_s_applied=6 * applied * tokens / med / 1e9)
+    print(f"train {arch}: {json.dumps(report)}")
     del params, state, batches
     return report, launches
 
@@ -4558,14 +4848,17 @@ def model_leaves(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def phase_train_gate(seed):
-    """Phase 7's training gate: minitron-4b cut to ``TRAIN_GATE_LAYERS``
-    layers at full width in float32 (no TF32), one batch of the token
-    pipeline (2 x ``TRAIN_GATE_SEQ`` tokens), the loss and every gradient
-    of one train step with the kernels against the same step with every
-    flash call, forward and backward, run as its plain version
-    (``plain_flash``): the loss within 1e-5 relative, each leaf's gradient
-    within 1e-3 x its RMS."""
+def phase_train_gate(seed, arch=LM_ARCH, layers=TRAIN_GATE_LAYERS):
+    """Phase 7's training gates: ``arch`` cut to ``layers`` layers at full
+    width in float32 (no TF32; minitron-4b 4, falcon-mamba-7b 4, zamba2-2.7b
+    6 with one shared block), one batch of the token pipeline (2 x
+    ``TRAIN_GATE_SEQ`` tokens), the loss and every gradient of one train
+    step with the kernels against the same step with every flash and
+    ``mamba_scan`` call, forward and backward, run as its plain version
+    (``plain_kernels``): the loss within 1e-5 relative, each leaf's
+    gradient within 1e-3 x its RMS; the backward kernels launched
+    ``train_expect``'s counts with the kernels and none with the plain
+    versions."""
     import dataclasses
 
     import torch
@@ -4581,7 +4874,8 @@ def phase_train_gate(seed):
     ):
         fail("train gate: float32 products must not use TF32")
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_GATE_LAYERS, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+    bwd = {k: v for k, v in train_expect(cfg).items() if k.endswith("_bwd")}
     params = model.init_params(cfg, seed, device=dev)
     batch = to_device(
         TokenPipeline(cfg, global_batch=2, seq_len=TRAIN_GATE_SEQ, seed=seed + 41).next_batch(),
@@ -4589,15 +4883,14 @@ def phase_train_gate(seed):
     )
     before = dict(ops.LAUNCHES)
     loss_k, _, grads_k = loss_and_grads(cfg, params, batch)
-    launched = ops.LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"]
-    with plain_flash():
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in bwd}
+    with plain_kernels():
         loss_p, _, grads_p = loss_and_grads(cfg, params, batch)
-    if launched != cfg.n_layers or ops.LAUNCHES["flash_attention_bwd"] != before[
-        "flash_attention_bwd"
-    ] + launched:
-        fail(f"train gate: {launched} backward launches with the kernels, expected"
-             f" {cfg.n_layers}, and none with the plain versions")
-    grad_check(params, grads_k, "train gate")
+    after = {k: ops.LAUNCHES[k] - before[k] for k in bwd}
+    if launched != bwd or after != launched:
+        fail(f"train gate {arch}: backward launches {launched} with the kernels, expected"
+             f" {bwd}, and {after} after the plain versions (no more)")
+    grad_check(params, grads_k, f"train gate {arch}")
     per_leaf = {}
     for (name, gk), (_, gp) in zip(model_leaves(grads_k), model_leaves(grads_p)):
         rms = float(gp.double().pow(2).mean().sqrt())
@@ -4607,11 +4900,12 @@ def phase_train_gate(seed):
     report = dict(layers=cfg.n_layers, tokens=batch["tokens"].numel(), loss=float(loss_p),
                   loss_rel_diff=loss_rel, max_grad_diff_over_rms=worst,
                   grad_diff_over_rms=per_leaf)
-    print(f"gate train {LM_ARCH} {cfg.n_layers} layers f32: {json.dumps(report)}")
+    print(f"gate train {arch} {cfg.n_layers} layers f32: {json.dumps(report)}")
     if not (loss_rel <= 1e-5 and worst <= 1e-3):
-        fail(f"train gate: loss differs by {loss_rel} (limit 1e-5), a gradient by {worst}"
-             " x its RMS (limit 1e-3)")
+        fail(f"train gate {arch}: loss differs by {loss_rel} (limit 1e-5), a gradient by"
+             f" {worst} x its RMS (limit 1e-3)")
     del params, grads_k, grads_p
+    torch.cuda.empty_cache()
     return report
 
 
@@ -4645,6 +4939,7 @@ def main(argv=None):
     kernels.update(lm_attention_kernels(args.seed))
     kernels.update(flash_bwd_kernel(args.seed))
     kernels.update(mamba_kernels(args.seed, build))
+    kernels.update(mamba_bwd_kernel(args.seed))
     t1 = time.perf_counter()
     phase_cpu_vs_cuda(args.seed)
     phase_lm_cpu_vs_cuda(args.seed)
@@ -4721,13 +5016,20 @@ def main(argv=None):
     t17 = time.perf_counter()
     report["gate-encdec"] = phase_decode_gate(args.seed, ((ENCDEC_ARCH, 4),))
     t18 = time.perf_counter()
-    # training: minitron-4b at full width, the earlier models freed
+    # training: minitron-4b, then zamba2-2.7b, at full width, the earlier
+    # models freed
     report["train"], per_path["train"] = phase_train(args.seed)
     check_launches("train", per_path["train"], ("flash_attention", "flash_attention_bwd"))
     torch.cuda.empty_cache()
     t19 = time.perf_counter()
-    report["gate-train"] = phase_train_gate(args.seed)
+    report["train-hybrid"], per_path["train-hybrid"] = phase_train(args.seed, HYBRID_ARCH)
+    check_launches("train-hybrid", per_path["train-hybrid"],
+                   ("mamba_scan", "mamba_scan_bwd", "flash_attention", "flash_attention_bwd"))
+    torch.cuda.empty_cache()
     t20 = time.perf_counter()
+    report["gate-train"] = {arch: phase_train_gate(args.seed, arch, layers)
+                            for arch, layers in TRAIN_GATES}
+    t21 = time.perf_counter()
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["read-only"]}
     print(f"main: launches {launches}")
     print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
@@ -4739,7 +5041,7 @@ def main(argv=None):
           f" moe gate {t14 - t13:.1f} s, mla serving and prefill {t15 - t14:.1f} s,"
           f" mla gate {t16 - t15:.1f} s, encdec serving and prefill {t17 - t16:.1f} s,"
           f" encdec gate {t18 - t17:.1f} s, train {t19 - t18:.1f} s,"
-          f" train gate {t20 - t19:.1f} s")
+          f" train hybrid {t20 - t19:.1f} s, train gates {t21 - t20:.1f} s")
     rows = []
     for name, k in kernels.items():
         rows.append(dict(

@@ -1,0 +1,52 @@
+// Staging helpers shared by mamba_scan's forward (mamba_scan.cu) and its
+// backward (mamba_scan_bwd.cu): both copy four-element groups of a chunk of
+// steps into shared memory with cp.async, and read them back as f32.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "cp_async.cuh"
+
+namespace {
+
+// Four consecutive elements as f32 (16 bytes of f32 or 8 of bf16, aligned
+// so; a bf16 is the high half of its f32).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__host__ __device__ inline int r16(int v) { return (v + 15) / 16 * 16; }
+
+// Four consecutive elements, `live` of them real (0-4), global -> shared,
+// the rest zero-filled: one cp.async of 16 (f32) or 8 (bf16) bytes where
+// `vec` (then live is 0 or 4), else one a float, or plain loads a bf16.
+template <typename E>
+__device__ __forceinline__ void copy4(E* dst, const E* src, const E* base, bool vec,
+                                      int live) {
+  if (vec) {
+    cp_async<4 * sizeof(E)>(dst, live > 0 ? src : base, live > 0);
+  } else if constexpr (sizeof(E) == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) cp_async<4>(dst + i, i < live ? src + i : base, i < live);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dst[i] = i < live ? src[i] : __float2bfloat16(0.f);
+  }
+}
+
+bool aligned(const void* ptr, int bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+}  // namespace

@@ -31,10 +31,28 @@ Contract: ``mamba_scan(delta [B, L, D] f32, A [D, N] f32, Bmat, C
 inside as the TPU kernel casts them.  The TPU kernel returned ``y`` alone;
 ``h_last`` is the state after the last step (zeros when ``L = 0``).
 
-The plain version is ``repro_torch.kernels.ref.mamba_scan_ref``;
-``lane_scan`` is the kernel's decomposition written in torch, for the
-tests.  The dispatch, build and launch count are in ``kernels/ops.py``; the
-source is ``csrc/mamba_scan.cu``.
+With ``with_states`` the forward also writes the state before every
+``BWD_CHUNK``-th step, ``[B, ceil(L / BWD_CHUNK), D, N]`` f32, for the
+backward.
+
+The backward (``csrc/mamba_scan_bwd.cu``; no TPU kernel: the reference
+trains through a jnp chunked scan): ``mamba_scan_bwd(delta, A, Bmat, C, x,
+dy, dh_last, states) -> (ddelta [B, L, D], dA [D, N], dB, dC [B, L, N],
+dx [B, L, D])``, all f32, from the output gradient ``dy`` [B, L, D] f32,
+the final state's ``dh_last`` [B, D, N] f32 (or none) and the forward's
+saved states.  What bounds it: the larger of bytes (the forward's
+operands, ``dy``, ``dh_last`` and the five gradients) and ``B * L * D *
+N`` exponentials; it computes each exponential 1.75 times and writes and
+reads per-CTA partials of ``dB`` and ``dC``.  Its plan is ``plan_bwd``:
+the lanes and states the forward's rule picks, ``BWD_THREADS`` threads a
+CTA, chunks of ``BWD_CHUNK`` steps restarted from their saved states,
+sub-blocks of ``BWD_SUB`` steps in registers.
+
+The plain versions are ``repro_torch.kernels.ref.mamba_scan_ref`` and
+``mamba_scan_bwd_ref``; ``lane_scan`` and ``lane_scan_bwd`` are the
+kernels' decompositions written in torch, for the tests.  The dispatch,
+build and launch counts are in ``kernels/ops.py``; the sources are
+``csrc/mamba_scan.cu`` and ``csrc/mamba_scan_bwd.cu``.
 """
 
 from __future__ import annotations
@@ -48,7 +66,7 @@ import torch
 
 from repro_torch.kernels.node_search import check
 from repro_torch.kernels.paged_attention import DTYPES
-from repro_torch.kernels.ref import mamba_scan_ref  # noqa: F401  (plain version)
+from repro_torch.kernels.ref import mamba_scan_bwd_ref, mamba_scan_ref  # noqa: F401
 
 _P = ctypes.c_void_p
 MAX_STATE = 64
@@ -78,6 +96,19 @@ SM_CTAS = 32
 #: card this many warps an SM (or, if none does, the most threads a channel)
 TARGET_WARPS = 24
 CHUNKS = tuple(range(MAX_CHUNK, GROUP, -GROUP))  # 64, 56, ..., 16
+#: operand dtypes the CPU path takes: float64 too, for ``gradcheck``
+CPU_DTYPES = (*DTYPES, torch.float64)
+
+# The backward's constants (``csrc/mamba_scan_bwd.cu``; the forward's
+# ``kSaveEvery`` is ``BWD_CHUNK``), read back by tests/test_torch_mamba_bwd.py.
+BWD_CHUNK = 32  # steps between saved states: a chunk of the backward
+BWD_SUB = 8  # steps a sub-block, held in registers
+BWD_THREADS = 512  # threads a CTA
+BWD_CTAS = 1  # fewest CTAs an SM (launch bounds)
+SUM_THREADS = 256  # threads a CTA of the second launch, which adds the partials
+#: (states a lane, threads a channel) pairs of the backward: at most 4
+#: states a lane, at least 4 lanes a channel
+BWD_INSTANTIATED = frozenset((s, lp) for s in (1, 2, 4) for lp in (4, 8, 16))
 
 
 def regs(states: int) -> int:
@@ -221,11 +252,15 @@ def variants(b: int, d: int, n: int, sms: int = 132, item: int = 2) -> dict:
 
 
 def bind(lib: ctypes.CDLL) -> None:
-    lib.dex_mamba_scan.argtypes = [_P] * 7 + [ctypes.c_int] * 10 + [_P]
+    lib.dex_mamba_scan.argtypes = [_P] * 8 + [ctypes.c_int] * 10 + [_P]
     lib.dex_mamba_scan.restype = ctypes.c_int
+    lib.dex_mamba_scan_bwd.argtypes = [_P] * 16 + [ctypes.c_int] * 8 + [_P]
+    lib.dex_mamba_scan_bwd.restype = ctypes.c_int
 
 
-def validate(delta, A, Bmat, C, x) -> None:
+def validate(delta, A, Bmat, C, x, dtypes=DTYPES) -> None:
+    """The forward's operands; ``delta`` and ``A`` are f32 (float64 beside
+    float64 operands, which only the CPU path takes)."""
     if delta.dim() != 3 or A.dim() != 2:
         raise ValueError("mamba_scan takes delta, x [B, L, D], A [D, N] and B, C [B, L, N]")
     b, l, d = delta.shape
@@ -234,16 +269,48 @@ def validate(delta, A, Bmat, C, x) -> None:
         raise ValueError(f"state width must be 1-{MAX_STATE}, got {n}")
     if b > 65_535:
         raise ValueError(f"batch must be at most 65,535, got {b}")
-    if x.dtype not in DTYPES:
-        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
-    check(delta, "delta", torch.float32, (b, l, d))
-    check(A, "A", torch.float32, (d, n))
+    if x.dtype not in dtypes:
+        names = " or ".join(str(t).removeprefix("torch.") for t in dtypes)
+        raise ValueError(f"x must be {names}, got {x.dtype}")
+    ct = state_dtype(x)
+    check(delta, "delta", ct, (b, l, d))
+    check(A, "A", ct, (d, n))
     check(Bmat, "Bmat", x.dtype, (b, l, n))
     check(C, "C", x.dtype, (b, l, n))
     check(x, "x", x.dtype, (b, l, d))
     for t in (A, Bmat, C, x):
         if t.device != delta.device:
             raise ValueError("mamba_scan inputs must lie on one device")
+
+
+def state_dtype(x) -> torch.dtype:
+    """The dtype of ``delta``, ``A``, the outputs and the gradients:
+    float64 beside float64 operands, else float32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def saves(l: int) -> int:
+    """States the forward keeps for the backward: one before every
+    ``BWD_CHUNK``-th step."""
+    return -(-l // BWD_CHUNK)
+
+
+def validate_bwd(delta, A, Bmat, C, x, dy, dh_last=None, states=None, dtypes=DTYPES) -> None:
+    """The backward's operands: the forward's (``validate``), ``dy`` like
+    ``delta``, ``dh_last`` [B, D, N] like it or None, and the forward's
+    saved ``states`` [B, ceil(L / BWD_CHUNK), D, N] f32 or None."""
+    validate(delta, A, Bmat, C, x, dtypes)
+    b, l, d = delta.shape
+    n = A.shape[1]
+    ct = state_dtype(x)
+    check(dy, "dy", ct, (b, l, d))
+    if dh_last is not None:
+        check(dh_last, "dh_last", ct, (b, d, n))
+    if states is not None:
+        check(states, "states", torch.float32, (b, saves(l), d, n))
+    for t in (dy, dh_last, states):
+        if t is not None and t.device != delta.device:
+            raise ValueError("mamba_scan_bwd inputs must lie on one device")
 
 
 _SMS: dict = {}
@@ -255,11 +322,13 @@ def device_sms(device) -> int:
     return _SMS[device]
 
 
-def launch(lib: ctypes.CDLL, delta, A, Bmat, C, x, plan: Optional[Plan] = None):
+def launch(lib: ctypes.CDLL, delta, A, Bmat, C, x, plan: Optional[Plan] = None, *,
+           with_states: bool = False):
     """Launch the kernel on the current stream with ``plan`` (the default
     ``plan`` for the shape and the card when None); the outputs are
     allocated here.  The CUDA entry checks the plan and refuses one it has
-    no kernel for or that does not fit."""
+    no kernel for or that does not fit.  ``(y, h_last)``, and with
+    ``with_states`` the states kept for the backward."""
     validate(delta, A, Bmat, C, x)
     if delta.device.type != "cuda":
         raise ValueError(f"mamba_scan kernel needs CUDA tensors, got {delta.device}")
@@ -270,6 +339,10 @@ def launch(lib: ctypes.CDLL, delta, A, Bmat, C, x, plan: Optional[Plan] = None):
         raise ValueError(f"plan holds {p.lanes * p.states} states a channel, fewer than N = {n}")
     y = torch.empty((b, l, d), dtype=torch.float32, device=delta.device)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=delta.device)
+    states = (
+        torch.empty((b, saves(l), d, n), dtype=torch.float32, device=delta.device)
+        if with_states else None
+    )
     with torch.cuda.device(delta.device):
         stream = torch.cuda.current_stream().cuda_stream
     err = lib.dex_mamba_scan(
@@ -280,6 +353,7 @@ def launch(lib: ctypes.CDLL, delta, A, Bmat, C, x, plan: Optional[Plan] = None):
         x.data_ptr(),
         y.data_ptr(),
         h_last.data_ptr(),
+        None if states is None else states.data_ptr(),
         DTYPES[x.dtype],
         b,
         l,
@@ -294,7 +368,7 @@ def launch(lib: ctypes.CDLL, delta, A, Bmat, C, x, plan: Optional[Plan] = None):
     )
     if err != 0:
         raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
-    return y, h_last
+    return (y, h_last, states) if with_states else (y, h_last)
 
 
 def lane_scan(delta, A, Bmat, C, x, p: Plan):
@@ -352,3 +426,209 @@ def lane_scan(delta, A, Bmat, C, x, p: Plan):
                 acc = acc + part[..., k]
             y[:, t] = lanes_sum(acc)
     return y, h.flatten(-2)[..., :n].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+
+def smem_bytes_bwd(channels: int, padded: int, item: int) -> int:
+    """Dynamic shared bytes of a backward CTA, as ``csrc/mamba_scan_bwd.cu``
+    lays them out: two slots of a raw chunk (``delta`` and ``dy`` f32 and
+    ``x`` ``[BWD_CHUNK][channels]``, ``B`` and ``C`` ``[BWD_CHUNK][padded]``
+    at ``item`` bytes an element; each part rounded up to 16 bytes), the
+    states before each sub-block (``BWD_CHUNK / BWD_SUB`` f32 a state of each
+    thread) and the warps' ``(dB, dC)`` tile ``[warps][BWD_SUB][padded]``
+    float2."""
+
+    def r16(v):
+        return -(-v // 16) * 16
+
+    t = BWD_CHUNK
+    slot = 2 * r16(t * channels * 4) + r16(t * channels * item) + 2 * r16(t * padded * item)
+    return (2 * slot + BWD_CHUNK // BWD_SUB * channels * padded * 4
+            + BWD_THREADS // 32 * BWD_SUB * padded * 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How one backward launch runs: ``lanes`` threads a channel with
+    ``states`` states each (the states past ``N`` zeros), ``channels =
+    BWD_THREADS / lanes`` channels of one batch element a CTA, ``blocks``
+    CTAs along ``D`` and ``ctas`` in all; ``regs`` registers a thread (the
+    launch bounds), ``per_sm`` CTAs on the busiest SM, ``resident`` CTAs an
+    SM can hold, ``smem`` shared bytes a CTA with operands of ``item``
+    bytes."""
+
+    lanes: int
+    states: int
+    channels: int
+    blocks: int
+    ctas: int
+    regs: int
+    per_sm: int
+    resident: int
+    smem: int
+    sms: int
+    item: int
+
+    @property
+    def warps_per_sm(self) -> float:
+        """Mean warps an SM of one wave of resident CTAs."""
+        return min(self.per_sm, self.resident) * BWD_THREADS / 32
+
+    def partial_bytes(self, b: int, l: int, n: int) -> int:
+        """Bytes of the scratch partials: ``dB`` and ``dC`` a CTA ``[B, L,
+        blocks, N]`` and ``dA`` a batch element ``[B, D, N]``, f32."""
+        return 4 * (2 * b * l * self.blocks * n + b * self.blocks * self.channels * n)
+
+
+def regs_bwd() -> int:
+    """Registers a thread of the backward: the SM's 65,536 over the threads
+    of its fewest CTAs, in whole 8s."""
+    return min(255, SM_REGS // (BWD_THREADS * BWD_CTAS) // 8 * 8)
+
+
+def plan_bwd(b: int, d: int, n: int, sms: int = 132, *, item: int = 2,
+             states: Optional[int] = None) -> BwdPlan:
+    """The backward's plan for ``b`` batch elements of ``d`` channels of
+    ``n`` states on ``sms`` SMs, operands of ``item`` bytes: states a lane
+    by the forward's rule (the largest of 4, 2, 1 that still gives
+    ``TARGET_WARPS`` warps an SM, else the most lanes; ``states``
+    overrides), among the pairs ``BWD_INSTANTIATED`` holds."""
+    if not 0 < n <= MAX_STATE:
+        raise ValueError(f"state width must be 1-{MAX_STATE}, got {n}")
+    padded = max(4, 1 << (n - 1).bit_length())
+    if states is None:
+        cands = [s for s in (4, 2, 1) if (s, padded // s) in BWD_INSTANTIATED]
+        states = next(
+            (s for s in cands if b * d * (padded // s) >= TARGET_WARPS * 32 * sms), cands[-1]
+        )
+    lanes = max(1, padded // states)
+    if (states, lanes) not in BWD_INSTANTIATED:
+        raise ValueError(f"no backward kernel for {states} states a lane x {lanes} lanes")
+    ch = BWD_THREADS // lanes
+    blocks = -(-d // ch)
+    smem = smem_bytes_bwd(ch, lanes * states, item)
+    reg = regs_bwd()
+    return BwdPlan(lanes, states, ch, blocks, b * blocks, reg, -(-(b * blocks) // sms),
+                   _resident(BWD_THREADS, reg, smem), smem, sms, item)
+
+
+def launch_bwd(lib: ctypes.CDLL, delta, A, Bmat, C, x, dy, dh_last, states,
+               plan: Optional[BwdPlan] = None):
+    """Launch the backward on the current stream with ``plan`` (the default
+    ``plan_bwd`` when None): ``(ddelta, dA, dB, dC, dx)``, all f32,
+    allocated here with the scratch partials.  ``states`` are the ones the
+    forward kept (``launch(..., with_states=True)``).  The CUDA entry
+    refuses a plan it has no kernel for or that does not fit."""
+    validate_bwd(delta, A, Bmat, C, x, dy, dh_last, states)
+    if delta.device.type != "cuda":
+        raise ValueError(f"mamba_scan_bwd kernel needs CUDA tensors, got {delta.device}")
+    if states is None:
+        raise ValueError("mamba_scan_bwd needs the states the forward kept (with_states=True)")
+    b, l, d = delta.shape
+    n = A.shape[1]
+    dev = delta.device
+    p = plan or plan_bwd(b, d, n, device_sms(dev), item=x.element_size())
+    f32 = dict(dtype=torch.float32, device=dev)
+    ddelta, dx = torch.empty((b, l, d), **f32), torch.empty((b, l, d), **f32)
+    dB, dC = torch.empty((b, l, n), **f32), torch.empty((b, l, n), **f32)
+    dA = torch.zeros((d, n), **f32)
+    if b == 0 or d == 0:
+        return ddelta, dA, dB, dC, dx
+    blocks = -(-d // p.channels)
+    da_part = torch.empty((b, d, n), **f32)
+    db_part, dc_part = (torch.empty((b, l, blocks, n), **f32) for _ in range(2))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (delta, A, Bmat, C, x, dy)]
+    ptrs += [None if dh_last is None else dh_last.data_ptr(), states.data_ptr()]
+    ptrs += [t.data_ptr() for t in (ddelta, dA, dB, dC, dx, da_part, db_part, dc_part)]
+    err = lib.dex_mamba_scan_bwd(
+        *ptrs, DTYPES[x.dtype], b, l, d, n, p.lanes, p.states,
+        smem_bytes_bwd(p.channels, p.lanes * p.states, x.element_size()), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"mamba_scan_bwd launch failed: CUDA error {err}")
+    return ddelta, dA, dB, dC, dx
+
+
+def _tree(t):
+    """Sum over the last dim as a butterfly of shuffles sums it: adjacent
+    pairs, then pairs of pairs."""
+    while t.shape[-1] > 1:
+        t = t[..., 0::2] + t[..., 1::2]
+    return t[..., 0]
+
+
+def _in_order(t, dim):
+    """Sum over ``dim`` one element after another, from the first."""
+    parts = t.unbind(dim)
+    acc = parts[0]
+    for v in parts[1:]:
+        acc = acc + v
+    return acc
+
+
+def lane_scan_bwd(delta, A, Bmat, C, x, dy, dh_last, p: BwdPlan):
+    """The backward kernel's decomposition in torch: channels padded with
+    zeros to ``blocks * channels`` and states to ``lanes * states``; the
+    states each step recomputed with the forward's rounding; every product
+    and sum rounded on its own as the kernel's are; the time loop from the
+    last step back.  A channel's ``ddelta`` and ``dx`` sums: a lane's
+    states in order, then the lanes as a butterfly; a state's ``dB`` and
+    ``dC`` sums: the warp's channels as a butterfly, then the CTA's warps
+    in order, then the CTAs in order; ``dA``: each thread's sum from the
+    last step back, then the batch in order.  Returns ``(ddelta, dA, dB,
+    dC, dx)``."""
+    delta, A, Bmat, C, x, dy = (t.float() for t in (delta, A, Bmat, C, x, dy))
+    b, l, d = delta.shape
+    n = A.shape[1]
+    lp, s, ch = p.lanes, p.states, p.channels
+    cpw, warps = 32 // lp, BWD_THREADS // 32
+    blocks = -(-d // ch)
+    dp, npad = blocks * ch, lp * s
+    pad = torch.nn.functional.pad
+    dlt, xx, gy = (pad(t, (0, dp - d)) for t in (delta, x, dy))  # [B, L, Dp]
+    am = pad(A, (0, npad - n, 0, dp - d))  # [Dp, NP]
+    bb, cc = pad(Bmat, (0, npad - n)), pad(C, (0, npad - n))  # [B, L, NP]
+    carry = torch.zeros((b, dp, npad), dtype=torch.float32, device=delta.device)
+    if dh_last is not None:
+        carry = pad(dh_last.float(), (0, npad - n, 0, dp - d))
+    hs = [torch.zeros_like(carry)]
+    for t in range(l):
+        dt = dlt[:, t, :, None]
+        hs.append(torch.exp(dt * am) * hs[-1] + (dt * xx[:, t, :, None]) * bb[:, t, None])
+    da = torch.zeros_like(carry)
+    ddelta, dx = (torch.empty((b, l, d), dtype=torch.float32, device=delta.device)
+                  for _ in range(2))
+    dB, dC = (torch.empty((b, l, n), dtype=torch.float32, device=delta.device)
+              for _ in range(2))
+
+    def channel_sum(v):  # [B, Dp, NP] -> [B, Dp]
+        return _tree(_in_order(v.unflatten(-1, (lp, s)), -1))
+
+    def state_sum(v):  # [B, Dp, NP] -> [B, NP]
+        warp = _tree(v.unflatten(1, (blocks, warps, cpw)).movedim(3, -1))  # [B, blocks, warps, NP]
+        return _in_order(_in_order(warp, 2), 1)
+
+    for t in reversed(range(l)):
+        dt, xt, dyt = dlt[:, t, :, None], xx[:, t, :, None], gy[:, t, :, None]
+        bt, ct = bb[:, t, None], cc[:, t, None]
+        a = torch.exp(dt * am)
+        g = dyt * ct + carry
+        dcv = dyt * hs[t + 1]
+        dbv = g * (dt * xt)
+        gah = g * (a * hs[t])
+        da = da + gah * dt
+        tdd = gah * am + g * (xt * bt)
+        tdx = g * bt
+        carry = a * g
+        ddelta[:, t] = channel_sum(tdd)[:, :d]
+        dx[:, t] = delta[:, t] * channel_sum(tdx)[:, :d]
+        dB[:, t] = state_sum(dbv)[:, :n]
+        dC[:, t] = state_sum(dcv)[:, :n]
+    dA = _in_order(da, 0)[:d, :n].contiguous()
+    return ddelta, dA, dB, dC, dx

@@ -13,11 +13,12 @@ named by a hash of the sources, so an edited source is rebuilt.
 ``LAUNCHES`` counts each kernel's launches: a wrapper adds one where it
 launches its kernel and nowhere else.
 
-``flash_attention`` is differentiable: under grad it runs as the
-``FlashAttention`` function, whose backward is ``flash_attention_bwd``
-(the kernel on the card, its plain version on the CPU).  Every other
-kernel refuses an input that requires grad while grad mode is on, on both
-devices, so that no trainer gets a gradient that silently stops at it.
+``flash_attention`` and ``mamba_scan`` are differentiable: under grad
+they run as the ``FlashAttention`` and ``MambaScan`` functions, whose
+backwards are ``flash_attention_bwd`` and ``mamba_scan_bwd`` (the kernels
+on the card, their plain versions on the CPU).  Every other kernel refuses
+an input that requires grad while grad mode is on, on both devices, so
+that no trainer gets a gradient that silently stops at it.
 """
 
 from __future__ import annotations
@@ -57,12 +58,11 @@ LAUNCHES = {
     "flash_attention": 0,
     "flash_attention_bwd": 0,
     "mamba_scan": 0,
+    "mamba_scan_bwd": 0,
 }
 
 #: where a kernel without a backward is said to get one, or why it has none
 NO_BACKWARD = {
-    "mamba_scan": "SSM and hybrid training wait for a mamba_scan backward kernel,"
-    " ROADMAP.md queue 1, item 13.h",
     "paged_attention": "it serves decode only, and no trainer calls it (ROADMAP.md queue 1,"
     " item 13.f)",
 }
@@ -419,12 +419,88 @@ def mamba_scan(
 ):
     """``(y [B, L, D] f32, h_last [B, D, N] f32)``: the selective scan of
     ``x`` [B, L, D] with steps ``delta`` [B, L, D], diagonal ``A`` [D, N]
-    and ``Bmat``, ``C`` [B, L, N] (see ``ref.mamba_scan_ref``)."""
+    and ``Bmat``, ``C`` [B, L, N] (see ``ref.mamba_scan_ref``).  Where grad
+    mode is on and an input requires grad it runs as ``MambaScan`` (the
+    forward keeps its states for the backward kernel); else the forward
+    alone."""
     args = (delta, A, Bmat, C, x)
-    _refuse_grad("mamba_scan", *args)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return MambaScan.apply(*args)
+    return mamba_scan_fwd(*args)[:2]
+
+
+class MambaScan(torch.autograd.Function):
+    """``mamba_scan`` with its gradient: the forward keeps its operands and
+    the states it saved every ``BWD_CHUNK`` steps (none on the CPU); the
+    backward is ``mamba_scan_bwd``, given null for the gradient of an
+    output that the loss does not reach.  Both are looked up in this module
+    at each call, so a caller may hold them to, or swap them for, their
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, delta, A, Bmat, C, x):
+        y, h_last, states = mamba_scan_fwd(delta, A, Bmat, C, x, with_states=True)
+        ctx.save_for_backward(delta, A, Bmat, C, x, states)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        delta, A, Bmat, C, x, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(delta.shape, dtype=_mamba_scan.state_dtype(x), device=delta.device)
+        grads = mamba_scan_bwd(
+            delta, A, Bmat, C, x, dy.contiguous(),
+            None if dh_last is None else dh_last.contiguous(), states=states,
+        )
+        return tuple(g.to(t.dtype) for g, t in zip(grads, (delta, A, Bmat, C, x)))
+
+
+def mamba_scan_fwd(
+    delta: torch.Tensor,
+    A: torch.Tensor,
+    Bmat: torch.Tensor,
+    C: torch.Tensor,
+    x: torch.Tensor,
+    *,
+    with_states: bool = False,
+):
+    """The forward of ``mamba_scan``: ``(y, h_last)``, or ``(y, h_last,
+    states)`` ``with_states`` (the state before every ``BWD_CHUNK``-th
+    step, ``[B, ceil(L / BWD_CHUNK), D, N]`` f32, for the backward kernel;
+    None on the CPU, whose plain backward keeps its own).  On the CPU
+    float64 is taken too, for ``gradcheck``."""
+    args = (delta, A, Bmat, C, x)
     if delta.device.type == "cpu":
-        _mamba_scan.validate(*args)
-        return ref.mamba_scan_ref(*args)
-    out = _mamba_scan.launch(library(), *args)
+        _mamba_scan.validate(*args, dtypes=_mamba_scan.CPU_DTYPES)
+        out = ref.mamba_scan_ref(*args)
+        return (*out, None) if with_states else out
+    out = _mamba_scan.launch(library(), *args, with_states=with_states)
     LAUNCHES["mamba_scan"] += 1
+    return out
+
+
+def mamba_scan_bwd(
+    delta: torch.Tensor,
+    A: torch.Tensor,
+    Bmat: torch.Tensor,
+    C: torch.Tensor,
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    dh_last: Optional[torch.Tensor] = None,
+    *,
+    states: Optional[torch.Tensor] = None,
+):
+    """``(ddelta [B, L, D], dA [D, N], dB, dC [B, L, N], dx [B, L, D])``,
+    f32: the gradients of ``mamba_scan``'s outputs for ``dy`` [B, L, D] and
+    ``dh_last`` [B, D, N] (None: the final state reaches no loss), from the
+    forward's operands (see ``ref.mamba_scan_bwd_ref``).  The kernel also
+    needs the ``states`` its forward kept (``mamba_scan_fwd(...,
+    with_states=True)``); the CPU path ignores them."""
+    args = (delta, A, Bmat, C, x, dy, dh_last)
+    if delta.device.type == "cpu":
+        _mamba_scan.validate_bwd(*args, states, dtypes=_mamba_scan.CPU_DTYPES)
+        return ref.mamba_scan_bwd_ref(*args)
+    out = _mamba_scan.launch_bwd(library(), *args, states)
+    LAUNCHES["mamba_scan_bwd"] += 1
     return out

@@ -379,16 +379,72 @@ def mamba_scan_ref(
     """Selective scan with diagonal ``A``, a step at a time.
 
     ``delta`` [B, L, D] (post-softplus), ``A`` [D, N] (negative), ``Bmat``
-    and ``C`` [B, L, N], ``x`` [B, L, D]; all cast to f32.  Per step
-    ``h = exp(delta_t * A) * h + (delta_t * x_t) * B_t`` from ``h = 0``, and
-    ``y_t = <h, C_t>``.  Returns ``(y [B, L, D], h_last [B, D, N])``, both
-    f32; the state is one [B, D, N] tensor, never [B, L, D, N]."""
-    delta, A, Bmat, C, x = (t.float() for t in (delta, A, Bmat, C, x))
+    and ``C`` [B, L, N], ``x`` [B, L, D]; all cast to f32 (float64 stays
+    float64, for ``gradcheck``).  Per step ``h = exp(delta_t * A) * h +
+    (delta_t * x_t) * B_t`` from ``h = 0``, and ``y_t = <h, C_t>``.  Returns
+    ``(y [B, L, D], h_last [B, D, N])``, both in that dtype; the state is
+    one [B, D, N] tensor, never [B, L, D, N]."""
+    ct = _scan_dtype(delta)
+    delta, A, Bmat, C, x = (t.to(ct) for t in (delta, A, Bmat, C, x))
     b, l, d = delta.shape
-    h = torch.zeros((b, d, A.shape[1]), dtype=torch.float32, device=delta.device)
-    y = torch.empty((b, l, d), dtype=torch.float32, device=delta.device)
+    h = torch.zeros((b, d, A.shape[1]), dtype=ct, device=delta.device)
+    y = torch.empty((b, l, d), dtype=ct, device=delta.device)
     for t in range(l):
         dt = delta[:, t, :, None]
         h = torch.exp(dt * A) * h + (dt * x[:, t, :, None]) * Bmat[:, t, None, :]
         y[:, t] = (h * C[:, t, None, :]).sum(-1)
     return y, h
+
+
+def _scan_dtype(delta: torch.Tensor) -> torch.dtype:
+    return torch.float64 if delta.dtype == torch.float64 else torch.float32
+
+
+def mamba_scan_bwd_ref(
+    delta: torch.Tensor,
+    A: torch.Tensor,
+    Bmat: torch.Tensor,
+    C: torch.Tensor,
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    dh_last: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``mamba_scan_ref``'s outputs for ``dy`` [B, L, D]
+    (and ``dh_last`` [B, D, N], the final state's, or none), written out as
+    the reverse recurrence the backward kernel runs (not by autograd).
+
+    With ``a_t = exp(delta_t A)`` and ``g_t`` the gradient of the state
+    ``h_t``: ``g_t = dy_t C_t + a_{t+1} g_{t+1}`` from the last step back
+    (``g_L = dy_L C_L + dh_last``); ``dC_t = sum_d dy_t h_t``, ``dB_t =
+    sum_d g_t delta_t x_t``, ``dx_t = delta_t sum_n g_t B_t``, ``ddelta_t =
+    sum_n g_t (A a_t h_{t-1} + x_t B_t)``, ``dA = sum_{b, t} g_t a_t h_{t-1}
+    delta_t``.  Every state is kept ([L + 1, B, D, N]), so ``h_{t-1}`` is
+    read, never recovered from ``h_t``.  In f32 (float64 stays float64).
+    Returns ``(ddelta [B, L, D], dA [D, N], dB, dC [B, L, N], dx [B, L,
+    D])``, all in that dtype."""
+    ct = _scan_dtype(delta)
+    delta, A, Bmat, C, x, dy = (t.to(ct) for t in (delta, A, Bmat, C, x, dy))
+    b, l, d = delta.shape
+    n = A.shape[1]
+    dev = delta.device
+    hs = torch.zeros((l + 1, b, d, n), dtype=ct, device=dev)
+    for t in range(l):
+        dt = delta[:, t, :, None]
+        hs[t + 1] = torch.exp(dt * A) * hs[t] + (dt * x[:, t, :, None]) * Bmat[:, t, None, :]
+    carry = torch.zeros((b, d, n), dtype=ct, device=dev) if dh_last is None else dh_last.to(ct)
+    ddelta, dx = (torch.empty((b, l, d), dtype=ct, device=dev) for _ in range(2))
+    dB, dC = (torch.empty((b, l, n), dtype=ct, device=dev) for _ in range(2))
+    dA = torch.zeros((d, n), dtype=ct, device=dev)
+    for t in reversed(range(l)):
+        dt, xt, dyt = delta[:, t, :, None], x[:, t, :, None], dy[:, t, :, None]
+        bt, cc = Bmat[:, t, None, :], C[:, t, None, :]
+        a = torch.exp(dt * A)
+        g = dyt * cc + carry
+        ah = a * hs[t]
+        dC[:, t] = (dyt * hs[t + 1]).sum(1)
+        dB[:, t] = (g * (dt * xt)).sum(1)
+        dx[:, t] = delta[:, t] * (g * bt).sum(-1)
+        ddelta[:, t] = (g * (A * ah + xt * bt)).sum(-1)
+        dA += (g * ah * dt).sum(0)
+        carry = a * g
+    return ddelta, dA, dB, dC, dx

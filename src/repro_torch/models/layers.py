@@ -584,7 +584,10 @@ def mamba_block(
     new_conv_state [B, conv - 1, Di] f32)``.  One token with a state takes
     the inline recurrence, as the reference does; a sequence starts from a
     zero state and runs the ``mamba_scan`` kernel (its plain version on the
-    CPU), whose final state is the new state."""
+    CPU), whose final state is the new state.  Under grad the scan is
+    ``ops.MambaScan``, whose backward is the ``mamba_scan_bwd`` kernel: the
+    gradient reaches every leaf, through the contiguous copies of ``B``,
+    ``C`` and ``xs`` and through ``A = -exp(A_log)``."""
     b, s, d = x.shape
     n = cfg.ssm_state
     dt_rank = max(1, d // 16)

@@ -361,7 +361,10 @@ def forward(
     without it).  Every attention is the ``flash_attention`` kernel, every
     Mamba layer's scan the ``mamba_scan`` kernel.  Under grad, each layer
     of the stack (and of the encoder) is checkpointed where ``cfg.remat``
-    asks; the hybrid's shared block is not, as in the reference."""
+    asks, a Mamba layer's scan then running twice (the checkpoint's forward
+    without grad, the recompute with the states its backward kernel
+    restarts from); the hybrid's shared block is not, as in the reference,
+    and its gradient sums over its applications."""
     s = tokens.shape[1]
     enc_x = _encode(cfg, params, enc_emb) if cfg.encdec else None
     x = _embed(cfg, params, tokens)

@@ -1212,3 +1212,137 @@ def test_head_product_gradient_on_the_card(cuda):
     for got, ref_ in ((xs.grad, xf.grad), (hs.grad, hf.grad)):
         assert got.dtype == torch.bfloat16
         assert float((got.float() - ref_).abs().max()) <= 1e-2 * float(ref_.abs().max())
+
+
+def mamba_bwd_case(b, l, d, n, seed, dtype):
+    """``mamba_case`` with the output gradients ``dy`` [B, L, D] and
+    ``dh_last`` [B, D, N] (f32)."""
+    args = [t.cuda() for t in mamba_case(b, l, d, n, seed, dtype)]
+    rng = np.random.default_rng(seed + 1)
+    dy, dh = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+              for s in ((b, l, d), (b, d, n)))
+    return args, dy, dh
+
+
+def rel_errs(got, want):
+    """Each gradient's largest |difference| over its largest |plain|."""
+    return [float((g.double() - w.double()).abs().max() / w.double().abs().max().clamp(min=1e-30))
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,l,d,n",
+    [(2, 67, 333, 8), (2, 31, 40, 64), (1, 33, 100, 16), (1, 1, 16, 4),
+     (2, 4096, 8192, 16), (2, 4096, 5120, 64)],
+)
+def test_mamba_scan_bwd_kernel_matches_plain(cuda, b, l, d, n, dtype, with_dh):
+    """The backward kernel on the forward kernel's saved states against the
+    plain backward: each gradient within 1e-4 of its largest magnitude (f32
+    sums in another order; measured up to 3.5e-6 at the full shapes), two
+    launches bit-equal, and, at the small shapes, the kernel's torch
+    decomposition (``lane_scan_bwd``) bit for bit.  The forward with its
+    states gives the forward's outputs bit for bit."""
+    from repro_torch.kernels import mamba_scan as mamba_mod
+
+    args, dy, dh = mamba_bwd_case(b, l, d, n, b + l + d + n, dtype)
+    dh = dh if with_dh else None
+    y0, h0 = ops.mamba_scan(*args)
+    y, h, states = ops.mamba_scan_fwd(*args, with_states=True)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    before = ops.LAUNCHES["mamba_scan_bwd"]
+    got = ops.mamba_scan_bwd(*args, dy, dh, states=states)
+    again = ops.mamba_scan_bwd(*args, dy, dh, states=states)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba_scan_bwd"] == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert max(rel_errs(got, ref.mamba_scan_bwd_ref(*args, dy, dh))) <= 1e-4
+    if l * d <= 40_000:
+        p = mamba_mod.plan_bwd(b, d, n, mamba_mod.device_sms(cuda), item=args[-1].element_size())
+        want = mamba_mod.lane_scan_bwd(*args, dy, dh, p)
+        assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_mamba_scan_bwd_entry_refuses_a_plan_it_cannot_run(cuda):
+    """A pair the backward has no kernel for (2 lanes), and a missing set of
+    saved states: nothing launches."""
+    from repro_torch.kernels import mamba_scan as mamba_mod
+
+    args, dy, _ = mamba_bwd_case(2, 40, 64, 8, 0, torch.float32)
+    _, _, states = ops.mamba_scan_fwd(*args, with_states=True)
+    p = dataclasses.replace(mamba_mod.plan_bwd(2, 64, 8, item=4), states=4, lanes=2)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        mamba_mod.launch_bwd(ops.library(), *args, dy, None, states, plan=p)
+    with pytest.raises(ValueError, match="states"):
+        ops.mamba_scan_bwd(*args, dy)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_under_checkpoint(cuda):
+    """``MambaScan`` under ``torch.utils.checkpoint``: the forward runs
+    without grad, the recompute with its states (two ``mamba_scan``
+    launches), one backward launch, and the gradients equal those of the
+    same graph without the checkpoint bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+
+    args, dy, dh = mamba_bwd_case(2, 100, 256, 16, 3, torch.bfloat16)
+
+    def f(*a):
+        y, h = ops.mamba_scan(*a)
+        return (y * dy).sum() + (h * dh).sum()
+
+    plain = [t.clone().requires_grad_() for t in args]
+    want = torch.autograd.grad(f(*plain), plain)
+    held = [t.clone().requires_grad_() for t in args]
+    before = dict(ops.LAUNCHES)
+    got = torch.autograd.grad(checkpoint(f, *held, use_reentrant=False), held)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba_scan"] == before["mamba_scan"] + 2
+    assert ops.LAUNCHES["mamba_scan_bwd"] == before["mamba_scan_bwd"] + 1
+    for a, c, t in zip(got, want, args):
+        assert a.dtype == t.dtype and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_ssm_train_step_on_the_card_matches_the_cpu(cuda):
+    """A reduced zamba2-2.7b (4 Mamba layers, the shared block after every
+    2, head dim 64 for the flash kernels, float32, remat) train step on the
+    card (the mamba_scan and flash kernels, forward and backward) against
+    the same step on the CPU (their plain versions), weights carried bit
+    for bit: the loss within 1e-5 relative, every gradient within 1e-3 x
+    its RMS, the parameters after the update within 5% of the learning
+    rate; every gradient finite and not all zero."""
+    from repro_torch.data.pipeline import TokenPipeline, to_device
+    from repro_torch.train import optimizer as t_opt
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+
+    cfg = dataclasses.replace(
+        get_config("zamba2-2.7b").reduced(d_model=128, n_heads=2, n_kv_heads=2, head_dim=64,
+                                          dtype="float32"), remat=True)
+    host = t_model.init_params(cfg, seed=0, device="cpu")
+    batch = TokenPipeline(cfg, global_batch=2, seq_len=96, seed=1).next_batch()
+    runs = []
+    for dev in ("cpu", cuda):
+        params = t_model.params_from_numpy(cfg, t_model.params_to_numpy(host), dev)
+        before = ops.LAUNCHES["mamba_scan_bwd"]
+        loss, _, grads = loss_and_grads(cfg, params, to_device(batch, cfg, dev))
+        launched = ops.LAUNCHES["mamba_scan_bwd"] - before
+        assert launched == (cfg.n_layers if dev != "cpu" else 0)
+        ocfg = t_opt.OptConfig(warmup_steps=1, total_steps=3)
+        step = make_train_step(cfg, ocfg)
+        params, _, m = step(params, t_opt.init_opt_state(params, ocfg), to_device(batch, cfg, dev))
+        runs.append((loss.cpu(), t_opt.tree_map(lambda t: t.cpu(), grads),
+                     t_opt.tree_map(lambda t: t.cpu(), params), float(m["loss"])))
+    torch.cuda.synchronize()
+    (l0, g0, p0, m0), (l1, g1, p1, m1) = runs
+    assert abs(float(l1) - float(l0)) <= 1e-5 * abs(float(l0))
+    assert abs(m1 - m0) <= 1e-5 * abs(m0)
+    for a, b in zip(t_opt.leaves(g0), t_opt.leaves(g1)):
+        rms = float(a.double().pow(2).mean().sqrt())
+        assert bool(torch.isfinite(b).all()) and rms > 0
+        assert float((a - b).abs().max()) <= 1e-3 * rms
+    for a, b in zip(t_opt.leaves(p0), t_opt.leaves(p1)):
+        assert float((a - b).abs().max()) <= 0.05 * 3e-4

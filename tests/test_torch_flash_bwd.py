@@ -11,7 +11,8 @@ P^T dO, so it is held on the rows that see a key, whose causal offset is
 the same once the others are cut off; the port gives those rows dQ = 0 and
 adds nothing from them).  Tolerance in float32: 1e-5 x the largest
 |gradient| of the tensor (measured about 1e-6: sums in another order).
-The off-slice kernels refuse a gradient on the CPU as on the card."""
+``paged_attention`` refuses a gradient on the CPU as on the card;
+``mamba_scan``'s is its plain backward's (tests/test_torch_mamba_bwd.py)."""
 
 import math
 
@@ -152,9 +153,11 @@ def test_backward_launch_checks():
 
 @pytest.mark.parametrize("grad_mode", [True, False])
 def test_off_slice_kernels_refuse_a_gradient(grad_mode):
-    """``mamba_scan`` and ``paged_attention`` have no backward: under grad,
-    an input that requires grad raises, naming the ROADMAP item; without
-    grad mode they run."""
+    """``paged_attention`` has no backward: under grad, an input that
+    requires grad raises, naming the ROADMAP item; without grad mode it
+    runs.  ``mamba_scan`` has one now: under grad its gradient is the plain
+    backward's (``ref.mamba_scan_bwd_ref``) bit for bit; without grad mode
+    it records none."""
     rng = np.random.default_rng(4)
 
     def t(*shape):
@@ -167,13 +170,16 @@ def test_off_slice_kernels_refuse_a_gradient(grad_mode):
     paged_args = (q, *pages, torch.zeros((2, 2), dtype=torch.int32),
                   torch.tensor([3, 5], dtype=torch.int32))
     with torch.set_grad_enabled(grad_mode):
+        y, _ = ops.mamba_scan(*scan_args)
         if grad_mode:
-            with pytest.raises(RuntimeError, match="13.h"):
-                ops.mamba_scan(*scan_args)
             with pytest.raises(RuntimeError, match="no backward"):
                 ops.paged_attention(*paged_args)
+            dy = torch.ones_like(y)
+            (got,) = torch.autograd.grad(y, delta, dy)
+            want = ref.mamba_scan_bwd_ref(*(a.detach() for a in scan_args), dy)[0]
+            assert torch.equal(got, want)
         else:
-            ops.mamba_scan(*scan_args)
+            assert y.grad_fn is None
             ops.paged_attention(*paged_args)
     with torch.no_grad():
         y, _ = ops.mamba_scan(*scan_args)

@@ -251,6 +251,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     t_ops.flash_attention(qg, q[None, :2], q[None, :2]).sum().backward()
     t_ops.mamba_scan(q, torch.zeros((8, 16)), torch.zeros((2, 4, 16)),
                      torch.zeros((2, 4, 16)), q)
+    t_ops.mamba_scan(q.clone().requires_grad_(), torch.zeros((8, 16)), torch.zeros((2, 4, 16)),
+                     torch.zeros((2, 4, 16)), q)[0].sum().backward()
     assert t_ops.LAUNCHES == {
         "node_search": 0,
         "node_search_prefix": 0,
@@ -262,4 +264,5 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
         "flash_attention": 0,
         "flash_attention_bwd": 0,
         "mamba_scan": 0,
+        "mamba_scan_bwd": 0,
     }

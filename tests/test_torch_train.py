@@ -5,20 +5,22 @@ and parameters carried across by ``params_from_numpy``.
 
 Tolerances, each with what was measured:
 
-* ``loss_fn`` on reduced minitron-4b and granite-moe-1b-a400m (2 layers,
-  three cross-entropy chunks, ignored labels): the loss within 1e-5
-  relative (measured 1e-7), every leaf's gradient within 1e-4 x that
-  leaf's RMS (measured up to 1.5e-5: sums in another order through
-  attention, the MoE combine and the head);
+* ``loss_fn`` on reduced minitron-4b, granite-moe-1b-a400m and
+  falcon-mamba-7b (2 layers) and zamba2-2.7b (4 Mamba layers, the shared
+  block after every 2), three cross-entropy chunks, ignored labels: the
+  loss within 1e-5 relative (measured 1e-7; 0 for the SSM models), every
+  leaf's gradient within 1e-4 x that leaf's RMS (measured up to 1.5e-5,
+  zamba2-2.7b's ``A_log`` 3.9e-5: sums in another order through
+  attention, the MoE combine, the scan's backward and the head);
 * ``adamw_update`` over three steps with clipping, the chunked update and
   bf16 and f32 moments: parameters within 1e-6 x their largest magnitude
   (measured 4e-10); f32 moments within 1e-6 relative (measured 2e-7: XLA
   fuses some multiply-adds, queue 3 entry 2), bf16 moments within one bf16
   step of each element (measured equal); the schedule bit for bit;
-* ``make_train_step`` with 1 and 2 microbatches over two steps: the losses
-  within 1e-5 relative, the parameters within 5% of the peak learning rate
-  (an Adam step moves an element by about the learning rate; measured
-  1.4%).
+* ``make_train_step`` with 1 and 2 microbatches over two steps, and one
+  step of reduced zamba2-2.7b: the losses within 1e-5 relative, the
+  parameters within 5% of the peak learning rate (an Adam step moves an
+  element by about the learning rate; measured 1.4%).
 
 ``remat=True`` gives the same gradients as ``remat=False`` bit for bit,
 and the token pipeline's batches equal the reference's bit for bit."""
@@ -45,12 +47,16 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.train import optimizer as TO  # noqa: E402
 from repro_torch.train import train_step as TT  # noqa: E402
 
-NAMES = ["minitron-4b", "granite-moe-1b-a400m"]
+NAMES = ["minitron-4b", "granite-moe-1b-a400m", "falcon-mamba-7b", "zamba2-2.7b"]
 CE_CHUNK = 8  # three chunks of the 24 positions
 
 
 def configs(name, **more):
-    kw = dict(n_layers=2, d_model=64, n_heads=4, dtype="float32", **more)
+    """Reduced configs: 2 layers, but the hybrid's own reduction (4 layers,
+    the shared block after every 2)."""
+    kw = dict(d_model=64, n_heads=4, dtype="float32", **more)
+    if not ref_config(name).hybrid_attn_every:
+        kw["n_layers"] = 2
     if name == "minitron-4b":
         kw["n_kv_heads"] = 2
     return ref_config(name).reduced(**kw), get_config(name).reduced(**kw)
@@ -227,16 +233,16 @@ def test_compress_int8_matches_reference():
 
 
 @functools.lru_cache(maxsize=None)
-def reference_steps(microbatches):
-    """Two reference train steps (jitted) from one init: their metrics and
-    parameters after each step."""
-    rc, _ = configs("minitron-4b")
+def reference_steps(microbatches, name="minitron-4b", steps=2):
+    """``steps`` reference train steps (jitted) from one init: their
+    metrics and parameters after each step."""
+    rc, _ = configs(name)
     rp = RM.init_params(rc, jax.random.PRNGKey(0))
     ocfg = RO.OptConfig(warmup_steps=1, total_steps=4)
     step = jax.jit(RT.make_train_step(rc, ocfg, microbatches=microbatches))
     state = RO.init_opt_state(rp, ocfg)
     out, host0 = [], jax.tree.map(np.asarray, rp)
-    for i in range(2):
+    for i in range(steps):
         rp, state, m = step(rp, state, jax.tree.map(jnp.asarray, batch_of(rc.vocab, 4, 16, i)))
         out.append((jax.tree.map(float, m), jax.tree.map(np.asarray, rp)))
     return host0, out
@@ -244,8 +250,19 @@ def reference_steps(microbatches):
 
 @pytest.mark.parametrize("microbatches", [1, 2])
 def test_make_train_step_matches_reference(microbatches):
-    _, tc = configs("minitron-4b")
-    host0, want = reference_steps(microbatches)
+    check_train_steps("minitron-4b", microbatches, 2)
+
+
+def test_ssm_train_step_matches_reference():
+    """One step of reduced zamba2-2.7b: Mamba layers (the scan's backward)
+    and the shared attention block, AdamW on its f32 leaves (``A_log``,
+    ``dt_bias``, ``D_skip``) as on the others."""
+    check_train_steps("zamba2-2.7b", 1, 1)
+
+
+def check_train_steps(name, microbatches, steps):
+    _, tc = configs(name)
+    host0, want = reference_steps(microbatches, name, steps)
     ocfg = TO.OptConfig(warmup_steps=1, total_steps=4)
     params = TM.params_from_numpy(tc, host0, "cpu")
     state = TO.init_opt_state(params, ocfg)
@@ -310,9 +327,16 @@ def test_token_pipeline_frames_and_device_move():
 
 
 def test_ssm_training_is_refused():
-    """A Mamba model's loss reaches ``mamba_scan``, which has no backward
-    yet: the gradient is refused, not silently cut."""
+    """No longer refused: a reduced falcon-mamba-7b's loss reaches
+    ``mamba_scan``, whose backward (``MambaScan``) carries the gradient to
+    every leaf, finite and not all zero (a gradient cut at the scan would
+    leave ``A_log``, ``dt_proj``, ``dt_bias`` and the layers below at
+    zero)."""
     tc = get_config("falcon-mamba-7b").reduced(dtype="float32")
     params = TM.init_params(tc, 0, device="cpu")
-    with pytest.raises(RuntimeError, match="mamba_scan has no backward"):
-        TT.loss_and_grads(tc, params, tensors(batch_of(tc.vocab, 1, 8, 0)))
+    loss, _, grads = TT.loss_and_grads(tc, params, tensors(batch_of(tc.vocab, 1, 40, 0)))
+    assert bool(torch.isfinite(loss))
+    names = [path for path, _ in port_leaves(grads)]
+    assert "blocks.ssm.A_log" in names and "blocks.ssm.dt_bias" in names
+    for path, g in port_leaves(grads):
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), path
