@@ -634,11 +634,9 @@ def phase_build():
     return {"sass": sass, "ptxas": ptxas}
 
 
-def mamba_hot_block(lines):
-    """Op counts of the basic block with the most ``MUFU.EX2`` in a kernel's
-    SASS lines (blocks split at branches and branch targets): its
-    instructions, exponentials, FP32 operations and shifts (the
-    exponential's ``SHF.L`` or ``IMAD.SHL``)."""
+def sass_blocks(lines):
+    """A kernel's SASS lines cut into basic blocks (at branches and branch
+    targets): lists of ``(address, instruction)``."""
     import re
 
     instrs = []
@@ -652,18 +650,53 @@ def mamba_hot_block(lines):
         if addr in targets and cur:
             blocks.append(cur)
             cur = []
-        cur.append(text)
+        cur.append((addr, text))
         if "BRA" in text or "EXIT" in text:
             blocks.append(cur)
             cur = []
     blocks.append(cur)
-    best = max(blocks, key=lambda b: sum("MUFU.EX2" in t for t in b))
+    return blocks
+
+
+def op_counts(instrs):
+    """Instructions, exponentials, FP32 operations, shifts (the
+    exponential's ``SHF.L`` or ``IMAD.SHL``) and shuffles among
+    ``(address, instruction)`` pairs."""
 
     def n(*ops):
-        return sum(any(op in t for op in ops) for t in best)
+        return sum(any(op in text for op in ops) for _, text in instrs)
 
-    return {"instructions": len(best), "MUFU.EX2": n("MUFU.EX2"),
-            "FP32": n("FFMA", "FMUL", "FADD"), "shifts": n("SHF.L", "IMAD.SHL")}
+    return {"instructions": len(instrs), "MUFU.EX2": n("MUFU.EX2"),
+            "FP32": n("FFMA", "FMUL", "FADD"), "shifts": n("SHF.L", "IMAD.SHL"),
+            "SHFL": n("SHFL")}
+
+
+def mamba_hot_block(lines):
+    """Op counts (``op_counts``) of the basic block with the most
+    ``MUFU.EX2`` in a kernel's SASS lines."""
+    blocks = sass_blocks(lines)
+    return op_counts(max(blocks, key=lambda b: sum("MUFU.EX2" in t for _, t in b)))
+
+
+def exp_regions(lines):
+    """Op counts of the code a loop's iteration runs from each basic block
+    that holds an exponential: from the block's start to the first branch
+    back (the loop's end) at or after it, in address order."""
+    import re
+
+    blocks = sass_blocks(lines)
+    flat = [x for b in blocks for x in b]
+    out = []
+    for b in blocks:
+        if not any("MUFU.EX2" in t for _, t in b):
+            continue
+        i = flat.index(b[0])
+        for k in range(i, len(flat)):
+            m = re.search(r"BRA (0x[0-9a-f]+)", flat[k][1])
+            if m and int(m.group(1), 16) < flat[k][0]:
+                break
+        out.append(op_counts(flat[i:k + 1]))
+    return out
 
 
 def ptxas_usage(log):
@@ -721,9 +754,11 @@ def sass_evidence(lib):
     ``cp.async`` copies (``LDGSTS``), exponentials (``MUFU.EX2``) and FP32
     operations, and the same in the basic block with the most exponentials
     (the unrolled group of steps: ``mamba_hot_block``); in the mamba_scan
-    backward's kernels their ``LDGSTS``, ``MUFU.EX2`` and shuffles, and
-    the atomics (``ATOM``, ``RED``), which must be none, as in the kernel
-    that adds its partials.  Fails unless every kernel of each family holds
+    backward's kernels their ``LDGSTS``, ``MUFU.EX2`` and shuffles, in all
+    and in the unrolled sub-block (``mamba_hot_block``), and the atomics
+    (``ATOM``, ``RED``), which must be none, as in the kernel that adds its
+    partials; and in those the code a sub-block runs from its exponentials'
+    block to the loop's end (``exp_regions``).  Fails unless every kernel of each family holds
     its required ops.  Returns ``{name:
     (family, counts)}``, the mamba kernels' counts with a ``hot`` entry."""
     from repro_torch.kernels import ops
@@ -746,8 +781,10 @@ def sass_evidence(lib):
                 counts[name][1][op] += line.count(op)
             code[name].append(line)
     for name, (family, c) in counts.items():
-        if family == "mamba_scan":
+        if family in ("mamba_scan", "mamba_scan_bwd_kernel"):
             c["hot"] = mamba_hot_block(code[name])
+        if family == "mamba_scan_bwd_kernel":
+            c["sub"] = exp_regions(code[name])
     for family, (_, required) in SASS_OPS.items():
         mine = [c for f, c in counts.values() if f == family]
         if not mine or not all(c[op] for c in mine for op in required):
@@ -3663,7 +3700,9 @@ def mamba_issue_floor(sass, states, lanes):
     FP32 operations, MUFUs and shifts, the second every instruction of the
     block (the operand loads, the partial-y stores, the last group's y
     sums); and the block's counts."""
-    name = next(k for k in sass if mamba_instance(k) == ("bfloat16", states, lanes))
+    # serving's instantiation (no states kept: ``Lb0E``) first
+    name = next(k for k in sorted(sass, key=lambda k: "Lb0E" not in k)
+                if mamba_instance(k) == ("bfloat16", states, lanes))
     hot = sass[name][1]["hot"]
     arith = hot["FP32"] + hot["MUFU.EX2"] + hot["shifts"]
     return arith / hot["MUFU.EX2"], hot["instructions"] / hot["MUFU.EX2"], hot
@@ -3799,7 +3838,27 @@ def mamba_bwd_bytes(b, l, d, n, item, dh_last):
             + (b * d * n * 4 if dh_last else 0))
 
 
-def mamba_bwd_kernel(seed):
+def mamba_bwd_issue(sass, states, lanes):
+    """The backward's sub-block in the SASS of its bf16 kernel of ``states``
+    x ``lanes``, a state and step: ``MUFU.EX2`` and ``SHFL`` of its
+    unrolled block of exponentials (``mamba_hot_block``) and of the whole
+    kernel, and the arithmetic (FP32 operations, MUFUs and shifts) and all
+    instructions a sub-block runs from that block to the loop's end
+    (``exp_regions``: the issue floor's count); and the counts."""
+    from repro_torch.kernels import mamba_scan as mamba_mod
+
+    name = next(k for k in sass
+                if mamba_instance(k, "mamba_scan_bwd_kernel") == ("bfloat16", states, lanes))
+    counts = sass[name][1]
+    hot, sub = counts["hot"], max(counts["sub"], key=lambda r: r["MUFU.EX2"])
+    per = mamba_mod.BWD_SUB * states
+    return dict(mufu=hot["MUFU.EX2"] / per, shfl=hot["SHFL"] / per,
+                shfl_kernel=counts["SHFL"] / per, shfl_sub=sub["SHFL"] / per,
+                arith=(sub["FP32"] + sub["MUFU.EX2"] + sub["shifts"]) / per,
+                block=sub["instructions"] / per, sass=hot, sub=sub)
+
+
+def mamba_bwd_kernel(seed, build):
     """The ``mamba_scan`` backward kernel against its plain version
     (``mamba_scan_bwd_ref``) on the forward kernel's saved states, at
     ``MAMBA_BWD_SHAPES`` (zamba2-2.7b's and falcon-mamba-7b's training
@@ -3810,9 +3869,13 @@ def mamba_bwd_kernel(seed):
     decomposition (``lane_scan_bwd``) bit for bit; the forward with its
     states bit-equal to the forward without.  The bf16 training shapes
     timed cold and hot (``dh_last`` null, as the model's loss gives it)
-    beside the plain version and the bound: bytes (``mamba_bwd_bytes``) or
-    ``B L D N`` exponentials at 16 a clock an SM, and the exponentials the
-    design executes (1.75 a state and step)."""
+    beside the plain version, the bound (bytes, ``mamba_bwd_bytes``, or
+    ``B L D N`` exponentials at 16 a clock an SM) and the issue floor (the
+    instructions of the unrolled sub-block a state and step, from ``build``'s
+    SASS, at four warp instructions a clock an SM); the plan (CTA threads,
+    cluster, busiest SM against the mean, the clusters the card holds at
+    once), the partials' and the saved states' bytes; and the forward with
+    and without its states, cold and hot."""
     import torch
 
     from repro_torch.kernels import mamba_scan as mamba_mod
@@ -3823,6 +3886,7 @@ def mamba_bwd_kernel(seed):
     clock = sm_clock_hz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     exps_per_s = SFU_EXP_PER_CLOCK * sms * clock
+    issue_per_s = 4 * 32 * sms * clock  # four warp instructions a clock an SM
     tol = GRAD_TOL["float32"]
     errs, abs_errs, rows, cases = {}, {}, {}, 0
     for i, (label, (b, l, d, n)) in enumerate(MAMBA_BWD_SHAPES.items()):
@@ -3848,7 +3912,7 @@ def mamba_bwd_kernel(seed):
                     fail(f"mamba_scan_bwd {label} {key} differs from its plain version by {err}"
                          f" of the largest gradient (limit {tol})")
                 if label == "odd":
-                    p = mamba_mod.plan_bwd(b, d, n, sms, item=dtype.itemsize)
+                    p = mamba_mod.device_plan_bwd(ops.library(), dev, b, d, n, dtype.itemsize)
                     mirror = mamba_mod.lane_scan_bwd(*args, dy, dh_last, p)
                     if not all(torch.equal(x, z) for x, z in zip(got, mirror)):
                         fail(f"mamba_scan_bwd {label} {key}: not its decomposition bit for bit")
@@ -3857,14 +3921,16 @@ def mamba_bwd_kernel(seed):
                 cases += 1
                 del got
             if dtype == torch.bfloat16 and label != "odd":
-                p = mamba_mod.plan_bwd(b, d, n, sms, item=2)
+                p = mamba_mod.device_plan_bwd(ops.library(), dev, b, d, n, 2)
                 t = cold_and_hot({"default": lambda: ops.mamba_scan_bwd(*args, dy, states=states)})
+                fwd = cold_and_hot({
+                    "default": lambda: ops.mamba_scan_fwd(*args, with_states=True),
+                    "no_states": lambda: ops.mamba_scan_fwd(*args),
+                })
                 nbytes = mamba_bwd_bytes(b, l, d, n, 2, False)
                 exps = b * l * d * n
                 bytes_ms, exps_ms = nbytes / HBM_BYTES_PER_S * 1e3, exps / exps_per_s * 1e3
-                chunks = -(-l // mamba_mod.BWD_CHUNK)
-                subs = mamba_mod.BWD_CHUNK // mamba_mod.BWD_SUB
-                executed = exps * (1 + (subs - 1) / subs)  # the chunk pass skips its last sub-block
+                issue = mamba_bwd_issue(build["sass"], p.states, p.lanes)
                 rows[label] = dict(
                     shape=f"[{b}, {l}, {d}], N = {n}, x / B / C bf16, dh_last null",
                     ms=t["cold_ms"],
@@ -3874,13 +3940,28 @@ def mamba_bwd_kernel(seed):
                     bound_by="bytes" if bytes_ms > exps_ms else "operations",
                     bytes_ms=bytes_ms,
                     exps_ms=exps_ms,
-                    executed_exps_ms=executed / exps_per_s * 1e3,
+                    # one exponential a state and step: the forward keeps a
+                    # state before every sub-block
+                    executed_exps_ms=exps_ms,
+                    issue_floor_ms=exps * issue["arith"] / issue_per_s * 1e3,
+                    block_issue_ms=exps * issue["block"] / issue_per_s * 1e3,
+                    per_state_step=issue,
                     partial_bytes=p.partial_bytes(b, l, n),
-                    saved_state_bytes=b * chunks * d * n * 4,
+                    saved_state_bytes=b * mamba_mod.saves(l) * d * n * 4,
+                    fwd_with_states_ms=fwd["cold_ms"],
+                    fwd_with_states_hot_ms=fwd["hot_ms"],
+                    fwd_ms=fwd["no_states_cold_ms"],
+                    fwd_hot_ms=fwd["no_states_hot_ms"],
                     plan=dict(lanes=p.lanes, states=p.states, channels=p.channels,
-                              ctas=p.ctas, regs=p.regs, smem=p.smem,
-                              warps_per_sm=p.warps_per_sm),
+                              threads=mamba_mod.BWD_THREADS, cluster=p.cluster,
+                              clusters=p.clusters, ctas=p.ctas, regs=p.regs, smem=p.smem,
+                              busiest_sm=p.per_sm, mean_sm=p.mean_per_sm,
+                              imbalance=p.imbalance, resident=p.resident,
+                              active_clusters=p.active, rounds=p.rounds,
+                              card_clusters=mamba_mod.device_active_clusters(
+                                  ops.library(), dev, 1, p.lanes, p.states)),
                 )
+                del fwd
             del args, dy, dh, states
             torch.cuda.empty_cache()
     main = rows[f"{HYBRID_ARCH} training"]
@@ -3905,14 +3986,31 @@ def mamba_bwd_kernel(seed):
         per_shape=rows,
     )
     for label, r in rows.items():
+        q, s = r["plan"], r["per_state_step"]
         print(f"kernel mamba_scan_bwd {label} {r['shape']}: kernel {r['ms']:.4f} ms cold,"
               f" {r['hot_ms']:.4f} hot, plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f}"
               f" ms ({r['bound_by']}; bytes {r['bytes_ms']:.4f}, exps {r['exps_ms']:.4f}, the"
-              f" design's 1.75 a state and step {r['executed_exps_ms']:.4f} at"
-              f" {clock / 1e6:.0f} MHz), partials {r['partial_bytes'] / 1e6:.1f} MB, saved states"
-              f" {r['saved_state_bytes'] / 1e6:.1f} MB, plan {r['plan']} on {card}")
+              f" exps executed {r['executed_exps_ms']:.4f} at {clock / 1e6:.0f} MHz), issue floor"
+              f" {r['issue_floor_ms']:.4f} ms (arithmetic; every instruction of the sub-block"
+              f" {r['block_issue_ms']:.4f}) on {card}")
+        print(f"  plan: {q['threads']} threads a CTA ({q['lanes']} lanes x {q['states']} states,"
+              f" {q['channels']} channels), clusters of {q['cluster']} CTAs, {q['clusters']}"
+              f" clusters a batch element, {q['ctas']} CTAs; busiest SM {q['busiest_sm']} CTAs"
+              f" against a mean of {q['mean_sm']:.3f} ({q['imbalance']:.4f}); {q['resident']}"
+              f" resident an SM; {q['rounds']} rounds of {q['active_clusters']} clusters (the"
+              f" card holds {q['card_clusters']} of each size at once);"
+              f" {q['regs']} registers assumed, {q['smem']} B shared")
+        print(f"  bytes: partials {r['partial_bytes'] / 1e6:.1f} MB, saved states"
+              f" {r['saved_state_bytes'] / 1e6:.1f} MB; the forward with states"
+              f" {r['fwd_with_states_ms']:.4f} ms cold, {r['fwd_with_states_hot_ms']:.4f} hot,"
+              f" without {r['fwd_ms']:.4f}, {r['fwd_hot_ms']:.4f}")
+        print(f"  SASS a state and step: the unrolled block of exponentials MUFU.EX2"
+              f" {s['mufu']:.3f}, SHFL {s['shfl']:.3f} ({s['sass']}); the sub-block from it"
+              f" to the loop's end SHFL {s['shfl_sub']:.3f}, arithmetic {s['arith']:.2f}, all"
+              f" {s['block']:.2f} ({s['sub']}); the kernel's SHFL {s['shfl_kernel']:.3f}")
     print(f"kernel mamba_scan_bwd: {out['check']}")
     return {"mamba_scan_bwd": out}
+
 
 def dense_cache_trace(cfg, params, dev, seed):
     """One ``prefill`` of two 12-token sequences, then ten ``decode_step``s
@@ -4836,6 +4934,10 @@ def phase_train(seed, arch=LM_ARCH):
         report.update(params_applied=applied, flops_per_step_applied=6 * applied * tokens,
                       tflops_per_s_applied=6 * applied * tokens / med / 1e9)
     print(f"train {arch}: {json.dumps(report)}")
+    if cfg.ssm:
+        print(f"train {arch}: the scan's backward {scan_bwd:.2f} ms of {busy:.2f} device ms in the"
+              f" profiled step ({scan_bwd / busy:.1%}), its forward {scan:.2f} ms"
+              f" ({scan / busy:.1%}); median step {med:.2f} ms; peak {peak:.2f} GiB")
     del params, state, batches
     return report, launches
 
@@ -4939,7 +5041,7 @@ def main(argv=None):
     kernels.update(lm_attention_kernels(args.seed))
     kernels.update(flash_bwd_kernel(args.seed))
     kernels.update(mamba_kernels(args.seed, build))
-    kernels.update(mamba_bwd_kernel(args.seed))
+    kernels.update(mamba_bwd_kernel(args.seed, build))
     t1 = time.perf_counter()
     phase_cpu_vs_cuda(args.seed)
     phase_lm_cpu_vs_cuda(args.seed)

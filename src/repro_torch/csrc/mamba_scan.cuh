@@ -1,6 +1,7 @@
 // Staging helpers shared by mamba_scan's forward (mamba_scan.cu) and its
 // backward (mamba_scan_bwd.cu): both copy four-element groups of a chunk of
-// steps into shared memory with cp.async, and read them back as f32.
+// steps into shared memory with cp.async, convert them to f32 once, and read
+// a step's (B, C) pairs in the same lane order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,6 +43,36 @@ __device__ __forceinline__ void copy4(E* dst, const E* src, const E* base, bool 
   } else {
 #pragma unroll
     for (int i = 0; i < 4; ++i) dst[i] = i < live ? src[i] : __float2bfloat16(0.f);
+  }
+}
+
+// The float4 of a row of (B, C) pairs that holds state k's pair, in row t
+// (S >= 2): float4 i of lane j (its states j * S + 2 i and 2 i + 1) at
+// i * LPC + j, so that a warp's lanes read neighbouring words.
+template <int S, int LPC>
+__host__ __device__ __forceinline__ int bc_slot(int t, int k) {
+  return t * (S * LPC / 2) + (k % S) / 2 * LPC + k / S;
+}
+
+// Lane j's S (B, C) pairs of row t of bc (laid out by bc_slot; S = 1: float2
+// t * LPC + j).
+template <int S, int LPC>
+__device__ __forceinline__ void load_bc(const float2* bc, int t, int j, float (&bv)[S],
+                                        float (&cv)[S]) {
+  if constexpr (S == 1) {
+    const float2 w = bc[t * LPC + j];
+    bv[0] = w.x;
+    cv[0] = w.y;
+  } else {
+    const float4* q = reinterpret_cast<const float4*>(bc) + t * (S * LPC / 2) + j;
+#pragma unroll
+    for (int i = 0; i < S / 2; ++i) {
+      const float4 v = q[i * LPC];
+      bv[2 * i] = v.x;
+      cv[2 * i] = v.y;
+      bv[2 * i + 1] = v.z;
+      cv[2 * i + 1] = v.w;
+    }
   }
 }
 

@@ -32,7 +32,7 @@ inside as the TPU kernel casts them.  The TPU kernel returned ``y`` alone;
 ``h_last`` is the state after the last step (zeros when ``L = 0``).
 
 With ``with_states`` the forward also writes the state before every
-``BWD_CHUNK``-th step, ``[B, ceil(L / BWD_CHUNK), D, N]`` f32, for the
+``SAVE_EVERY``-th step, ``[B, ceil(L / SAVE_EVERY), D, N]`` f32, for the
 backward.
 
 The backward (``csrc/mamba_scan_bwd.cu``; no TPU kernel: the reference
@@ -42,11 +42,13 @@ dx [B, L, D])``, all f32, from the output gradient ``dy`` [B, L, D] f32,
 the final state's ``dh_last`` [B, D, N] f32 (or none) and the forward's
 saved states.  What bounds it: the larger of bytes (the forward's
 operands, ``dy``, ``dh_last`` and the five gradients) and ``B * L * D *
-N`` exponentials; it computes each exponential 1.75 times and writes and
-reads per-CTA partials of ``dB`` and ``dC``.  Its plan is ``plan_bwd``:
-the lanes and states the forward's rule picks, ``BWD_THREADS`` threads a
-CTA, chunks of ``BWD_CHUNK`` steps restarted from their saved states,
-sub-blocks of ``BWD_SUB`` steps in registers.
+N`` exponentials; above both, the issue rate of the arithmetic.  It
+computes each exponential once: every sub-block of ``BWD_SUB`` steps is
+refilled from the state the forward kept before it.  Its plan is
+``plan_bwd``: the lanes and states the forward's rule picks,
+``BWD_THREADS`` threads a CTA, the CTAs along ``D`` in clusters of up to
+``BWD_CLUSTER`` that add their ``dB`` and ``dC`` through distributed
+shared memory, so that only one partial a cluster leaves the chip.
 
 The plain versions are ``repro_torch.kernels.ref.mamba_scan_ref`` and
 ``mamba_scan_bwd_ref``; ``lane_scan`` and ``lane_scan_bwd`` are the
@@ -100,12 +102,20 @@ CHUNKS = tuple(range(MAX_CHUNK, GROUP, -GROUP))  # 64, 56, ..., 16
 CPU_DTYPES = (*DTYPES, torch.float64)
 
 # The backward's constants (``csrc/mamba_scan_bwd.cu``; the forward's
-# ``kSaveEvery`` is ``BWD_CHUNK``), read back by tests/test_torch_mamba_bwd.py.
-BWD_CHUNK = 32  # steps between saved states: a chunk of the backward
+# ``kSaveEvery`` and the backward's ``kBwdSub`` are ``SAVE_EVERY``), read
+# back by tests/test_torch_mamba_bwd.py.
+SAVE_EVERY = 8  # steps between the states the forward keeps: a sub-block of the backward
 BWD_SUB = 8  # steps a sub-block, held in registers
-BWD_THREADS = 512  # threads a CTA
-BWD_CTAS = 1  # fewest CTAs an SM (launch bounds)
+BWD_THREADS = 256  # threads a CTA
+BWD_CTAS = 2  # fewest CTAs an SM (launch bounds)
+BWD_CLUSTER = 8  # most CTAs a cluster along D
+BWD_STAGES = 3  # landing slots of sub-blocks in flight
 SUM_THREADS = 256  # threads a CTA of the second launch, which adds the partials
+#: clusters of each size that an H100 SXM holds at once at two backward CTAs
+#: an SM (``cudaOccupancyMaxActiveClusters``, printed by chip_smoke.py phase
+#: 3): a cluster's CTAs share a GPC, and 8-CTA clusters leave some of each
+#: GPC's CTA slots empty.  The plan's model where it is not given the card's.
+H100_ACTIVE_CLUSTERS = {1: 264, 2: 132, 4: 62, 8: 30, 16: 14}
 #: (states a lane, threads a channel) pairs of the backward: at most 4
 #: states a lane, at least 4 lanes a channel
 BWD_INSTANTIATED = frozenset((s, lp) for s in (1, 2, 4) for lp in (4, 8, 16))
@@ -254,8 +264,10 @@ def variants(b: int, d: int, n: int, sms: int = 132, item: int = 2) -> dict:
 def bind(lib: ctypes.CDLL) -> None:
     lib.dex_mamba_scan.argtypes = [_P] * 8 + [ctypes.c_int] * 10 + [_P]
     lib.dex_mamba_scan.restype = ctypes.c_int
-    lib.dex_mamba_scan_bwd.argtypes = [_P] * 16 + [ctypes.c_int] * 8 + [_P]
+    lib.dex_mamba_scan_bwd.argtypes = [_P] * 16 + [ctypes.c_int] * 10 + [_P]
     lib.dex_mamba_scan_bwd.restype = ctypes.c_int
+    lib.dex_mamba_scan_bwd_active_clusters.argtypes = [ctypes.c_int] * 4
+    lib.dex_mamba_scan_bwd_active_clusters.restype = ctypes.c_int
 
 
 def validate(delta, A, Bmat, C, x, dtypes=DTYPES) -> None:
@@ -291,14 +303,14 @@ def state_dtype(x) -> torch.dtype:
 
 def saves(l: int) -> int:
     """States the forward keeps for the backward: one before every
-    ``BWD_CHUNK``-th step."""
-    return -(-l // BWD_CHUNK)
+    ``SAVE_EVERY``-th step."""
+    return -(-l // SAVE_EVERY)
 
 
 def validate_bwd(delta, A, Bmat, C, x, dy, dh_last=None, states=None, dtypes=DTYPES) -> None:
     """The backward's operands: the forward's (``validate``), ``dy`` like
     ``delta``, ``dh_last`` [B, D, N] like it or None, and the forward's
-    saved ``states`` [B, ceil(L / BWD_CHUNK), D, N] f32 or None."""
+    saved ``states`` [B, ceil(L / SAVE_EVERY), D, N] f32 or None."""
     validate(delta, A, Bmat, C, x, dtypes)
     b, l, d = delta.shape
     n = A.shape[1]
@@ -435,20 +447,26 @@ def lane_scan(delta, A, Bmat, C, x, p: Plan):
 
 def smem_bytes_bwd(channels: int, padded: int, item: int) -> int:
     """Dynamic shared bytes of a backward CTA, as ``csrc/mamba_scan_bwd.cu``
-    lays them out: two slots of a raw chunk (``delta`` and ``dy`` f32 and
-    ``x`` ``[BWD_CHUNK][channels]``, ``B`` and ``C`` ``[BWD_CHUNK][padded]``
-    at ``item`` bytes an element; each part rounded up to 16 bytes), the
-    states before each sub-block (``BWD_CHUNK / BWD_SUB`` f32 a state of each
-    thread) and the warps' ``(dB, dC)`` tile ``[warps][BWD_SUB][padded]``
-    float2."""
+    lays them out: ``BWD_STAGES`` landing slots of a sub-block (``delta``
+    and ``dy`` f32 and ``x`` ``[BWD_SUB][channels]``, ``B`` and ``C``
+    ``[BWD_SUB][padded]`` at ``item`` bytes an element, the saved states
+    ``[channels][padded]`` f32; each part rounded up to 16 bytes), two f32
+    buffers (``(delta, delta * x, dy, x)`` a step and channel, ``(B, C)`` a
+    step and state), two of each warp's ``(dB, dC)`` tiles
+    ``[BWD_SUB][2][padded]`` f32, and two buffers of the shares of a CTA's
+    tile that the cluster's ranks store (a tile and ``BWD_CLUSTER``
+    float4s)."""
 
     def r16(v):
         return -(-v // 16) * 16
 
-    t = BWD_CHUNK
-    slot = 2 * r16(t * channels * 4) + r16(t * channels * item) + 2 * r16(t * padded * item)
-    return (2 * slot + BWD_CHUNK // BWD_SUB * channels * padded * 4
-            + BWD_THREADS // 32 * BWD_SUB * padded * 8)
+    t = BWD_SUB
+    slot = (2 * r16(t * channels * 4) + r16(t * channels * item) + 2 * r16(t * padded * item)
+            + r16(channels * padded * 4))
+    buf = t * channels * 16 + t * padded * 8
+    tile = t * 2 * padded * 4
+    return (BWD_STAGES * slot + 2 * buf + 2 * (BWD_THREADS // 32) * tile
+            + 2 * (tile + 16 * BWD_CLUSTER))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -456,16 +474,25 @@ class BwdPlan:
     """How one backward launch runs: ``lanes`` threads a channel with
     ``states`` states each (the states past ``N`` zeros), ``channels =
     BWD_THREADS / lanes`` channels of one batch element a CTA, ``blocks``
-    CTAs along ``D`` and ``ctas`` in all; ``regs`` registers a thread (the
-    launch bounds), ``per_sm`` CTAs on the busiest SM, ``resident`` CTAs an
-    SM can hold, ``smem`` shared bytes a CTA with operands of ``item``
-    bytes."""
+    CTAs along ``D`` that hold a channel, in ``clusters`` clusters of
+    ``cluster`` CTAs (the last may hold CTAs with no live channel), and
+    ``ctas`` CTAs in all; ``most`` the largest cluster the plan allowed,
+    ``active`` the clusters of its size that the card holds at once and
+    ``rounds`` the turns of them the launch takes; ``regs`` registers a
+    thread (the launch bounds), ``per_sm`` CTAs on the busiest SM,
+    ``resident`` CTAs an SM can hold, ``smem`` shared bytes a CTA with
+    operands of ``item`` bytes."""
 
     lanes: int
     states: int
     channels: int
     blocks: int
+    cluster: int
+    clusters: int
     ctas: int
+    most: int
+    active: int
+    rounds: int
     regs: int
     per_sm: int
     resident: int
@@ -474,14 +501,21 @@ class BwdPlan:
     item: int
 
     @property
-    def warps_per_sm(self) -> float:
-        """Mean warps an SM of one wave of resident CTAs."""
-        return min(self.per_sm, self.resident) * BWD_THREADS / 32
+    def mean_per_sm(self) -> float:
+        """CTAs an SM on the mean."""
+        return self.ctas / self.sms
+
+    @property
+    def imbalance(self) -> float:
+        """The busiest SM's CTAs over the mean's: the share of the kernel's
+        SM-time a launch whose CTAs take equal time leaves idle, plus one."""
+        return self.per_sm / self.mean_per_sm
 
     def partial_bytes(self, b: int, l: int, n: int) -> int:
-        """Bytes of the scratch partials: ``dB`` and ``dC`` a CTA ``[B, L,
-        blocks, N]`` and ``dA`` a batch element ``[B, D, N]``, f32."""
-        return 4 * (2 * b * l * self.blocks * n + b * self.blocks * self.channels * n)
+        """Bytes of the ``dB`` and ``dC`` partials that leave the chip: one
+        a cluster, ``[B, L, clusters, N]`` f32 each (``dA``'s ``[B, D, N]``
+        come beside them)."""
+        return 4 * 2 * b * l * self.clusters * n
 
 
 def regs_bwd() -> int:
@@ -490,13 +524,32 @@ def regs_bwd() -> int:
     return min(255, SM_REGS // (BWD_THREADS * BWD_CTAS) // 8 * 8)
 
 
+def bwd_clusters(d: int, channels: int, most: int = BWD_CLUSTER) -> tuple:
+    """``(cluster size, clusters)`` along ``D`` for CTAs of ``channels``
+    channels: as few clusters of at most ``most`` CTAs as cover the
+    channels, all of one size (``csrc/mamba_scan_bwd.cu::bwd_clusters``)."""
+    blocks = -(-d // channels)
+    clusters = -(-blocks // most)
+    return -(-blocks // clusters), clusters
+
+
 def plan_bwd(b: int, d: int, n: int, sms: int = 132, *, item: int = 2,
-             states: Optional[int] = None) -> BwdPlan:
+             states: Optional[int] = None, cluster: Optional[int] = None,
+             active: Optional[dict] = None) -> BwdPlan:
     """The backward's plan for ``b`` batch elements of ``d`` channels of
     ``n`` states on ``sms`` SMs, operands of ``item`` bytes: states a lane
     by the forward's rule (the largest of 4, 2, 1 that still gives
     ``TARGET_WARPS`` warps an SM, else the most lanes; ``states``
-    overrides), among the pairs ``BWD_INSTANTIATED`` holds."""
+    overrides), among the pairs ``BWD_INSTANTIATED`` holds.  Clusters of at
+    most ``BWD_CLUSTER``, 8, 4, 2 or 1 CTAs (``bwd_clusters``; ``cluster``
+    fixes the most): the largest that takes the fewest rounds of the
+    clusters the card holds at once (``active``: size -> clusters,
+    ``H100_ACTIVE_CLUSTERS`` when None), since a cluster's CTAs must share a
+    GPC and larger clusters leave CTA slots empty, and smaller ones write
+    more partials (the tie-break toward the largest is what holds
+    zamba2-2.7b's training shape to 168 MB of partials; clusters of 2 ran
+    13% faster there, on an H100 SXM at 700 W).  Each SM is modelled by
+    the CTAs it runs: the busiest holds ``ceil(ctas / sms)``."""
     if not 0 < n <= MAX_STATE:
         raise ValueError(f"state width must be 1-{MAX_STATE}, got {n}")
     padded = max(4, 1 << (n - 1).bit_length())
@@ -509,17 +562,56 @@ def plan_bwd(b: int, d: int, n: int, sms: int = 132, *, item: int = 2,
     if (states, lanes) not in BWD_INSTANTIATED:
         raise ValueError(f"no backward kernel for {states} states a lane x {lanes} lanes")
     ch = BWD_THREADS // lanes
-    blocks = -(-d // ch)
+    active = H100_ACTIVE_CLUSTERS if active is None else active
+    best = None
+    sizes = [c for c in (16, 8, 4, 2, 1) if c <= BWD_CLUSTER]
+    for most in (cluster,) if cluster else sizes:
+        size, clusters = bwd_clusters(d, ch, most)
+        held = max(1, active.get(size, sms * BWD_CTAS // size))
+        rounds = -(-b * clusters // held)
+        if best is None or rounds < best[0]:
+            best = (rounds, most, size, clusters, held)
+    rounds, most, size, clusters, held = best
+    ctas = b * size * clusters
     smem = smem_bytes_bwd(ch, lanes * states, item)
     reg = regs_bwd()
-    return BwdPlan(lanes, states, ch, blocks, b * blocks, reg, -(-(b * blocks) // sms),
-                   _resident(BWD_THREADS, reg, smem), smem, sms, item)
+    return BwdPlan(lanes, states, ch, -(-d // ch), size, clusters, ctas, most, held, rounds,
+                   reg, -(-ctas // sms), _resident(BWD_THREADS, reg, smem), smem, sms, item)
+
+
+_ACTIVE: dict = {}
+
+
+def device_active_clusters(lib: ctypes.CDLL, device, dtype: int, lanes: int, states: int) -> dict:
+    """Clusters of each size up to ``BWD_CLUSTER`` that the card holds at
+    once for ``lib``'s backward kernel of (``dtype``, ``lanes``,
+    ``states``), asked of the card once."""
+    key = (lib._name, device, dtype, lanes, states, BWD_CLUSTER)
+    if key not in _ACTIVE:
+        with torch.cuda.device(device):
+            got = {c: lib.dex_mamba_scan_bwd_active_clusters(dtype, lanes, states, c)
+                   for c in (1, 2, 4, 8, 16) if c <= BWD_CLUSTER}
+        if min(got.values()) < 1:
+            raise RuntimeError(f"mamba_scan_bwd: the card holds no cluster: {got}")
+        _ACTIVE[key] = got
+    return _ACTIVE[key]
+
+
+def device_plan_bwd(lib: ctypes.CDLL, device, b: int, d: int, n: int, item: int,
+                    cluster: Optional[int] = None) -> BwdPlan:
+    """``plan_bwd`` on this card: its SMs and the clusters it holds at once
+    (``cluster`` fixes the most CTAs a cluster)."""
+    sms = device_sms(device)
+    first = plan_bwd(b, d, n, sms, item=item)
+    held = device_active_clusters(lib, device, int(item == 2), first.lanes, first.states)
+    return plan_bwd(b, d, n, sms, item=item, cluster=cluster, active=held)
 
 
 def launch_bwd(lib: ctypes.CDLL, delta, A, Bmat, C, x, dy, dh_last, states,
                plan: Optional[BwdPlan] = None):
-    """Launch the backward on the current stream with ``plan`` (the default
-    ``plan_bwd`` when None): ``(ddelta, dA, dB, dC, dx)``, all f32,
+    """Launch the backward on the current stream with ``plan`` (when None,
+    ``plan_bwd`` with the clusters this card holds at once, asked of it
+    once): ``(ddelta, dA, dB, dC, dx)``, all f32,
     allocated here with the scratch partials.  ``states`` are the ones the
     forward kept (``launch(..., with_states=True)``).  The CUDA entry
     refuses a plan it has no kernel for or that does not fit."""
@@ -531,16 +623,15 @@ def launch_bwd(lib: ctypes.CDLL, delta, A, Bmat, C, x, dy, dh_last, states,
     b, l, d = delta.shape
     n = A.shape[1]
     dev = delta.device
-    p = plan or plan_bwd(b, d, n, device_sms(dev), item=x.element_size())
+    p = plan or device_plan_bwd(lib, dev, b, d, n, x.element_size())
     f32 = dict(dtype=torch.float32, device=dev)
     ddelta, dx = torch.empty((b, l, d), **f32), torch.empty((b, l, d), **f32)
     dB, dC = torch.empty((b, l, n), **f32), torch.empty((b, l, n), **f32)
     dA = torch.zeros((d, n), **f32)
     if b == 0 or d == 0:
         return ddelta, dA, dB, dC, dx
-    blocks = -(-d // p.channels)
     da_part = torch.empty((b, d, n), **f32)
-    db_part, dc_part = (torch.empty((b, l, blocks, n), **f32) for _ in range(2))
+    db_part, dc_part = (torch.empty((b, l, p.clusters, n), **f32) for _ in range(2))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
     ptrs = [t.data_ptr() for t in (delta, A, Bmat, C, x, dy)]
@@ -548,7 +639,8 @@ def launch_bwd(lib: ctypes.CDLL, delta, A, Bmat, C, x, dy, dh_last, states,
     ptrs += [t.data_ptr() for t in (ddelta, dA, dB, dC, dx, da_part, db_part, dc_part)]
     err = lib.dex_mamba_scan_bwd(
         *ptrs, DTYPES[x.dtype], b, l, d, n, p.lanes, p.states,
-        smem_bytes_bwd(p.channels, p.lanes * p.states, x.element_size()), stream,
+        smem_bytes_bwd(p.channels, p.lanes * p.states, x.element_size()), p.most, p.clusters,
+        stream,
     )
     if err != 0:
         raise RuntimeError(f"mamba_scan_bwd launch failed: CUDA error {err}")
@@ -574,22 +666,24 @@ def _in_order(t, dim):
 
 def lane_scan_bwd(delta, A, Bmat, C, x, dy, dh_last, p: BwdPlan):
     """The backward kernel's decomposition in torch: channels padded with
-    zeros to ``blocks * channels`` and states to ``lanes * states``; the
-    states each step recomputed with the forward's rounding; every product
-    and sum rounded on its own as the kernel's are; the time loop from the
-    last step back.  A channel's ``ddelta`` and ``dx`` sums: a lane's
-    states in order, then the lanes as a butterfly; a state's ``dB`` and
-    ``dC`` sums: the warp's channels as a butterfly, then the CTA's warps
-    in order, then the CTAs in order; ``dA``: each thread's sum from the
-    last step back, then the batch in order.  Returns ``(ddelta, dA, dB,
-    dC, dx)``."""
+    zeros to ``clusters * cluster * channels`` and states to ``lanes *
+    states``; the states each step recomputed with the forward's rounding;
+    every product and sum rounded on its own as the kernel's are; the time
+    loop from the last step back.  A channel's ``dx`` sum: a lane's states
+    in order, then the lanes as a butterfly (the kernel's reduce-scatter
+    adds the same pairs); its ``ddelta`` sum: a lane's ``g A a h`` terms in
+    order plus ``x`` times the lane's ``dx`` sum, then the lanes as a
+    butterfly; a state's ``dB`` and ``dC`` sums:
+    the warp's channels as a butterfly, then the CTA's warps in order, then
+    the cluster's CTAs in rank order, then the clusters in order; ``dA``:
+    each thread's sum from the last step back, then the batch in order.
+    Returns ``(ddelta, dA, dB, dC, dx)``."""
     delta, A, Bmat, C, x, dy = (t.float() for t in (delta, A, Bmat, C, x, dy))
     b, l, d = delta.shape
     n = A.shape[1]
     lp, s, ch = p.lanes, p.states, p.channels
     cpw, warps = 32 // lp, BWD_THREADS // 32
-    blocks = -(-d // ch)
-    dp, npad = blocks * ch, lp * s
+    dp, npad = p.clusters * p.cluster * ch, lp * s
     pad = torch.nn.functional.pad
     dlt, xx, gy = (pad(t, (0, dp - d)) for t in (delta, x, dy))  # [B, L, Dp]
     am = pad(A, (0, npad - n, 0, dp - d))  # [Dp, NP]
@@ -607,12 +701,13 @@ def lane_scan_bwd(delta, A, Bmat, C, x, dy, dh_last, p: BwdPlan):
     dB, dC = (torch.empty((b, l, n), dtype=torch.float32, device=delta.device)
               for _ in range(2))
 
-    def channel_sum(v):  # [B, Dp, NP] -> [B, Dp]
-        return _tree(_in_order(v.unflatten(-1, (lp, s)), -1))
+    def lane_sum(v):  # [B, Dp, NP] -> [B, Dp, lanes]
+        return _in_order(v.unflatten(-1, (lp, s)), -1)
 
     def state_sum(v):  # [B, Dp, NP] -> [B, NP]
-        warp = _tree(v.unflatten(1, (blocks, warps, cpw)).movedim(3, -1))  # [B, blocks, warps, NP]
-        return _in_order(_in_order(warp, 2), 1)
+        # [B, clusters, ranks, warps, NP]
+        warp = _tree(v.unflatten(1, (p.clusters, p.cluster, warps, cpw)).movedim(4, -1))
+        return _in_order(_in_order(_in_order(warp, 3), 2), 1)
 
     for t in reversed(range(l)):
         dt, xt, dyt = dlt[:, t, :, None], xx[:, t, :, None], gy[:, t, :, None]
@@ -623,11 +718,11 @@ def lane_scan_bwd(delta, A, Bmat, C, x, dy, dh_last, p: BwdPlan):
         dbv = g * (dt * xt)
         gah = g * (a * hs[t])
         da = da + gah * dt
-        tdd = gah * am + g * (xt * bt)
-        tdx = g * bt
+        lane_dx = lane_sum(g * bt)
+        lane_dd = lane_sum(gah * am) + xt * lane_dx
         carry = a * g
-        ddelta[:, t] = channel_sum(tdd)[:, :d]
-        dx[:, t] = delta[:, t] * channel_sum(tdx)[:, :d]
+        ddelta[:, t] = _tree(lane_dd)[:, :d]
+        dx[:, t] = delta[:, t] * _tree(lane_dx)[:, :d]
         dB[:, t] = state_sum(dbv)[:, :n]
         dC[:, t] = state_sum(dcv)[:, :n]
     dA = _in_order(da, 0)[:d, :n].contiguous()

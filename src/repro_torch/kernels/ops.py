@@ -431,7 +431,7 @@ def mamba_scan(
 
 class MambaScan(torch.autograd.Function):
     """``mamba_scan`` with its gradient: the forward keeps its operands and
-    the states it saved every ``BWD_CHUNK`` steps (none on the CPU); the
+    the states it saved every ``SAVE_EVERY`` steps (none on the CPU); the
     backward is ``mamba_scan_bwd``, given null for the gradient of an
     output that the loss does not reach.  Both are looked up in this module
     at each call, so a caller may hold them to, or swap them for, their
@@ -466,8 +466,8 @@ def mamba_scan_fwd(
     with_states: bool = False,
 ):
     """The forward of ``mamba_scan``: ``(y, h_last)``, or ``(y, h_last,
-    states)`` ``with_states`` (the state before every ``BWD_CHUNK``-th
-    step, ``[B, ceil(L / BWD_CHUNK), D, N]`` f32, for the backward kernel;
+    states)`` ``with_states`` (the state before every ``SAVE_EVERY``-th
+    step, ``[B, ceil(L / SAVE_EVERY), D, N]`` f32, for the backward kernel;
     None on the CPU, whose plain backward keeps its own).  On the CPU
     float64 is taken too, for ``gradcheck``."""
     args = (delta, A, Bmat, C, x)

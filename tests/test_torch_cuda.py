@@ -1236,15 +1236,21 @@ def rel_errs(got, want):
 @pytest.mark.parametrize(
     "b,l,d,n",
     [(2, 67, 333, 8), (2, 31, 40, 64), (1, 33, 100, 16), (1, 1, 16, 4),
-     (2, 4096, 8192, 16), (2, 4096, 5120, 64)],
+     (2, 4096, 8192, 16), (2, 4096, 5120, 64),
+     # 25 CTAs of 16 channels in 4 clusters of 7: the last cluster's last
+     # three CTAs hold no channel; L off the 8-step sub-block
+     (1, 37, 390, 64),
+     # three batch elements, 3 clusters of 7 CTAs each
+     (3, 45, 333, 16)],
 )
 def test_mamba_scan_bwd_kernel_matches_plain(cuda, b, l, d, n, dtype, with_dh):
     """The backward kernel on the forward kernel's saved states against the
     plain backward: each gradient within 1e-4 of its largest magnitude (f32
     sums in another order; measured up to 3.5e-6 at the full shapes), two
     launches bit-equal, and, at the small shapes, the kernel's torch
-    decomposition (``lane_scan_bwd``) bit for bit.  The forward with its
-    states gives the forward's outputs bit for bit."""
+    decomposition (``lane_scan_bwd``: its warps, cluster ranks and clusters
+    in order) bit for bit.  The forward with its states gives the forward's
+    outputs bit for bit."""
     from repro_torch.kernels import mamba_scan as mamba_mod
 
     args, dy, dh = mamba_bwd_case(b, l, d, n, b + l + d + n, dtype)
@@ -1260,7 +1266,7 @@ def test_mamba_scan_bwd_kernel_matches_plain(cuda, b, l, d, n, dtype, with_dh):
     assert all(torch.equal(a, c) for a, c in zip(got, again))
     assert max(rel_errs(got, ref.mamba_scan_bwd_ref(*args, dy, dh))) <= 1e-4
     if l * d <= 40_000:
-        p = mamba_mod.plan_bwd(b, d, n, mamba_mod.device_sms(cuda), item=args[-1].element_size())
+        p = mamba_mod.device_plan_bwd(ops.library(), cuda, b, d, n, args[-1].element_size())
         want = mamba_mod.lane_scan_bwd(*args, dy, dh, p)
         assert all(torch.equal(a, c) for a, c in zip(got, want))
 

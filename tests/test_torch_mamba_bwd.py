@@ -19,6 +19,7 @@ Tolerances, each with what was measured:
   |gradient| (measured 3.0e-7).  On the card the kernel equals the
   decomposition bit for bit (``chip_smoke.py`` phase 3)."""
 
+import importlib.util
 import pathlib
 import re
 
@@ -36,6 +37,10 @@ from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 CSRC = pathlib.Path(ms.__file__).resolve().parents[1] / "csrc"
+_TOOL = pathlib.Path(__file__).resolve().parents[1] / "tools" / "mamba_bwd_variants.py"
+_spec = importlib.util.spec_from_file_location("mamba_bwd_variants", _TOOL)
+variants_tool = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(variants_tool)
 NAMES = ("ddelta", "dA", "dB", "dC", "dx")
 
 
@@ -124,19 +129,23 @@ def test_plain_backward_matches_jax_vjp_of_the_reference(l, n, with_dh):
     close(got, want, 1e-5)
 
 
-DECOMPOSED = [  # b, l, d, n: L about the 32-step chunk (31, 33, 2 x 32 + 3), a D tail
+DECOMPOSED = [  # b, l, d, n: L off the 8-step sub-block (31, 33, 67, 5), D tails
     (2, 31, 40, 8),
     (1, 33, 16, 64),
     (2, 67, 70, 16),
     (1, 32, 130, 4),
     (2, 5, 24, 12),
+    # 9 CTAs of 16 channels in 2 clusters of 5: the last CTA holds no channel
+    (1, 12, 140, 64),
+    # 3 batch elements, 3 clusters of 7 CTAs
+    (3, 9, 333, 16),
 ]
 
 
 @pytest.mark.parametrize("with_dh", [False, True])
 @pytest.mark.parametrize("b,l,d,n", DECOMPOSED)
 def test_decomposition_matches_plain_backward(b, l, d, n, with_dh):
-    """``lane_scan_bwd`` (the kernel's chunks, lanes, warps, CTAs and sum
+    """``lane_scan_bwd`` (the kernel's lanes, warps, clusters and sum
     orders, at the plan ``plan_bwd`` gives and at every other pair the
     source holds for the width) against the plain backward."""
     delta, A, bm, c, x, dy, dh = tensors(case(b, l, d, n, seed=d + n))
@@ -156,11 +165,17 @@ def constant(source, name):
 
 
 def test_constants_match_the_source():
+    """The backward refills each sub-block from a state the forward kept:
+    its sub-block and the forward's ``kSaveEvery`` are one number, mirrored
+    with the CTA, cluster and staging constants and the instantiated
+    pairs."""
     bwd = "mamba_scan_bwd.cu"
-    assert constant(bwd, "kBwdChunk") == ms.BWD_CHUNK == constant("mamba_scan.cu", "kSaveEvery")
-    assert constant(bwd, "kBwdSub") == ms.BWD_SUB and ms.BWD_CHUNK % ms.BWD_SUB == 0
+    assert (constant(bwd, "kBwdSub") == ms.BWD_SUB == ms.SAVE_EVERY
+            == constant("mamba_scan.cu", "kSaveEvery"))
     assert constant(bwd, "kBwdThreads") == ms.BWD_THREADS
     assert constant(bwd, "kBwdCtas") == ms.BWD_CTAS
+    assert constant(bwd, "kBwdCluster") == ms.BWD_CLUSTER <= 8  # a portable cluster
+    assert constant(bwd, "kBwdStages") == ms.BWD_STAGES
     assert constant(bwd, "kBwdMaxState") == ms.MAX_STATE
     assert constant(bwd, "kBwdSmemLimit") == ms.SMEM_LIMIT
     assert constant(bwd, "kSumThreads") == ms.SUM_THREADS
@@ -170,13 +185,29 @@ def test_constants_match_the_source():
     assert ms.BWD_INSTANTIATED <= ms.INSTANTIATED
 
 
+@pytest.mark.parametrize("name", sorted(variants_tool.PATCHES))
+def test_variant_patches_apply_to_the_source(name):
+    """``tools/mamba_bwd_variants.py`` carries the variants the kernel no
+    longer holds (sparser saves, a full butterfly) as patches of its
+    source: each anchor is found once, and the patched source differs."""
+    text = (CSRC / "mamba_scan_bwd.cu").read_text()
+    out = variants_tool.patched(text, {}, name, variants_tool.PATCHES[name])
+    assert out != text
+    for start, end, new in variants_tool.PATCHES[name]:
+        assert new in out
+
+
 def test_plans_fit_and_take_the_forward_pair():
     """Every width 1-64 at every batch and channel count below gets a plan
-    with a kernel whose shared memory fits a CTA and whose registers fit
-    the SM; at falcon-mamba-7b's and zamba2-2.7b's training shapes it takes
-    the forward's (states, lanes)."""
+    with a kernel whose shared memory lets two CTAs share an SM and whose
+    registers fit the SM, in clusters of at most ``BWD_CLUSTER`` CTAs that
+    cover ``D``; at falcon-mamba-7b's and zamba2-2.7b's training shapes it
+    takes the forward's (states, lanes), its busiest SM holds at most 5%
+    more CTAs than the mean, the clusters take the fewest rounds of those
+    an H100 holds at once, and zamba2-2.7b's ``dB`` / ``dC`` partials are
+    at most 168 MB (a quarter of the 671 MB that per-CTA partials took)."""
     for b in (1, 2, 4):
-        for d in (7, 333, 5120, 8192):
+        for d in (7, 140, 333, 5120, 8192):
             for n in range(1, 65):
                 for item in (2, 4):
                     p = ms.plan_bwd(b, d, n, item=item)
@@ -184,17 +215,32 @@ def test_plans_fit_and_take_the_forward_pair():
                     assert n <= p.lanes * p.states <= ms.MAX_STATE
                     assert p.channels * p.lanes == ms.BWD_THREADS
                     assert p.blocks * p.channels >= d > (p.blocks - 1) * p.channels
-                    assert p.smem <= ms.SMEM_LIMIT and p.resident >= 1
+                    assert 1 <= p.cluster <= ms.BWD_CLUSTER
+                    grid = p.cluster * p.clusters
+                    assert p.blocks <= grid < p.blocks + p.clusters and p.ctas == b * grid
+                    assert p.smem <= ms.SMEM_LIMIT and p.resident >= ms.BWD_CTAS
                     assert ms.BWD_THREADS * p.regs * ms.BWD_CTAS <= ms.SM_REGS
     for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
         cfg = get_config(arch)
         d, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
         fwd, bwd = ms.plan(2, d, n), ms.plan_bwd(2, d, n)
         assert (bwd.states, bwd.lanes) == (fwd.states, fwd.lanes), arch
-    # the scratch partials at zamba2-2.7b's training shape
+        assert bwd.per_sm <= 1.05 * bwd.mean_per_sm and bwd.imbalance <= 1.05, arch
+    # zamba2-2.7b's training shape: 640 CTAs of 16 channels, 5 on the
+    # busiest SM against 4.85, in 40 clusters of 8 a batch element
     p = ms.plan_bwd(2, 5120, 64)
-    assert (p.states, p.lanes, p.channels, p.blocks) == (4, 16, 32, 160)
-    assert p.partial_bytes(2, 4096, 64) == 4 * (2 * 2 * 4096 * 160 * 64 + 2 * 5120 * 64)
+    assert (p.states, p.lanes, p.channels, p.blocks, p.cluster, p.clusters, p.ctas, p.per_sm) == (
+        4, 16, 16, 320, 8, 40, 640, 5)
+    assert p.partial_bytes(2, 4096, 64) == 4 * 2 * 2 * 4096 * 40 * 64 <= 168_000_000
+    assert (p.active, p.rounds) == (30, 3)  # of 8-CTA clusters an H100 holds at once
+    # falcon-mamba-7b's: 512 CTAs of 32 channels, 4 on the busiest SM, in
+    # clusters of 2: two rounds of the 132 an H100 holds, where clusters of
+    # 8 (64 a batch element, 30 at once) or 4 (128, 62) would take three
+    p = ms.plan_bwd(2, 8192, 16)
+    assert (p.states, p.lanes, p.channels, p.cluster, p.clusters, p.ctas, p.per_sm) == (
+        2, 8, 32, 2, 128, 512, 4)
+    assert (p.active, p.rounds) == (132, 2)
+    assert ms.plan_bwd(2, 8192, 16, cluster=8).rounds == ms.plan_bwd(2, 8192, 16, cluster=4).rounds == 3
 
 
 @pytest.mark.parametrize("use", ["both", "y", "h_last"])
@@ -235,7 +281,7 @@ def test_backward_contract_is_checked():
     with pytest.raises(ValueError, match="states"):
         ops.mamba_scan_bwd(delta, A, bm, c, x, dy, states=torch.zeros((2, 1, 8, 4)))
     states = torch.zeros((2, ms.saves(40), 8, 4))
-    assert ms.saves(40) == 2 and ms.saves(32) == 1 and ms.saves(0) == 0
+    assert ms.saves(40) == 5 and ms.saves(33) == 5 and ms.saves(32) == 4 and ms.saves(0) == 0
     with pytest.raises(ValueError, match="CUDA"):
         ms.launch_bwd(None, delta, A, bm, c, x, dy, dh, states)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
