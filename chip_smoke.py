@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's lookup, write, scan, split, separator, route-table
-and repartition paths, its paged-KV serving of minitron-4b and of the MoE
+"""Drive the PyTorch port's lookup, write, scan, split, separator, route-table,
+repartition, pipelined-engine and fleet-cache-policy paths, its paged-KV serving of minitron-4b and of the MoE
 model granite-moe-1b-a400m, its Mamba serving of falcon-mamba-7b and
 zamba2-2.7b, its MLA serving of minicpm3-4b, its encoder-decoder
 serving of whisper-small and its training of minitron-4b and zamba2-2.7b,
@@ -115,7 +115,11 @@ Phases, in order; any failure exits non-zero:
      slack) under ``fetch``, ``fetch`` with shedding buckets, ``offload``
      and ``auto``; the same with scans (``ops=ALL_OPS``); the mixed engine
      with a trained route table (``fetch``, ``offload``, ``auto``) and a
-     poisoned one; ``install_boundaries`` then two batches; and one SMO
+     poisoned one; the pipelined mixed engine under ``fetch`` and ``auto``
+     and the pipelined engine with scans (every plane after every push and
+     the drain); the divergent fleet-cache policy (peek budget 512) on the
+     mixed engine, on lookups and pipelined on lookups and updates;
+     ``install_boundaries`` then two batches; and one SMO
      round after a burst that overflows eight leaves, then
      ``refresh_sep_planes``; every plane compared, the pool's included; and
      the LM path on reduced minitron-4b (2 layers, d_model 64) in f32 and
@@ -159,9 +163,22 @@ Phases, in order; any failure exits non-zero:
      trace (descent only, leaf-direct, poisoned; the poisoned arm must
      equal the descent arm); and a localized YCSB-C Zipfian (hotspot 0.2,
      then 0.8) under tight buckets, static and with a
-     ``RepartitionController``, which must shed fewer lanes.  A host oracle
-     carries the applied writes forward; every lane that is not shed must
-     match it, scans included;
+     ``RepartitionController``, which must shed fewer lanes; the pipelined
+     engine (``pipeline``) against the synchronous one in turns over the
+     same batches from the same contents (the pipeline on a copy of the key
+     and value planes): YCSB-A under ``fetch`` and ``auto`` (1 warm-up and
+     10 timed batches; lanes, statuses and the pool, occupancy and version
+     planes after the drain equal), then YCSB-E under ``fetch`` (1 and 5;
+     lanes equal where neither shed, the pipeline's extra sheds only
+     stall-shed scans, the splits settled after the drain), with stalls a
+     batch and one profiled step of each; and the fleet-cache policy
+     (``fleet-policy``): YCSB-C under ``fetch`` through a uniform and a
+     divergent engine (peek budget 8,192, a device's lanes) in turns from
+     cold caches (5 warm-up, 10 timed batches), hits, fetches, peer hits
+     and misses, the effective fleet hit rate, equal collective counts,
+     then every cached row poisoned and every version bumped and one more
+     batch.  A host oracle carries the applied writes forward; every lane
+     that is not shed must match it, scans included;
   6. serving at full width (the index freed first): minitron-4b, 32 layers,
      bf16, weights from ``--seed``; 64 request slots over a pool of 4,096
      pages of 16 tokens (8.6 GB of KV), 36 pages a request; seeded prompts
@@ -266,7 +283,9 @@ Phases, in order; any failure exits non-zero:
      run as its plain version: the loss within 1e-5 relative, each
      gradient within 1e-3 x its RMS;
   8. one JSON line of per-kernel launches (summed over the paths of phases
-     5 and 6, each counted from 0 just before it: the prefill paths of 6b
+     5 and 6, each counted from 0 just before it; the pipeline's and the
+     divergent arm's launches are their own, not their twins' in turns: the
+     prefill paths of 6b
      and 6c are ``prefill-ssm`` and ``prefill-hybrid``, 6d's
      ``serving-moe`` and ``prefill-moe``, 6e's ``prefill-mla`` and
      ``serving-mla``, whose decode launches no kernel of the table, 6f's
@@ -367,6 +386,15 @@ RT_ARMS = ("descent", "leaf-direct", "poisoned")
 # under tight buckets, static and with the controller
 REPART_PHASES = ((0.2, 5), (0.8, 5))
 REPART_FACTOR = 1.25
+# the pipeline phase: YCSB-A (policy, warm-up batches, timed batches), the
+# pipelined and the synchronous engine in turns; then YCSB-E under fetch
+PIPE_RUNS = (("fetch", 1, 10), ("auto", 1, 10))
+PIPE_E_RUN = (1, 5)
+# the fleet-policy phase: YCSB-C under fetch, uniform and divergent arms in
+# turns from cold caches (warm-up, timed batches); the peek budget is a
+# device's lane count, so it never binds
+FLEET_RUN = (5, 10)
+FLEET_PEEK_BUDGET = BATCH // 8
 # the LM plane: minitron-4b and granite-moe-1b-a400m served through the DEX
 # page table; grok-1-314b (628 GB in bf16) runs reduced only
 LM_ARCH = "minitron-4b"
@@ -1583,12 +1611,16 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
     and the separator planes included)."""
     import torch
 
-    from repro_torch.core import dex, engine, repartition, route_table, smo, write
+    from repro_torch.core import dex, engine, fleet_cache, repartition, route_table
     from repro_torch.core import pool as pool_mod
+    from repro_torch.core import smo, write
     from repro_torch.core.nodes import KEY_MAX, KEY_MIN
     from repro_torch.core.partition import LogicalPartitions
     from repro_torch.obs.registry import (
         STAT_DROPS,
+        STAT_PEER_HITS,
+        STAT_PEER_MISSES,
+        STAT_PIPE_STALLS,
         STAT_RT_MISPREDICTS,
         STAT_RT_SKIPS,
         STAT_SMO_SPLITS,
@@ -1640,10 +1672,21 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
         ("rt trained", write_ops, mixed, "offload", 4.0),
         ("rt trained", write_ops, mixed, "auto", 4.0),
         ("rt poisoned", write_ops, mixed, "fetch", 4.0),
+        ("pipelined", write_ops, mixed, "fetch", 4.0),
+        ("pipelined", write_ops, mixed, "auto", 4.0),
+        ("pipelined scans", engine.ALL_OPS, scans, "fetch", 4.0),
+        ("divergent", write_ops, mixed, "fetch", 4.0),
+        ("divergent lookups", ("lookup",), lookups, "fetch", 4.0),
+        ("divergent pipelined", ("lookup", "update"), mixed, "fetch", 4.0),
     ]
     for label, ops_, batches, policy, factor in runs:
         table = label.startswith("rt")
+        pipelined = "pipelined" in label
         cfg = mesh_config(policy, 64, factor, rt_slots=1024 if table else 0)
+        pol = (
+            fleet_cache.divergent_policy(cfg, peek_budget=512)
+            if label.startswith("divergent") else None
+        )
         out = []
         for dev in devices:
             pool, meta = pool_mod.build_pool(
@@ -1655,19 +1698,27 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
             if label == "rt poisoned":
                 state = route_table.poison_route_table(state)
             eng = engine.make_dex_engine(
-                meta, cfg, ops=ops_, max_count=32, device=dev
+                meta, cfg, ops=ops_, max_count=32, cache_policy=pol,
+                pipeline=pipelined, device=dev,
             )
             out.append([])
-            for opc, q, v in batches:
-                state, r = eng(state, opc, q, v)
+            if pipelined:
+                eng.start(state)
+            # a pipeline's steps: each batch, then the drain
+            for step in list(batches) + ([None] if pipelined else []):
+                if pipelined:
+                    r = eng.push(*step) if step is not None else eng.drain()
+                    state = eng.state
+                else:
+                    state, r = eng(state, *step)
                 got = dex.state_to_numpy(state)
-                if label == "lookups":
+                if label in ("lookups", "divergent lookups"):
                     got = {
                         k: a
                         for k, a in got.items()
                         if k.startswith("cache.") or k in look_planes
                     }
-                for k, a in r._asdict().items():
+                for k, a in (r._asdict() if r is not None else {}).items():
                     if a is not None:
                         got[k] = a.cpu().numpy()
                 out[-1].append(got)
@@ -1679,16 +1730,24 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
                         f" batch {i}: {k}"
                     )
         stats = out[0][-1]["stats"].sum(0)
+        peer = stats[STAT_PEER_HITS] + stats[STAT_PEER_MISSES]
         print(
             f"cpu-vs-cuda {label} {policy} x{factor}: 3 batches of 4096 lanes,"
             f" 2x4 mesh, all {len(a)} planes and results equal"
             f" ({stats[STAT_DROPS]} shed, {stats[STAT_WRITES]} writes,"
-            f" {stats[STAT_SPLITS]} splits)"
+            f" {stats[STAT_SPLITS]} splits, {stats[STAT_PIPE_STALLS]} pipeline"
+            f" stalls, {stats[STAT_PEER_HITS]} peer hits, {stats[STAT_PEER_MISSES]}"
+            " peer misses)"
         )
-        if label != "lookups" and factor >= 1 and stats[STAT_SPLITS] == 0:
+        inserts = "insert" in ops_
+        if inserts and factor >= 1 and stats[STAT_SPLITS] == 0:
             fail(f"{label} {policy} x{factor}: no insert was shed as a split")
-        if label == "scans" and not (out[0][-1]["taken"] > 0).any():
-            fail(f"scans {policy} x{factor}: no scan took a record")
+        if "scans" in label and not (out[0][-1]["taken"] > 0).any():
+            fail(f"{label} {policy} x{factor}: no scan took a record")
+        if pipelined and policy == "fetch" and stats[STAT_PIPE_STALLS] == 0:
+            fail(f"{label} {policy}: the pipeline forced no stale lane")
+        if label.startswith("divergent") and peer == 0:
+            fail(f"{label} {policy}: no lane peeked")
         if table and policy == "fetch":
             skips, mis = stats[STAT_RT_SKIPS], stats[STAT_RT_MISPREDICTS]
             if (label == "rt trained") != (skips > 0) or mis == 0:
@@ -2349,7 +2408,9 @@ def phase_splits_and_scans(args, keys, pool, meta, oracle, bounds):
         check_launches(path, per_path[path], need)
         del eng
     print(f"main: {len(oracle.written)} keys written")
-    return report, per_path
+    # the successor table and free-list watermarks the splits left: a later
+    # scan or split must start from them, not from a fresh state's
+    return report, per_path, (state.succ, state.n_alloc)
 
 
 def run_batches(eng, state, batches, label, dev, profile=True):
@@ -2590,6 +2651,373 @@ def phase_repartition(args, keys, pool, meta, oracle, bounds):
             f"repartition: the controller shed {ctl_run['shed_lanes']} lanes against"
             f" {static['shed_lanes']} static, with {len(ctl_run['installs'])} installs"
         )
+    return report, per_path
+
+
+def counted(acc, fn, *args):
+    """``fn(*args)``, adding the kernel launches it made to ``acc``."""
+    from repro_torch.kernels import ops
+
+    before = dict(ops.LAUNCHES)
+    out = fn(*args)
+    for k, v in ops.LAUNCHES.items():
+        acc[k] = acc.get(k, 0) + v - before[k]
+    return out
+
+
+def timed_call(times, fn, *args):
+    """``fn(*args)`` between two synchronisations, its host ms appended to
+    ``times`` (when ``times`` is a list)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if times is not None:
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def ms_summary(times):
+    return dict(
+        median_ms=float(np.median(times)),
+        p25_ms=float(np.percentile(times, 25)),
+        p75_ms=float(np.percentile(times, 75)),
+    )
+
+
+def results_equal(a, b, fields, mask=None):
+    """Do two engine results agree on ``fields`` (on the lanes of ``mask``)?"""
+    import torch
+
+    for k in fields:
+        x, y = getattr(a, k), getattr(b, k)
+        if mask is not None:
+            x, y = x[mask], y[mask]
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def check_twice(oracle, where, batches, results_a, results_b, mc=0):
+    """Hold two engines' results of the same batches to the oracle: ``a``
+    from the contents before the batches, then ``b`` from the same point.
+    Both must acknowledge the same writes.  Returns the lanes checked and
+    shed of each."""
+    saved = dict(oracle.written)
+    tally = []
+    for tag, results in (("a", results_a), ("b", results_b)):
+        oracle.written = dict(saved)
+        oracle._arrays = None
+        checked = shed = 0
+        for i, ((opc, kk, vals), r) in enumerate(zip(batches, results)):
+            c, s_, _ = oracle.check(f"{where} {tag} batch {i}", opc, kk, vals, r, mc)
+            checked, shed = checked + c, shed + s_
+        tally.append((checked, shed))
+    return tally
+
+
+def phase_pipeline(args, keys, pool, meta, oracle, bounds, carried):
+    """The pipelined engine at full size, against the synchronous one in
+    turns over the same batches from the same contents: the synchronous
+    engine writes the index, the pipeline a copy of its key and value planes
+    (7.2 GB at 200M keys).  YCSB-A (``PIPE_RUNS``) under ``fetch`` and
+    ``auto``: lookups, updates and statuses equal lane for lane, the pool,
+    occupancy and version planes equal after the drain, every lane of both
+    held to the oracle.  Then YCSB-E under ``fetch`` (``PIPE_E_RUN``): lanes
+    equal where neither shed, the pipeline's extra sheds only stall-shed
+    scans, its other scans held to the oracle, and the split inserts
+    settled after the drain.  One step of each engine profiled.  Launches
+    are the pipeline's alone."""
+    import torch
+
+    from repro_torch.core import dex, engine, smo, write
+    from repro_torch.core.nodes import KEY_MAX
+    from repro_torch.data import ycsb
+    from repro_torch.kernels import ops
+    from repro_torch.obs import registry as reg
+
+    dev = keys.device
+    report, per_path = {}, {}
+    twin = pool._replace(
+        pool_keys=pool.pool_keys.clone(), pool_values=pool.pool_values.clone()
+    )
+    succ, n_alloc = carried
+
+    def run_arm(label, ops_, cfg, batches, mc=1, extra=None):
+        """Both engines in turns; returns the two final states and the
+        results, and fills ``report[label]``."""
+        twin.pool_keys.copy_(pool.pool_keys)
+        twin.pool_values.copy_(pool.pool_values)
+        s_sync = dex.init_state(pool, meta, cfg, bounds, device=dev)
+        s_pipe = dex.init_state(twin, meta, cfg, bounds, device=dev)
+        if extra:
+            s_sync, s_pipe = s_sync._replace(**extra), s_pipe._replace(**extra)
+        sync = engine.make_dex_engine(meta, cfg, ops=ops_, max_count=mc, device=dev)
+        pipe = engine.make_dex_engine(
+            meta, cfg, ops=ops_, max_count=mc, pipeline=True, device=dev
+        )
+        ops.reset_launches()
+        launches = dict.fromkeys(ops.LAUNCHES, 0)
+        t_sync, t_pipe, r_sync, r_pipe = [], [], [], []
+        pipe.start(s_pipe)
+        n = len(batches)
+        for i, (w, opc, kk, vals) in enumerate(batches):
+            inputs = [torch.from_numpy(a).to(dev) for a in (opc, kk, vals)]
+            if i == n - 1:
+                # one more batch under the profiler: where the time goes
+                med_s = float(np.median(t_sync))
+                med_p = float(np.median(t_pipe))
+                s_sync, r, idle_s = profile_batch(
+                    f"pipeline {label} sync", sync, s_sync, med_s, *inputs
+                )
+                r_sync.append(r)
+                _, r, idle_p = counted(
+                    launches, profile_batch, f"pipeline {label} pipelined",
+                    lambda st, *a: (None, pipe.push(*a)), None, med_p, *inputs,
+                )
+            else:
+                s_sync, r = timed_call(None if w else t_sync, sync, s_sync, *inputs)
+                r_sync.append(r)
+                r = counted(launches, timed_call, None if w else t_pipe, pipe.push,
+                            *inputs)
+            if r is not None:
+                r_pipe.append(r)
+        r_pipe.append(counted(launches, timed_call, None, pipe.drain))
+        s_pipe = pipe.state
+        return s_sync, s_pipe, r_sync, r_pipe, t_sync, t_pipe, idle_s, idle_p, launches
+
+    # YCSB-A under fetch and auto
+    for p_i, (policy, warm, timed) in enumerate(PIPE_RUNS):
+        n_b = warm + timed + 1
+        wl = ycsb.generate("ycsb-a", oracle.keys, BATCH * n_b, seed=args.seed + 50 + p_i)
+        batches = []
+        for i in range(n_b):
+            sl = slice(i * BATCH, (i + 1) * BATCH)
+            stamp = ((900 + 32 * p_i + i) << 20) + np.arange(BATCH)
+            batches.append((i < warm, wl.ops[sl], wl.keys[sl],
+                            wl.keys[sl] ^ VALUE_XOR ^ stamp))
+        cfg = mesh_config(policy, 65_536)
+        torch.cuda.reset_peak_memory_stats()
+        (s_sync, s_pipe, r_sync, r_pipe, t_sync, t_pipe, idle_s, idle_p,
+         launches) = run_arm(f"ycsb-a {policy}", ("lookup", "update"), cfg, batches)
+        for i, (a, b) in enumerate(zip(r_sync, r_pipe)):
+            if not results_equal(a, b, ("found", "values", "status", "shed")):
+                fail(f"pipeline ycsb-a {policy}: batch {i} differs from the synchronous engine")
+        for name in ("pool_keys", "pool_values"):
+            if not torch.equal(getattr(pool, name), getattr(twin, name)):
+                fail(f"pipeline ycsb-a {policy}: {name} differs after the drain")
+        for name in ("occupancy", "versions"):
+            if not torch.equal(getattr(s_sync, name), getattr(s_pipe, name)):
+                fail(f"pipeline ycsb-a {policy}: {name} differs after the drain")
+        plain = [(opc, kk, vals) for _, opc, kk, vals in batches]
+        (c_p, sh_p), (c_s, sh_s) = check_twice(
+            oracle, f"pipeline ycsb-a {policy}", plain, r_pipe, r_sync
+        )
+        st_p = s_pipe.stats.sum(0).cpu().numpy()
+        st_s = s_sync.stats.sum(0).cpu().numpy()
+        if st_s[reg.STAT_PIPE_STALLS] != 0:
+            fail(f"pipeline ycsb-a {policy}: the synchronous engine stalled")
+        run = f"pipeline/ycsb-a/{policy}"
+        report[run] = dict(
+            pipelined=ms_summary(t_pipe),
+            synchronous=ms_summary(t_sync),
+            batches=timed,
+            stalls=int(st_p[reg.STAT_PIPE_STALLS]),
+            stalls_per_batch=float(st_p[reg.STAT_PIPE_STALLS]) / n_b,
+            checked_lanes=[c_p, c_s],
+            shed_lanes=[sh_p, sh_s],
+            offloads=[int(st_p[reg.STAT_OFFLOADS]), int(st_s[reg.STAT_OFFLOADS])],
+            writes=[int(st_p[reg.STAT_WRITES]), int(st_s[reg.STAT_WRITES])],
+            idle_share=[idle_p, idle_s],
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        )
+        print(f"main pipeline ycsb-a {policy} ([pipelined, synchronous]): "
+              f"{json.dumps(report[run])}")
+        per_path[run] = launches
+        check_launches(run, launches, ("node_search", "subtree_walk", "leaf_write"))
+        del s_sync, s_pipe, r_sync, r_pipe
+
+    # YCSB-E under fetch: inserts and scans; the splits settle after the
+    # drain, on the index
+    warm, timed = PIPE_E_RUN
+    n_b = warm + timed + 1
+    wl = ycsb.generate("ycsb-e", oracle.keys, BATCH * n_b, seed=args.seed + 55,
+                       scan_len=SCAN_MAX_COUNT, scan_len_dist="uniform")
+    batches = []
+    for i in range(n_b):
+        opc, kk, vals = ycsb.engine_lanes(wl, i * BATCH, (i + 1) * BATCH)
+        stamp = ((960 + i) << 20) + np.arange(BATCH)
+        vals = np.where(opc == engine.OP_SCAN, vals, kk ^ VALUE_XOR ^ stamp)
+        batches.append((i < warm, opc, kk, vals))
+    cfg = mesh_config("fetch", 65_536)
+    torch.cuda.reset_peak_memory_stats()
+    (s_sync, s_pipe, r_sync, r_pipe, t_sync, t_pipe, idle_s, idle_p,
+     launches) = run_arm("ycsb-e fetch", ("insert", "scan"), cfg, batches,
+                         mc=SCAN_MAX_COUNT, extra=dict(succ=succ, n_alloc=n_alloc))
+    fields = ("found", "values", "status", "shed", "scan_keys", "scan_values", "taken")
+    stall_shed = 0
+    for i, (a, b) in enumerate(zip(r_sync, r_pipe)):
+        if (a.shed & ~b.shed).any():
+            fail(f"pipeline ycsb-e: batch {i} lost a shed lane")
+        extra = b.shed & ~a.shed
+        opc = torch.from_numpy(batches[i][1]).to(dev)
+        if (extra & (opc != engine.OP_SCAN)).any() or (b.taken[extra] != -1).any():
+            fail(f"pipeline ycsb-e: batch {i} shed a lane that is not a stalled scan")
+        stall_shed += int(extra.sum())
+        if not results_equal(a, b, fields, ~b.shed):
+            fail(f"pipeline ycsb-e: batch {i} differs from the synchronous engine")
+    for name in ("pool_keys", "pool_values"):
+        if not torch.equal(getattr(pool, name), getattr(twin, name)):
+            fail(f"pipeline ycsb-e: {name} differs after the drain")
+    if not torch.equal(s_sync.occupancy, s_pipe.occupancy):
+        fail("pipeline ycsb-e: occupancy differs after the drain")
+    del twin
+    checked = shed = splits = 0
+    for i, ((_, opc, kk, vals), r) in enumerate(zip(batches, r_pipe)):
+        c, s_, sp = oracle.check(f"pipeline ycsb-e batch {i}", opc, kk, vals, r,
+                                 SCAN_MAX_COUNT)
+        checked, shed, splits = checked + c, shed + s_, splits + sp
+    # the split inserts settle on the mesh now, in batch order
+    smo_round = smo.make_dex_smo(meta, cfg, device=dev)
+    smo_rounds, smo_ms = 0, []
+    for (_, opc, kk, vals), r in zip(batches, r_sync):
+        split = (r.status == write.STATUS_SPLIT).cpu().numpy()
+        if split.any():
+            t0 = time.perf_counter()
+            s_sync, sst, nr_ = smo.run_smo(smo_round, s_sync, np.where(split, kk, KEY_MAX),
+                                           vals)
+            torch.cuda.synchronize()
+            smo_ms.append((time.perf_counter() - t0) * 1e3)
+            smo_rounds += nr_
+            ok = sst == write.STATUS_OK
+            oracle.apply(kk[ok], vals[ok])
+    st_p = s_pipe.stats.sum(0).cpu().numpy()
+    run = "pipeline/ycsb-e/fetch"
+    report[run] = dict(
+        pipelined=ms_summary(t_pipe),
+        synchronous=ms_summary(t_sync),
+        batches=timed,
+        stalls=int(st_p[reg.STAT_PIPE_STALLS]),
+        stalls_per_batch=float(st_p[reg.STAT_PIPE_STALLS]) / n_b,
+        stall_shed_scans=stall_shed,
+        checked_lanes=checked,
+        shed_lanes=shed,
+        split_lanes=splits,
+        smo_rounds=smo_rounds,
+        smo_ms=smo_ms,
+        idle_share=[idle_p, idle_s],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    print(f"main pipeline ycsb-e fetch ([pipelined, synchronous]): {json.dumps(report[run])}")
+    per_path[run] = launches
+    check_launches(run, launches, ("node_search", "leaf_scan", "leaf_write"))
+    print(f"main: {len(oracle.written)} keys written")
+    return report, per_path
+
+
+def phase_fleet_policy(args, keys, pool, meta, oracle, bounds):
+    """The divergent fleet-cache policy at full size: YCSB-C under
+    ``fetch`` through a uniform engine and through ``divergent_policy(cfg,
+    peek_budget=FLEET_PEEK_BUDGET)``, both built for lookups and updates as
+    the reference's fleet benchmark builds them, in turns over the same
+    batches from equal cold caches (``FLEET_RUN``); every lane held to the
+    oracle; equal collective counts.  Then every cached row of both arms is
+    poisoned and every version bumped, and one more batch must still equal
+    the oracle."""
+    import torch
+
+    from repro_torch.core import dex, engine, fleet_cache, mesh
+    from repro_torch.data import ycsb
+    from repro_torch.kernels import ops
+    from repro_torch.obs import registry as reg
+
+    dev = keys.device
+    cfg = mesh_config("fetch", 65_536)
+    policies = {
+        "uniform": None,
+        "divergent": fleet_cache.divergent_policy(cfg, peek_budget=FLEET_PEEK_BUDGET),
+    }
+    warm, timed = FLEET_RUN
+    n_b = warm + timed + 1
+    wl = ycsb.generate("read-only", oracle.keys, BATCH * n_b, seed=args.seed + 60)
+    engines, states, times, counts, marks, results = {}, {}, {}, {}, {}, {}
+    launches = {arm: dict.fromkeys(ops.LAUNCHES, 0) for arm in policies}
+    for arm, pol in policies.items():
+        engines[arm] = engine.make_dex_engine(
+            meta, cfg, ops=("lookup", "update"), max_count=1, cache_policy=pol, device=dev
+        )
+        states[arm] = dex.init_state(pool, meta, cfg, bounds, device=dev)
+        times[arm], results[arm] = [], []
+    ops.reset_launches()
+    batches = []
+    for i in range(n_b):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        opc, kk = wl.ops[sl], wl.keys[sl]
+        batches.append((opc, kk, np.zeros(BATCH, np.int64)))
+        inputs = [torch.from_numpy(a).to(dev) for a in batches[-1]]
+        if i == n_b - 1:
+            # every cached row poisoned, every version bumped
+            for arm in policies:
+                st = states[arm]
+                st.cache.values.fill_(-777_777)
+                everything = torch.arange(meta.n_nodes, device=dev)
+                states[arm] = st._replace(
+                    versions=fleet_cache.invalidate_nodes(st.versions, everything)
+                )
+                marks[arm, "poison"] = states[arm].stats.sum(0).cpu().numpy()
+        for arm in policies:
+            if i == warm:
+                marks[arm, "warm"] = states[arm].stats.sum(0).cpu().numpy()
+            mesh.reset_counts()
+            states[arm], r = counted(
+                launches[arm], timed_call, times[arm] if warm <= i < n_b - 1 else None,
+                engines[arm], states[arm], *inputs,
+            )
+            counts[arm] = mesh.collective_counts()
+            results[arm].append(r)
+            if i == n_b - 2:
+                marks[arm, "timed"] = states[arm].stats.sum(0).cpu().numpy()
+    if counts["uniform"] != counts["divergent"]:
+        fail(f"fleet policy: collective counts differ: {counts}")
+    report, per_path = {}, {}
+    for arm in policies:
+        checked = shed = 0
+        for i, ((opc, kk, vals), r) in enumerate(zip(batches, results[arm])):
+            c, s_, _ = oracle.check(f"fleet {arm} batch {i}", opc, kk, vals, r)
+            checked, shed = checked + c, shed + s_
+        st = marks[arm, "timed"] - marks[arm, "warm"]
+        after = states[arm].stats.sum(0).cpu().numpy() - marks[arm, "poison"]
+        hits, fetches = int(st[reg.STAT_HITS]), int(st[reg.STAT_FETCHES])
+        ph, pm = int(st[reg.STAT_PEER_HITS]), int(st[reg.STAT_PEER_MISSES])
+        run = f"fleet-policy/{arm}"
+        report[run] = dict(
+            **ms_summary(times[arm]),
+            batches=timed,
+            checked_lanes=checked,
+            shed_lanes=shed,
+            hits=hits,
+            fetches=fetches,
+            peer_hits=ph,
+            peer_misses=pm,
+            fleet_hit_rate=(hits + ph) / max(hits + ph + pm + fetches, 1),
+            collective_counts=counts[arm],
+            after_poison=dict(
+                hits=int(after[reg.STAT_HITS]), fetches=int(after[reg.STAT_FETCHES]),
+                peer_hits=int(after[reg.STAT_PEER_HITS]),
+                peer_misses=int(after[reg.STAT_PEER_MISSES]),
+            ),
+        )
+        print(f"main fleet-policy {arm}: {json.dumps(report[run])}")
+        per_path[run] = launches[arm]
+        need = ("node_search",) + (("subtree_walk",) if arm == "divergent" else ())
+        check_launches(run, launches[arm], need)
+    div = report["fleet-policy/divergent"]
+    if div["peer_hits"] == 0 or div["after_poison"]["peer_misses"] == 0:
+        fail(f"fleet policy: peer hits {div['peer_hits']}, misses after the poison"
+             f" {div['after_poison']['peer_misses']}")
+    del engines, states, results
     return report, per_path
 
 
@@ -5049,7 +5477,9 @@ def main(argv=None):
     t2 = time.perf_counter()
     report, per_path, oracle, bounds = phase_main(args, keys, pool, meta)
     t3 = time.perf_counter()
-    more, more_paths = phase_splits_and_scans(args, keys, pool, meta, oracle, bounds)
+    more, more_paths, carried = phase_splits_and_scans(
+        args, keys, pool, meta, oracle, bounds
+    )
     report.update(more)
     per_path.update(more_paths)
     t4 = time.perf_counter()
@@ -5060,9 +5490,18 @@ def main(argv=None):
     more, more_paths = phase_repartition(args, keys, pool, meta, oracle, bounds)
     report.update(more)
     per_path.update(more_paths)
+    t6a = time.perf_counter()
+    more, more_paths = phase_pipeline(args, keys, pool, meta, oracle, bounds, carried)
+    report.update(more)
+    per_path.update(more_paths)
+    torch.cuda.empty_cache()
+    t6b = time.perf_counter()
+    more, more_paths = phase_fleet_policy(args, keys, pool, meta, oracle, bounds)
+    report.update(more)
+    per_path.update(more_paths)
     t6 = time.perf_counter()
     # the LM phases run without the index
-    del keys, pool, meta, oracle, bounds
+    del keys, pool, meta, oracle, bounds, carried
     torch.cuda.empty_cache()
     report["serving"], per_path["serving"], params, replays = phase_serving(args.seed)
     check_launches("serving", per_path["serving"], ("paged_attention", "node_search"))
@@ -5136,7 +5575,8 @@ def main(argv=None):
     print(f"main: launches {launches}")
     print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
           f" main {t3 - t2:.1f} s, splits and scans {t4 - t3:.1f} s,"
-          f" route table {t5 - t4:.1f} s, repartition {t6 - t5:.1f} s,"
+          f" route table {t5 - t4:.1f} s, repartition {t6a - t5:.1f} s,"
+          f" pipeline {t6b - t6a:.1f} s, fleet policy {t6 - t6b:.1f} s,"
           f" serving {t7 - t6:.1f} s, prefill {t8 - t7:.1f} s, gate {t9 - t8:.1f} s,"
           f" ssm serving and prefill {t10 - t9:.1f} s, hybrid {t11 - t10:.1f} s,"
           f" ssm gate {t12 - t11:.1f} s, moe serving and prefill {t13 - t12:.1f} s,"

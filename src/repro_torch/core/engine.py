@@ -1,9 +1,10 @@
 """The mesh plane's execution engine: point lookups, updates, inserts and
-range scans.
+range scans, batch by batch or pipelined.
 
 :func:`make_dex_engine` runs a batch of mixed lookups, updates, inserts and
 scans over the virtual mesh (``core/mesh.py``) the way the reference's
-unified engine does, batched over the ``Dev`` axis:
+unified engine does, batched over the ``Dev`` axis.  A batch runs in two
+halves.  The **front half**:
 
   1. one route round: ``routing.route_owners``, ``pack_by_dest`` and
      ``route_exchange`` move each lane to the route row owning its key (an
@@ -18,14 +19,17 @@ unified engine does, batched over the ``Dev`` axis:
      matching the key at the leaf; inserts stop above the leaf;
   3b. scan lanes only: successor-chain hops over ``DexState.succ``, one
      ``cached_fetch_level`` per hop while a lane's count is not yet covered,
-     then the ``leaf_scan`` kernel compacts each lane's window of leaf rows;
+     then the ``leaf_scan`` kernel compacts each lane's window of leaf rows.
+
+The **back half**:
+
   4. one request/response exchange over the memory axis: offloaded lanes
      are walked by the owning column with the ``subtree_walk`` kernel, and
      every write is applied there in one conflict-resolved batch
      (``write._apply_leaf_writes``, the ``leaf_write`` kernel);
   5. version bumps and the write-through refresh (updates) or drop
-     (inserts) of the writer's own cached row; the EMA, stat, latency-
-     histogram and audit planes, and the return trip over the route axis.
+     (inserts) of the writer's own cached row; the stat, latency-histogram
+     and return trip over the route axis.
 
 ``policy="fetch"`` never offloads; ``policy="offload"`` offloads every live
 lane that is not a scan and runs no descent unless scans need it;
@@ -37,13 +41,35 @@ rejected one takes the full descent.  Reads (lookups and scans) see the
 pre-batch index, then updates apply, then inserts (a phase-offset batch
 priority); an insert into a leaf that would overflow comes back
 ``STATUS_SPLIT`` for ``core/smo.py``.
-The pipelined engine, divergent cache policies, peer peeks and two route
-axes are not ported yet: asking for them raises.
+
+**Cache policies** (``core/fleet_cache.py``).  A divergent policy biases
+each device's leaf admission toward its own memory column, and a policy
+with a peek budget lets a lookup whose leaf misses on a subtree of another
+column skip the row fetch: the lane rides the fused round as a ``MSG_PEEK``
+record, and the device of the owning column that receives it answers from
+its own cache, version-checked, or else by its block walk.  Peeks add no
+collective.
+
+**The pipeline** (``pipeline=True``) returns an :class:`EnginePipeline`:
+step ``s`` runs batch ``s``'s front half, then batch ``s - 1``'s back half,
+under the collective-count labels ``pipe/front`` and ``pipe/back``.
+Navigation is static within a run (splits shed ``STATUS_SPLIT`` and settle
+between flushes), so a front half lands on the right leaf; only the leaf's
+contents can be one batch stale.  The front half stamps the version of the
+leaf (and of each scan hop) it read; the back half re-reads the version
+table, and a lookup or update whose leaf moved is forced onto the two-sided
+tags (``MSG_OFF_LOOKUP`` / ``MSG_OFF_UPDATE``) to re-resolve against the
+current pool, while a scan whose window crossed a written leaf is
+stall-shed (``taken = -1``, ``shed``).  Both are ``STAT_PIPE_STALLS``.
+Batches apply in order, so results, pool, occupancy and versions equal the
+synchronous engine's, stall-shed scans apart.  On one card the two halves
+run one after the other on one stream.
 
 The engine writes its state in place: the cache planes, and with writes the
 pool's key and value planes, ``occupancy`` and ``versions``.  The returned
 state shares these tensors with the one it was given, which saves a copy of
 the pool per batch; a caller that needs the pre-batch state keeps a copy.
+Two route axes are not ported: asking for them raises.
 """
 
 from __future__ import annotations
@@ -83,6 +109,9 @@ from repro_torch.obs.registry import (
     STAT_OFFLOAD_GROUPS,
     STAT_OFFLOADS,
     STAT_OPS,
+    STAT_PEER_HITS,
+    STAT_PEER_MISSES,
+    STAT_PIPE_STALLS,
     STAT_RT_MISPREDICTS,
     STAT_RT_SKIPS,
     STAT_SPLITS,
@@ -106,8 +135,11 @@ MSG_INSERT = 2  # fetched-path slack-slot insert: gid from the descent
 MSG_OFF_LOOKUP = 3  # offloaded lookup: the owner walks its block
 MSG_OFF_UPDATE = 4  # offloaded update: the owner walks, then writes
 MSG_OFF_INSERT = 5  # offloaded insert: the owner walks, then merges
+MSG_PEEK = 6  # peer peek: the owner answers from its cache, else walks
 REQ_FIELDS = 6  # (tag, gid, subtree, key, value, prio)
-RESP_HEAD = 4  # (status, value, gid, leaf-took-inserts) ahead of the value row
+# (status, value, gid, leaf-took-inserts flag, which is the peer-cache-hit
+# bit of a MSG_PEEK lane) ahead of the value row
+RESP_HEAD = 4
 
 
 def scan_hops(meta: PoolMeta, max_count: int) -> int:
@@ -145,12 +177,12 @@ class Descent(NamedTuple):
     shed: torch.Tensor  # a fetch bucket dropped the lane
     fmiss: torch.Tensor  # some level paid a remote fetch
     cost: torch.Tensor  # modelled seconds so far
-    cache: DexCache
     miss_cl: torch.Tensor  # [Dev, n_memory, levels] misses per column/level
     want_cl: torch.Tensor  # [Dev, n_memory, levels] lanes per column/level
     realized: torch.Tensor  # [Dev, n_memory, levels] distinct fetched bytes
     n_hit: torch.Tensor  # [Dev]
     n_fetch: torch.Tensor  # [Dev] coalesced remote reads
+    peeked: Optional[torch.Tensor] = None  # leaf misses sent as MSG_PEEK
     rows_k: Optional[torch.Tensor] = None  # [Dev, Q, F] leaf rows (scans)
     rows_v: Optional[torch.Tensor] = None
 
@@ -161,10 +193,11 @@ class Fused(NamedTuple):
     send: torch.Tensor  # the lane sent a request
     dropped: torch.Tensor  # a request bucket dropped it
     status: torch.Tensor  # int32 STATUS_* from the owner
-    value: torch.Tensor  # offloaded lookups' value
-    gid: torch.Tensor  # the leaf the owner wrote (KEY_MAX if none)
-    ins: torch.Tensor  # the leaf took a fresh insert this batch
-    row_v: torch.Tensor  # [Dev, Q, F] the leaf's post-batch value row
+    value: torch.Tensor  # two-sided lookups' value
+    ins: torch.Tensor  # the leaf took a fresh insert; for a peek: a peer hit
+    peek: torch.Tensor  # the lane was sent as MSG_PEEK
+    gid: Optional[torch.Tensor] = None  # the leaf the owner wrote (or KEY_MAX)
+    row_v: Optional[torch.Tensor] = None  # [Dev, Q, F] post-batch value row
 
 
 def fma32(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -196,6 +229,102 @@ def _dot_levels(caps: torch.Tensor, ema: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _f32(x: float) -> float:
+    """A Python float rounded to float32, as JAX rounds a weak constant."""
+    return float(np.float32(x))
+
+
+class EnginePipeline:
+    """Two-stage software pipeline over a batch queue (prologue, steady
+    state, drain).
+
+    ``push(opcodes, keys, values)`` runs one step: the new batch's front
+    half, then the previous batch's back half, and returns the **previous**
+    batch's :class:`EngineResult` (``None`` on the priming push).
+    ``drain()`` pushes an inactive batch to flush the last back half and
+    returns its result.  Every pushed batch of a run has one width.
+    ``step_fn(state, carry, opcodes, keys, values) -> (state, carry,
+    result)`` and ``init_carry(b)`` (the all-inactive prologue carry) are
+    exposed so a caller can count the collectives of one step by phase;
+    ``plan`` is the synchronous engine's plus ``stages`` and
+    ``overlap_phases``.  The state is written in place as by the
+    synchronous engine; results are fresh tensors that later pushes leave
+    alone."""
+
+    def __init__(self, step, init_carry, plan):
+        self.step_fn = step
+        self.init_carry = init_carry
+        self.plan = plan
+        self._state = None
+        self._carry = None
+        self._width = None
+        self._primed = False
+
+    @property
+    def state(self):
+        """The index state as of the last completed back half."""
+        return self._state
+
+    def start(self, state: DexState) -> "EnginePipeline":
+        """Begin a run from ``state``; drops any carry in flight."""
+        self._state = state
+        self._carry = None
+        self._primed = False
+        return self
+
+    def push(self, opcodes, keys, values) -> Optional[EngineResult]:
+        if self._state is None:
+            raise RuntimeError("EnginePipeline.push before start(state)")
+        b = int(torch.as_tensor(keys).shape[0])
+        if b == 0:
+            raise ValueError("pipeline batches must be non-empty")
+        if self._carry is None:
+            self._width = b
+            self._carry = self.init_carry(b)
+        elif b != self._width:
+            raise ValueError(
+                f"pipeline batches must share one width: {b} != {self._width}"
+            )
+        was_primed = self._primed
+        self._state, self._carry, result = self.step_fn(
+            self._state, self._carry, opcodes, keys, values
+        )
+        self._primed = True
+        # the first step's result answers the all-inactive prologue carry
+        return result if was_primed else None
+
+    def drain(self) -> Optional[EngineResult]:
+        """Flush the batch in flight; the next push primes again."""
+        if self._state is None or not self._primed:
+            return None
+        b = self._width
+        self._state, _, result = self.step_fn(
+            self._state,
+            self._carry,
+            torch.zeros((b,), dtype=torch.int32),
+            torch.full((b,), KEY_MAX, dtype=torch.int64),
+            torch.zeros((b,), dtype=torch.int64),
+        )
+        self._carry = None
+        self._primed = False
+        return result
+
+    def run(self, state: DexState, batches):
+        """Stream ``batches`` (an iterable of ``(opcodes, keys, values)``)
+        through a whole prologue, steady state and drain; returns ``(state,
+        [EngineResult of each batch, in order])``."""
+        self.start(state)
+        results = []
+        for opc, kk, vv in batches:
+            r = self.push(opc, kk, vv)
+            if r is not None:
+                results.append(r)
+        r = self.drain()
+        if r is not None:
+            results.append(r)
+        return self._state, results
+
+
 def make_dex_engine(
     meta: PoolMeta,
     cfg: DexMeshConfig,
@@ -207,7 +336,8 @@ def make_dex_engine(
     device=None,
 ):
     """Build the engine ``(state, opcodes, keys, values) -> (state,
-    EngineResult)`` on ``device`` (None = CUDA).
+    EngineResult)`` on ``device`` (None = CUDA), or with ``pipeline=True``
+    an :class:`EnginePipeline` over the same two halves.
 
     ``ops`` is any non-empty subset of ``ALL_OPS``.
     ``opcodes``/``keys``/``values`` are [B] lanes, split evenly over the
@@ -216,8 +346,9 @@ def make_dex_engine(
     Update and insert lanes carry their new value in ``values``, scan lanes
     their record count (clipped to ``max_count``); lookups ignore it.
     ``ops`` prunes statically: an engine without writes or scans routes keys
-    alone and carries no write round, one without scans no hops.  The
-    returned function carries the reference's ``plan`` attribute.  The state
+    alone and carries no write round, one without scans no hops.
+    ``cache_policy`` is a ``fleet_cache`` policy (None: uniform).  The
+    returned object carries the reference's ``plan`` attribute.  The state
     is updated in place (see the module's docstring)."""
     ops = tuple(ops)
     for o in ops:
@@ -227,12 +358,8 @@ def make_dex_engine(
         raise ValueError("ops must name at least one operation")
     if cfg.policy not in ("fetch", "offload", "auto"):
         raise ValueError(f"unknown policy {cfg.policy!r}")
-    if pipeline:
-        raise NotImplementedError("the pipelined engine is not ported yet")
     if len(cfg.route_axes) != 1:
         raise NotImplementedError("two route axes are not ported yet")
-    if not fleet_cache.is_uniform(cache_policy):
-        raise NotImplementedError("divergent cache policies are not ported yet")
     device = mesh.resolve_device(device)
 
     has_lookup = "lookup" in ops
@@ -248,12 +375,20 @@ def make_dex_engine(
     levels = meta.levels_in_subtree
     mc = max_count
     hops = scan_hops(meta, mc) if has_scan else 0
-    may_offload = has_offloadable and cfg.policy != "fetch"
+    # the pipeline forces stale lookups and updates onto the two-sided tags,
+    # so those branches exist under ``fetch`` too where forcing can occur
+    needs_force = bool(pipeline) and has_writes and (has_lookup or has_update)
+    may_offload = has_offloadable and (cfg.policy != "fetch" or needs_force)
     # scans need the descent to their start leaf under every policy
     do_descent = has_scan or cfg.policy != "offload" or not has_offloadable
     # the leaf level serves lookups, updates and a scan's first hop; inserts
     # stop above it
     do_leaf = has_lookup or has_update or has_scan
+    # peer peeks exist only for descending lookups under a peek budget
+    may_peek = (
+        has_lookup and do_descent and do_leaf and fleet_cache.peeks_enabled(cache_policy)
+    )
+    do_fused = has_writes or may_offload or may_peek
     audit = has_offloadable and cfg.policy == "auto"
     # the leaf-direct route table; with no slots the program is the
     # descent-only one
@@ -275,14 +410,18 @@ def make_dex_engine(
     row_cost = float(np.float32(NODE_ROW_BYTES) * np.float32(cfg.offload_c))
     rpc_bytes = float(OFFLOAD_REQ_BYTES + OFFLOAD_RESP_BYTES)
     dev_index = mesh.device_linear_index(cfg, device)
+    r_lin = mesh.route_linear_index(cfg, device)
     first = (dev_index == 0).long()
     my_col = mesh.memory_linear_index(cfg, device)[:, None]
+    peek_budget = (
+        fleet_cache.device_peek_budget(cache_policy, device) if may_peek else None
+    )
     plan = {
         "route_rounds": 1,
-        "fused_pairs": 1 if (may_offload or has_writes) else 0,
+        "fused_pairs": 1 if do_fused else 0,
         "descent_levels": (levels if do_leaf else levels - 1) if do_descent else 0,
         "scan_hops": hops,
-        "pipeline": False,
+        "pipeline": bool(pipeline),
     }
 
     def offload_decision(ema, col, live):
@@ -290,7 +429,7 @@ def make_dex_engine(
         predicted fetch bytes beat the RPC bytes; counts are mesh-global.
         Returns ``(want_off_c, grp_live, caps)``."""
         none = torch.zeros((n_dev, nm), dtype=torch.bool, device=device)
-        if not may_offload:
+        if not has_offloadable or cfg.policy == "fetch":
             return none, none, None
         n_live_c = torch.zeros((n_dev, nm), dtype=torch.int64, device=device)
         n_live_c = mesh.psum(n_live_c.scatter_add_(1, col, live.long()))
@@ -303,7 +442,8 @@ def make_dex_engine(
         return want_off_c, grp_live, caps
 
     def descent(
-        state, q, subtree, col, want, leaf_want, cost, is_scan, acc=None, p_loc=None
+        state, q, opc, subtree, col, want, leaf_want, cost, is_scan, boost,
+        acc=None, p_loc=None,
     ) -> Descent:
         """The version-checked cached descent: one ``cached_fetch_level`` per
         level for the ``want`` lanes (``leaf_want`` at the leaf),
@@ -312,7 +452,9 @@ def make_dex_engine(
         lanes leave the miss observation and the audit's realized bytes
         alone; an engine with scans keeps the leaf rows for their window.
         Lanes of ``acc`` (route-table guesses accepted) skip the inner
-        levels and land on their predicted leaf ``p_loc``."""
+        levels and land on their predicted leaf ``p_loc``.  Under a peek
+        budget, a lookup's leaf miss on another column's subtree may be
+        peeked instead of fetched."""
         nq = q.shape[1]
         flat_q = q.reshape(-1)
         cache = state.cache
@@ -326,28 +468,41 @@ def make_dex_engine(
         realized = torch.zeros_like(miss_cl)
         found = torch.zeros_like(want)
         value = torch.zeros_like(q)
-        leaf_k = leaf_v = None
+        peeked = leaf_k = leaf_v = None
         inner_want = want if acc is None else want & ~acc
         for lvl in range(levels if do_leaf else levels - 1):
             leaf = lvl == levels - 1
             if leaf and acc is not None:
                 local = torch.where(acc, p_loc, local)
             gid = meta.node_gid(subtree, local)
+            peek_elig = None
             if leaf:
                 want = leaf_want
                 salt = state.stats[:, STAT_OPS, None] + torch.arange(
                     nq, device=device
                 )
-                p_ok = fleet_cache.leaf_admit(cfg, cache_policy, gid, salt)
+                p_ok = fleet_cache.leaf_admit(
+                    meta, cfg, cache_policy, gid, salt, boost=boost
+                )
+                if may_peek:
+                    peek_elig = want & (col != my_col)
+                    if opc is not None:
+                        peek_elig = peek_elig & (opc == OP_LOOKUP)
             else:
                 want = inner_want
                 p_ok = torch.ones_like(want)
-            rows_k, rows_c, rows_v, hit, miss, f_drop, n_msgs, cache = (
+            rows_k, rows_c, rows_v, hit, miss, f_drop, n_msgs, cache, pk = (
                 cached_fetch_level(
-                    state.pool, meta, cfg, cache, state.versions, gid, want, p_ok
+                    state.pool, meta, cfg, cache, state.versions, gid, want, p_ok,
+                    peek_elig, peek_budget,
                 )
             )
+            # a peeked lane fetched nothing here: its two-sided trip is
+            # priced in the back half
             fetched = miss & ~f_drop
+            if pk is not None:
+                peeked = pk
+                fetched = fetched & ~pk
             cost = cost + (
                 hit.float() * obs_latency.T_CACHED
                 + fetched.float() * obs_latency.T_READ
@@ -392,46 +547,52 @@ def make_dex_engine(
             shed=shed,
             fmiss=fmiss,
             cost=cost,
-            cache=cache,
             miss_cl=miss_cl,
             want_cl=want_cl,
             realized=realized,
             n_hit=n_hit,
             n_fetch=n_fetch,
+            peeked=peeked,
             rows_k=leaf_k,
             rows_v=leaf_v,
         )
 
-    def scan_window(state, q, cnt, is_scan, d: Descent):
+    def scan_window(state, q, cnt, is_scan, d: Descent, boost, stamp):
         """The scan lanes' successor-chain hops: the start leaf's row, then
         one ``cached_fetch_level`` per hop over ``DexState.succ`` for the
         lanes whose collected records fall short of their count, then the
         ``leaf_scan`` kernel over each lane's window.  Reads the pre-batch
         pool and runs before any write.  Returns the descent with its shed,
-        cost, cache and counters carried forward, and ``(keys, values,
-        taken)``."""
+        cost and counters carried forward, ``(keys, values, taken)`` and,
+        with ``stamp``, each hop's leaf (-1 where the lane did not hop) and
+        the version it read, ``[Dev, Q, hops - 1]``."""
         nq = q.shape[1]
         succ = state.succ[0]
+        vers = state.versions
         qc = q[..., None]
         win_k = [torch.where(is_scan[..., None], d.rows_k, KEY_MAX)]
         win_v = [torch.where(is_scan[..., None], d.rows_v, 0)]
         collected = ((win_k[0] != KEY_MAX) & (win_k[0] >= qc)).sum(-1)
         in_range = is_scan
         gid_h = d.gid
-        shed, cost, fmiss, cache = d.shed, d.cost, d.fmiss, d.cache
+        shed, cost, fmiss, cache = d.shed, d.cost, d.fmiss, state.cache
         n_hit, n_fetch = d.n_hit, d.n_fetch
+        hop_gids, hop_vers = [], []
         for h in range(1, hops):
             nxt = succ[torch.where(in_range, gid_h, 0)]
             in_range = in_range & (collected < cnt) & (nxt >= 0)
             gid_h = torch.where(in_range, nxt, gid_h)
             gid = torch.where(in_range, gid_h, 0)
+            if stamp:
+                hop_gids.append(torch.where(in_range, gid_h, -1))
+                hop_vers.append(torch.where(in_range, vers.gather(1, gid), 0))
             salt = state.stats[:, STAT_OPS, None] + h + torch.arange(
                 nq, device=device
             )
-            p_ok = fleet_cache.leaf_admit(cfg, cache_policy, gid, salt)
-            rows_k, _, rows_v, hit, miss, f_drop, n_msgs, cache = (
+            p_ok = fleet_cache.leaf_admit(meta, cfg, cache_policy, gid, salt, boost=boost)
+            rows_k, _, rows_v, hit, miss, f_drop, n_msgs, cache, _ = (
                 cached_fetch_level(
-                    state.pool, meta, cfg, cache, state.versions, gid, in_range, p_ok
+                    state.pool, meta, cfg, cache, vers, gid, in_range, p_ok
                 )
             )
             shed = shed | f_drop
@@ -469,15 +630,23 @@ def make_dex_engine(
             shed=shed,
             cost=cost,
             fmiss=fmiss,
-            cache=cache,
             n_hit=n_hit,
             n_fetch=n_fetch,
             rows_k=None,
             rows_v=None,
         )
-        return d, (sc_k, sc_v, taken)
+        stamps = None
+        if stamp:
+            if hop_gids:
+                stamps = (torch.stack(hop_gids, -1), torch.stack(hop_vers, -1))
+            else:
+                stamps = (
+                    torch.full((n_dev, nq, 0), -1, dtype=torch.int64, device=device),
+                    torch.zeros((n_dev, nq, 0), dtype=vers.dtype, device=device),
+                )
+        return d, (sc_k, sc_v, taken), stamps
 
-    def no_descent(state, q, subtree, cost) -> Descent:
+    def no_descent(q, subtree, cost) -> Descent:
         zero_cl = torch.zeros((n_dev, nm, levels), device=device)
         zero_dev = torch.zeros(n_dev, dtype=torch.int64, device=device)
         none = torch.zeros_like(q, dtype=torch.bool)
@@ -488,7 +657,6 @@ def make_dex_engine(
             shed=none,
             fmiss=none,
             cost=cost,
-            cache=state.cache,
             miss_cl=zero_cl,
             want_cl=zero_cl,
             realized=zero_cl,
@@ -496,218 +664,22 @@ def make_dex_engine(
             n_fetch=zero_dev,
         )
 
-    def owner_walk(pool, q, subtree, send):
-        """The lookup engine's fused exchange over the memory axis: the
-        owning column walks its subtree block for each ``send`` lane with
-        the ``subtree_walk`` kernel.  Returns ``(found, value, dropped)``."""
-        nq = q.shape[1]
-        dest = torch.where(send, subtree // s_per, nm)
-        wcap = routing.route_capacity(nq, nm, cfg.route_capacity_factor)
-        wbuf, wlane, dropped = routing.pack_by_dest(
-            torch.stack([subtree, q], -1), dest, nm, wcap
-        )
-        req = mesh.a2a(wbuf, cfg, cfg.memory_axis).reshape(n_dev, -1, 2)
-        stf, kf = req[..., 0], req[..., 1]
-        walk = kf != KEY_MAX
-        # a request on column m names a subtree of m's shard
-        st = my_col * s_per + torch.where(walk, stf % s_per, 0)
-        o_found, o_val, _ = kops.subtree_walk(
-            pool.pool_keys,
-            pool.pool_children,
-            pool.pool_values,
-            st.reshape(-1).to(torch.int32),
-            kf.reshape(-1).contiguous(),
-            levels=levels,
-            active=walk.reshape(-1),
-        )
-        o_found = o_found.view(walk.shape) & walk
-        o_val = torch.where(walk, o_val.view(walk.shape), 0)
-        resp = torch.stack([o_found.long(), o_val], -1).view(n_dev, nm, wcap, 2)
-        resp = mesh.a2a(resp, cfg, cfg.memory_axis)
-        back = routing.unpack_to_lanes(resp, wlane, nq, 0)
-        return back[..., 0] != 0, back[..., 1], dropped & send
-
-    def write_round(state, q, val, opc, pr, subtree, col, offl, d: Descent):
-        """The fused tagged request/response exchange of an engine with
-        writes.  Each lane's request goes to its leaf's memory column; the
-        columns' batches are gathered over the route replicas and applied
-        to the one pool once: offloaded lanes first walk the pre-batch pool
-        (``subtree_walk``), then every write applies (``leaf_write``), and
-        each device takes its own route row of the response."""
-        pool = state.pool
-        nq = q.shape[1]
-        live = q != KEY_MAX
-        ok_lane = live & ~d.shed
-        tag = torch.zeros_like(q)
-        if has_lookup and may_offload:
-            tag = torch.where(
-                ok_lane & (opc == OP_LOOKUP) & offl, MSG_OFF_LOOKUP, tag
-            )
-        if has_update:
-            is_up = ok_lane & (opc == OP_UPDATE)
-            if may_offload:
-                tag = torch.where(is_up & offl, MSG_OFF_UPDATE, tag)
-            tag = torch.where(is_up & ~offl & d.found, MSG_UPDATE, tag)
-        if has_insert:
-            is_in = ok_lane & (opc == OP_INSERT)
-            if may_offload:
-                tag = torch.where(is_in & offl, MSG_OFF_INSERT, tag)
-            tag = torch.where(is_in & ~offl, MSG_INSERT, tag)
-        send = tag != MSG_NONE
-        dest = torch.where(send, col, nm)
-        wcap = routing.route_capacity(nq, nm, cfg.route_capacity_factor)
-        fetched_w = (tag == MSG_UPDATE) | (tag == MSG_INSERT)
-        payload = torch.stack(
-            [tag, torch.where(fetched_w, d.gid, KEY_MAX), subtree, q, val, pr], -1
-        )
-        wbuf, wlane, dropped = routing.pack_by_dest(payload, dest, nm, wcap)
-        dropped = dropped & send
-        req = mesh.a2a(wbuf, cfg, cfg.memory_axis)  # [Dev, nm, wcap, RF]
-        # [nm, nr, nm, wcap, RF]: each column's batch, gathered once
-        flat = mesh.gather_route(req, cfg).reshape(-1, REQ_FIELDS)
-        tagf, gidf, stf, kf, vf, prf = (c.contiguous() for c in flat.unbind(-1))
-        wgid = torch.where((tagf == MSG_UPDATE) | (tagf == MSG_INSERT), gidf, KEY_MAX)
-        resp_val = torch.zeros_like(kf)
-        if may_offload:
-            # the owner-side walk reads the pre-batch pool
-            walk = (tagf >= MSG_OFF_LOOKUP) & (tagf <= MSG_OFF_INSERT)
-            col_f = torch.arange(kf.numel(), device=device) // (nr * nm * wcap)
-            st = col_f * s_per + torch.where(walk, stf % s_per, 0)
-            o_found, o_val, o_loc = kops.subtree_walk(
-                pool.pool_keys,
-                pool.pool_children,
-                pool.pool_values,
-                st.to(torch.int32),
-                kf,
-                levels=levels,
-                active=walk,
-            )
-            o_found = o_found & walk
-            off_w = (tagf == MSG_OFF_UPDATE) | (tagf == MSG_OFF_INSERT)
-            wgid = torch.where(off_w, meta.node_gid(stf, o_loc.long()), wgid)
-            lk = tagf == MSG_OFF_LOOKUP
-            resp_val = torch.where(lk, o_val, 0)
-        allow_ins = (tagf == MSG_INSERT) | (tagf == MSG_OFF_INSERT)
-        _, _, _, wstat, rows_v, ins_in_leaf = _apply_leaf_writes(
-            pool.pool_keys,
-            pool.pool_values,
-            state.occupancy,
-            meta,
-            wgid,
-            kf,
-            vf,
-            prf,
-            allow_ins,
-        )
-        if may_offload:
-            wstat = torch.where(
-                lk, torch.where(o_found, STATUS_OK, STATUS_MISS).to(wstat.dtype), wstat
-            )
-        resp = torch.cat(
-            [
-                wstat[:, None].long(),
-                resp_val[:, None],
-                wgid[:, None],
-                ins_in_leaf[:, None].long(),
-                rows_v,
-            ],
-            -1,
-        )
-        del rows_v
-        width = RESP_HEAD + FANOUT
-        # each device answers its own route row
-        resp = mesh.route_share(resp.view(nm, nr, nm, wcap, width), cfg)
-        resp = mesh.a2a(resp, cfg, cfg.memory_axis)
-        back = routing.unpack_to_lanes(resp, wlane, nq, 0)
-        return Fused(
-            send=send,
-            dropped=dropped,
-            status=back[..., 0].to(torch.int32),
-            value=back[..., 1],
-            gid=back[..., 2],
-            ins=back[..., 3] != 0,
-            row_v=back[..., RESP_HEAD:],
-        )
-
-    def write_through(state, cache: DexCache, opc, f: Fused):
-        """Version bumps (mesh-wide maximum) and the writer's own cache:
-        refresh an updated leaf's value row, drop an inserted leaf's row."""
-        delivered = f.send & ~f.dropped
-        wrote_ok = (
-            delivered
-            & ((opc == OP_UPDATE) | (opc == OP_INSERT))
-            & (f.status == STATUS_OK)
-        )
-        vers = state.versions
-        nv = vers.gather(1, torch.where(wrote_ok, f.gid, 0)) + 1
-        bump = torch.zeros(n_nodes + 1, dtype=vers.dtype, device=device)
-        at = torch.where(wrote_ok, f.gid, n_nodes).reshape(-1)
-        bump.scatter_reduce_(0, at, nv.reshape(-1), "amax")
-        new_vers = torch.maximum(mesh.pmax(vers), bump[:n_nodes])
-        set_idx = routing.umod(routing.hash64(f.gid), cfg.cache_sets)
-        dd = torch.arange(n_dev, device=device)[:, None]
-        eqt = cache.tags[dd, set_idx] == f.gid[..., None]
-        chit = eqt.any(-1) & wrote_ok
-        way = fleet_cache._first_true(eqt)
-        slot = (dd * cfg.cache_sets + set_idx) * cfg.cache_ways + way
-        # lanes that hit one (set, way) carry one gid, so one row and one
-        # version: duplicate writes agree
-        if has_update:
-            # not when the leaf also took inserts: the cached keys would be
-            # stale under a current version; the old stamp forces a refetch
-            u = (chit & (opc == OP_UPDATE) & ~f.ins).nonzero(as_tuple=True)
-            cache.values.view(-1, FANOUT)[slot[u]] = f.row_v[u]
-            cache.ver.view(-1)[slot[u]] = nv[u]
-        if has_insert:
-            i = (chit & (opc == OP_INSERT)).nonzero(as_tuple=True)
-            cache.tags.view(-1)[slot[i]] = -1
-        vers.copy_(new_vers)
-        return cache
-
-    def engine(state: DexState, opcodes, keys, values):
-        keys = torch.as_tensor(keys).to(device=device, dtype=torch.int64)
-        if keys.shape[0] % n_dev:
-            raise ValueError(
-                f"batch width {keys.shape[0]} must divide over {n_dev} devices"
-            )
-        if state.stats.device != device:
-            raise ValueError(f"state lies on {state.stats.device}, engine on {device}")
-        b = keys.shape[0] // n_dev
-        if b == 0:
-            none = torch.zeros((0,), dtype=torch.bool, device=device)
-            i64 = dict(dtype=torch.int64, device=device)
-            return state, EngineResult(
-                found=none,
-                values=torch.zeros((0,), **i64),
-                status=torch.zeros((0,), dtype=torch.int32, device=device),
-                shed=none,
-                scan_keys=torch.zeros((0, mc), **i64) if has_scan else None,
-                scan_values=torch.zeros((0, mc), **i64) if has_scan else None,
-                taken=(
-                    torch.zeros((0,), dtype=torch.int32, device=device)
-                    if has_scan
-                    else None
-                ),
-            )
-        # opcodes outside ``ops`` are no-ops, masked before routing
-        opcodes = torch.as_tensor(opcodes).to(device=device, dtype=torch.int32)
-        allowed = opcodes == enabled[0]
-        for code in enabled[1:]:
-            allowed = allowed | (opcodes == code)
-        keys = torch.where(allowed, keys, KEY_MAX).view(n_dev, b)
-
+    def run_front(state, keys, opc_in, values, *, stamp):
+        """The front half of a batch (``keys`` [Dev, b], masked): the route
+        round, the top walk and offload decision, the route-table probe,
+        the cached descent and the scan window.  Updates the cache in place
+        and returns ``(carry, new_ema, demand, stats update, audit
+        update)``; the carry holds what the back half needs, with
+        ``stamp`` the versions the descent read."""
+        b = keys.shape[1]
         # 1. route round: every lane to the route row owning its key
         owner, demand = routing.route_owners(state.boundaries, keys, nr)
         cap = routing.route_capacity(b, nr, cfg.route_capacity_factor)
         if route_planes:
-            values = torch.as_tensor(values).to(device=device, dtype=torch.int64)
-            opc_in = opcodes.view(n_dev, b).long()
             lane_prio = dev_index[:, None] * b + torch.arange(b, device=device)
             # phase-offset priority: all updates replay before all inserts
             phase = torch.where(opc_in == OP_INSERT, n_dev * b, 0)
-            payload = torch.stack(
-                [keys, values.view(n_dev, b), opc_in, lane_prio + phase], -1
-            )
+            payload = torch.stack([keys, values, opc_in, lane_prio + phase], -1)
         else:
             payload = keys
         buf, lane, dropped_r = routing.pack_by_dest(payload, owner, nr, cap)
@@ -715,10 +687,12 @@ def make_dex_engine(
         routed = routing.route_exchange(buf, cfg).reshape(
             (n_dev, nr * cap) + tuple(payload.shape[2:])
         )
+        carry = {"lane": lane, "dropr": dropped_r}
         if route_planes:
             q = routed[..., 0].contiguous()
             val, pr = routed[..., 1], routed[..., 3]
             opc = routed[..., 2].to(torch.int32)
+            carry.update(val=val, opc=opc, pr=pr)
         else:
             q = routed
             opc = None
@@ -760,18 +734,26 @@ def make_dex_engine(
             )
             p_loc = p_loc.long()
 
-        # 3. cached descent of the lanes that stay one-sided
+        # 3. cached descent of the lanes that stay one-sided; a divergent
+        # policy scales its dice by each device's own route demand
+        boost = fleet_cache.demand_boost(cache_policy, cfg, state.route_demand, r_lin)
         if do_descent:
             leaf_want = fetchable if opc is None else fetchable & (opc != OP_INSERT)
             d = descent(
-                state, q, subtree, col, fetchable, leaf_want, cost, is_scan, acc, p_loc
+                state, q, opc, subtree, col, fetchable, leaf_want, cost, is_scan,
+                boost, acc, p_loc,
             )
         else:
-            d = no_descent(state, q, subtree, cost)
+            d = no_descent(q, subtree, cost)
         if has_scan:
-            # the scan window, read before the write round touches the pool
+            # the scan window, read before any write touches the pool
             cnt = torch.clamp(torch.where(is_scan, val, 0), 0, mc).to(torch.int32)
-            d, scan_out = scan_window(state, q, cnt, is_scan, d)
+            d, (sc_k, sc_v, taken), stamps = scan_window(
+                state, q, cnt, is_scan, d, boost, stamp
+            )
+            carry.update(sck=sc_k, scv=sc_v, taken=taken)
+            if stamp:
+                carry.update(hgid=stamps[0], hver=stamps[1])
         cost = d.cost
         if has_lookup:
             # the compute-side leaf search of one-sided lookups
@@ -781,40 +763,8 @@ def make_dex_engine(
             # and of a scan's first (descent) hop
             cost = cost + is_scan.float() * obs_latency.T_LOCAL
 
-        # 4. the fused round over the memory axis
-        r_found = send = dropped_w = torch.zeros_like(live)
-        r_val = 0
-        cache = d.cache
-        status = None
-        if has_writes:
-            f = write_round(state, q, val, opc, pr, subtree, col, offl, d)
-            send, dropped_w, r_val = f.send, f.dropped, f.value
-            r_found = f.status == STATUS_OK
-            cache = write_through(state, cache, opc, f)
-            is_w = live & ((opc == OP_UPDATE) | (opc == OP_INSERT))
-            status = torch.where(
-                is_w & send & ~dropped_w & ~d.shed,
-                f.status,
-                torch.where(
-                    is_w & (d.shed | dropped_w), STATUS_SHED, STATUS_MISS
-                ).to(torch.int32),
-            )
-            del f
-        elif may_offload:
-            send = offl & ~d.shed
-            r_found, r_val, dropped_w = owner_walk(state.pool, q, subtree, send)
-        delivered = send & ~dropped_w
-        # a lane that sent a request was offloaded or is a fetched-path write
-        off_done = delivered & offl
-        write_done = delivered & ~offl
-        out_found = torch.where(offl, r_found & delivered, d.found & ~d.shed)
-        if opc is not None:
-            out_found = out_found & (opc == OP_LOOKUP)
-        out_val = torch.where(out_found, torch.where(offl, r_val, d.value), 0)
-        lane_shed = d.shed | (send & dropped_w)
-
-        # 5. state planes: the EMA over mesh-global counts, stats, latency
-        # histogram and cost-model audit
+        # the EMA over mesh-global counts, the front half's stats and the
+        # cost-model audit
         g_want = mesh.psum(d.want_cl)
         rates = mesh.psum(d.miss_cl) / torch.clamp(g_want, min=1.0)
         new_ema = torch.where(
@@ -824,11 +774,7 @@ def make_dex_engine(
         upd[:, STAT_OPS] = live.sum(1)
         upd[:, STAT_HITS] = d.n_hit
         upd[:, STAT_FETCHES] = d.n_fetch
-        upd[:, STAT_OFFLOADS] = off_done.sum(1)
-        upd[:, STAT_DROPS] = dropped_r.sum(1) + (lane_shed & live).sum(1)
-        if has_writes:
-            upd[:, STAT_WRITES] = write_done.sum(1)
-            upd[:, STAT_SPLITS] = (status == STATUS_SPLIT).sum(1)
+        upd[:, STAT_DROPS] = dropped_r.sum(1)
         # group decisions are mesh-global: count them once, on device 0
         upd[:, STAT_OFFLOAD_GROUPS] = first * (want_off_c & grp_live).sum(1)
         upd[:, STAT_FETCH_GROUPS] = first * (~want_off_c & grp_live).sum(1)
@@ -836,23 +782,6 @@ def make_dex_engine(
             # an accepted lane skips every inner level of its subtree
             upd[:, STAT_RT_SKIPS] = acc.sum(1) * (levels - 1)
             upd[:, STAT_RT_MISPREDICTS] = (guess & ~acc).sum(1)
-        # a two-sided trip prices one RPC plus the owner's per-level walk, a
-        # fetched-path write one write-through; each live lane bins into one
-        # (op class, path, bucket) cell
-        cost = cost + off_done.float() * (
-            obs_latency.T_RPC + float(levels) * obs_latency.T_MEM
-        )
-        if has_writes:
-            cost = cost + write_done.float() * obs_latency.T_WRITE
-        path = torch.where(d.fmiss, 1, 0)
-        path = torch.where(off_done, 3, path)
-        path = torch.where(lane_shed, 5, path)
-        cell = path * obs_latency.N_BUCKETS + obs_latency.bucket_index(cost)
-        if opc is not None:
-            cls = torch.clamp(opc, 0, obs_latency.N_CLASSES - 1).long()
-            cell = cell + cls * (obs_latency.N_PATHS * obs_latency.N_BUCKETS)
-        hist = torch.zeros_like(state.lat_hist).view(n_dev, -1)
-        hist.scatter_add_(1, cell, live.long())
         audit_upd = torch.zeros_like(state.lat_audit)
         if audit:
             # predicted bytes of the columns priced onto the fetch side, on
@@ -865,6 +794,373 @@ def make_dex_engine(
             )
             audit_upd[:, 1] = d.realized
 
+        carry.update(
+            q=q, subtree=subtree, offl=offl, gid=d.gid, found=d.found,
+            vleaf=d.value, shed=d.shed, cost=cost, fmiss=d.fmiss,
+        )
+        if may_peek:
+            carry["peek"] = d.peeked
+        if stamp:
+            gsafe = d.gid.clamp(0, n_nodes - 1)
+            carry["vseen"] = torch.where(live, state.versions.gather(1, gsafe), 0)
+        return carry, new_ema, demand, upd, audit_upd
+
+    def lookup_round(state, q, subtree, gid, tag) -> Fused:
+        """The fused exchange of an engine without writes: each two-sided
+        lane (``tag`` ``MSG_OFF_LOOKUP`` or ``MSG_PEEK``) goes to its leaf's
+        memory column; a peek is answered from the receiving device's cache
+        where its row is fresh, and every other request by the owner's
+        block walk (``subtree_walk``)."""
+        nq = q.shape[1]
+        send = tag != MSG_NONE
+        dest = torch.where(send, subtree // s_per, nm)
+        wcap = routing.route_capacity(nq, nm, cfg.route_capacity_factor)
+        fields = [subtree, q]
+        if may_peek:
+            fields += [tag, torch.where(tag == MSG_PEEK, gid, KEY_MAX)]
+        wbuf, wlane, dropped = routing.pack_by_dest(
+            torch.stack(fields, -1), dest, nm, wcap
+        )
+        req = mesh.a2a(wbuf, cfg, cfg.memory_axis).reshape(n_dev, -1, len(fields))
+        stf, kf = req[..., 0], req[..., 1]
+        walk = kf != KEY_MAX
+        if may_peek:
+            peer_hit, p_found, p_val = fleet_cache.peer_answer(
+                state.cache, cfg, state.versions, req[..., 3], kf,
+                req[..., 2] == MSG_PEEK,
+            )
+            walk = walk & ~peer_hit
+        # a request on column m names a subtree of m's shard
+        st = my_col * s_per + torch.where(walk, stf % s_per, 0)
+        o_found, o_val, _ = kops.subtree_walk(
+            state.pool.pool_keys,
+            state.pool.pool_children,
+            state.pool.pool_values,
+            st.reshape(-1).to(torch.int32),
+            kf.reshape(-1).contiguous(),
+            levels=levels,
+            active=walk.reshape(-1),
+        )
+        o_found = o_found.view(walk.shape) & walk
+        o_val = torch.where(walk, o_val.view(walk.shape), 0)
+        resp = [o_found, o_val]
+        if may_peek:
+            resp = [
+                torch.where(peer_hit, p_found, o_found),
+                torch.where(peer_hit, p_val, o_val),
+                peer_hit,
+            ]
+        width = len(resp)
+        resp = torch.stack([t.long() for t in resp], -1).view(n_dev, nm, wcap, width)
+        resp = mesh.a2a(resp, cfg, cfg.memory_axis)
+        back = routing.unpack_to_lanes(resp, wlane, nq, 0)
+        return Fused(
+            send=send,
+            dropped=dropped & send,
+            status=torch.where(back[..., 0] != 0, STATUS_OK, STATUS_MISS).to(
+                torch.int32
+            ),
+            value=back[..., 1],
+            ins=back[..., 2] != 0 if may_peek else torch.zeros_like(send),
+            peek=tag == MSG_PEEK,
+        )
+
+    def write_round(state, q, val, pr, subtree, col, gid, tag) -> Fused:
+        """The fused tagged request/response exchange of an engine with
+        writes.  Each lane's request goes to its leaf's memory column; the
+        columns' batches are gathered over the route replicas and applied
+        to the one pool once: two-sided lanes first walk the pre-batch pool
+        (``subtree_walk``; a peek answered from the receiving device's
+        cache does not walk), then every write applies (``leaf_write``),
+        and each device takes its own route row of the response."""
+        pool = state.pool
+        nq = q.shape[1]
+        send = tag != MSG_NONE
+        dest = torch.where(send, col, nm)
+        wcap = routing.route_capacity(nq, nm, cfg.route_capacity_factor)
+        with_gid = (tag == MSG_UPDATE) | (tag == MSG_INSERT) | (tag == MSG_PEEK)
+        payload = torch.stack(
+            [tag, torch.where(with_gid, gid, KEY_MAX), subtree, q, val, pr], -1
+        )
+        wbuf, wlane, dropped = routing.pack_by_dest(payload, dest, nm, wcap)
+        dropped = dropped & send
+        req = mesh.a2a(wbuf, cfg, cfg.memory_axis)  # [Dev, nm, wcap, RF]
+        # [nm, nr, nm, wcap, RF]: each column's batch, gathered once
+        flat = mesh.gather_route(req, cfg).reshape(-1, REQ_FIELDS)
+        tagf, gidf, stf, kf, vf, prf = (c.contiguous() for c in flat.unbind(-1))
+        wgid = torch.where((tagf == MSG_UPDATE) | (tagf == MSG_INSERT), gidf, KEY_MAX)
+        resp_val = torch.zeros_like(kf)
+        peekf = tagf == MSG_PEEK
+        if may_peek:
+            # each device probes its own cache for the peeks it received
+            rq = req.reshape(n_dev, -1, REQ_FIELDS)
+            ph, pf, pv = fleet_cache.peer_answer(
+                state.cache, cfg, state.versions, rq[..., 1], rq[..., 3],
+                rq[..., 0] == MSG_PEEK,
+            )
+            peer_hit, p_found, p_val = (
+                mesh.gather_route(t, cfg).reshape(-1) for t in (ph, pf, pv)
+            )
+        if may_offload or may_peek:
+            # the owner-side walk reads the pre-batch pool
+            walk = peekf & ~peer_hit if may_peek else torch.zeros_like(peekf)
+            if may_offload:
+                walk = walk | ((tagf >= MSG_OFF_LOOKUP) & (tagf <= MSG_OFF_INSERT))
+            col_f = torch.arange(kf.numel(), device=device) // (nr * nm * wcap)
+            st = col_f * s_per + torch.where(walk, stf % s_per, 0)
+            o_found, o_val, o_loc = kops.subtree_walk(
+                pool.pool_keys,
+                pool.pool_children,
+                pool.pool_values,
+                st.to(torch.int32),
+                kf,
+                levels=levels,
+                active=walk,
+            )
+            o_found = o_found & walk
+            if may_offload:
+                off_w = (tagf == MSG_OFF_UPDATE) | (tagf == MSG_OFF_INSERT)
+                wgid = torch.where(off_w, meta.node_gid(stf, o_loc.long()), wgid)
+            if may_peek:
+                o_found = torch.where(peer_hit, p_found, o_found)
+                o_val = torch.where(peer_hit, p_val, o_val)
+            lk = peekf | (tagf == MSG_OFF_LOOKUP)
+            resp_val = torch.where(lk, o_val, 0)
+        allow_ins = (tagf == MSG_INSERT) | (tagf == MSG_OFF_INSERT)
+        _, _, _, wstat, rows_v, ins_in_leaf = _apply_leaf_writes(
+            pool.pool_keys,
+            pool.pool_values,
+            state.occupancy,
+            meta,
+            wgid,
+            kf,
+            vf,
+            prf,
+            allow_ins,
+        )
+        if may_offload or may_peek:
+            wstat = torch.where(
+                lk, torch.where(o_found, STATUS_OK, STATUS_MISS).to(wstat.dtype), wstat
+            )
+        if may_peek:
+            # a peek's flag is its peer hit (peeks are lookups, which the
+            # insert path's readers never see)
+            ins_in_leaf = torch.where(peekf, peer_hit, ins_in_leaf)
+        resp = torch.cat(
+            [
+                wstat[:, None].long(),
+                resp_val[:, None],
+                wgid[:, None],
+                ins_in_leaf[:, None].long(),
+                rows_v,
+            ],
+            -1,
+        )
+        del rows_v
+        width = RESP_HEAD + FANOUT
+        # each device answers its own route row
+        resp = mesh.route_share(resp.view(nm, nr, nm, wcap, width), cfg)
+        resp = mesh.a2a(resp, cfg, cfg.memory_axis)
+        back = routing.unpack_to_lanes(resp, wlane, nq, 0)
+        return Fused(
+            send=send,
+            dropped=dropped,
+            status=back[..., 0].to(torch.int32),
+            value=back[..., 1],
+            ins=back[..., 3] != 0,
+            peek=tag == MSG_PEEK,
+            gid=back[..., 2],
+            row_v=back[..., RESP_HEAD:],
+        )
+
+    def write_through(state, opc, f: Fused, force_off):
+        """Version bumps (mesh-wide maximum) and the writer's own cache:
+        refresh an updated leaf's value row, drop an inserted leaf's row."""
+        cache = state.cache
+        delivered = f.send & ~f.dropped
+        wrote_ok = (
+            delivered
+            & ((opc == OP_UPDATE) | (opc == OP_INSERT))
+            & (f.status == STATUS_OK)
+        )
+        vers = state.versions
+        nv = vers.gather(1, torch.where(wrote_ok, f.gid, 0)) + 1
+        bump = torch.zeros(n_nodes + 1, dtype=vers.dtype, device=device)
+        at = torch.where(wrote_ok, f.gid, n_nodes).reshape(-1)
+        bump.scatter_reduce_(0, at, nv.reshape(-1), "amax")
+        new_vers = torch.maximum(mesh.pmax(vers), bump[:n_nodes])
+        set_idx = routing.umod(routing.hash64(f.gid), cfg.cache_sets)
+        dd = torch.arange(n_dev, device=device)[:, None]
+        eqt = cache.tags[dd, set_idx] == f.gid[..., None]
+        chit = eqt.any(-1) & wrote_ok
+        way = fleet_cache._first_true(eqt)
+        slot = (dd * cfg.cache_sets + set_idx) * cfg.cache_ways + way
+        # lanes that hit one (set, way) carry one gid, so one row and one
+        # version: duplicate writes agree
+        if has_update:
+            # not when the leaf also took inserts: the cached keys would be
+            # stale under a current version; the old stamp forces a refetch.
+            # Nor for a stale-forced update: the cached keys are a batch
+            # behind the response's value row.
+            u = (chit & (opc == OP_UPDATE) & ~f.ins & ~force_off).nonzero(as_tuple=True)
+            cache.values.view(-1, FANOUT)[slot[u]] = f.row_v[u]
+            cache.ver.view(-1)[slot[u]] = nv[u]
+        if has_insert:
+            i = (chit & (opc == OP_INSERT)).nonzero(as_tuple=True)
+            cache.tags.view(-1)[slot[i]] = -1
+        vers.copy_(new_vers)
+
+    def run_back(state, carry, b, *, check_stale):
+        """The back half of a batch from its carry: the pipeline's stale
+        check, the fused round, the write-through, the back half's stats and
+        latency histogram, and the return trip.  Writes the pool, occupancy,
+        versions and cache in place; returns ``(stats update, histogram
+        update, EngineResult)``."""
+        q = carry["q"]
+        opc = carry.get("opc")
+        subtree, offl, lane = carry["subtree"], carry["offl"], carry["lane"]
+        found, shed, cost = carry["found"], carry["shed"], carry["cost"]
+        dropped_r = carry["dropr"]
+        live = q != KEY_MAX
+        is_scan = live & (opc == OP_SCAN) if has_scan else torch.zeros_like(live)
+        col = subtree // s_per
+        if has_scan:
+            sc_k, sc_v, taken = carry["sck"], carry["scv"], carry["taken"]
+        upd = torch.zeros((n_dev, N_STATS), dtype=torch.int64, device=device)
+
+        # the overlap window's stale check (pipelined back half only)
+        stalled = force_off = torch.zeros_like(live)
+        if check_stale:
+            vers = state.versions
+            gsafe = carry["gid"].clamp(0, n_nodes - 1)
+            stale = live & (vers.gather(1, gsafe) != carry["vseen"])
+            if has_lookup or has_update:
+                # lookups and updates whose leaf the overlapped batch wrote
+                # re-run two-sided against the current pool; inserts
+                # re-search their leaf anyway; offloaded lanes are current
+                force_off = stale & ~offl & ~shed & ~is_scan
+                if opc is not None:
+                    force_off = force_off & ((opc == OP_LOOKUP) | (opc == OP_UPDATE))
+            n_stalls = force_off.sum(1)
+            if has_scan:
+                # a scan whose window crossed a written leaf sheds to retry
+                hg, hv = carry["hgid"], carry["hver"]
+                hseen = vers.gather(1, hg.clamp(0, n_nodes - 1).view(n_dev, -1))
+                hstale = ((hg >= 0) & (hseen.view(hg.shape) != hv)).any(-1)
+                sc_stale = is_scan & ~shed & (stale | hstale)
+                n_stalls = n_stalls + sc_stale.sum(1)
+                sc_k = torch.where(sc_stale[..., None], KEY_MAX, sc_k)
+                sc_v = torch.where(sc_stale[..., None], 0, sc_v)
+                taken = torch.where(sc_stale, -1, taken).to(torch.int32)
+                shed = shed | sc_stale
+                stalled = sc_stale
+            stalled = stalled | force_off
+            upd[:, STAT_PIPE_STALLS] = n_stalls
+            # a stale lane re-resolves two-sided at its leaf: one RPC and a
+            # one-level memory-side walk
+            cost = cost + stalled.float() * (obs_latency.T_RPC + obs_latency.T_MEM)
+        offl_eff = offl | force_off
+
+        # the fused round over the memory axis
+        f = None
+        if do_fused:
+            ok_lane = live & ~shed
+            is_lk = ok_lane if opc is None else ok_lane & (opc == OP_LOOKUP)
+            tag = torch.zeros_like(q)
+            if has_lookup and may_offload:
+                tag = torch.where(is_lk & offl_eff, MSG_OFF_LOOKUP, tag)
+            if may_peek:
+                # a stale-forced lane keeps its MSG_OFF_LOOKUP
+                tag = torch.where(is_lk & carry["peek"] & ~offl_eff, MSG_PEEK, tag)
+            if has_update:
+                is_up = ok_lane & (opc == OP_UPDATE)
+                if may_offload:
+                    tag = torch.where(is_up & offl_eff, MSG_OFF_UPDATE, tag)
+                tag = torch.where(is_up & ~offl_eff & found, MSG_UPDATE, tag)
+            if has_insert:
+                is_in = ok_lane & (opc == OP_INSERT)
+                if may_offload:
+                    tag = torch.where(is_in & offl_eff, MSG_OFF_INSERT, tag)
+                tag = torch.where(is_in & ~offl_eff, MSG_INSERT, tag)
+            if has_writes:
+                f = write_round(
+                    state, q, carry["val"], carry["pr"], subtree, col, carry["gid"], tag
+                )
+                write_through(state, opc, f, force_off)
+            else:
+                f = lookup_round(state, q, subtree, carry["gid"], tag)
+            send, dropped_w = f.send, f.dropped
+        else:
+            send = dropped_w = torch.zeros_like(live)
+        delivered = send & ~dropped_w
+        is_off = offl_eff & send
+        sent_peek = f.peek if may_peek else torch.zeros_like(live)
+        two_sided = offl_eff | sent_peek
+        out_found = torch.where(
+            two_sided,
+            (f.status == STATUS_OK) & delivered if do_fused else two_sided,
+            found & ~shed,
+        )
+        if opc is not None:
+            out_found = out_found & (opc == OP_LOOKUP)
+        out_found = out_found & live
+        out_val = torch.where(
+            out_found, torch.where(two_sided, f.value if do_fused else 0, carry["vleaf"]), 0
+        )
+        status = None
+        if has_writes:
+            is_w = live & ((opc == OP_UPDATE) | (opc == OP_INSERT))
+            status = torch.where(
+                is_w & delivered & ~shed,
+                f.status,
+                torch.where(
+                    is_w & (shed | dropped_w), STATUS_SHED, STATUS_MISS
+                ).to(torch.int32),
+            )
+        lane_shed = shed | (send & dropped_w)
+
+        # stats, then each lane's two-sided trip priced (one RPC plus the
+        # owner's per-level walk; a peek one RPC plus a cached access or a
+        # one-level walk; a fetched-path write one write-through, which the
+        # pipeline hides under the next batch), and binned into one (op
+        # class, path, bucket) cell
+        upd[:, STAT_OFFLOADS] = (delivered & is_off).sum(1)
+        upd[:, STAT_DROPS] = (lane_shed & live).sum(1)
+        if has_writes:
+            upd[:, STAT_WRITES] = (delivered & ~is_off & (opc != OP_LOOKUP)).sum(1)
+            upd[:, STAT_SPLITS] = (status == STATUS_SPLIT).sum(1)
+        off_norm = delivered & is_off & ~stalled
+        cost = cost + off_norm.float() * (
+            obs_latency.T_RPC + float(levels) * obs_latency.T_MEM
+        )
+        if may_peek:
+            pk = delivered & sent_peek
+            upd[:, STAT_PEER_HITS] = (pk & f.ins).sum(1)
+            upd[:, STAT_PEER_MISSES] = (pk & ~f.ins).sum(1)
+            # the reference adds the constants in float64, then rounds
+            trip = torch.where(
+                f.ins,
+                _f32(obs_latency.T_RPC + obs_latency.T_CACHED),
+                _f32(obs_latency.T_RPC + obs_latency.T_MEM),
+            ).float()
+            cost = cost + pk.float() * trip
+        if has_writes and not check_stale:
+            wl = delivered & ~is_off & ((opc == OP_UPDATE) | (opc == OP_INSERT))
+            cost = cost + wl.float() * obs_latency.T_WRITE
+        path = torch.where(carry["fmiss"], 1, 0)
+        if may_peek:
+            path = torch.where(delivered & sent_peek, 2, path)
+        path = torch.where(off_norm, 3, path)
+        path = torch.where(lane_shed, 5, path)
+        if check_stale:
+            path = torch.where(stalled, 4, path)
+        cell = path * obs_latency.N_BUCKETS + obs_latency.bucket_index(cost)
+        if opc is not None:
+            cls = torch.clamp(opc, 0, obs_latency.N_CLASSES - 1).long()
+            cell = cell + cls * (obs_latency.N_PATHS * obs_latency.N_BUCKETS)
+        hist = torch.zeros_like(state.lat_hist).view(n_dev, -1)
+        hist.scatter_add_(1, cell, live.long())
+
         # the return trip over the route axis
         fields = [out_found.long(), out_val]
         if has_writes:
@@ -873,25 +1169,15 @@ def make_dex_engine(
         head = len(fields)
         fields = torch.stack(fields, -1)
         if has_scan:
-            sc_k, sc_v, taken = scan_out
             fields = torch.cat([fields, taken.long()[..., None], sc_k, sc_v], -1)
-            del scan_out, sc_k, sc_v
+            del sc_k, sc_v
         width = fields.shape[-1]
+        cap = lane.shape[2]
         back = routing.route_exchange(fields.view(n_dev, nr, cap, width), cfg)
         del fields
         out = routing.unpack_to_lanes(back, lane, b, 0)
-        new_state = state._replace(
-            cache=cache,
-            miss_ema=new_ema,
-            stats=state.stats + upd,
-            route_demand=state.route_demand + demand,
-            lat_hist=state.lat_hist + hist.view(state.lat_hist.shape),
-            lat_audit=state.lat_audit + audit_upd,
-        )
         if has_writes:
-            res_status = torch.where(
-                dropped_r, STATUS_SHED, out[..., 2].to(torch.int32)
-            )
+            res_status = torch.where(dropped_r, STATUS_SHED, out[..., 2].to(torch.int32))
         else:
             res_status = torch.where(dropped_r, STATUS_SHED, STATUS_MISS)
         result = EngineResult(
@@ -913,7 +1199,134 @@ def make_dex_engine(
                 .to(torch.int32)
                 .reshape(-1),
             )
-        return new_state, result
+        return upd, hist.view(state.lat_hist.shape), result
+
+    def prepare(state, opcodes, keys, values):
+        """Lanes to ``[Dev, b]`` on the engine's device; opcodes outside
+        ``ops`` are no-ops, masked before routing."""
+        keys = torch.as_tensor(keys).to(device=device, dtype=torch.int64)
+        if keys.shape[0] % n_dev:
+            raise ValueError(
+                f"batch width {keys.shape[0]} must divide over {n_dev} devices"
+            )
+        if state.stats.device != device:
+            raise ValueError(f"state lies on {state.stats.device}, engine on {device}")
+        b = keys.shape[0] // n_dev
+        opcodes = torch.as_tensor(opcodes).to(device=device, dtype=torch.int32)
+        allowed = opcodes == enabled[0]
+        for code in enabled[1:]:
+            allowed = allowed | (opcodes == code)
+        keys = torch.where(allowed, keys, KEY_MAX).view(n_dev, b)
+        opc_in = vals = None
+        if route_planes:
+            vals = torch.as_tensor(values).to(device=device, dtype=torch.int64)
+            vals = vals.view(n_dev, b)
+            opc_in = opcodes.view(n_dev, b).long()
+        return keys, opc_in, vals
+
+    def advance(state, new_ema, demand, f_upd, audit_upd, b_upd, hist):
+        return state._replace(
+            miss_ema=new_ema,
+            stats=state.stats + f_upd + b_upd,
+            route_demand=state.route_demand + demand,
+            lat_hist=state.lat_hist + hist,
+            lat_audit=state.lat_audit + audit_upd,
+        )
+
+    def engine(state: DexState, opcodes, keys, values):
+        keys, opc_in, vals = prepare(state, opcodes, keys, values)
+        b = keys.shape[1]
+        if b == 0:
+            none = torch.zeros((0,), dtype=torch.bool, device=device)
+            i64 = dict(dtype=torch.int64, device=device)
+            return state, EngineResult(
+                found=none,
+                values=torch.zeros((0,), **i64),
+                status=torch.zeros((0,), dtype=torch.int32, device=device),
+                shed=none,
+                scan_keys=torch.zeros((0, mc), **i64) if has_scan else None,
+                scan_values=torch.zeros((0, mc), **i64) if has_scan else None,
+                taken=(
+                    torch.zeros((0,), dtype=torch.int32, device=device)
+                    if has_scan
+                    else None
+                ),
+            )
+        carry, new_ema, demand, f_upd, audit_upd = run_front(
+            state, keys, opc_in, vals, stamp=False
+        )
+        b_upd, hist, result = run_back(state, carry, b, check_stale=False)
+        return advance(state, new_ema, demand, f_upd, audit_upd, b_upd, hist), result
 
     engine.plan = plan
-    return engine
+    if not pipeline:
+        return engine
+
+    def init_carry(b_global: int):
+        """The all-inactive prologue carry for a batch of ``b_global``
+        lanes: every routed slot holds the KEY_MAX sentinel, so the first
+        step's back half sends, writes and answers nothing."""
+        if b_global % n_dev:
+            raise ValueError(f"batch width {b_global} must divide over {n_dev} devices")
+        b = b_global // n_dev
+        cap = routing.route_capacity(b, nr, cfg.route_capacity_factor)
+        qs = (n_dev, nr * cap)
+        i64 = dict(dtype=torch.int64, device=device)
+        none = torch.zeros(qs, dtype=torch.bool, device=device)
+        carry = {
+            "lane": torch.full((n_dev, nr, cap), b, dtype=torch.int32, device=device),
+            "dropr": torch.zeros((n_dev, b), dtype=torch.bool, device=device),
+            "q": torch.full(qs, KEY_MAX, **i64),
+            "subtree": torch.zeros(qs, **i64),
+            "offl": none,
+            "gid": torch.zeros(qs, **i64),
+            "found": none,
+            "vleaf": torch.zeros(qs, **i64),
+            "shed": none,
+            "cost": torch.zeros(qs, dtype=torch.float32, device=device),
+            "fmiss": none,
+            "vseen": torch.zeros(qs, dtype=torch.int32, device=device),
+        }
+        if route_planes:
+            carry.update(
+                val=torch.zeros(qs, **i64),
+                opc=torch.zeros(qs, dtype=torch.int32, device=device),
+                pr=torch.zeros(qs, **i64),
+            )
+        if may_peek:
+            carry["peek"] = none
+        if has_scan:
+            h = max(hops - 1, 0)
+            carry.update(
+                sck=torch.full(qs + (mc,), KEY_MAX, **i64),
+                scv=torch.zeros(qs + (mc,), **i64),
+                taken=torch.zeros(qs, dtype=torch.int32, device=device),
+                hgid=torch.full(qs + (h,), -1, **i64),
+                hver=torch.zeros(qs + (h,), dtype=torch.int32, device=device),
+            )
+        return carry
+
+    def pipe_step(state: DexState, carry, opcodes, keys, values):
+        """One pipeline step: the new batch's front half, then the carried
+        batch's back half, which sees the cache as the front half left it
+        and the versions as they were before this step."""
+        keys, opc_in, vals = prepare(state, opcodes, keys, values)
+        b = keys.shape[1]
+        with mesh.phase("pipe/front"):
+            carry_out, new_ema, demand, f_upd, audit_upd = run_front(
+                state, keys, opc_in, vals, stamp=True
+            )
+        with mesh.phase("pipe/back"):
+            b_upd, hist, result = run_back(state, carry, b, check_stale=True)
+        # the histogram lags STAT_OPS by one batch (a lane bins when its
+        # back half lands); the drain closes the gap
+        new_state = advance(state, new_ema, demand, f_upd, audit_upd, b_upd, hist)
+        return new_state, carry_out, result
+
+    pplan = dict(
+        plan,
+        pipeline=True,
+        stages=("front", "back"),
+        overlap_phases=("pipe/front", "pipe/back"),
+    )
+    return EnginePipeline(pipe_step, init_carry, pplan)

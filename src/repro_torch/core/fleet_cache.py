@@ -1,12 +1,25 @@
-"""Per-device set-associative node cache of the mesh plane.
+"""Per-device set-associative node cache of the mesh plane and its policy.
 
 :class:`DexCache` holds one cache per virtual device (leading ``Dev``
 axis).  :func:`cached_fetch_level` is one level of the version-checked
 descent: probe, remote-fetch the misses, admit the fetched rows FIFO within
-their set.  Only the uniform policy (every device rolls the same §5.4
-admission dice) is ported.  :func:`rt_accept` is the fence check of a
-route-table guess and :func:`invalidate_nodes` the version bump of a
-repartition install.
+their set.  :func:`leaf_admit` rolls the §5.4 leaf-admission dice under a
+:class:`CachePolicy`:
+
+* :func:`uniform_policy` (or ``None``): every device rolls the same dice;
+* :func:`divergent_policy`: the ``n_memory`` devices of a route row
+  specialise on disjoint memory columns.  A device scales its admission
+  percent by ``admit_bias[dev, col]`` (``col`` owns the leaf's subtree; its
+  own column boosted, the others damped) and by its share of its route
+  demand (:func:`demand_boost`), and folds a per-device salt into the dice;
+  up to ``peek_budget`` leaf misses a batch whose subtree another column
+  owns are not fetched but peeked: the engine sends them as ``MSG_PEEK``
+  records in its fused round, and the owning column's device answers from
+  its own cache, version-checked (:func:`peer_answer`), else by its block
+  walk.
+
+:func:`rt_accept` is the fence check of a route-table guess and
+:func:`invalidate_nodes` the version bump of a repartition install.
 
 The cache planes are updated in place: the engine's returned state shares
 them with the state it was given, which saves a copy of every plane per
@@ -55,7 +68,13 @@ def init_cache(cfg, device=None) -> DexCache:
 
 
 class CachePolicy(NamedTuple):
-    """Per-device cache policy (see ``repro.core.fleet_cache.CachePolicy``)."""
+    """Per-device cache policy, fixed when the engine is built.
+
+    ``admit_bias`` [Dev, n_memory] float32 multiplies a device's leaf
+    admission percent by the leaf's owning column; ``evict_salt`` [Dev]
+    int64 is folded into its dice salt; ``peek_budget`` [Dev] int32 caps
+    its peer peeks a batch (0 everywhere: no peek machinery at all);
+    ``demand_beta`` caps the route-demand boost (1.0 turns it off)."""
 
     admit_bias: np.ndarray
     evict_salt: np.ndarray
@@ -74,23 +93,115 @@ def uniform_policy(cfg) -> CachePolicy:
     )
 
 
+def divergent_policy(
+    cfg, *, col_affinity: float = 4.0, demand_beta: float = 2.0, peek_budget: int = 64
+) -> CachePolicy:
+    """Cooperative fleet caching: device ``dev = r * n_memory + m`` admits
+    leaves of its own column ``m`` at ``col_affinity`` times the percent and
+    the other columns' at ``1 / col_affinity``, salts its dice with
+    ``dev + 1``, and peeks up to ``peek_budget`` leaf misses a batch."""
+    d = cfg.n_devices
+    bias = np.full((d, cfg.n_memory), 1.0 / col_affinity, np.float32)
+    for dev in range(d):
+        bias[dev, dev % cfg.n_memory] = col_affinity
+    return CachePolicy(
+        admit_bias=bias,
+        evict_salt=np.arange(1, d + 1, dtype=np.int64),
+        peek_budget=np.full((d,), peek_budget, np.int32),
+        demand_beta=float(demand_beta),
+    )
+
+
 def is_uniform(policy: Optional[CachePolicy]) -> bool:
-    """Does ``policy`` reduce to the uniform dice with no peer peeks?"""
+    """Does ``policy`` roll the uniform dice?  (A policy may still peek:
+    see :func:`peeks_enabled`.)"""
     if policy is None:
         return True
     return (
         bool(np.all(np.asarray(policy.admit_bias) == 1.0))
         and bool(np.all(np.asarray(policy.evict_salt) == 0))
         and float(policy.demand_beta) == 1.0
-        and not bool(np.any(np.asarray(policy.peek_budget) > 0))
     )
 
 
-def leaf_admit(cfg, policy: Optional[CachePolicy], gid, salt):
-    """The leaf-admission dice (uniform policy)."""
-    if not is_uniform(policy):
-        raise NotImplementedError("divergent cache policies are not ported yet")
-    return routing.leaf_admit_dice(gid, cfg.p_admit_leaf_pct, salt=salt)
+def peeks_enabled(policy: Optional[CachePolicy]) -> bool:
+    """Does any device hold a peek budget?"""
+    return policy is not None and bool(np.any(np.asarray(policy.peek_budget) > 0))
+
+
+def demand_boost(policy: Optional[CachePolicy], cfg, demand: torch.Tensor,
+                 r_lin: torch.Tensor) -> Optional[torch.Tensor]:
+    """``[Dev]`` float32 admission boost from each device's own view of the
+    route demand ``[Dev, n_route]``: ``clip(n_route * share of its route
+    row r_lin, 1 / beta, beta)``.  None when the policy does not use it."""
+    if policy is None or float(policy.demand_beta) == 1.0:
+        return None
+    dem = demand.float()
+    total = dem[:, 0]
+    for r in range(1, dem.shape[1]):  # the reference's sum, left to right
+        total = total + dem[:, r]
+    share = dem.gather(1, r_lin.long()[:, None])[:, 0] / torch.clamp(total, min=1.0)
+    beta = float(policy.demand_beta)
+    lo, hi = float(np.float32(1.0 / beta)), float(np.float32(beta))
+    return torch.clamp(cfg.n_route * share, lo, hi)
+
+
+def device_peek_budget(policy: CachePolicy, device) -> torch.Tensor:
+    """``[Dev]`` int32 peek budget of each device a batch."""
+    return torch.as_tensor(np.asarray(policy.peek_budget, np.int32)).to(device)
+
+
+_PHI64 = 0x9E3779B97F4A7C15  # golden-ratio odd constant
+_SIGN = -(2**63)
+
+
+def _salt_offsets(policy: CachePolicy) -> list:
+    """Each device's ``evict_salt * 0x9E3779B97F4A7C15`` wrapped to a
+    signed int64, as the reference's int64 product wraps; computed on the
+    host in exact integers."""
+    out = []
+    for e in np.asarray(policy.evict_salt, np.int64).tolist():
+        w = (int(e) * _PHI64) % 2**64
+        out.append(w - 2**64 if w >= 2**63 else w)
+    return out
+
+
+def wrapping_add(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a + c`` on int64, wrapped modulo 2**64 without a signed overflow:
+    operands of opposite signs cannot overflow; for operands of one sign,
+    flipping ``a``'s sign bit (``x ^ -2**63`` adds 2**63 modulo 2**64) makes
+    the sum one of mixed signs, and flipping its sign bit back restores
+    it."""
+    same = (a < 0) == (c < 0)
+    x = torch.where(same, a ^ _SIGN, a) + c
+    return torch.where(same, x ^ _SIGN, x)
+
+
+def leaf_admit(meta, cfg, policy: Optional[CachePolicy], gid: torch.Tensor, salt,
+               *, boost: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The leaf-admission dice for ``gid`` [Dev, Q] with the caller's
+    access salt (op counter plus lane); row ``d`` is device ``d``'s, with
+    its demand ``boost[d]``.  Under a uniform policy every device rolls
+    ``routing.leaf_admit_dice(gid, p_admit_leaf_pct, salt)``; otherwise
+    device ``d`` rolls at
+    ``round(p_admit_leaf_pct * admit_bias[d, col] * boost)`` percent (half
+    to even, clipped to 1..100, in float32 as the reference), ``col`` the
+    memory column owning the leaf, with its ``evict_salt`` times
+    0x9E3779B97F4A7C15 added to the salt (both wrapped)."""
+    if is_uniform(policy):
+        return routing.leaf_admit_dice(gid, cfg.p_admit_leaf_pct, salt=salt)
+    device = gid.device
+    s_per = meta.n_subtrees_padded // cfg.n_memory
+    col = ((gid // meta.subtree_cap) // s_per).clamp(0, cfg.n_memory - 1)
+    bias = torch.as_tensor(np.asarray(policy.admit_bias, np.float32)).to(device)
+    pct = float(np.float32(cfg.p_admit_leaf_pct)) * bias.gather(1, col.long())
+    if boost is not None:
+        pct = pct * boost[:, None]
+    pct_i = torch.clamp(torch.round(pct), 1, 100).to(torch.int32)
+    off = torch.tensor(_salt_offsets(policy), dtype=torch.int64, device=device)
+    salt = torch.as_tensor(salt, dtype=torch.int64, device=device).expand(gid.shape)
+    salt = wrapping_add(salt, off[:, None].expand(gid.shape))
+    return routing.leaf_admit_dice(gid, pct_i, salt=salt)
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -161,15 +272,27 @@ def cache_admit(cache: DexCache, cfg, versions, gid, set_idx, admit, rows_k,
 
 
 def cached_fetch_level(pool, meta, cfg, cache: DexCache, versions, gid, want,
-                       admit_ok):
+                       admit_ok, peek_elig=None, peek_budget=None):
     """One level of the cached traversal: probe, remote-fetch the misses,
     admit the fetched rows where ``admit_ok`` (or a stale copy is present).
-    Returns ``(rows_k, rows_c, rows_v, hit, miss, shed, n_msgs [Dev],
-    cache)``."""
+
+    With ``peek_elig`` [Dev, Q], a device's first ``peek_budget[d]`` missing
+    lanes of ``peek_elig`` (in its own lane order) are peeked: they fetch
+    and admit nothing here, and their rows come back KEY_MAX.  Returns
+    ``(rows_k, rows_c, rows_v, hit, miss, shed, n_msgs [Dev], cache,
+    peeked)``; ``peeked`` is None without ``peek_elig``."""
     hit, ck, cc, cv, set_idx, present = cache_probe(cache, cfg, versions, gid)
     hit = hit & want
     miss = want & ~hit
-    fk, fc, fv, shed, n_msgs = routing.fetch_rows(pool, meta, cfg, gid, miss)
+    peeked = None
+    fetch_miss = miss
+    if peek_elig is not None:
+        cand = miss & peek_elig
+        # each device ranks its own lanes
+        rank = torch.cumsum(cand.to(torch.int32), 1) - 1
+        peeked = cand & (rank < peek_budget[:, None])
+        fetch_miss = miss & ~peeked
+    fk, fc, fv, shed, n_msgs = routing.fetch_rows(pool, meta, cfg, gid, fetch_miss)
     h = hit[..., None]
     rows_k = torch.where(h, ck, fk)
     rows_c = torch.where(h, cc, fc)
@@ -180,12 +303,12 @@ def cached_fetch_level(pool, meta, cfg, cache: DexCache, versions, gid, want,
         versions,
         gid,
         set_idx,
-        miss & (admit_ok | present) & ~shed,
+        fetch_miss & (admit_ok | present) & ~shed,
         rows_k,
         rows_c,
         rows_v,
     )
-    return rows_k, rows_c, rows_v, hit, miss, shed, n_msgs, cache
+    return rows_k, rows_c, rows_v, hit, miss, shed, n_msgs, cache, peeked
 
 
 def rt_accept(
@@ -224,6 +347,21 @@ def rt_accept(
         & (versions.gather(1, gsafe) == tver)
     )
     return guess, accept, pred_gid
+
+
+def peer_answer(cache: DexCache, cfg, versions: torch.Tensor, gid: torch.Tensor,
+                key: torch.Tensor, want: torch.Tensor):
+    """The owner's half of a ``MSG_PEEK``: device ``d`` probes its own cache
+    for the leaf ``gid[d]`` [Dev, N] a sibling asked about, version-checked
+    like any probe, so a stale row fails and the caller walks its block.
+    Returns ``(peer_hit, found, value)``; ``found`` and ``value`` mean
+    something only under ``peer_hit``."""
+    hit, rows_k, _, rows_v, _, _ = cache_probe(
+        cache, cfg, versions, torch.where(want, gid, 0)
+    )
+    peer_hit = hit & want
+    eq = (rows_k == key[..., None]) & peer_hit[..., None]
+    return peer_hit, eq.any(-1), torch.where(eq, rows_v, 0).sum(-1)
 
 
 def invalidate_nodes(versions: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:

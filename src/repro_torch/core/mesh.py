@@ -22,14 +22,22 @@ tensor operations on that axis:
 Every collective goes through this module, which counts the calls the way
 ``repro.core.routing`` counts them while tracing (``all_to_all`` and
 ``route_exchange``; the reference counts no all-gather), so the per-batch
-counts can be held against the reference's.
+counts can be held against the reference's.  Inside a :func:`phase` block
+each call is also counted under the block's label, as the reference's
+``trace_phase`` does: the pipelined engine labels its two halves
+``pipe/front`` and ``pipe/back``.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 COUNTS = {"all_to_all": 0, "route_exchange": 0}
+#: the counts of each :func:`phase` label since the last reset
+PHASE_COUNTS: dict = {}
+_PHASE: list = [None]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -45,22 +53,53 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+@contextlib.contextmanager
+def phase(label: str):
+    """Count the collectives called inside this block under ``label`` too
+    (the innermost label wins)."""
+    prev = _PHASE[0]
+    _PHASE[0] = label
+    try:
+        yield
+    finally:
+        _PHASE[0] = prev
+
+
 def count(kind: str) -> None:
     COUNTS[kind] += 1
+    label = _PHASE[0]
+    if label is not None:
+        per = PHASE_COUNTS.setdefault(label, {"all_to_all": 0, "route_exchange": 0})
+        per[kind] += 1
 
 
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+    PHASE_COUNTS.clear()
 
 
-def collective_counts() -> dict:
-    return dict(COUNTS)
+def collective_counts(by_phase: bool = False) -> dict:
+    """The counts since the last reset; with ``by_phase`` also ``"phases"``,
+    the counts of each label that counted a collective."""
+    out = dict(COUNTS)
+    if by_phase:
+        out["phases"] = {
+            label: dict(per) for label, per in PHASE_COUNTS.items() if any(per.values())
+        }
+    return out
 
 
 def device_linear_index(cfg, device) -> torch.Tensor:
     """``[Dev]`` linear device position over all mesh axes, route-major."""
     return torch.arange(cfg.n_devices, device=device)
+
+
+def route_linear_index(cfg, device) -> torch.Tensor:
+    """``[Dev]`` position of each device along the route axis."""
+    if len(cfg.route_axes) != 1:
+        raise NotImplementedError("two route axes are not ported yet")
+    return torch.arange(cfg.n_devices, device=device) // cfg.n_memory
 
 
 def memory_linear_index(cfg, device) -> torch.Tensor:

@@ -1352,3 +1352,99 @@ def test_ssm_train_step_on_the_card_matches_the_cpu(cuda):
         assert float((a - b).abs().max()) <= 1e-3 * rms
     for a, b in zip(t_opt.leaves(p0), t_opt.leaves(p1)):
         assert float((a - b).abs().max()) <= 0.05 * 3e-4
+
+
+ENGINE_CASES = {
+    # label: (ops, traffic, policy, pipeline, divergent)
+    "pipelined": (("lookup", "update", "insert"), "mixed", "fetch", True, False),
+    "pipelined auto": (("lookup", "update", "insert"), "mixed", "auto", True, False),
+    "pipelined scans": (("lookup", "update", "insert", "scan"), "scans", "fetch", True,
+                        False),
+    "divergent": (("lookup", "update", "insert"), "mixed", "fetch", False, True),
+    "divergent lookups": (("lookup",), "lookups", "fetch", False, True),
+    "divergent pipelined": (("lookup", "update"), "mixed", "fetch", True, True),
+}
+
+
+def engine_traffic(kind, keys, rng):
+    """Three batches of 4,096 lanes: lookups (misses, inactive lanes), or
+    lookups, updates and inserts (hot keys written in every batch, 30 fresh
+    keys into one leaf in batch 1), with scans of up to 40 records."""
+    out = []
+    for i in range(3):
+        if kind == "lookups":
+            q = rng.choice(keys, size=4096).astype(np.int64)
+            q[::13] += 1
+            q[::29] = KEY_MAX
+            out.append((np.zeros(4096, np.int32), q, np.zeros(4096, np.int64)))
+            continue
+        opc = rng.integers(0, 3, size=4096).astype(np.int32)
+        kk = rng.choice(keys, size=4096)
+        fresh = kk + rng.integers(1, 4, size=4096)
+        ins = (opc == 2) & ~np.isin(fresh, keys)
+        kk[ins] = fresh[ins]
+        opc[:16] = 1
+        kk[:16] = keys[100:116]
+        if i == 1:
+            opc[16:46] = 2
+            kk[16:46] = keys[4400:4430] + 1
+        vals = kk ^ rng.integers(1, 2**40, size=4096)
+        kk[::29] = KEY_MAX
+        if kind == "scans":
+            scn = (np.arange(4096) >= 46) & (rng.random(4096) < 0.35)
+            opc[scn] = 3
+            vals[scn] = rng.integers(1, 41, size=int(scn.sum()))
+        out.append((opc, kk, vals))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(ENGINE_CASES))
+def test_pipelined_and_divergent_engines_on_the_card_match_the_cpu(cuda, label):
+    """The pipelined engine and the divergent cache policy (peek budget 512)
+    at 2x4 on 20k keys, on the CPU (plain versions) and on the card
+    (kernels): every plane after every step, and every result, bit-equal;
+    ``chip_smoke.py`` phase 4's cases."""
+    from repro_torch.core import dex, engine, fleet_cache
+    from repro_torch.obs import registry as reg
+
+    ops_, kind, policy, pipelined, divergent = ENGINE_CASES[label]
+    rng = np.random.default_rng(0)
+    keys = np.sort(rng.choice(2**40, size=20_000, replace=False).astype(np.int64))
+    keys -= 2**39
+    bounds = np.array([KEY_MIN, keys[keys.size // 2], KEY_MAX], np.int64)
+    batches = engine_traffic(kind, keys, rng)
+    cfg = dex.DexMeshConfig(n_route=2, n_memory=4, cache_sets=64, cache_ways=4,
+                            policy=policy, route_capacity_factor=4.0)
+    pol = fleet_cache.divergent_policy(cfg, peek_budget=512) if divergent else None
+    runs = []
+    for dev in ("cpu", cuda):
+        pool, meta = t_pool.build_pool(keys, keys ^ 0x5DEECE66D, level_m=1, n_shards=4,
+                                       device=dev)
+        state = dex.init_state(pool, meta, cfg, bounds, device=dev)
+        eng = engine.make_dex_engine(meta, cfg, ops=ops_, max_count=32, cache_policy=pol,
+                                     pipeline=pipelined, device=dev)
+        steps = []
+        if pipelined:
+            eng.start(state)
+        for b in batches + ([None] if pipelined else []):
+            if pipelined:
+                r = eng.push(*b) if b is not None else eng.drain()
+                state = eng.state
+            else:
+                state, r = eng(state, *b)
+            got = dex.state_to_numpy(state)
+            for k, a in (r._asdict() if r is not None else {}).items():
+                if a is not None:
+                    got[k] = a.cpu().numpy()
+            steps.append(got)
+        runs.append(steps)
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert sorted(a) == sorted(b), i
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{label} step {i}: {k}")
+    stats = runs[0][-1]["stats"].sum(0)
+    if pipelined and policy == "fetch":
+        assert stats[reg.STAT_PIPE_STALLS] > 0
+    if divergent:
+        assert stats[reg.STAT_PEER_HITS] + stats[reg.STAT_PEER_MISSES] > 0

@@ -265,29 +265,73 @@ def test_state_to_numpy_is_a_snapshot():
         np.testing.assert_array_equal(v, before[k], err_msg=k)
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(ops=("lookup", "scan"), pipeline=True),
-        dict(ops=("scan",), divergent=True),
-        dict(cfg=dict(route_table_slots=8), pipeline=True),
-        dict(cfg=dict(route_axes=("data", "pod"))),
-        dict(divergent=True),
-    ],
-)
+@pytest.mark.parametrize("kw", [dict(cfg=dict(route_axes=("data", "pod")))])
 def test_unported_engine_options_raise(kw):
     keys = _dataset(500, seed=6)
     _, t_meta = t_pool.build_pool(keys, device="cpu")
     t_cfg = t_dex.DexMeshConfig(**kw.get("cfg", {}))
-    policy = None
-    if kw.get("divergent"):
-        policy = t_fleet_cache.uniform_policy(t_cfg)._replace(demand_beta=2.0)
     with pytest.raises(NotImplementedError):
         t_engine.make_dex_engine(
             t_meta,
             t_cfg,
             ops=kw.get("ops", ("lookup",)),
-            cache_policy=policy,
             pipeline=kw.get("pipeline", False),
             device="cpu",
         )
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(ops=("lookup", "scan"), pipeline=True),
+        dict(ops=("scan",), divergent="demand"),
+        dict(cfg=dict(route_table_slots=8), pipeline=True),
+        dict(divergent="demand"),
+        dict(divergent="peek", cfg=dict(n_route=2, n_memory=2, policy="fetch")),
+        dict(ops=t_engine.ALL_OPS, divergent="peek", pipeline=True,
+             cfg=dict(n_route=2, n_memory=2, policy="fetch")),
+        dict(ops=("lookup", "update"), divergent="peek", pipeline=True,
+             cfg=dict(n_route=2, n_memory=2, policy="fetch")),
+    ],
+)
+def test_pipeline_and_divergent_engines_run_one_batch(kw):
+    """The pipelined engine and divergent cache policies build and run a
+    batch of lookups (plus a scan lane where the engine scans) whose answers
+    match the keys; the last two cases peek."""
+    keys = _dataset(500, seed=6)
+    t_cfg = t_dex.DexMeshConfig(cache_sets=16, **kw.get("cfg", {}))
+    t_pool_, t_meta = t_pool.build_pool(keys, keys * 3, n_shards=t_cfg.n_memory,
+                                        device="cpu")
+    bounds = np.array([KEY_MIN] + [int(keys[250])] * (t_cfg.n_route - 1) + [KEY_MAX])
+    state = t_dex.init_state(t_pool_, t_meta, t_cfg, bounds, device="cpu")
+    policy = None
+    if kw.get("divergent") == "demand":
+        policy = t_fleet_cache.uniform_policy(t_cfg)._replace(demand_beta=2.0)
+    elif kw.get("divergent") == "peek":
+        policy = t_fleet_cache.divergent_policy(t_cfg, peek_budget=32)
+    ops = kw.get("ops", ("lookup",))
+    eng = t_engine.make_dex_engine(
+        t_meta, t_cfg, ops=ops, max_count=8, cache_policy=policy,
+        pipeline=kw.get("pipeline", False), device="cpu",
+    )
+    q = np.concatenate([keys[::5], keys[:20] + 1])[:112]
+    opc = np.full(q.shape, t_engine.OP_LOOKUP, np.int32)
+    if ops == ("scan",):
+        opc[:] = t_engine.OP_SCAN
+    vals = np.full(q.shape, 4, np.int64)
+    if kw.get("pipeline"):
+        assert eng.plan["pipeline"] is True
+        state, (r,) = eng.run(state, [(opc, q, vals)])
+    else:
+        state, r = eng(state, opc, q, vals)
+    assert not r.shed.any()
+    if "lookup" in ops:
+        np.testing.assert_array_equal(r.found.numpy(), np.isin(q, keys))
+        np.testing.assert_array_equal(r.values.numpy()[r.found.numpy()],
+                                      q[r.found.numpy()] * 3)
+    if ops == ("scan",):
+        assert (r.taken.numpy() == 4).all()
+    stats = state.stats.numpy().sum(0)
+    assert stats[t_registry.STAT_OPS] == q.size
+    peeks = stats[t_registry.STAT_PEER_HITS] + stats[t_registry.STAT_PEER_MISSES]
+    assert (peeks > 0) == (kw.get("divergent") == "peek")

@@ -14,7 +14,7 @@ on the CPU:
   and a poisoned one (the reference in a subprocess on a forced 8-device
   CPU mesh, ``tests/torch_mesh_ref.py rt``).
 
-The pipelined engine's poisoned case waits for the pipelined engine's port.
+The pipelined engine's poisoned case is in tests/test_torch_pipeline.py.
 """
 
 import os
@@ -324,21 +324,38 @@ def test_trained_table_changes_traffic_never_results():
     assert t_live.stats.numpy()[:, fetch].sum() < t_de.stats.numpy()[:, fetch].sum()
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [dict(pipeline=True), dict(cfg=dict(route_axes=("data", "pod"))), dict(divergent=True)],
-)
+@pytest.mark.parametrize("kw", [dict(cfg=dict(route_axes=("data", "pod")))])
 def test_route_table_with_unported_options_raises(kw):
     _, _, t_meta, _, _, _, _ = _setup(n_keys=500, rt_slots=64)
     t_cfg = t_dex.DexMeshConfig(route_table_slots=64, **kw.get("cfg", {}))
+    with pytest.raises(NotImplementedError):
+        t_engine.make_dex_engine(t_meta, t_cfg, ops=OPS, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(pipeline=True), dict(divergent=True), dict(pipeline=True, divergent=True)],
+)
+def test_route_table_with_pipeline_or_divergent_policy_runs(kw):
+    """A trained table under the pipeline or a divergent policy: one mixed
+    batch, its lookups answered as the keys say, some guesses accepted."""
+    keys, _, t_meta, _, t_cfg, _, t_state = _setup(n_keys=500, rt_slots=64)
+    t_state = t_rt.train_route_table(t_state, t_meta)
     policy = None
     if kw.get("divergent"):
         policy = t_fleet_cache.uniform_policy(t_cfg)._replace(demand_beta=2.0)
-    with pytest.raises(NotImplementedError):
-        t_engine.make_dex_engine(
-            t_meta, t_cfg, ops=OPS, cache_policy=policy,
-            pipeline=kw.get("pipeline", False), device="cpu",
-        )
+    eng = t_engine.make_dex_engine(
+        t_meta, t_cfg, ops=OPS, cache_policy=policy,
+        pipeline=kw.get("pipeline", False), device="cpu",
+    )
+    opc, kk, vv = _mixed_batches(keys, np.random.default_rng(45), 1, 128)[0]
+    if kw.get("pipeline"):
+        t_state, (r,) = eng.run(t_state, [(opc, kk, vv)])
+    else:
+        t_state, r = eng(t_state, opc, kk, vv)
+    lk = (opc == t_engine.OP_LOOKUP) & ~r.shed.numpy()
+    np.testing.assert_array_equal(r.found.numpy()[lk], np.isin(kk[lk], keys))
+    assert t_state.stats.numpy()[:, t_registry.STAT_RT_SKIPS].sum() > 0
 
 
 @pytest.fixture(scope="module")

@@ -24,12 +24,26 @@ traced collective counts to one ``.npz``.
 * ``repart``: the mixed engine with a trained table under tight buckets on
   skewed batches, a ``RepartitionController`` observing each batch and
   installing new boundaries (retraining the table) when it fires; every
-  plane and report saved (``tests/test_torch_repartition.py``).
+  plane and report saved (``tests/test_torch_repartition.py``);
+* ``pipe``: the pipelined engine and the divergent fleet-cache policy, in
+  four cases (a comma list may pick some): ``pipe``, tests/mesh_check.py's
+  pipelined traffic (4 batches of 512 lookups, updates and inserts, one
+  hot lane a device updated on even batches and read on odd ones) through
+  the synchronous engine and the pipeline, every plane after each batch
+  and push and a steady-state step's collective counts by phase
+  (``tests/test_torch_pipeline.py``); ``divergent``, tests/mesh_check.py's
+  divergent ``fetch`` engine (128 sets, ``p_admit_leaf_pct`` 50,
+  ``divergent_policy(peek_budget=512)``, lookups and updates): 6 batches of
+  hot lookups, every cached value poisoned and every version bumped, one
+  more batch; ``divergent_pipe``, the same policy pipelined on mixed hot
+  lookups and updates; ``uniform``, the ``divergent`` traffic with the
+  uniform policy, for its collective counts
+  (``tests/test_torch_fleet_policy.py``).
 
 The test files run this in a subprocess (the device count locks when JAX
 starts) and replay the same batches through the port's virtual mesh.
 
-    python tests/torch_mesh_ref.py OUT.npz [engine|scan|smo|rt|repart]
+    python tests/torch_mesh_ref.py OUT.npz [engine|scan|smo|rt|repart|pipe] [CASES]
 """
 
 import os
@@ -45,6 +59,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 from repro.compat import make_mesh_compat  # noqa: E402
 from repro.core import dex as dex_mod  # noqa: E402
 from repro.core import engine as engine_mod  # noqa: E402
+from repro.core import fleet_cache  # noqa: E402
 from repro.core import pool as pool_mod  # noqa: E402
 from repro.core import route_table  # noqa: E402
 from repro.core import routing  # noqa: E402
@@ -396,7 +411,183 @@ def run_smo_case(out, pool, meta, bounds, mesh, lanes):
         out[f"smo/scan/{k}"] = v
 
 
-def main(out_path, group="engine"):
+PIPE_BATCHES = 4
+PIPE_CASES = ("pipe", "divergent", "divergent_pipe", "uniform")
+DIV_WARM = 6  # hot lookup batches before the poison
+
+
+def pipe_batches():
+    """``(opcodes, keys, values)`` of tests/mesh_check.py's pipelined round
+    trip on this dataset: disjoint key regions for lookups, updates (unique
+    in a batch) and inserts of fresh keys; eight hot keys, one lane a
+    device, updated on even batches and read on odd ones."""
+    keys, _ = dataset()
+    rng = np.random.default_rng(6)
+    hot = keys[300:308]
+    hot_lanes = np.arange(8) * (LANES // 8) + 7
+    fresh = np.unique(rng.choice(keys[:-1], size=8 * PIPE_BATCHES * LANES) + 1)
+    fresh = fresh[~np.isin(fresh, keys)]
+    out, fi = [], 0
+    for bi in range(PIPE_BATCHES):
+        pick = rng.integers(0, 3, size=LANES)
+        opc = pick.astype(np.int32)  # OP_LOOKUP, OP_UPDATE, OP_INSERT
+        kk = np.empty(LANES, np.int64)
+        kk[pick == 0] = rng.choice(keys[3600:4800], size=int((pick == 0).sum()))
+        kk[pick == 1] = rng.choice(
+            keys[2400:3600], size=int((pick == 1).sum()), replace=False
+        )
+        n_ins = int((pick == 2).sum())
+        kk[pick == 2] = fresh[fi : fi + n_ins]
+        fi += n_ins
+        vv = rng.integers(1, 1 << 40, size=LANES).astype(np.int64)
+        opc[hot_lanes] = engine_mod.OP_LOOKUP if bi % 2 else engine_mod.OP_UPDATE
+        kk[hot_lanes] = hot
+        vv[hot_lanes] = hot ^ (1000 + bi)
+        out.append((opc, kk, vv))
+    return out
+
+
+def div_batches(n, mixed):
+    """``n`` batches over tests/mesh_check.py's hot set (every 40th key, all
+    four columns): lookups, or with ``mixed`` lookups and updates."""
+    keys, _ = dataset()
+    hot = keys[::40]
+    rng = np.random.default_rng(77 if not mixed else 78)
+    out = []
+    for _ in range(n):
+        kk = rng.choice(hot, size=LANES).astype(np.int64)
+        opc = np.zeros(LANES, np.int32)
+        vv = np.zeros(LANES, np.int64)
+        if mixed:
+            upd = rng.random(LANES) < 0.3
+            opc[upd] = engine_mod.OP_UPDATE
+            vv[upd] = kk[upd] ^ rng.integers(1, 1 << 40, size=int(upd.sum()))
+        out.append((opc, kk, vv))
+    return out
+
+
+def pipe_config(sets, admit):
+    return dex_mod.DexMeshConfig(
+        route_axes=("data",),
+        memory_axis="model",
+        n_route=2,
+        n_memory=4,
+        cache_sets=sets,
+        cache_ways=4,
+        policy="fetch",
+        p_admit_leaf_pct=admit,
+        route_capacity_factor=4.0,
+    )
+
+
+def save_planes(out, prefix, state, res=None):
+    for k, v in flat(state).items():
+        out[f"{prefix}{k}"] = v
+    if res is not None:
+        for k in RESULTS:
+            out[f"{prefix}result.{k}"] = np.asarray(getattr(res, k))
+
+
+def phase_counts(pipe, args):
+    """A step's collective counts, total and by phase, traced before the
+    first push (the trace is cached after it)."""
+    c = routing.trace_collective_counts(
+        pipe.step_fn, pipe.state, pipe.init_carry(LANES), *args, by_phase=True
+    )
+    rows = [[c["all_to_all"], c["route_exchange"]]]
+    for ph in ("pipe/front", "pipe/back"):
+        p = c["phases"].get(ph, {})
+        rows.append([p.get("all_to_all", 0), p.get("route_exchange", 0)])
+    return np.array(rows)
+
+
+def run_pipeline(out, name, pipe, state, batches, lanes):
+    """Push ``batches`` then drain, saving every plane and result after
+    each step and a step's counts by phase."""
+    pipe.start(state)
+    for i in range(len(batches) + 1):
+        if i < len(batches):
+            args = tuple(jax.device_put(jnp.asarray(a), lanes) for a in batches[i])
+            if i == 0:
+                out[f"{name}/phase_counts"] = phase_counts(pipe, args)
+            r = pipe.push(*args)
+        else:
+            r = pipe.drain()
+        save_planes(out, f"{name}/pipe/{i}/", pipe.state, r)
+
+
+def run_pipe_cases(out, pool, meta, bounds, mesh, lanes, cases):
+    for case in cases:
+        if case not in PIPE_CASES:
+            raise SystemExit(f"unknown pipe case {case!r}")
+    if "pipe" in cases:
+        cfg = pipe_config(256, 100)
+        out["pipe/sets"], out["pipe/admit"] = np.array(256), np.array(100)
+        out["pipe/policy"] = np.array("fetch")
+        batches = pipe_batches()
+        out["pipe/batches"] = np.array(len(batches))
+        for i, planes in enumerate(batches):
+            for field, a in zip(("opcodes", "keys", "values"), planes):
+                out[f"pipe/{i}/{field}"] = a
+        state = sharded_state(pool, meta, cfg, bounds, mesh)
+        save_planes(out, "pipe/init/", state)
+        eng = jax.jit(engine_mod.make_dex_engine(meta, cfg, mesh, ops=MIXED_OPS,
+                                                 max_count=1))
+        for i, planes in enumerate(batches):
+            args = tuple(jax.device_put(jnp.asarray(a), lanes) for a in planes)
+            state, res = eng(state, *args)
+            save_planes(out, f"pipe/sync/{i}/", state, res)
+        pipe = engine_mod.make_dex_engine(meta, cfg, mesh, ops=MIXED_OPS, max_count=1,
+                                          pipeline=True)
+        run_pipeline(out, "pipe", pipe, sharded_state(pool, meta, cfg, bounds, mesh),
+                     batches, lanes)
+    cfg = pipe_config(128, 50)
+    policy = fleet_cache.divergent_policy(cfg, peek_budget=512)
+    div_ops = ("lookup", "update")
+    warm = div_batches(DIV_WARM + 1, mixed=False)
+    for i, planes in enumerate(warm):
+        for field, a in zip(("opcodes", "keys", "values"), planes):
+            out[f"div/{i}/{field}"] = a
+    for case, pol in (("divergent", policy), ("uniform", None)):
+        if case not in cases:
+            continue
+        state = sharded_state(pool, meta, cfg, bounds, mesh)
+        save_planes(out, f"{case}/init/", state)
+        fn = engine_mod.make_dex_engine(meta, cfg, mesh, ops=div_ops, max_count=1,
+                                        cache_policy=pol)
+        eng = jax.jit(fn)
+        for i, planes in enumerate(warm):
+            args = tuple(jax.device_put(jnp.asarray(a), lanes) for a in planes)
+            if i == 0:
+                c = routing.trace_collective_counts(fn, state, *args)
+                out[f"{case}/counts"] = np.array([c["all_to_all"], c["route_exchange"]])
+            if i == DIV_WARM:
+                # every cached value poisoned, every version bumped
+                sh = dex_mod.state_shardings(mesh, cfg)
+                state = state._replace(
+                    cache=state.cache._replace(values=jax.device_put(
+                        jnp.full(state.cache.values.shape, -777_777, jnp.int64),
+                        sh.cache.values,
+                    )),
+                    versions=jax.device_put(jnp.asarray(state.versions) + 1,
+                                            sh.versions),
+                )
+                save_planes(out, f"{case}/poisoned/", state)
+            state, res = eng(state, *args)
+            save_planes(out, f"{case}/{i}/", state, res)
+    if "divergent_pipe" in cases:
+        batches = div_batches(PIPE_BATCHES, mixed=True)
+        for i, planes in enumerate(batches):
+            for field, a in zip(("opcodes", "keys", "values"), planes):
+                out[f"divergent_pipe/{i}/{field}"] = a
+        state = sharded_state(pool, meta, cfg, bounds, mesh)
+        save_planes(out, "divergent_pipe/init/", state)
+        pipe = engine_mod.make_dex_engine(meta, cfg, mesh, ops=div_ops, max_count=1,
+                                          pipeline=True, cache_policy=policy)
+        run_pipeline(out, "divergent_pipe", pipe, state, batches, lanes)
+
+
+def main(out_path, group="engine", cases=",".join(PIPE_CASES)):
     mesh = make_mesh_compat((2, 4), ("data", "model"))
     keys, vals = dataset()
     pool, meta = pool_mod.build_pool(keys, vals, level_m=1, fill=0.7, n_shards=4)
@@ -421,6 +612,8 @@ def main(out_path, group="engine"):
         run_rt_engines(out, pool, meta, bounds, mesh, lanes)
     elif group == "repart":
         run_repart_case(out, pool, meta, bounds, mesh, lanes)
+    elif group == "pipe":
+        run_pipe_cases(out, pool, meta, bounds, mesh, lanes, cases.split(","))
     else:
         raise SystemExit(f"unknown group {group!r}")
     np.savez(out_path, **out)
@@ -428,4 +621,4 @@ def main(out_path, group="engine"):
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    main(*sys.argv[1:4])
