@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's lookup, write, scan, split, separator, route-table,
-repartition, pipelined-engine and fleet-cache-policy paths, its paged-KV serving of minitron-4b and of the MoE
+repartition, pipelined-engine, fleet-cache-policy, two-route-axis, telemetry and
+host-fallback paths, its paged-KV serving of minitron-4b and of the MoE
 model granite-moe-1b-a400m, its Mamba serving of falcon-mamba-7b and
 zamba2-2.7b, its MLA serving of minicpm3-4b, its encoder-decoder
 serving of whisper-small and its training of minitron-4b and zamba2-2.7b,
@@ -119,9 +120,15 @@ Phases, in order; any failure exits non-zero:
      and the pipelined engine with scans (every plane after every push and
      the drain); the divergent fleet-cache policy (peek budget 512) on the
      mixed engine, on lookups and pipelined on lookups and updates;
-     ``install_boundaries`` then two batches; and one SMO
+     ``install_boundaries`` then two batches; one SMO
      round after a burst that overflows eight leaves, then
-     ``refresh_sep_planes``; every plane compared, the pool's included; and
+     ``refresh_sep_planes``; the lookup, mixed and scan engines on a 2x2x2
+     virtual mesh (two route axes of 2 x 2 over 2 memory columns, their
+     collective counts too); one ``settle_splits`` that settles three
+     leaves on the mesh and drains the rest through a ``HostBTree`` mirror
+     (a block with three free rows), then a lookup batch through the
+     rebuilt ops (the mirror's planes compared too); every plane compared,
+     the pool's included; and
      the LM path on reduced minitron-4b (2 layers, d_model 64) in f32 and
      bf16: ten paged decode steps of three requests, one admitted after a
      release, and one ``prefill`` (tables equal, logits within 1e-4 in f32
@@ -177,8 +184,28 @@ Phases, in order; any failure exits non-zero:
      cold caches (5 warm-up, 10 timed batches), hits, fetches, peer hits
      and misses, the effective fleet hit rate, equal collective counts,
      then every cached row poisoned and every version bumped and one more
-     batch.  A host oracle carries the applied writes forward; every lane
-     that is not shed must match it, scans included;
+     batch; two route axes (``route-axes``): YCSB-A and YCSB-E under
+     ``auto`` on a 2x2x2 virtual mesh (four route partitions of equal key
+     count) in turns with the 2x4 engine (1 warm-up and 5 timed batches,
+     the 2x2x2 engine on a copy of the key and value planes), each batch's
+     collective counts equal to the CPU program's (two ``all_to_all`` a
+     route exchange); the telemetry plane (``telemetry``): YCSB-A under
+     ``auto`` on the 2x4 engine wrapped by ``BatchTimeline.instrument`` in
+     turns with a bare one (lanes, stats, histograms and counts equal, the
+     histogram's total the ``STAT_OPS`` delta, no collective under
+     ``dex/lat``), a Chrome trace written to ``traces/``, and the
+     reference's fig19 mesh-against-simulator gate at 60,000 keys (p50 and
+     p99 of lookups and updates within one bucket of the port's
+     ``Simulator`` on the host); last on the index, the SMO's host fallback
+     (``drain``): a ``HostBTree`` mirror of the contents (build seconds,
+     the host's peak RSS), YCSB's ordered load of 65,536 fresh keys above
+     the largest into the rightmost leaf through the insert engine, its
+     ``STATUS_SPLIT`` lanes through ``settle_splits`` (the drain must
+     fire: ``STAT_DRAINS`` 1, the other stats carried over), the ops
+     rebuilt, every inserted key read back and a YCSB-C batch equal to the
+     mirror, with the ms of each part.  A host oracle carries the applied
+     writes forward; every lane that is not shed must match it, scans
+     included;
   6. serving at full width (the index freed first): minitron-4b, 32 layers,
      bf16, weights from ``--seed``; 64 request slots over a pool of 4,096
      pages of 16 tokens (8.6 GB of KV), 36 pages a request; seeded prompts
@@ -395,6 +422,19 @@ PIPE_E_RUN = (1, 5)
 # device's lane count, so it never binds
 FLEET_RUN = (5, 10)
 FLEET_PEEK_BUDGET = BATCH // 8
+# the route-axes phase: the engine on a 2x2x2 virtual mesh (route axes
+# ("data", "pod") of 2 x 2 over 2 memory columns) in turns with the 2x4 one
+# under auto, (workload, warm-up batches, timed batches)
+AXES_RUNS = (("ycsb-a", 1, 5), ("ycsb-e", 1, 5))
+# the telemetry phase: YCSB-A under auto on the 2x4 engine, instrumented and
+# bare in turns (warm-up batches, timed batches)
+TELEMETRY_RUN = (1, 5)
+# the mesh-against-simulator percentile gate, as the reference's
+# benchmarks/fig19_latency_tails.py draws it: keys, lanes a batch, forced-
+# fetch warm-up batches, measured batches under auto, shed-lane retries
+LAT_GATE = (60_000, 1_024, 14, 8, 4)
+LAT_BAND = (0.49, 2.05)  # one bucket of slack on geometric midpoints
+TRACE_PATH = "traces/chip_smoke_telemetry.json"
 # the LM plane: minitron-4b and granite-moe-1b-a400m served through the DEX
 # page table; grok-1-314b (628 GB in bf16) runs reduced only
 LM_ARCH = "minitron-4b"
@@ -1831,6 +1871,91 @@ def phase_cpu_vs_cuda(seed, devices=("cpu", "cuda")):
         " planes refreshed equal to a fresh compress"
     )
 
+    # two route axes: the 2x2x2 lookup, mixed and scan engines
+    from repro_torch.core import mesh as mesh_mod
+
+    bounds4 = quarter_bounds(keys)
+    for label, ops_, batches, policy in (
+        ("2x2x2 lookups", ("lookup",), lookups, "fetch"),
+        ("2x2x2 mixed", write_ops, mixed, "auto"),
+        ("2x2x2 scans", engine.ALL_OPS, scans, "auto"),
+    ):
+        cfg = axes_config(policy, 64)
+        out = []
+        for dev in devices:
+            pool, meta = pool_mod.build_pool(
+                keys, keys ^ VALUE_XOR, level_m=1, n_shards=2, device=dev
+            )
+            state = dex.init_state(pool, meta, cfg, bounds4, device=dev)
+            eng = engine.make_dex_engine(meta, cfg, ops=ops_, max_count=32, device=dev)
+            out.append([])
+            for step in batches:
+                mesh_mod.reset_counts()
+                state, r = eng(state, *step)
+                got = dex.state_to_numpy(state)
+                got.update({k: a.cpu().numpy() for k, a in r._asdict().items()
+                            if a is not None})
+                got["counts"] = np.array(list(mesh_mod.collective_counts().values()))
+                out[-1].append(got)
+        for i, (a, b) in enumerate(zip(*out)):
+            for k in a:
+                if a[k].shape != b[k].shape or not np.array_equal(a[k], b[k]):
+                    fail(f"{label} {policy}: CPU and CUDA differ at batch {i}: {k}")
+        stats = out[0][-1]["stats"].sum(0)
+        print(
+            f"cpu-vs-cuda {label} {policy}: 3 batches of 4096 lanes, route axes 2 x 2"
+            f" over 2 memory columns, all {len(a)} planes, results and collective"
+            f" counts {a['counts'].tolist()} equal ({stats[STAT_DROPS]} shed,"
+            f" {stats[STAT_WRITES]} writes, {stats[STAT_SPLITS]} splits)"
+        )
+
+    # settle_splits with a drain: 30 fresh keys into each of six leaves of a
+    # block whose free list holds three rows
+    from repro_torch.core import sim
+
+    cfg = mesh_config("fetch", 64)
+    burst = np.concatenate(
+        [fresh_in_leaf(rng, keys[j * 44 : j * 44 + 44], 30) for j in range(6)]
+    )
+    kk = np.full(4096, KEY_MAX, np.int64)
+    kk[rng.permutation(4096)[: burst.size]] = burst
+    vv = np.where(kk != KEY_MAX, kk ^ VALUE_XOR ^ 99, 0)
+    out = []
+    for dev in devices:
+        pool, meta = pool_mod.build_pool(
+            keys, keys ^ VALUE_XOR, level_m=1, n_shards=4, headroom=0.05, device=dev
+        )
+        state = dex.init_state(pool, meta, cfg, bounds, device=dev)
+        mirror = sim.HostBTree(keys, keys ^ VALUE_XOR)
+        state, st = write.make_dex_insert(meta, cfg, device=dev)(state, kk, vv)
+        shed = (st == write.STATUS_SPLIT).cpu().numpy()
+        state, meta, info = smo.settle_splits(
+            state, meta, cfg, smo.make_dex_smo(meta, cfg, device=dev), mirror,
+            np.where(shed, kk, KEY_MAX), np.where(shed, vv, 0), bounds,
+        )
+        state, r = engine.make_dex_engine(meta, cfg, device=dev)(
+            state, np.zeros(4096, np.int32), np.where(kk == KEY_MAX, keys[:4096], kk),
+            np.zeros(4096, np.int64),
+        )
+        got = dex.state_to_numpy(state)
+        got.update({k: a.cpu().numpy() for k, a in r._asdict().items() if a is not None})
+        got.update({f"mirror.{p}": getattr(mirror, p) for p in ("K", "V", "NK", "parent")})
+        got["insert_status"] = st.cpu().numpy()
+        out.append((got, meta, info))
+    (a, meta_a, info_a), (b, meta_b, info_b) = out
+    if info_a != info_b or meta_a != meta_b:
+        fail(f"settle_splits: CPU and CUDA differ: {info_a} {info_b}")
+    for k in a:
+        if a[k].shape != b[k].shape or not np.array_equal(a[k], b[k]):
+            fail(f"settle_splits: CPU and CUDA differ: {k}")
+    if not info_a["drained"] or info_a["onmesh"] == 0 or not a["found"].all():
+        fail(f"settle_splits: {info_a}, all found {bool(a['found'].all())}")
+    print(
+        f"cpu-vs-cuda settle_splits: {burst.size} lanes shed, {json.dumps(info_a)},"
+        f" pool rebuilt to {meta_a.n_subtrees} subtrees, then a lookup batch; all"
+        f" {len(a)} planes, results and mirror planes equal"
+    )
+
 
 def profile_batch(policy, eng, state, median_ms, *inputs):
     """Run one batch under ``torch.profiler``; print its device busy time,
@@ -2914,7 +3039,8 @@ def phase_pipeline(args, keys, pool, meta, oracle, bounds, carried):
     per_path[run] = launches
     check_launches(run, launches, ("node_search", "leaf_scan", "leaf_write"))
     print(f"main: {len(oracle.written)} keys written")
-    return report, per_path
+    # the SMO rounds relinked the successor table
+    return report, per_path, (s_sync.succ, n_alloc)
 
 
 def phase_fleet_policy(args, keys, pool, meta, oracle, bounds):
@@ -3019,6 +3145,577 @@ def phase_fleet_policy(args, keys, pool, meta, oracle, bounds):
              f" {div['after_poison']['peer_misses']}")
     del engines, states, results
     return report, per_path
+
+
+def axes_config(policy, cache_sets, factor=4.0):
+    """The 2x2x2 virtual mesh: route axes ``("data", "pod")`` of 2 x 2 (four
+    route partitions) over 2 memory columns, the same 8 virtual devices as
+    :func:`mesh_config`'s 2x4."""
+    from repro_torch.core.dex import DexMeshConfig
+
+    return DexMeshConfig(
+        route_axes=("data", "pod"),
+        route_shape=(2, 2),
+        n_route=4,
+        n_memory=2,
+        cache_sets=cache_sets,
+        cache_ways=4,
+        policy=policy,
+        route_capacity_factor=factor,
+    )
+
+
+def quarter_bounds(sorted_keys):
+    """Route boundaries of four partitions of equal key count."""
+    from repro_torch.core.nodes import KEY_MAX, KEY_MIN
+
+    n = sorted_keys.size
+    inner = [int(sorted_keys[n * i // 4]) for i in (1, 2, 3)]
+    return np.array([KEY_MIN] + inner + [KEY_MAX], np.int64)
+
+
+def program_counts(cfg, ops_, mc, bounds_of):
+    """The collective counts of one batch of ``cfg``'s engine built for
+    ``ops_``, run on the CPU on a 20k-key index (the counts are those of
+    the program, not of the data; ``tests/test_torch_route_axes.py`` and
+    ``tests/test_torch_engine.py`` hold the port's CPU counts to the
+    reference's)."""
+    from repro_torch.core import dex, engine, mesh
+    from repro_torch.core import pool as pool_mod
+
+    rng = np.random.default_rng(5)
+    keys = np.sort(rng.choice(2**40, size=20_000, replace=False).astype(np.int64))
+    pool, meta = pool_mod.build_pool(keys, keys, level_m=1, n_shards=4, device="cpu")
+    state = dex.init_state(pool, meta, cfg, bounds_of(keys), device="cpu")
+    eng = engine.make_dex_engine(meta, cfg, ops=ops_, max_count=mc, device="cpu")
+    opc = rng.integers(0, 4, size=4096).astype(np.int32)
+    kk = rng.choice(keys, size=4096)
+    mesh.reset_counts()
+    eng(state, opc, kk, np.where(opc == 3, 8, kk))
+    return mesh.collective_counts()
+
+
+def peak_rss_gib():
+    """The host's peak resident set of this process in GiB: ``VmHWM`` of
+    ``/proc/self/status``, or where that file has no such line,
+    ``getrusage``'s ``ru_maxrss``, the same peak in KiB."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) / 2**20
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def phase_route_axes(args, keys, pool, meta, oracle, bounds, carried):
+    """Two route axes at full size: the engine on a 2x2x2 virtual mesh
+    (``axes_config``, four route partitions of equal key count) and the 2x4
+    engine in turns over the same batches from the same contents, under
+    ``auto``: YCSB-A (lookups and updates) and YCSB-E (inserts and scans)
+    (``AXES_RUNS``).  The 2x2x2 engine writes a copy of the index's key and
+    value planes, the 2x4 one the index; every lane of both is held to the
+    oracle; each batch's collective counts equal the port's CPU program's
+    (each route exchange counts two ``all_to_all``).  Launches are the
+    2x2x2 engine's."""
+    import torch
+
+    from repro_torch.core import dex, engine, mesh
+    from repro_torch.core.nodes import KEY_MAX, KEY_MIN
+    from repro_torch.data import ycsb
+    from repro_torch.kernels import ops
+
+    dev = keys.device
+    succ, n_alloc = carried
+    bounds4 = quarter_bounds(oracle.keys)
+    twin = pool._replace(
+        pool_keys=pool.pool_keys.clone(), pool_values=pool.pool_values.clone()
+    )
+    report, per_path = {}, {}
+    engine_ops = {"ycsb-a": ("lookup", "update"), "ycsb-e": ("insert", "scan")}
+    need = {"ycsb-a": ("node_search", "subtree_walk", "leaf_write"),
+            "ycsb-e": ("node_search", "leaf_scan", "leaf_write")}
+    for w_i, (workload, warm, timed) in enumerate(AXES_RUNS):
+        n_b = warm + timed
+        ops_, mc = engine_ops[workload], SCAN_MAX_COUNT
+        kw = {}
+        if workload == "ycsb-e":
+            kw = dict(scan_len=SCAN_MAX_COUNT, scan_len_dist="uniform")
+        wl = ycsb.generate(workload, oracle.keys, BATCH * n_b, seed=args.seed + 70 + w_i,
+                           **kw)
+        batches = []
+        for i in range(n_b):
+            opc, kk, vals = ycsb.engine_lanes(wl, i * BATCH, (i + 1) * BATCH)
+            stamp = ((1100 + 32 * w_i + i) << 20) + np.arange(BATCH)
+            vals = np.where(opc == engine.OP_SCAN, vals, kk ^ VALUE_XOR ^ stamp)
+            batches.append((opc, kk, vals))
+        twin.pool_keys.copy_(pool.pool_keys)
+        twin.pool_values.copy_(pool.pool_values)
+        cfgs = {"2x2x2": axes_config("auto", 65_536), "2x4": mesh_config("auto", 65_536)}
+        states = {
+            "2x2x2": dex.init_state(twin, meta, cfgs["2x2x2"], bounds4, device=dev),
+            "2x4": dex.init_state(pool, meta, cfgs["2x4"], bounds, device=dev),
+        }
+        states = {k: v._replace(succ=succ, n_alloc=n_alloc) for k, v in states.items()}
+        engs = {k: engine.make_dex_engine(meta, c, ops=ops_, max_count=mc, device=dev)
+                for k, c in cfgs.items()}
+        want = {
+            "2x2x2": program_counts(cfgs["2x2x2"], ops_, mc, quarter_bounds),
+            "2x4": program_counts(
+                cfgs["2x4"], ops_, mc,
+                lambda k: np.array([KEY_MIN, int(k[k.size // 2]), KEY_MAX], np.int64),
+            ),
+        }
+        if want["2x2x2"] != {
+            "all_to_all": want["2x4"]["all_to_all"] + want["2x4"]["route_exchange"],
+            "route_exchange": want["2x4"]["route_exchange"],
+        }:
+            fail(f"route axes {workload}: program counts {want}")
+        ops.reset_launches()
+        launches = dict.fromkeys(ops.LAUNCHES, 0)
+        times = {k: [] for k in engs}
+        results = {k: [] for k in engs}
+        torch.cuda.reset_peak_memory_stats()
+        for i, b in enumerate(batches):
+            inputs = [torch.from_numpy(a).to(dev) for a in b]
+            for k in ("2x2x2", "2x4"):
+                mesh.reset_counts()
+                call = (lambda *a: counted(launches, timed_call, *a)) if k == "2x2x2" \
+                    else timed_call
+                states[k], r = call(times[k] if i >= warm else None, engs[k], states[k],
+                                    *inputs)
+                got = mesh.collective_counts()
+                if got != want[k]:
+                    fail(f"route axes {workload} {k} batch {i}: counts {got}, want {want[k]}")
+                results[k].append(r)
+        (c_a, sh_a), (c_b, sh_b) = check_twice(
+            oracle, f"route axes {workload}", batches, results["2x2x2"], results["2x4"], mc
+        )
+        med = {k: float(np.median(t)) for k, t in times.items()}
+        run = f"route-axes/{workload}/auto"
+        report[run] = dict(
+            **{k: ms_summary(t) for k, t in times.items()},
+            ratio_2x2x2_to_2x4=med["2x2x2"] / med["2x4"],
+            batches=timed,
+            checked_lanes=[c_a, c_b],
+            shed_lanes=[sh_a, sh_b],
+            collective_counts=want,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        )
+        print(f"main route-axes {workload} auto ([2x2x2, 2x4] where a list):"
+              f" {json.dumps(report[run])}")
+        per_path[run] = launches
+        check_launches(run, launches, need[workload])
+        del states, engs, results
+    del twin
+    torch.cuda.empty_cache()
+    return report, per_path
+
+
+def engine_retries(eng, state, dev, opc, kk, vv, max_retries, obs=None):
+    """One engine batch with its shed lanes replayed up to ``max_retries``
+    times, as the reference's ``benchmarks/common.py::engine_with_retries``
+    replays them (a replay's other lanes are inactive); each dispatch a
+    phase of ``obs``.  Returns the state and ``(found, values, status)``
+    of the lanes that completed, and which did."""
+    import torch
+
+    from repro_torch.core.nodes import KEY_MAX
+    from repro_torch.obs.timeline import obs_phase
+
+    done = kk == KEY_MAX
+    found = np.zeros(kk.shape, bool)
+    vals = np.zeros(kk.shape, np.int64)
+    status = np.zeros(kk.shape, np.int32)
+    for i in range(max_retries):
+        if done.all():
+            break
+        with obs_phase(obs, "engine" if i == 0 else f"retry/r{i}") as ph:
+            planes = (np.where(done, 0, opc).astype(np.int32), np.where(done, KEY_MAX, kk),
+                      np.where(done, 0, vv))
+            state, r = eng(state, *(torch.from_numpy(a).to(dev) for a in planes))
+            if ph is not None:
+                ph.fence((state, r))
+        sh = r.shed.cpu().numpy()
+        ok = ~done & ~sh
+        found[ok] = r.found.cpu().numpy()[ok]
+        vals[ok] = r.values.cpu().numpy()[ok]
+        status[ok] = r.status.cpu().numpy()[ok]
+        done |= ok
+    return state, (found, vals, status), done
+
+
+def latency_gate(seed, dev):
+    """The reference's cross-plane percentile gate
+    (``benchmarks/fig19_latency_tails.py``'s gated YCSB-A arm) on the port:
+    60,000 keys, a 2x4 engine warmed under ``fetch`` over one column's keys
+    and measured under ``auto`` (cache 2,048 sets, EMA decay 0.5, every
+    leaf admitted), shed lanes retried; the port's ``Simulator`` on the
+    host runs the identical trace with the identical knobs.  p50 and p99 of
+    lookups and updates must agree within one bucket (``LAT_BAND``), and
+    the measured histogram must bin each served lane once.  Returns the
+    report and the launches of the measured batches."""
+    import torch
+
+    from repro_torch.core import dex, engine, sim
+    from repro_torch.core import pool as pool_mod
+    from repro_torch.core.nodes import KEY_MAX, KEY_MIN
+    from repro_torch.data import ycsb
+    from repro_torch.kernels import ops
+    from repro_torch.obs import drift, latency
+    from repro_torch.obs import registry as reg
+
+    n_keys, batch, n_warm, n_meas, retries = LAT_GATE
+    dataset = ycsb.make_dataset(n_keys, seed=seed)
+    pool, meta = pool_mod.build_pool(dataset, dataset * 7, level_m=1, fill=0.7,
+                                     n_shards=4, device=dev)
+    bounds = np.array([KEY_MIN, int(dataset[dataset.size // 2]), KEY_MAX], np.int64)
+    kw = dict(n_route=2, n_memory=4, cache_sets=2048, cache_ways=4, ema_decay=0.5,
+              p_admit_leaf_pct=100, route_capacity_factor=4.0)
+    cfg_auto = dex.DexMeshConfig(policy="auto", **kw)
+    cfg_fetch = dex.DexMeshConfig(policy="fetch", **kw)
+    state = dex.init_state(pool, meta, cfg_auto, bounds, device=dev)
+    ops_ = ("lookup", "update")
+    eng_fetch = engine.make_dex_engine(meta, cfg_fetch, ops=ops_, max_count=1, device=dev)
+    eng_auto = engine.make_dex_engine(meta, cfg_auto, ops=ops_, max_count=1, device=dev)
+    wl = ycsb.generate("ycsb-a", dataset, n_meas * batch, theta=0.99, seed=11,
+                       hotspot=0.1)
+    # the warm sweep over the hot column's keys
+    s_per = meta.n_subtrees_padded // cfg_auto.n_memory
+    hot_n = min(dataset.size, -(-dataset.size * s_per // max(meta.n_subtrees, 1)))
+    rng_w = np.random.default_rng(23)
+    warm_keys = np.concatenate([
+        rng_w.permutation(dataset[(np.arange(batch) * hot_n // batch + 17 * b) % hot_n])
+        for b in range(n_warm)
+    ]).astype(np.int64)
+    all_ops = np.concatenate([np.zeros(warm_keys.shape, np.int32), wl.ops])
+    all_keys = np.concatenate([warm_keys, wl.keys])
+    trace = ycsb.Workload(ops=all_ops, keys=all_keys, idx=np.full(all_ops.shape, -1))
+    ops.reset_launches()
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    for b in range(n_warm + n_meas):
+        if b == n_warm:
+            torch.cuda.synchronize()
+            stats0 = state.stats.sum(0).cpu().numpy()
+            hist0 = state.lat_hist.sum(0).cpu().numpy()
+        opc, kk, vv = ycsb.engine_lanes(trace, b * batch, (b + 1) * batch)
+        eng = eng_fetch if b < n_warm else eng_auto
+        if b < n_warm:
+            state, *_ = engine_retries(eng, state, dev, opc, kk, vv, retries)
+        else:
+            state, *_ = counted(launches, engine_retries, eng, state, dev, opc, kk, vv,
+                                retries)
+    stats = state.stats.sum(0).cpu().numpy() - stats0
+    hist = state.lat_hist.sum(0).cpu().numpy() - hist0
+    served = int(stats[reg.STAT_OPS])
+    if int(hist.sum()) != served:
+        fail(f"latency gate: {int(hist.sum())} lanes binned, {served} served")
+    tree = sim.HostBTree(dataset, dataset * 7, fill=0.7, level_m=1,
+                         n_mem_servers=cfg_auto.n_memory, placement="blocked",
+                         subtrees_per_server=s_per)
+    sim_cfg = sim.SimConfig(
+        name="dex-engine", n_compute=cfg_auto.n_devices, n_mem_servers=cfg_auto.n_memory,
+        level_m=1, write_through=True, offloading=True, group_offload=True,
+        group_ema_decay=cfg_auto.ema_decay, coherence_batch=batch,
+        route_dispersion=cfg_auto.n_memory, p_admit_leaf=cfg_auto.p_admit_leaf_pct / 100.0,
+        cache_bytes=cfg_auto.cache_sets * cfg_auto.cache_ways * 1024,
+        offload_c=cfg_auto.offload_c,
+    )
+    simulator = sim.Simulator(tree, sim_cfg, seed=3)
+    warm, meas = slice(0, n_warm * batch), slice(n_warm * batch, None)
+    t0 = time.perf_counter()
+    simulator.run(all_ops[warm], all_keys[warm], group_policy="fetch")
+    simulator.reset_counters()
+    simulator.run(all_ops[meas], all_keys[meas])
+    sim_s = time.perf_counter() - t0
+    sim_hist = simulator.lat_hist.copy()
+    if int(sim_hist.sum()) != int(simulator.totals().ops):
+        fail("latency gate: the simulator's histogram misses ops")
+    classes = ("lookup", "update")
+    mesh_g = latency.percentile_gauges(hist, classes=classes)
+    sim_g = latency.percentile_gauges(sim_hist, classes=classes)
+    if set(mesh_g) != set(sim_g) or len(mesh_g) != 4:
+        fail(f"latency gate: gauges {sorted(mesh_g)} against {sorted(sim_g)}")
+    tol = {k: drift.ratio(*LAT_BAND) for k in mesh_g}
+    rep = drift.compare(mesh_g, sim_g, tol, label="mesh (card) against simulator (host)")
+    print(f"telemetry drift: {rep.format()}")
+    if not rep.ok:
+        fail(f"latency gate: percentiles out of band: {rep.format()}")
+    audit = latency.audit_report(*state.lat_audit.sum(0).double().cpu().numpy())
+    return dict(
+        keys=n_keys, batch=batch, warm_batches=n_warm, measured_batches=n_meas,
+        served=served, mesh=mesh_g, sim=sim_g,
+        ratios={e.name: e.measured for e in rep.entries},
+        mispricing_ratio=audit["mispricing_ratio"], sim_s=sim_s,
+    ), launches
+
+
+def phase_telemetry(args, keys, pool, meta, oracle, bounds, carried):
+    """The telemetry plane at full size: YCSB-A under ``auto`` on the 2x4
+    engine, each batch wrapped by ``BatchTimeline.instrument``, in turns with
+    a bare engine over the same batches (the bare one on a copy of the key
+    and value planes); the latency ledger primed after the warm-up batch and
+    captured at the end; a Chrome trace written to ``TRACE_PATH``.  Gates:
+    the instrumented run's lanes, stats, histogram and collective counts
+    equal the bare run's; the captured histogram's total equals the
+    ``STAT_OPS`` delta; no collective is counted under ``dex/lat``; every
+    lane held to the oracle.  Then :func:`latency_gate`."""
+    import torch
+
+    from repro_torch.core import dex, engine, mesh
+    from repro_torch.data import ycsb
+    from repro_torch.kernels import ops
+    from repro_torch.obs import latency, trace
+    from repro_torch.obs import registry as reg
+    from repro_torch.obs.timeline import BatchTimeline
+
+    dev = keys.device
+    warm, timed = TELEMETRY_RUN
+    n_b = warm + timed
+    wl = ycsb.generate("ycsb-a", oracle.keys, BATCH * n_b, seed=args.seed + 80)
+    batches = []
+    for i in range(n_b):
+        opc, kk, _ = ycsb.engine_lanes(wl, i * BATCH, (i + 1) * BATCH)
+        batches.append((opc, kk, kk ^ VALUE_XOR ^ (((1200 + i) << 20) + np.arange(BATCH))))
+    cfg = mesh_config("auto", 65_536)
+    twin = pool._replace(
+        pool_keys=pool.pool_keys.clone(), pool_values=pool.pool_values.clone()
+    )
+    s_bare = dex.init_state(twin, meta, cfg, bounds, device=dev)
+    s_inst = dex.init_state(pool, meta, cfg, bounds, device=dev)
+    eng = engine.make_dex_engine(meta, cfg, ops=("lookup", "update"), device=dev)
+    tl = BatchTimeline("chip_smoke telemetry ycsb-a",
+                       meta={"mesh": "2x4", "keys": int(oracle.keys.size), "batch": BATCH})
+    inst = tl.instrument(eng, label="ycsb-a")
+    ops.reset_launches()
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    times = {"instrumented": [], "bare": []}
+    r_bare, r_inst = [], []
+    for i, b in enumerate(batches):
+        inputs = [torch.from_numpy(a).to(dev) for a in b]
+        mesh.reset_counts()
+        s_bare, r = timed_call(times["bare"] if i >= warm else None, eng, s_bare, *inputs)
+        c_bare = mesh.collective_counts(by_phase=True)
+        r_bare.append(r)
+        mesh.reset_counts()
+        s_inst, r = counted(launches, timed_call, times["instrumented"] if i >= warm
+                            else None, inst, s_inst, *inputs)
+        c_inst = mesh.collective_counts(by_phase=True)
+        r_inst.append(r)
+        if c_inst != c_bare or "dex/lat" in c_inst["phases"]:
+            fail(f"telemetry batch {i}: counts {c_inst} against bare {c_bare}")
+        if not results_equal(r_inst[-1], r_bare[-1], ("found", "values", "status", "shed")):
+            fail(f"telemetry batch {i}: the instrumented lanes differ from the bare run's")
+        if i == warm - 1:
+            tl.prime(s_inst)
+            tl.prime_latency(s_inst)
+            ops0 = int(s_inst.stats[:, reg.STAT_OPS].sum())
+    hist = tl.capture_latency(s_inst)
+    served = int(s_inst.stats[:, reg.STAT_OPS].sum()) - ops0
+    if int(hist.sum()) != served:
+        fail(f"telemetry: {int(hist.sum())} lanes binned, {served} served")
+    for name in ("stats", "lat_hist", "lat_audit", "miss_ema", "versions", "occupancy"):
+        if not torch.equal(getattr(s_inst, name), getattr(s_bare, name)):
+            fail(f"telemetry: {name} differs from the bare run's")
+    for name in ("pool_keys", "pool_values"):
+        if not torch.equal(getattr(pool, name), getattr(twin, name)):
+            fail(f"telemetry: {name} differs from the bare run's")
+    del twin, s_bare
+    (c_b, sh_b), (c_i, sh_i) = check_twice(oracle, "telemetry", batches, r_bare, r_inst)
+    path = trace.write_trace(tl, str(ROOT / TRACE_PATH))
+    summary = tl.summary()
+    print(f"telemetry latency_section: {json.dumps(summary['latency'])}")
+    print(f"telemetry cost_audit: {json.dumps(summary['cost_audit'])}")
+    per_path = {"telemetry/ycsb-a/auto": launches}
+    check_launches("telemetry/ycsb-a/auto", launches,
+                   ("node_search", "subtree_walk", "leaf_write"))
+    t0 = time.perf_counter()
+    gate, gate_launches = latency_gate(args.seed, dev)
+    gate["seconds"] = time.perf_counter() - t0
+    per_path["telemetry/latency-gate"] = gate_launches
+    check_launches("telemetry/latency-gate", gate_launches, ("node_search", "subtree_walk"))
+    report = {"telemetry/ycsb-a/auto": dict(
+        **{k: ms_summary(t) for k, t in times.items()},
+        instrumentation_cost=float(np.median(times["instrumented"]))
+        / float(np.median(times["bare"])) - 1,
+        batches=timed,
+        checked_lanes=[c_b, c_i],
+        shed_lanes=[sh_b, sh_i],
+        binned_lanes=int(hist.sum()),
+        percentiles=latency.class_percentiles(hist),
+        phases=summary["phases"],
+        trace=str(pathlib.Path(path).relative_to(ROOT)),
+        trace_events=len(trace.to_trace_events(tl)["traceEvents"]),
+    ), "telemetry/latency-gate": gate}
+    print(f"main telemetry ycsb-a auto: {json.dumps(report['telemetry/ycsb-a/auto'])}")
+    print(f"main telemetry latency gate: {json.dumps(gate)}")
+    return report, per_path
+
+
+def host_contents(oracle):
+    """The index's contents as the oracle holds them: sorted keys (the bulk
+    load and every acknowledged insert) and their values."""
+    keys = oracle.keys
+    wk, wv = oracle.written_arrays()
+    pos = np.minimum(np.searchsorted(keys, wk), keys.size - 1)
+    fresh = wk[keys[pos] != wk]
+    if fresh.size:
+        keys = np.insert(keys, np.searchsorted(keys, fresh), fresh)
+    vals = keys ^ VALUE_XOR
+    vals[np.searchsorted(keys, wk)] = wv
+    return keys, vals
+
+
+def phase_drain(args, keys, pool, meta, oracle, bounds, carried):
+    """The SMO's host fallback at full size, last on the index (the drain
+    rebuilds the pool and releases the old one).  A ``HostBTree`` mirror of
+    the index's contents, built on the host (seconds and the host's peak
+    RSS); then YCSB's load phase with ``insertorder=ordered``: one batch of
+    ``BATCH`` fresh keys above the largest key, every one into the rightmost
+    leaf, through the insert engine under ``fetch``; the acknowledged lanes
+    go into the mirror, the ``STATUS_SPLIT`` lanes through
+    ``smo.settle_splits``, whose drain must fire.  Then the ops are rebuilt
+    against the new meta: every inserted key must read back its value, and
+    a YCSB-C batch must equal the mirror; ``STAT_DRAINS`` is 1 and the other
+    stats carried over.  Times of the insert batch, the SMO rounds, the host
+    replay, ``host_items``, ``build_pool``, ``init_state`` and the ops'
+    rebuild; the card's peak memory."""
+    import torch
+
+    from repro_torch.core import dex, engine, sim, smo, write
+    from repro_torch.core.nodes import KEY_MAX
+    from repro_torch.data import ycsb
+    from repro_torch.kernels import ops
+    from repro_torch.obs import registry as reg
+    from repro_torch.obs.timeline import BatchTimeline
+
+    dev = keys.device
+    succ, n_alloc = carried
+    t0 = time.perf_counter()
+    all_k, all_v = host_contents(oracle)
+    mirror = sim.HostBTree(all_k, all_v, fill=0.7)
+    build_s = time.perf_counter() - t0
+    rss_build = peak_rss_gib()
+    print(f"drain: HostBTree mirror of {all_k.size} keys ({mirror.num_nodes} nodes,"
+          f" capacity {mirror.K.shape[0]}) built in {build_s:.1f} s, host peak RSS"
+          f" {rss_build:.2f} GiB")
+    cfg = mesh_config("fetch", 65_536)
+    state = dex.init_state(pool, meta, cfg, bounds, device=dev)
+    state = state._replace(succ=succ, n_alloc=n_alloc)
+    insert = engine.make_dex_engine(meta, cfg, ops=("insert",), device=dev)
+    fresh = int(all_k[-1]) + 1 + np.arange(BATCH, dtype=np.int64)
+    vals = fresh ^ VALUE_XOR ^ (77 << 50)
+    ops.reset_launches()
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    torch.cuda.reset_peak_memory_stats()
+    ins_ms = []
+    inputs = [torch.from_numpy(a).to(dev) for a in
+              (np.full(BATCH, engine.OP_INSERT, np.int32), fresh, vals)]
+    state, r = counted(launches, timed_call, ins_ms, insert, state, *inputs)
+    status = r.status.cpu().numpy()
+    if r.shed.any():
+        fail("drain: the ordered insert batch shed lanes")
+    acked = status == write.STATUS_OK
+    for k, v in zip(fresh[acked].tolist(), vals[acked].tolist()):
+        mirror.insert(k, v)
+    split = status == write.STATUS_SPLIT
+    # time the drain's parts: each call wrapped, the mirror's replay is the
+    # rest of the drain
+    parts = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    before = {}
+
+    def drain_splits(st, *a):
+        before["stats"] = st.stats.clone()
+        return real_drain(st, *a)
+
+    real_drain = smo.drain_splits
+    saved = (write.host_items, write.build_pool, write.init_state, smo.drain_splits)
+    write.host_items = timed("host_items", write.host_items)
+    write.build_pool = timed("build_pool", write.build_pool)
+    write.init_state = timed("init_state", write.init_state)
+    smo.drain_splits = timed("drain", drain_splits)
+    tl = BatchTimeline("chip_smoke drain")
+    smo_round = smo.make_dex_smo(meta, cfg, device=dev)
+    try:
+        with tl.batch("settle") as b:
+            state, new_meta, info = counted(
+                launches,
+                lambda *a: smo.settle_splits(*a, obs=b),
+                state, meta, cfg, smo_round, mirror,
+                np.where(split, fresh, KEY_MAX), np.where(split, vals, 0), bounds,
+            )
+    finally:
+        write.host_items, write.build_pool, write.init_state, smo.drain_splits = saved
+    del pool, smo_round, insert
+    phases = tl.batches[0].phase_seconds()
+    if not info["drained"] or new_meta is meta:
+        fail(f"drain: the fallback did not fire: {info}")
+    if info["onmesh"] + info["residual"] + int(acked.sum()) != BATCH:
+        fail(f"drain: lanes unaccounted for: {info}, {int(acked.sum())} acknowledged")
+    stats = state.stats.cpu().numpy()
+    want = before["stats"].cpu().numpy()
+    want[0, reg.STAT_DRAINS] += 1
+    if not np.array_equal(stats, want) or stats[:, reg.STAT_DRAINS].sum() != 1:
+        fail("drain: the stats did not carry over with one drain counted")
+    t = time.perf_counter()
+    look = engine.make_dex_engine(new_meta, cfg, ops=("lookup",), device=dev)
+    rebuild_ms = (time.perf_counter() - t) * 1e3
+    oracle.apply(fresh, vals)
+    zeros = np.zeros(BATCH, np.int32)
+    state, r = counted(launches, timed_call, None, look, state, torch.from_numpy(zeros).to(dev),
+                       torch.from_numpy(fresh).to(dev),
+                       torch.from_numpy(np.zeros(BATCH, np.int64)).to(dev))
+    if r.shed.any() or not r.found.all() or not np.array_equal(r.values.cpu().numpy(), vals):
+        fail("drain: an inserted key did not read back its value")
+    wl = ycsb.generate("read-only", all_k, BATCH, seed=args.seed + 90)
+    q = wl.keys
+    state, r = counted(launches, timed_call, None, look, state, torch.from_numpy(zeros).to(dev),
+                       torch.from_numpy(q).to(dev),
+                       torch.from_numpy(np.zeros(BATCH, np.int64)).to(dev))
+    got = [mirror.get(k) for k in q.tolist()]
+    found, values, shed = (t_.cpu().numpy() for t_ in (r.found, r.values, r.shed))
+    ok = ~shed
+    if not (found[ok] == np.array([g is not None for g in got])[ok]).all() or not all(
+        v == g for v, g, o in zip(values.tolist(), got, ok) if o and g is not None
+    ):
+        fail("drain: the YCSB-C batch differs from the mirror")
+    checked, n_shed, _ = oracle.check("drain ycsb-c", zeros, q, np.zeros(BATCH, np.int64), r)
+    run = "drain/ordered-insert"
+    report = {run: dict(
+        mirror_keys=int(all_k.size),
+        mirror_build_s=build_s,
+        host_peak_rss_gib=peak_rss_gib(),
+        host_peak_rss_after_build_gib=rss_build,
+        insert_ms=ins_ms[0],
+        acknowledged=int(acked.sum()),
+        info=info,
+        smo_rounds_ms=sum(v for k, v in phases.items() if k.startswith("smo/round")) * 1e3,
+        drain_ms=parts["drain"],
+        host_replay_ms=parts["drain"] - sum(parts[k] for k in ("host_items", "build_pool",
+                                                                "init_state")),
+        host_items_ms=parts["host_items"],
+        build_pool_ms=parts["build_pool"],
+        init_state_ms=parts["init_state"],
+        ops_rebuild_ms=rebuild_ms,
+        new_subtrees=new_meta.n_subtrees,
+        checked_lanes=checked,
+        shed_lanes=n_shed,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )}
+    print(f"main drain: {json.dumps(report[run])}")
+    check_launches(run, launches, ("node_search", "leaf_write", "leaf_split"))
+    return report, {run: launches}
 
 
 def lm_attention_kernels(seed):
@@ -3666,10 +4363,14 @@ def device_profile(fn, ranges=(), kernel_log=None):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
+    # a record_function range (the engine labels its phases) shows up on
+    # the device too, spanning its kernels: only kernels and copies count
+    host_keys = {e.key for e in averages if e.device_type == DeviceType.CPU}
     events = [
         (e.key, e.self_device_time_total / 1e3, e.count)
         for e in averages
         if e.device_type == DeviceType.CUDA and e.key not in ranges
+        and e.key not in host_keys
     ]
     marked = {
         r: sum(e.device_time_total for e in averages
@@ -5491,12 +6192,28 @@ def main(argv=None):
     report.update(more)
     per_path.update(more_paths)
     t6a = time.perf_counter()
-    more, more_paths = phase_pipeline(args, keys, pool, meta, oracle, bounds, carried)
+    more, more_paths, carried = phase_pipeline(
+        args, keys, pool, meta, oracle, bounds, carried
+    )
     report.update(more)
     per_path.update(more_paths)
     torch.cuda.empty_cache()
     t6b = time.perf_counter()
     more, more_paths = phase_fleet_policy(args, keys, pool, meta, oracle, bounds)
+    report.update(more)
+    per_path.update(more_paths)
+    t6c = time.perf_counter()
+    more, more_paths = phase_route_axes(args, keys, pool, meta, oracle, bounds, carried)
+    report.update(more)
+    per_path.update(more_paths)
+    t6d = time.perf_counter()
+    more, more_paths = phase_telemetry(args, keys, pool, meta, oracle, bounds, carried)
+    report.update(more)
+    per_path.update(more_paths)
+    torch.cuda.empty_cache()
+    t6e = time.perf_counter()
+    # last on the index: the drain rebuilds the pool and releases the old one
+    more, more_paths = phase_drain(args, keys, pool, meta, oracle, bounds, carried)
     report.update(more)
     per_path.update(more_paths)
     t6 = time.perf_counter()
@@ -5576,7 +6293,9 @@ def main(argv=None):
     print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
           f" main {t3 - t2:.1f} s, splits and scans {t4 - t3:.1f} s,"
           f" route table {t5 - t4:.1f} s, repartition {t6a - t5:.1f} s,"
-          f" pipeline {t6b - t6a:.1f} s, fleet policy {t6 - t6b:.1f} s,"
+          f" pipeline {t6b - t6a:.1f} s, fleet policy {t6c - t6b:.1f} s,"
+          f" route axes {t6d - t6c:.1f} s, telemetry {t6e - t6d:.1f} s,"
+          f" drain {t6 - t6e:.1f} s,"
           f" serving {t7 - t6:.1f} s, prefill {t8 - t7:.1f} s, gate {t9 - t8:.1f} s,"
           f" ssm serving and prefill {t10 - t9:.1f} s, hybrid {t11 - t10:.1f} s,"
           f" ssm gate {t12 - t11:.1f} s, moe serving and prefill {t13 - t12:.1f} s,"

@@ -12,7 +12,10 @@ The same arrays as ``repro.core.btree``, op for op:
   (``_insert_fast_path``) and sends the keys of leaves that would overflow
   to a host rebuild (``_host_insert_with_splits``), which replaces every
   array of the tree;
-* ``bulk_delete`` removes keys and compacts each touched leaf row.
+* ``bulk_delete`` removes keys and compacts each touched leaf row;
+* ``bulk_update`` sets the values of existing keys, and ``bulk_scan`` reads
+  up to ``count`` records from each start key, leaf by leaf through the
+  fence keys.
 
 Every vectorised mutation routes inactive lanes to the scratch row
 ``capacity - 1`` with that row's own contents, so duplicate scatter indices
@@ -200,6 +203,38 @@ def bulk_find_leaf(tree: TreeArrays, queries, *, height: int) -> torch.Tensor:
         slot, _, _ = ops.node_search(tree.keys[nodes], q)
         nodes = tree.children[nodes, slot.long()].long()
     return nodes
+
+
+# ---------------------------------------------------------------------------
+# batched updates (write to existing keys)
+# ---------------------------------------------------------------------------
+
+
+def bulk_update(tree: TreeArrays, queries, new_values, *, height: int):
+    """Set the value of every existing key in ``queries``.  Returns
+    ``(tree', updated mask)``; each updated leaf's version goes up by 2 a
+    lane.  Of duplicate batch keys the last lane wins, as the reference's
+    scatter does on the CPU."""
+    q = _queries(tree, queries)
+    nv = _queries(tree, new_values)
+    leaves = bulk_find_leaf(tree, q, height=height)
+    hit = tree.keys[leaves] == q[:, None]
+    found = hit.any(-1)
+    slot = _first_match(tree.keys[leaves], q)
+    # one write a (leaf, slot): the last lane of each run in lane order
+    flat = torch.where(found, leaves * FANOUT + slot, -1)
+    order = _stable_argsort(flat)
+    fs = flat[order]
+    last = torch.ones_like(fs, dtype=torch.bool)
+    last[:-1] = fs[:-1] != fs[1:]
+    win = order[last & (fs >= 0)]
+    new_vals = tree.values.clone()
+    new_vals.view(-1)[flat[win]] = nv[win]
+    new_version = tree.version.clone()
+    new_version.index_add_(
+        0, leaves, torch.where(found, 2, 0).to(new_version.dtype)
+    )
+    return tree._replace(values=new_vals, version=new_version), found
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +429,43 @@ def bulk_delete(tree: TreeArrays, queries, *, height: int):
         keys=new_keys, values=new_vals, num_keys=new_num, version=new_version
     )
     return tree, found
+
+
+# ---------------------------------------------------------------------------
+# range scans (paper §7: repeated lookups through the fence keys)
+# ---------------------------------------------------------------------------
+
+
+def bulk_scan(tree: TreeArrays, start_keys, *, height: int, count: int,
+              max_hops: Optional[int] = None):
+    """Scan up to ``count`` records in ascending order from each start key.
+
+    DEX keeps no leaf links, so a scan over several leaves is a repeated
+    root-to-leaf lookup whose next start key is the current leaf's
+    ``fence_hi``.  Returns ``(keys, values)``, each ``[B, count]``,
+    KEY_MAX-padded."""
+    cur = _queries(tree, start_keys)
+    b = cur.shape[0]
+    dev = cur.device
+    hops = max_hops if max_hops is not None else max(2, count // (FANOUT // 2) + 2)
+    out_k = torch.full((b, hops * FANOUT), KEY_MAX, dtype=torch.int64, device=dev)
+    out_v = torch.zeros((b, hops * FANOUT), dtype=torch.int64, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    taken = torch.zeros((b,), dtype=torch.int32, device=dev)
+    for h in range(hops):
+        leaves = bulk_find_leaf(tree, cur, height=height)  # a fresh descent
+        lk = tree.keys[leaves]
+        lv = tree.values[leaves]
+        pre = (lk >= cur[:, None]) & (lk != KEY_MAX) & ~done[:, None]
+        mask = pre & ((taken[:, None] + torch.cumsum(pre, -1)) <= count)
+        out_k[:, h * FANOUT : (h + 1) * FANOUT] = torch.where(mask, lk, KEY_MAX)
+        out_v[:, h * FANOUT : (h + 1) * FANOUT] = torch.where(mask, lv, 0)
+        taken = taken + mask.sum(-1).to(torch.int32)
+        nxt = tree.fence_hi[leaves]
+        done = done | (taken >= count) | (nxt == KEY_MAX)
+        cur = torch.where(done, cur, nxt)
+    sidx = _stable_argsort(out_k)
+    return out_k.gather(1, sidx)[:, :count], out_v.gather(1, sidx)[:, :count]
 
 
 # ---------------------------------------------------------------------------

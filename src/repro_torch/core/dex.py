@@ -48,6 +48,30 @@ class DexMeshConfig:
     offload_c: float = 1.3  # cost coefficient (§6.1)
     ema_decay: float = 0.98
     route_table_slots: int = 0  # leaf-direct route table
+    # the size of each route axis, in ``route_axes`` order; their product is
+    # ``n_route``.  The reference reads them off its device mesh
+    # (``mesh.shape``), which the virtual mesh does not have.  Empty means
+    # ``(n_route,)``, which one route axis needs no more than
+    route_shape: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if len(self.route_axes) not in (1, 2):
+            raise ValueError(f"one or two route axes, got {self.route_axes!r}")
+        sizes = self.route_sizes
+        if len(sizes) != len(self.route_axes):
+            raise ValueError(
+                f"route_shape {self.route_shape!r} must give a size for each of "
+                f"the route axes {self.route_axes!r}"
+            )
+        if int(np.prod(sizes)) != self.n_route or min(sizes) < 1:
+            raise ValueError(
+                f"route_shape {sizes!r} must multiply to n_route={self.n_route}"
+            )
+
+    @property
+    def route_sizes(self) -> Tuple[int, ...]:
+        """Each route axis's size, in ``route_axes`` order."""
+        return tuple(self.route_shape) or (self.n_route,)
 
     @property
     def n_devices(self) -> int:

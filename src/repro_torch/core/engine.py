@@ -69,7 +69,9 @@ The engine writes its state in place: the cache planes, and with writes the
 pool's key and value planes, ``occupancy`` and ``versions``.  The returned
 state shares these tensors with the one it was given, which saves a copy of
 the pool per batch; a caller that needs the pre-batch state keeps a copy.
-Two route axes are not ported: asking for them raises.
+One or two route axes (``cfg.route_axes``, their sizes ``cfg.route_sizes``)
+run the same program: a route exchange over two axes counts the reference's
+two ``all_to_all`` (``routing.route_exchange``).
 """
 
 from __future__ import annotations
@@ -117,6 +119,10 @@ from repro_torch.obs.registry import (
     STAT_SPLITS,
     STAT_WRITES,
 )
+
+#: a profiler range with the reference's ``jax.named_scope`` label: metadata
+#: only, it changes no state, result or count
+_scope = torch.profiler.record_function
 
 OP_LOOKUP, OP_UPDATE, OP_INSERT, OP_SCAN = 0, 1, 2, 3
 ALL_OPS = ("lookup", "update", "insert", "scan")
@@ -358,8 +364,6 @@ def make_dex_engine(
         raise ValueError("ops must name at least one operation")
     if cfg.policy not in ("fetch", "offload", "auto"):
         raise ValueError(f"unknown policy {cfg.policy!r}")
-    if len(cfg.route_axes) != 1:
-        raise NotImplementedError("two route axes are not ported yet")
     device = mesh.resolve_device(device)
 
     has_lookup = "lookup" in ops
@@ -491,12 +495,13 @@ def make_dex_engine(
             else:
                 want = inner_want
                 p_ok = torch.ones_like(want)
-            rows_k, rows_c, rows_v, hit, miss, f_drop, n_msgs, cache, pk = (
-                cached_fetch_level(
-                    state.pool, meta, cfg, cache, state.versions, gid, want, p_ok,
-                    peek_elig, peek_budget,
+            with _scope(f"dex/descent/l{lvl}"):
+                rows_k, rows_c, rows_v, hit, miss, f_drop, n_msgs, cache, pk = (
+                    cached_fetch_level(
+                        state.pool, meta, cfg, cache, state.versions, gid, want, p_ok,
+                        peek_elig, peek_budget,
+                    )
                 )
-            )
             # a peeked lane fetched nothing here: its two-sided trip is
             # priced in the back half
             fetched = miss & ~f_drop
@@ -590,11 +595,12 @@ def make_dex_engine(
                 nq, device=device
             )
             p_ok = fleet_cache.leaf_admit(meta, cfg, cache_policy, gid, salt, boost=boost)
-            rows_k, _, rows_v, hit, miss, f_drop, n_msgs, cache, _ = (
-                cached_fetch_level(
-                    state.pool, meta, cfg, cache, vers, gid, in_range, p_ok
+            with _scope(f"dex/scan/h{h}"):
+                rows_k, _, rows_v, hit, miss, f_drop, n_msgs, cache, _ = (
+                    cached_fetch_level(
+                        state.pool, meta, cfg, cache, vers, gid, in_range, p_ok
+                    )
                 )
-            )
             shed = shed | f_drop
             n_fetch = n_fetch + n_msgs
             n_hit = n_hit + hit.sum(1)
@@ -684,9 +690,10 @@ def make_dex_engine(
             payload = keys
         buf, lane, dropped_r = routing.pack_by_dest(payload, owner, nr, cap)
         dropped_r = dropped_r & (keys != KEY_MAX)
-        routed = routing.route_exchange(buf, cfg).reshape(
-            (n_dev, nr * cap) + tuple(payload.shape[2:])
-        )
+        with _scope("dex/route"):
+            routed = routing.route_exchange(buf, cfg).reshape(
+                (n_dev, nr * cap) + tuple(payload.shape[2:])
+            )
         carry = {"lane": lane, "dropr": dropped_r}
         if route_planes:
             q = routed[..., 0].contiguous()
@@ -821,7 +828,8 @@ def make_dex_engine(
         wbuf, wlane, dropped = routing.pack_by_dest(
             torch.stack(fields, -1), dest, nm, wcap
         )
-        req = mesh.a2a(wbuf, cfg, cfg.memory_axis).reshape(n_dev, -1, len(fields))
+        with _scope("dex/fused_a2a/request"):
+            req = mesh.a2a(wbuf, cfg, cfg.memory_axis).reshape(n_dev, -1, len(fields))
         stf, kf = req[..., 0], req[..., 1]
         walk = kf != KEY_MAX
         if may_peek:
@@ -852,7 +860,8 @@ def make_dex_engine(
             ]
         width = len(resp)
         resp = torch.stack([t.long() for t in resp], -1).view(n_dev, nm, wcap, width)
-        resp = mesh.a2a(resp, cfg, cfg.memory_axis)
+        with _scope("dex/fused_a2a/response"):
+            resp = mesh.a2a(resp, cfg, cfg.memory_axis)
         back = routing.unpack_to_lanes(resp, wlane, nq, 0)
         return Fused(
             send=send,
@@ -884,7 +893,8 @@ def make_dex_engine(
         )
         wbuf, wlane, dropped = routing.pack_by_dest(payload, dest, nm, wcap)
         dropped = dropped & send
-        req = mesh.a2a(wbuf, cfg, cfg.memory_axis)  # [Dev, nm, wcap, RF]
+        with _scope("dex/fused_a2a/request"):
+            req = mesh.a2a(wbuf, cfg, cfg.memory_axis)  # [Dev, nm, wcap, RF]
         # [nm, nr, nm, wcap, RF]: each column's batch, gathered once
         flat = mesh.gather_route(req, cfg).reshape(-1, REQ_FIELDS)
         tagf, gidf, stf, kf, vf, prf = (c.contiguous() for c in flat.unbind(-1))
@@ -927,17 +937,18 @@ def make_dex_engine(
             lk = peekf | (tagf == MSG_OFF_LOOKUP)
             resp_val = torch.where(lk, o_val, 0)
         allow_ins = (tagf == MSG_INSERT) | (tagf == MSG_OFF_INSERT)
-        _, _, _, wstat, rows_v, ins_in_leaf = _apply_leaf_writes(
-            pool.pool_keys,
-            pool.pool_values,
-            state.occupancy,
-            meta,
-            wgid,
-            kf,
-            vf,
-            prf,
-            allow_ins,
-        )
+        with _scope("dex/apply"):
+            _, _, _, wstat, rows_v, ins_in_leaf = _apply_leaf_writes(
+                pool.pool_keys,
+                pool.pool_values,
+                state.occupancy,
+                meta,
+                wgid,
+                kf,
+                vf,
+                prf,
+                allow_ins,
+            )
         if may_offload or may_peek:
             wstat = torch.where(
                 lk, torch.where(o_found, STATUS_OK, STATUS_MISS).to(wstat.dtype), wstat
@@ -960,7 +971,8 @@ def make_dex_engine(
         width = RESP_HEAD + FANOUT
         # each device answers its own route row
         resp = mesh.route_share(resp.view(nm, nr, nm, wcap, width), cfg)
-        resp = mesh.a2a(resp, cfg, cfg.memory_axis)
+        with _scope("dex/fused_a2a/response"):
+            resp = mesh.a2a(resp, cfg, cfg.memory_axis)
         back = routing.unpack_to_lanes(resp, wlane, nq, 0)
         return Fused(
             send=send,
@@ -1058,7 +1070,8 @@ def make_dex_engine(
             upd[:, STAT_PIPE_STALLS] = n_stalls
             # a stale lane re-resolves two-sided at its leaf: one RPC and a
             # one-level memory-side walk
-            cost = cost + stalled.float() * (obs_latency.T_RPC + obs_latency.T_MEM)
+            with _scope("dex/lat/stale_forced"), mesh.phase("dex/lat"):
+                cost = cost + stalled.float() * (obs_latency.T_RPC + obs_latency.T_MEM)
         offl_eff = offl | force_off
 
         # the fused round over the memory axis
@@ -1130,36 +1143,40 @@ def make_dex_engine(
             upd[:, STAT_WRITES] = (delivered & ~is_off & (opc != OP_LOOKUP)).sum(1)
             upd[:, STAT_SPLITS] = (status == STATUS_SPLIT).sum(1)
         off_norm = delivered & is_off & ~stalled
-        cost = cost + off_norm.float() * (
-            obs_latency.T_RPC + float(levels) * obs_latency.T_MEM
-        )
+        with _scope("dex/lat/offload"), mesh.phase("dex/lat"):
+            cost = cost + off_norm.float() * (
+                obs_latency.T_RPC + float(levels) * obs_latency.T_MEM
+            )
         if may_peek:
             pk = delivered & sent_peek
             upd[:, STAT_PEER_HITS] = (pk & f.ins).sum(1)
             upd[:, STAT_PEER_MISSES] = (pk & ~f.ins).sum(1)
-            # the reference adds the constants in float64, then rounds
-            trip = torch.where(
-                f.ins,
-                _f32(obs_latency.T_RPC + obs_latency.T_CACHED),
-                _f32(obs_latency.T_RPC + obs_latency.T_MEM),
-            ).float()
-            cost = cost + pk.float() * trip
+            with _scope("dex/lat/peer_peek"), mesh.phase("dex/lat"):
+                # the reference adds the constants in float64, then rounds
+                trip = torch.where(
+                    f.ins,
+                    _f32(obs_latency.T_RPC + obs_latency.T_CACHED),
+                    _f32(obs_latency.T_RPC + obs_latency.T_MEM),
+                ).float()
+                cost = cost + pk.float() * trip
         if has_writes and not check_stale:
-            wl = delivered & ~is_off & ((opc == OP_UPDATE) | (opc == OP_INSERT))
-            cost = cost + wl.float() * obs_latency.T_WRITE
-        path = torch.where(carry["fmiss"], 1, 0)
-        if may_peek:
-            path = torch.where(delivered & sent_peek, 2, path)
-        path = torch.where(off_norm, 3, path)
-        path = torch.where(lane_shed, 5, path)
-        if check_stale:
-            path = torch.where(stalled, 4, path)
-        cell = path * obs_latency.N_BUCKETS + obs_latency.bucket_index(cost)
-        if opc is not None:
-            cls = torch.clamp(opc, 0, obs_latency.N_CLASSES - 1).long()
-            cell = cell + cls * (obs_latency.N_PATHS * obs_latency.N_BUCKETS)
-        hist = torch.zeros_like(state.lat_hist).view(n_dev, -1)
-        hist.scatter_add_(1, cell, live.long())
+            with _scope("dex/lat/write_through"), mesh.phase("dex/lat"):
+                wl = delivered & ~is_off & ((opc == OP_UPDATE) | (opc == OP_INSERT))
+                cost = cost + wl.float() * obs_latency.T_WRITE
+        with _scope("dex/lat/bin"), mesh.phase("dex/lat"):
+            path = torch.where(carry["fmiss"], 1, 0)
+            if may_peek:
+                path = torch.where(delivered & sent_peek, 2, path)
+            path = torch.where(off_norm, 3, path)
+            path = torch.where(lane_shed, 5, path)
+            if check_stale:
+                path = torch.where(stalled, 4, path)
+            cell = path * obs_latency.N_BUCKETS + obs_latency.bucket_index(cost)
+            if opc is not None:
+                cls = torch.clamp(opc, 0, obs_latency.N_CLASSES - 1).long()
+                cell = cell + cls * (obs_latency.N_PATHS * obs_latency.N_BUCKETS)
+            hist = torch.zeros_like(state.lat_hist).view(n_dev, -1)
+            hist.scatter_add_(1, cell, live.long())
 
         # the return trip over the route axis
         fields = [out_found.long(), out_val]
@@ -1173,7 +1190,10 @@ def make_dex_engine(
             del sc_k, sc_v
         width = fields.shape[-1]
         cap = lane.shape[2]
-        back = routing.route_exchange(fields.view(n_dev, nr, cap, width), cfg)
+        with _scope("dex/route_back"):
+            back = routing.route_exchange(
+                fields.view(n_dev, nr, cap, width), cfg, reverse=True
+            )
         del fields
         out = routing.unpack_to_lanes(back, lane, b, 0)
         if has_writes:
@@ -1312,11 +1332,11 @@ def make_dex_engine(
         and the versions as they were before this step."""
         keys, opc_in, vals = prepare(state, opcodes, keys, values)
         b = keys.shape[1]
-        with mesh.phase("pipe/front"):
+        with _scope("pipe/front"), mesh.phase("pipe/front"):
             carry_out, new_ema, demand, f_upd, audit_upd = run_front(
                 state, keys, opc_in, vals, stamp=True
             )
-        with mesh.phase("pipe/back"):
+        with _scope("pipe/back"), mesh.phase("pipe/back"):
             b_upd, hist, result = run_back(state, carry, b, check_stale=True)
         # the histogram lags STAT_OPS by one batch (a lane bins when its
         # back half lands); the drain closes the gap

@@ -10,7 +10,11 @@ tensor operations on that axis:
 * ``a2a`` over the memory axis, on ``[Dev, n_memory, ...]`` buffers:
   ``out[r*nm + m, s] = buf[r*nm + s, m]``;
 * ``a2a`` over the route axis, on ``[Dev, n_route, ...]`` buffers:
-  ``out[r*nm + m, s] = buf[s*nm + m, r]``;
+  ``out[r*nm + m, s] = buf[s*nm + m, r]``.  With two route axes ``(a0,
+  a1)`` of sizes ``(s0, s1)`` the route index is ``r = d0 * s1 + d1``
+  (route-major, as the reference's ``P(all_axes)`` orders devices), and an
+  exchange over ``a0`` swaps the buffer's ``i0`` with the device's ``d0``,
+  one over ``a1`` its ``i1`` with ``d1``;
 * ``psum`` and ``pmax`` over all axes: a sum or maximum over ``Dev``,
   broadcast back;
 * ``gather_route``, the write round's all-gather over the route axis: the
@@ -96,9 +100,8 @@ def device_linear_index(cfg, device) -> torch.Tensor:
 
 
 def route_linear_index(cfg, device) -> torch.Tensor:
-    """``[Dev]`` position of each device along the route axis."""
-    if len(cfg.route_axes) != 1:
-        raise NotImplementedError("two route axes are not ported yet")
+    """``[Dev]`` position of each device along the composed route axes,
+    route-major (the leading axis of :func:`gather_route`)."""
     return torch.arange(cfg.n_devices, device=device) // cfg.n_memory
 
 
@@ -117,11 +120,30 @@ def a2a(x: torch.Tensor, cfg, axis: str) -> torch.Tensor:
     if axis == cfg.memory_axis:
         y = x.reshape((nr, nm, nm) + rest).permute((0, 2, 1) + tail)
     elif axis in cfg.route_axes:
-        if len(cfg.route_axes) != 1:
-            raise NotImplementedError("two route axes are not ported yet")
-        y = x.reshape((nr, nm, nr) + rest).permute((2, 1, 0) + tail)
+        if len(cfg.route_axes) == 1:
+            return route_transpose(x, cfg)
+        # [d0, d1, m, i0, i1, ...]: swap the device's and the buffer's
+        # position along this axis
+        sizes = cfg.route_sizes
+        k = cfg.route_axes.index(axis)
+        y = x.reshape(sizes + (nm,) + sizes + rest)
+        perm = list(range(y.dim()))
+        perm[k], perm[3 + k] = perm[3 + k], perm[k]
+        y = y.permute(perm)
     else:
         raise ValueError(f"unknown mesh axis {axis!r}")
+    return y.reshape(x.shape)
+
+
+def route_transpose(x: torch.Tensor, cfg) -> torch.Tensor:
+    """``[Dev, n_route, ...]`` -> the buffers exchanged over the whole route
+    index: ``out[r*nm + m, s] = x[s*nm + m, r]``.  Counts nothing; with two
+    route axes it is the composition of the exchanges over each, which act
+    on disjoint index pairs and so commute."""
+    nr, nm = cfg.n_route, cfg.n_memory
+    rest = tuple(x.shape[2:])
+    tail = tuple(range(3, 3 + len(rest)))
+    y = x.reshape((nr, nm, nr) + rest).permute((2, 1, 0) + tail)
     return y.reshape(x.shape)
 
 
@@ -138,9 +160,9 @@ def gather_route(x: torch.Tensor, cfg) -> torch.Tensor:
     The reference all-gathers so that every route replica of a column's pool
     shard applies the same writes; the virtual mesh holds one copy of the
     pool, so it keeps one gathered batch per column and applies it once.
-    Like the reference's counter, this counts nothing."""
-    if len(cfg.route_axes) != 1:
-        raise NotImplementedError("two route axes are not ported yet")
+    Like the reference's counter, this counts nothing.  With two route
+    axes the reference gathers over ``a1`` then ``a0``, which leaves the
+    route index in the same route-major order."""
     rest = tuple(x.shape[1:])
     return x.reshape((cfg.n_route, cfg.n_memory) + rest).transpose(0, 1)
 

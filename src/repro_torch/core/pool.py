@@ -70,6 +70,13 @@ class PoolMeta:
     def n_nodes(self) -> int:
         return self.n_subtrees_padded * self.subtree_cap
 
+    @property
+    def headroom_frac(self) -> float:
+        """Free-list fraction this pool was built with (for rebuilds)."""
+        if self.base_cap <= 0:
+            return 0.0
+        return (self.subtree_cap - self.base_cap) / self.base_cap
+
     def node_gid(self, subtree: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
         """Global node id (int64), the cache tag."""
         return subtree.long() * self.subtree_cap + local

@@ -286,10 +286,8 @@ class RepartitionController:
         """Repartition if the trigger fires.  Returns the (possibly new)
         state and a report when the boundaries moved.  The first
         ``cooldown_batches`` calls after an install are skipped.  ``obs``
-        (the reference's telemetry timeline) is not ported and must be
-        None."""
-        if obs is not None:
-            raise NotImplementedError("telemetry timelines are not ported yet")
+        is an optional telemetry batch (``obs/timeline.py``): the boundary
+        install becomes its fenced phase ``repartition/install``."""
         if self._cooldown > 0:
             self._cooldown -= 1
             return state, None
@@ -299,15 +297,19 @@ class RepartitionController:
         if np.array_equal(new_parts.boundaries, self.parts.boundaries):
             self._reset_window()
             return state, None
-        new_state, n_inval, sh_before, sh_after = install_boundaries(
-            state, meta, self.parts, new_parts
-        )
-        # the version bumps already fence the table's moved entries off;
-        # retraining brings the leaf-direct path back under the new owners
         from repro_torch.core import route_table  # route_table imports us
+        from repro_torch.obs.timeline import obs_phase
 
-        if route_table.route_table_active(new_state):
-            new_state = route_table.train_route_table(new_state, meta)
+        with obs_phase(obs, "repartition/install") as ph:
+            new_state, n_inval, sh_before, sh_after = install_boundaries(
+                state, meta, self.parts, new_parts
+            )
+            # the version bumps already fence the table's moved entries off;
+            # retraining brings the leaf-direct path back under the new owners
+            if route_table.route_table_active(new_state):
+                new_state = route_table.train_route_table(new_state, meta)
+            if ph is not None:
+                ph.fence(new_state.boundaries)
         report = RepartitionReport(
             old_boundaries=self.parts.boundaries.copy(),
             new_boundaries=new_parts.boundaries.copy(),

@@ -161,13 +161,21 @@ def unpack_to_lanes(resp: torch.Tensor, lane_of_slot: torch.Tensor, b: int, fill
 
 
 def route_exchange(buf: torch.Tensor, cfg, *, reverse: bool = False) -> torch.Tensor:
-    """Exchange ``[Dev, n_route, cap, ...]`` buckets across the route axis.
-    One route axis only; ``reverse`` names the return trip, which is the
-    same exchange."""
+    """Exchange ``[Dev, n_route, cap, ...]`` buckets across the route axes.
+
+    With one axis this is one ``all_to_all``.  With two, the reference
+    composes the exchanges over each axis, ``x1(x0(.))`` on the way out and
+    ``x0(x1(.))`` on the way back (``reverse``), two ``all_to_all`` each
+    time.  They act on disjoint (buffer, device) index pairs and commute,
+    so the virtual mesh counts the two in the reference's order and moves
+    the buffers once, by the composed permutation."""
     mesh.count("route_exchange")
-    if len(cfg.route_axes) != 1:
-        raise NotImplementedError("two route axes are not ported yet")
-    return mesh.a2a(buf, cfg, cfg.route_axes[0])
+    axes = cfg.route_axes
+    if len(axes) == 1:
+        return mesh.a2a(buf, cfg, axes[0])
+    for _ in axes:
+        mesh.count("all_to_all")
+    return mesh.route_transpose(buf, cfg)
 
 
 def fetch_rows(pool, meta, cfg, gid: torch.Tensor, want: torch.Tensor):

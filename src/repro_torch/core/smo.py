@@ -24,16 +24,18 @@ virtual mesh, as the reference's does:
 Only the split leaf, its sibling and the touched ancestors get version
 bumps, so cached rows elsewhere stay warm.  A lane that a bounded number of
 rounds cannot place (an exhausted free list, a split at the subtree root)
-stays ``STATUS_SPLIT``; the reference's host fallback (``settle_splits``,
-``write.drain_splits``) replays through its host tree, which is not ported.
+stays ``STATUS_SPLIT``; :func:`settle_splits` sends that residue through
+the host fallback, ``write.drain_splits``, which replays it through a
+``HostBTree`` mirror and rebuilds the pool.
 
 The virtual mesh holds one pool: each memory column's gathered batch is
 applied once (``mesh.gather_route``) and each device takes its own route
 row of the statuses (``mesh.route_share``).  The round writes the pool,
 ``occupancy``, ``n_alloc`` and ``versions`` in place; ``succ`` comes back as
 a new table.  :func:`run_smo` drives rounds until the pending set stops
-shrinking; :func:`refresh_sep_planes` then recompresses the separator rows
-the rounds touched.
+shrinking, :func:`settle_splits` adds the host fallback for what they
+leave; :func:`refresh_sep_planes` then recompresses the separator rows the
+rounds touched.
 """
 
 from __future__ import annotations
@@ -51,8 +53,10 @@ from repro_torch.core.write import (
     _lexsort,
     _run_sums,
     _seg_positions,
+    drain_splits,
 )
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.timeline import obs_phase
 from repro_torch.obs.registry import N_STATS, STAT_SMO_SPLITS
 
 SW = FANOUT  # staged inserts per leaf per round
@@ -105,8 +109,6 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
     keys, a full parent, an exhausted free list; retry with another round).
     The state is written in place (see the module's docstring)."""
     device = mesh.resolve_device(device)
-    if len(cfg.route_axes) != 1:
-        raise NotImplementedError("two route axes are not ported yet")
     levels = meta.levels_in_subtree
     cap_nodes = meta.subtree_cap
     nr, nm, n_dev = cfg.n_route, cfg.n_memory, cfg.n_devices
@@ -406,7 +408,7 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
     return smo
 
 
-def run_smo(smo, state, keys, values, *, max_rounds=None, levels: int = 2):
+def run_smo(smo, state, keys, values, *, max_rounds=None, levels: int = 2, obs=None):
     """Drive SMO rounds until every live lane settles or the pending set
     stops shrinking (an exhausted free list, a split at the subtree root).
 
@@ -414,7 +416,9 @@ def run_smo(smo, state, keys, values, *, max_rounds=None, levels: int = 2):
     lanes that are not pending set to ``KEY_MAX`` (as an insert batch hands
     back its ``STATUS_SPLIT`` lanes); the width must divide over the
     devices.  Returns ``(state, status [B] int32 numpy, rounds)``; lanes
-    still ``STATUS_SPLIT`` need the host fallback, which is not ported."""
+    still ``STATUS_SPLIT`` need the host fallback (:func:`settle_splits`).
+    ``obs`` is an optional telemetry batch (``obs/timeline.py``): each round
+    is a phase ``smo/round<i>`` of it."""
     keys = np.asarray(keys, np.int64)
     values = np.asarray(values, np.int64)
     if max_rounds is None:
@@ -431,10 +435,11 @@ def run_smo(smo, state, keys, values, *, max_rounds=None, levels: int = 2):
 
     while pending.any() and rounds < max_rounds:
         before = splits_done(state)
-        state, st_r = smo(
-            state, np.where(pending, keys, KEY_MAX), np.where(pending, values, 0)
-        )
-        st_np = st_r.cpu().numpy()
+        with obs_phase(obs, f"smo/round{rounds}"):
+            state, st_r = smo(
+                state, np.where(pending, keys, KEY_MAX), np.where(pending, values, 0)
+            )
+            st_np = st_r.cpu().numpy()
         rounds += 1
         settled = pending & (st_np != STATUS_SPLIT)
         status[settled] = st_np[settled]
@@ -447,6 +452,47 @@ def run_smo(smo, state, keys, values, *, max_rounds=None, levels: int = 2):
         pending = still
     status[pending] = STATUS_SPLIT
     return state, status, rounds
+
+
+def settle_splits(state, meta: PoolMeta, cfg, smo, host, shed_keys, shed_values,
+                  boundaries, *, max_rounds=None, obs=None):
+    """Settle one batch of ``STATUS_SPLIT`` lanes: bounded SMO rounds on the
+    device first, the host's ``drain_splits`` rebuild for the residue only.
+
+    ``host`` is the caller's ``HostBTree`` mirror; the lanes the rounds
+    apply are replayed into it here, in lane order, and the residue goes
+    through its eager-split path.  Returns ``(state, meta, info)``: ``meta``
+    changes only when the drain rebuilt the pool (rebuild the ops against
+    it then; the old state is spent, see ``drain_splits``), and ``info`` is
+    ``{"onmesh": lanes applied on the device, "residual": lanes drained,
+    "rounds": SMO rounds run, "drained": bool}``.  ``obs`` is an optional
+    telemetry batch: each round and the drain (``smo/drain``) are phases of
+    it."""
+    shed_keys = np.asarray(shed_keys, np.int64)
+    shed_values = np.asarray(shed_values, np.int64)
+    if shed_keys.size == 0:
+        return state, meta, {"onmesh": 0, "residual": 0, "rounds": 0, "drained": False}
+    state, status, rounds = run_smo(
+        smo, state, shed_keys, shed_values,
+        max_rounds=max_rounds, levels=meta.levels_in_subtree, obs=obs,
+    )
+    ok = status == STATUS_OK
+    for kk, vv in zip(shed_keys[ok].tolist(), shed_values[ok].tolist()):
+        host.insert(kk, vv)
+    residual = status == STATUS_SPLIT
+    drained = bool(residual.any())
+    if drained:
+        with obs_phase(obs, "smo/drain"):
+            state, meta = drain_splits(
+                state, meta, cfg, host,
+                shed_keys[residual], shed_values[residual], boundaries,
+            )
+    return state, meta, {
+        "onmesh": int(ok.sum()),
+        "residual": int(residual.sum()),
+        "rounds": rounds,
+        "drained": drained,
+    }
 
 
 def refresh_sep_planes(sep: SepPlanes, state, meta: PoolMeta, old_versions) -> SepPlanes:

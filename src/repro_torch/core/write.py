@@ -26,15 +26,23 @@ Result status codes, per lane: ``STATUS_OK`` applied; ``STATUS_MISS`` no-op
 (update of an absent key, inactive lane); ``STATUS_SHED`` shed by a routing
 bucket (retry it; ``STAT_DROPS``); ``STATUS_SPLIT`` insert shed to the
 structural path.
+
+The bottom rung of that path is on the host: :func:`drain_splits` replays
+the inserts the on-mesh SMO could not place through a
+:class:`repro_torch.core.sim.HostBTree` mirror and rebuilds the pool from
+its contents (:func:`host_items`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core.dex import init_state
 from repro_torch.core.nodes import FANOUT, KEY_MAX
-from repro_torch.core.pool import PoolMeta
+from repro_torch.core.pool import PoolMeta, build_pool
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.registry import STAT_DRAINS
 
 STATUS_MISS = 0  # update of an absent key / inactive lane: no-op
 STATUS_OK = 1  # write applied by the owning memory column
@@ -234,3 +242,82 @@ def make_dex_insert(meta: PoolMeta, cfg, *, device=None):
     value updates; a leaf that would overflow sheds its inserts with
     ``STATUS_SPLIT`` (``STAT_SPLITS``).  ``KEY_MAX`` lanes are inactive."""
     return _single_op(meta, cfg, "insert", device)
+
+
+# ---------------------------------------------------------------------------
+# host-side split replay (the bottom rung of the SMO path)
+# ---------------------------------------------------------------------------
+
+
+def host_items(host) -> "tuple[np.ndarray, np.ndarray]":
+    """All (key, value) pairs of a :class:`repro_torch.core.sim.HostBTree`
+    in sorted key order.
+
+    The reference concatenates the leaves in id order and sorts the keys;
+    leaves hold disjoint key ranges, so taking them in fence order and
+    their live slots in row order gives the same arrays without a sort of
+    every key (4.5M leaves at 200M keys)."""
+    leaves = np.nonzero(host.LV == 0)[0]
+    leaves = leaves[np.argsort(host.FLO[leaves], kind="stable")]
+    live = np.arange(FANOUT)[None, :] < host.NK[leaves][:, None]
+    return host.K[leaves][live], host.V[leaves][live]
+
+
+def _release(state) -> None:
+    """Give the card back the memory of a spent state's per-node planes (the
+    pool, the cache, versions, occupancy, successors, the free lists).  A
+    CPU state is left alone: its memory goes when the caller drops it."""
+    planes = list(state.pool) + list(state.cache) + [
+        state.versions, state.occupancy, state.succ, state.n_alloc
+    ]
+    for t in planes:
+        if t.is_cuda:
+            t.untyped_storage().resize_(0)
+
+
+def drain_splits(state, meta: PoolMeta, cfg, host, shed_keys, shed_values, boundaries):
+    """Replay shed inserts through the host tree's eager-split path and
+    rebuild the mesh state from the result: the bottom rung of the SMO
+    fallback ladder (``core/smo.py`` settles plain leaf splits on the
+    device; this path takes a full parent, an exhausted free list, more than
+    64 staged keys in a leaf and growth of the top tree).
+
+    ``host`` is the :class:`repro_torch.core.sim.HostBTree` mirror the
+    caller keeps in sync (it must already hold every write the mesh
+    applied); ``shed_keys``/``shed_values`` are the lanes that came back
+    ``STATUS_SPLIT``, in batch order.  Returns ``(new_state, new_meta)``: a
+    pool rebuilt from the mirror at the old level M, fill, shard count,
+    headroom and block size, with cold caches and versions; the stats and
+    ``route_demand`` carry over, with ``STAT_DRAINS`` + 1 on device 0.  Ops
+    built by ``make_dex_*`` must be rebuilt against ``new_meta``.
+
+    On the card the old state is spent: its pool, cache, version,
+    occupancy, successor and free-list planes are released before the new
+    pool is allocated, so the two never coexist (tensors the caller shares
+    with it, such as the pool it gave ``init_state``, go with it).  With no
+    shed lanes this is a no-op that returns the same objects."""
+    shed_keys = np.asarray(shed_keys)
+    shed_values = np.asarray(shed_values)
+    if shed_keys.size == 0:
+        return state, meta
+    for k, v in zip(shed_keys.tolist(), shed_values.tolist()):
+        host.insert(int(k), int(v))
+    items_k, items_v = host_items(host)
+    device = state.stats.device
+    stats = state.stats.clone()
+    stats[0, STAT_DRAINS] += 1
+    demand = state.route_demand.clone()
+    _release(state)
+    del state
+    pool, new_meta = build_pool(
+        items_k,
+        items_v,
+        level_m=meta.level_m,
+        fill=meta.per_node / FANOUT,
+        n_shards=cfg.n_memory,
+        headroom=meta.headroom_frac,
+        subtree_leaves=meta.leaves_per_subtree,
+        device=device,
+    )
+    new_state = init_state(pool, new_meta, cfg, boundaries, device=device)
+    return new_state._replace(stats=stats, route_demand=demand), new_meta

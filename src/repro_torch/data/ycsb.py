@@ -123,6 +123,16 @@ def engine_lanes(wl: Workload, lo: int = 0, hi=None, *, update_xor: int = 0x5A5A
     return ops, keys, vals
 
 
+def make_dataset(n_keys: int, *, key_space: int = None, seed: int = 0) -> np.ndarray:
+    """Sorted unique int64 keys to bulk-load, drawn from ``[1, key_space]``
+    (default ``max(4 * n_keys, 2**20)``), as ``repro.data.ycsb.make_dataset``
+    draws them."""
+    key_space = key_space or max(4 * n_keys, 1 << 20)
+    rng = np.random.default_rng(seed)
+    keys = rng.choice(key_space, size=n_keys, replace=False).astype(np.int64) + 1
+    return np.sort(keys)
+
+
 def generate(
     name: str,
     dataset,

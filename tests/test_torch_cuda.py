@@ -1448,3 +1448,114 @@ def test_pipelined_and_divergent_engines_on_the_card_match_the_cpu(cuda, label):
         assert stats[reg.STAT_PIPE_STALLS] > 0
     if divergent:
         assert stats[reg.STAT_PEER_HITS] + stats[reg.STAT_PEER_MISSES] > 0
+
+
+AXES_CASES = {
+    # label: (ops, traffic, policy, route capacity factor)
+    "lookups fetch": (("lookup",), "lookups", "fetch", 4.0),
+    "lookups auto shedding": (("lookup",), "lookups", "auto", 0.75),
+    "mixed auto": (("lookup", "update", "insert"), "mixed", "auto", 4.0),
+    "scans auto": (("lookup", "update", "insert", "scan"), "scans", "auto", 4.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(AXES_CASES))
+def test_two_route_axes_on_the_card_match_the_cpu(cuda, label):
+    """The engine on a 2x2x2 virtual mesh (route axes ``("data", "pod")`` of
+    2 x 2 over 2 memory columns) on 20k keys, on the CPU (plain versions)
+    and on the card (kernels): every plane and result after every batch
+    bit-equal, and equal collective counts (two ``all_to_all`` a route
+    exchange)."""
+    from repro_torch.core import dex, engine, mesh
+
+    ops_, kind, policy, factor = AXES_CASES[label]
+    rng = np.random.default_rng(1)
+    keys = np.sort(rng.choice(2**40, size=20_000, replace=False).astype(np.int64))
+    keys -= 2**39
+    bounds = np.array([KEY_MIN] + [int(keys[keys.size * i // 4]) for i in (1, 2, 3)]
+                      + [KEY_MAX], np.int64)
+    batches = engine_traffic(kind, keys, rng)
+    cfg = dex.DexMeshConfig(route_axes=("data", "pod"), route_shape=(2, 2), n_route=4,
+                            n_memory=2, cache_sets=64, cache_ways=4, policy=policy,
+                            route_capacity_factor=factor)
+    runs = []
+    for dev in ("cpu", cuda):
+        pool, meta = t_pool.build_pool(keys, keys ^ 0x5DEECE66D, level_m=1, n_shards=2,
+                                       device=dev)
+        state = dex.init_state(pool, meta, cfg, bounds, device=dev)
+        eng = engine.make_dex_engine(meta, cfg, ops=ops_, max_count=32, device=dev)
+        steps = []
+        for b in batches:
+            mesh.reset_counts()
+            state, r = eng(state, *b)
+            got = dex.state_to_numpy(state)
+            got.update({k: a.cpu().numpy() for k, a in r._asdict().items() if a is not None})
+            got["counts"] = np.array(list(mesh.collective_counts().values()))
+            steps.append(got)
+        runs.append(steps)
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert sorted(a) == sorted(b), i
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{label} batch {i}: {k}")
+
+
+@pytest.mark.cuda
+def test_settle_splits_with_a_drain_on_the_card_matches_the_cpu(cuda):
+    """An insert batch into six leaves of one block whose free list holds
+    three rows, settled by ``settle_splits`` (three leaves split on the
+    mesh, the rest drained through the ``HostBTree`` mirror), then a lookup
+    batch through ops rebuilt against the new meta: every plane, ``meta``,
+    ``info`` and result equal on the CPU and the card, and the mirror's
+    planes too."""
+    from repro_torch.core import dex, sim, smo, write
+
+    rng = np.random.default_rng(3)
+    keys = np.sort(rng.choice(48_000, size=3000, replace=False).astype(np.int64) + 1)
+    burst = [rng.choice(np.setdiff1d(np.arange(keys[i * 44] + 1, keys[i * 44 + 43]), keys),
+                        30, replace=False) for i in range(6)]
+    kk = np.full(256, KEY_MAX, np.int64)
+    kk[:180] = rng.permutation(np.concatenate(burst))
+    vv = np.where(kk != KEY_MAX, kk * 11, 0)
+    probe = np.concatenate([kk[:180], keys[::10]])
+    cfg = dex.DexMeshConfig(cache_sets=128, policy="fetch")
+    bounds = np.array([KEY_MIN, KEY_MAX], np.int64)
+    runs = []
+    for dev in ("cpu", cuda):
+        pool, meta = t_pool.build_pool(keys, keys * 5, level_m=1, headroom=0.05, device=dev)
+        state = dex.init_state(pool, meta, cfg, bounds, device=dev)
+        host = sim.HostBTree(keys, keys * 5)
+        state, st = write.make_dex_insert(meta, cfg, device=dev)(state, kk, vv)
+        shed = st.cpu().numpy() == write.STATUS_SPLIT
+        round_ = smo.make_dex_smo(meta, cfg, device=dev)
+        state, meta, info = smo.settle_splits(
+            state, meta, cfg, round_, host, np.where(shed, kk, KEY_MAX),
+            np.where(shed, vv, 0), bounds,
+        )
+        state, found, vals, _ = dex.make_dex_lookup(meta, cfg, device=dev)(state, probe)
+        got = dex.state_to_numpy(state)
+        got.update(found=found.cpu().numpy(), vals=vals.cpu().numpy(),
+                   **{p: getattr(host, p) for p in ("K", "C", "V", "NK", "parent")})
+        runs.append((got, dataclasses.asdict(meta), info))
+    (a, meta_a, info_a), (b, meta_b, info_b) = runs
+    assert info_a == info_b and info_a["drained"] and info_a["onmesh"] > 0
+    assert meta_a == meta_b
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert a["found"].all()
+
+
+@pytest.mark.cuda
+def test_fence_waits_for_the_card(cuda):
+    """``obs.timeline.fence`` on a tree of CUDA tensors returns only after
+    the card has run the work queued before it."""
+    from repro_torch.obs import timeline
+
+    x = torch.ones(4096, 4096, device=cuda)
+    for _ in range(20):
+        x = x @ x / 4096
+    done = torch.cuda.Event()
+    done.record()
+    tree = {"a": (x, [torch.zeros(3, device=cuda)]), "b": 1}
+    assert timeline.fence(tree) is tree
+    assert done.query()

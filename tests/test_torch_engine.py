@@ -265,19 +265,45 @@ def test_state_to_numpy_is_a_snapshot():
         np.testing.assert_array_equal(v, before[k], err_msg=k)
 
 
-@pytest.mark.parametrize("kw", [dict(cfg=dict(route_axes=("data", "pod")))])
-def test_unported_engine_options_raise(kw):
-    keys = _dataset(500, seed=6)
-    _, t_meta = t_pool.build_pool(keys, device="cpu")
-    t_cfg = t_dex.DexMeshConfig(**kw.get("cfg", {}))
-    with pytest.raises(NotImplementedError):
-        t_engine.make_dex_engine(
-            t_meta,
-            t_cfg,
-            ops=kw.get("ops", ("lookup",)),
-            pipeline=kw.get("pipeline", False),
-            device="cpu",
-        )
+@pytest.mark.parametrize("ops", [("lookup",), t_engine.ALL_OPS])
+def test_two_route_axes_equal_one_axis_of_their_product(ops):
+    """A 2x2 pair of route axes over 2 memory columns routes as one route
+    axis of 4 does (route index ``d0 * 2 + d1``): the same lanes and planes
+    batch by batch; each route exchange counts one ``all_to_all`` more.
+    ``tests/test_torch_route_axes.py`` holds the two-axis engines to the
+    reference's."""
+    keys = _dataset(3000, seed=6)
+    _, t_meta = t_pool.build_pool(keys, keys * 3, n_shards=2, device="cpu")
+    bounds = np.array([KEY_MIN, 12_000, 24_000, 36_000, KEY_MAX])
+    kw = dict(n_route=4, n_memory=2, cache_sets=32, policy="auto",
+              route_capacity_factor=1.0)
+    cfgs = [t_dex.DexMeshConfig(**kw),
+            t_dex.DexMeshConfig(route_axes=("data", "pod"), route_shape=(2, 2), **kw)]
+    states = [t_dex.init_state(t_pool.build_pool(keys, keys * 3, n_shards=2,
+                                                 device="cpu")[0],
+                               t_meta, c, bounds, device="cpu") for c in cfgs]
+    engs = [t_engine.make_dex_engine(t_meta, c, ops=ops, max_count=8, device="cpu")
+            for c in cfgs]
+    rng = np.random.default_rng(7)
+    for _ in range(2):
+        opc = rng.integers(0, len(ops), size=512).astype(np.int32)
+        kk = rng.choice(keys, size=512) + rng.integers(0, 2, size=512)
+        vv = np.where(opc == 3, rng.integers(1, 12, size=512), kk * 5)
+        got = []
+        for i in range(2):
+            t_mesh.reset_counts()
+            states[i], r = engs[i](states[i], opc, kk, vv)
+            got.append((r, t_mesh.collective_counts()))
+        (r0, c0), (r1, c1) = got
+        assert c1 == {"all_to_all": c0["all_to_all"] + c0["route_exchange"],
+                      "route_exchange": c0["route_exchange"]}
+        for k in r0._fields:
+            a, b = getattr(r0, k), getattr(r1, k)
+            assert (a is None and b is None) or torch.equal(a, b), k
+        a, b = (t_dex.state_to_numpy(s) for s in states)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert states[0].stats.numpy()[:, t_registry.STAT_DROPS].sum() > 0
 
 
 @pytest.mark.parametrize(

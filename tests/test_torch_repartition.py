@@ -315,8 +315,16 @@ def test_controller_cases_of_reference_tests():
                 demand=np.array([[900, 0], [0, 100]]))
     assert ctl.should_repartition()
     assert 5 <= int(ctl.propose().boundaries[1]) <= 800
-    with pytest.raises(NotImplementedError):
-        ctl.maybe_repartition(None, None, obs=object())
+    # a telemetry batch (obs=) records no phase when the trigger does not fire
+    from repro_torch.obs.timeline import BatchTimeline
+
+    quiet = t_rep.RepartitionController(
+        parts, n_memory=1, cfg=t_rep.RepartitionConfig(min_ops=100)
+    )
+    tl = BatchTimeline("controller")
+    with tl.batch("quiet") as b:
+        assert quiet.maybe_repartition("state", None, obs=b) == ("state", None)
+    assert tl.batches[0].phases == []
 
 
 def test_maybe_repartition_retrains_an_active_table_as_reference():

@@ -324,12 +324,37 @@ def test_trained_table_changes_traffic_never_results():
     assert t_live.stats.numpy()[:, fetch].sum() < t_de.stats.numpy()[:, fetch].sum()
 
 
-@pytest.mark.parametrize("kw", [dict(cfg=dict(route_axes=("data", "pod")))])
-def test_route_table_with_unported_options_raises(kw):
-    _, _, t_meta, _, _, _, _ = _setup(n_keys=500, rt_slots=64)
-    t_cfg = t_dex.DexMeshConfig(route_table_slots=64, **kw.get("cfg", {}))
-    with pytest.raises(NotImplementedError):
-        t_engine.make_dex_engine(t_meta, t_cfg, ops=OPS, device="cpu")
+def test_trained_table_on_two_route_axes_changes_traffic_never_results():
+    """A trained table on a 2x2 pair of route axes (4 route partitions, one
+    memory column): the same lanes, pool and versions as the descent-only
+    engine batch by batch, with some inner fetch rounds skipped."""
+    rng = np.random.default_rng(44)
+    keys = np.sort(rng.choice(64_000, size=4000, replace=False).astype(np.int64) + 1)
+    _, t_meta = t_pool.build_pool(keys, keys * 5, level_m=1, fill=0.7, device="cpu")
+    bounds = np.array([KEY_MIN, 16_000, 32_000, 48_000, KEY_MAX], np.int64)
+    kw = dict(route_axes=("data", "pod"), route_shape=(2, 2), n_route=4, n_memory=1,
+              cache_sets=128, p_admit_leaf_pct=10, policy="fetch")
+    cfg0 = t_dex.DexMeshConfig(**kw)
+    cfg = t_dex.DexMeshConfig(route_table_slots=512, **kw)
+
+    def state(c):
+        pool = t_pool.build_pool(keys, keys * 5, level_m=1, fill=0.7, device="cpu")[0]
+        return t_dex.init_state(pool, t_meta, c, bounds, device="cpu")
+
+    t_de, t_live = state(cfg0), t_rt.train_route_table(state(cfg), t_meta)
+    e_de = t_engine.make_dex_engine(t_meta, cfg0, ops=OPS, device="cpu")
+    e_rt = t_engine.make_dex_engine(t_meta, cfg, ops=OPS, device="cpu")
+    for opc, kk, vv in _mixed_batches(keys, rng, 3, 128):
+        t_de, r_de = e_de(t_de, opc, kk, vv)
+        t_live, r_rt = e_rt(t_live, opc, kk, vv)
+        for k in RESULTS:
+            np.testing.assert_array_equal(getattr(r_de, k).numpy(),
+                                          getattr(r_rt, k).numpy(), err_msg=k)
+    for k in ("pool_values", "pool_keys"):
+        np.testing.assert_array_equal(getattr(t_de.pool, k).numpy(),
+                                      getattr(t_live.pool, k).numpy())
+    np.testing.assert_array_equal(t_de.versions.numpy(), t_live.versions.numpy())
+    assert t_live.stats.numpy()[:, t_registry.STAT_RT_SKIPS].sum() > 0
 
 
 @pytest.mark.parametrize(

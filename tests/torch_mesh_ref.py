@@ -40,10 +40,18 @@ traced collective counts to one ``.npz``.
   uniform policy, for its collective counts
   (``tests/test_torch_fleet_policy.py``).
 
+* ``axes``: two route axes, a 2x2x2 mesh (``("data", "pod")`` of 2 x 2
+  routing over ``"model"`` of 2, four route partitions): the lookup engine
+  under ``fetch`` and under ``auto`` with shedding buckets, the mixed
+  engine and the scan engine under ``auto`` (``AXES_CONFIGS``), the
+  ``smo`` case without its scan and the ``pipe`` case without its
+  synchronous run, with the same key names as their 2x4 groups
+  (``tests/test_torch_route_axes.py``).
+
 The test files run this in a subprocess (the device count locks when JAX
 starts) and replay the same batches through the port's virtual mesh.
 
-    python tests/torch_mesh_ref.py OUT.npz [engine|scan|smo|rt|repart|pipe] [CASES]
+    python tests/torch_mesh_ref.py OUT.npz [engine|scan|smo|rt|repart|pipe|axes] [CASES]
 """
 
 import os
@@ -106,6 +114,24 @@ RT_CONFIGS = (
     ("rt_poison_fetch", "fetch", 4.0, "poisoned"),
 )
 REPART_FACTOR = 1.25
+#: the ``axes`` group's engines on the 2x2x2 mesh
+AXES_CONFIGS = (
+    ("axes_fetch", "fetch", 4.0, ("lookup",)),
+    ("axes_auto_tight", "auto", 0.75, ("lookup",)),
+    ("axes_mixed_auto", "auto", 4.0, MIXED_OPS),
+    ("axes_scan_auto", "auto", 4.0, ALL_OPS),
+)
+#: route axes, their mesh shape and the memory columns of the two layouts
+LAYOUTS = {
+    "2x4": (("data",), (2, 4), 4),
+    "2x2x2": (("data", "pod"), (2, 2, 2), 2),
+}
+LAYOUT = ["2x4"]  # the layout this run builds its configurations for
+#: keyword arguments of every ``make_dex_*`` call.  The ``axes`` group runs
+#: the plain jnp forms of ``leaf_write``, ``leaf_scan`` and ``leaf_split``
+#: (``use_kernel=False``), which tests/test_kernels.py holds bit-equal to
+#: the Pallas kernels; their interpret mode costs most of a run's CPU time
+KERNEL = {}
 RESULTS = ("found", "values", "status", "shed")
 SCAN_RESULTS = RESULTS + ("scan_keys", "scan_values", "taken")
 
@@ -236,13 +262,20 @@ def flat(tree):
     return {".".join(p.name for p in path): np.asarray(x) for path, x in leaves}
 
 
+def layout():
+    """``(route_axes, n_route, n_memory)`` of this run's layout."""
+    axes, shape, nm = LAYOUTS[LAYOUT[0]]
+    return axes, int(np.prod(shape)) // nm, nm
+
+
 def config(policy, factor, rt_slots=0):
+    axes, nr, nm = layout()
     return dex_mod.DexMeshConfig(
         route_table_slots=rt_slots,
-        route_axes=("data",),
+        route_axes=axes,
         memory_axis="model",
-        n_route=2,
-        n_memory=4,
+        n_route=nr,
+        n_memory=nm,
         cache_sets=64,
         cache_ways=4,
         policy=policy,
@@ -271,7 +304,7 @@ def run_engines(out, configs, pool, meta, bounds, mesh, lanes):
             out[f"{name}/init/{k}"] = v
         has_scan = "scan" in ops
         kw = dict(max_count=SCAN_MAX_COUNT) if has_scan else {}
-        fn = engine_mod.make_dex_engine(meta, cfg, mesh, ops=ops, **kw)
+        fn = engine_mod.make_dex_engine(meta, cfg, mesh, ops=ops, **kw, **KERNEL)
         eng = jax.jit(fn)
         if has_scan:
             trace = scan_batches()
@@ -365,16 +398,17 @@ def run_repart_case(out, pool, meta, bounds, mesh, lanes):
             out[f"repart/{i}/after/{k}"] = v
 
 
-def run_smo_case(out, pool, meta, bounds, mesh, lanes):
+def run_smo_case(out, pool, meta, bounds, mesh, lanes, scan=True):
     """An insert batch that sheds five overflowing leaves, one SMO round,
-    ``run_smo`` for what is left, and a scan batch across the split leaves;
-    every plane saved after each step."""
+    ``run_smo`` for what is left, and (with ``scan``) a scan batch across
+    the split leaves; every plane saved after each step."""
     cfg = config("fetch", 4.0)
     state = sharded_state(pool, meta, cfg, bounds, mesh)
     for k, v in flat(state).items():
         out[f"smo/init/{k}"] = v
-    insert = jax.jit(write_mod.make_dex_insert(meta, cfg, mesh))
-    smo = jax.jit(smo_mod.make_dex_smo(meta, cfg, mesh))
+    insert = jax.jit(write_mod.make_dex_insert(meta, cfg, mesh, **KERNEL))
+    smo_fn = smo_mod.make_dex_smo(meta, cfg, mesh, **KERNEL)
+    smo = jax.jit(smo_fn)
     kk, vv = smo_burst()
     out["smo/keys"], out["smo/values"] = kk, vv
     state, st = insert(state, jax.device_put(jnp.asarray(kk), lanes),
@@ -386,8 +420,10 @@ def run_smo_case(out, pool, meta, bounds, mesh, lanes):
     shed = st == write_mod.STATUS_SPLIT
     sk = np.where(shed, kk, KEY_MAX)
     sv = np.where(shed, vv, 0)
-    state, st1 = smo(state, jax.device_put(jnp.asarray(sk), lanes),
-                     jax.device_put(jnp.asarray(sv), lanes))
+    sk_d, sv_d = (jax.device_put(jnp.asarray(a), lanes) for a in (sk, sv))
+    c = routing.trace_collective_counts(smo_fn, state, sk_d, sv_d)
+    out["smo/round_counts"] = np.array([c["all_to_all"], c["route_exchange"]])
+    state, st1 = smo(state, sk_d, sv_d)
     out["smo/round_status"] = np.asarray(st1)
     for k, v in flat(state).items():
         out[f"smo/round/{k}"] = v
@@ -396,6 +432,8 @@ def run_smo_case(out, pool, meta, bounds, mesh, lanes):
     out["smo/run_rounds"] = np.array(rounds)
     for k, v in flat(state).items():
         out[f"smo/run/{k}"] = v
+    if not scan:
+        return
     scan = jax.jit(scan_mod.make_dex_scan(meta, cfg, mesh, max_count=64))
     keys, _ = dataset()
     starts = np.concatenate([keys[np.array(SMO_LEAVES) * 44], kk[:150:5]])
@@ -467,11 +505,12 @@ def div_batches(n, mixed):
 
 
 def pipe_config(sets, admit):
+    axes, nr, nm = layout()
     return dex_mod.DexMeshConfig(
-        route_axes=("data",),
+        route_axes=axes,
         memory_axis="model",
-        n_route=2,
-        n_memory=4,
+        n_route=nr,
+        n_memory=nm,
         cache_sets=sets,
         cache_ways=4,
         policy="fetch",
@@ -516,7 +555,7 @@ def run_pipeline(out, name, pipe, state, batches, lanes):
         save_planes(out, f"{name}/pipe/{i}/", pipe.state, r)
 
 
-def run_pipe_cases(out, pool, meta, bounds, mesh, lanes, cases):
+def run_pipe_cases(out, pool, meta, bounds, mesh, lanes, cases, sync=True):
     for case in cases:
         if case not in PIPE_CASES:
             raise SystemExit(f"unknown pipe case {case!r}")
@@ -533,12 +572,12 @@ def run_pipe_cases(out, pool, meta, bounds, mesh, lanes, cases):
         save_planes(out, "pipe/init/", state)
         eng = jax.jit(engine_mod.make_dex_engine(meta, cfg, mesh, ops=MIXED_OPS,
                                                  max_count=1))
-        for i, planes in enumerate(batches):
+        for i, planes in enumerate(batches if sync else ()):
             args = tuple(jax.device_put(jnp.asarray(a), lanes) for a in planes)
             state, res = eng(state, *args)
             save_planes(out, f"pipe/sync/{i}/", state, res)
         pipe = engine_mod.make_dex_engine(meta, cfg, mesh, ops=MIXED_OPS, max_count=1,
-                                          pipeline=True)
+                                          pipeline=True, **KERNEL)
         run_pipeline(out, "pipe", pipe, sharded_state(pool, meta, cfg, bounds, mesh),
                      batches, lanes)
     cfg = pipe_config(128, 50)
@@ -588,11 +627,16 @@ def run_pipe_cases(out, pool, meta, bounds, mesh, lanes, cases):
 
 
 def main(out_path, group="engine", cases=",".join(PIPE_CASES)):
-    mesh = make_mesh_compat((2, 4), ("data", "model"))
+    LAYOUT[0] = "2x2x2" if group == "axes" else "2x4"
+    axes, shape, nm = LAYOUTS[LAYOUT[0]]
+    mesh = make_mesh_compat(shape, axes + ("model",))
     keys, vals = dataset()
-    pool, meta = pool_mod.build_pool(keys, vals, level_m=1, fill=0.7, n_shards=4)
-    bounds = np.array([KEY_MIN, 150_000, KEY_MAX], np.int64)
-    lanes = NamedSharding(mesh, P(("data", "model")))
+    pool, meta = pool_mod.build_pool(keys, vals, level_m=1, fill=0.7, n_shards=nm)
+    # route partitions of equal width over the key range
+    n_route = int(np.prod(shape)) // nm
+    inner = [300_000 * i // n_route for i in range(1, n_route)]
+    bounds = np.array([KEY_MIN] + inner + [KEY_MAX], np.int64)
+    lanes = NamedSharding(mesh, P(axes + ("model",)))
     out = {"keys": keys, "values": vals}
     for i, q in enumerate(batches()):
         out[f"batch/{i}"] = q
@@ -614,6 +658,13 @@ def main(out_path, group="engine", cases=",".join(PIPE_CASES)):
         run_repart_case(out, pool, meta, bounds, mesh, lanes)
     elif group == "pipe":
         run_pipe_cases(out, pool, meta, bounds, mesh, lanes, cases.split(","))
+    elif group == "axes":
+        KERNEL["use_kernel"] = False
+        # the scan after the SMO burst and the pipe case's synchronous run
+        # are left out: the scan and mixed engines above cover both
+        run_engines(out, AXES_CONFIGS, pool, meta, bounds, mesh, lanes)
+        run_smo_case(out, pool, meta, bounds, mesh, lanes, scan=False)
+        run_pipe_cases(out, pool, meta, bounds, mesh, lanes, ["pipe"], sync=False)
     else:
         raise SystemExit(f"unknown group {group!r}")
     np.savez(out_path, **out)
