@@ -4,7 +4,9 @@ repartition, pipelined-engine, fleet-cache-policy, two-route-axis, telemetry and
 host-fallback paths, its paged-KV serving of minitron-4b and of the MoE
 model granite-moe-1b-a400m, its Mamba serving of falcon-mamba-7b and
 zamba2-2.7b, its MLA serving of minicpm3-4b, its encoder-decoder
-serving of whisper-small and its training of minitron-4b and zamba2-2.7b,
+serving of whisper-small, its training of minitron-4b and zamba2-2.7b, and
+its training launcher (``launch/train.py``: minicpm3-4b, whisper-small and
+granite-moe-1b-a400m at full width, checkpoints, failures and a resume),
 on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed 0] [--n-keys 200000000]
@@ -309,6 +311,17 @@ Phases, in order; any failure exits non-zero:
      same with every flash and ``mamba_scan`` call, forward and backward,
      run as its plain version: the loss within 1e-5 relative, each
      gradient within 1e-3 x its RMS;
+  7b. ``launch``: minicpm3-4b (62 MLA layers, 2 x 4,096 tokens),
+     whisper-small (8 x 448 tokens over 8 x 1,500 frames) and
+     granite-moe-1b-a400m (2 x 4,096) built by ``build_run`` and trained 3
+     steps by ``train`` on the card (bf16, remat): batch 0's every
+     ``flash_attention_bwd`` call held to its plain version, every
+     gradient finite and not all zero, launches a step against
+     ``train_expect``, ms and tokens/s a step, peak memory, one step
+     profiled with the flash time by shape from each launch's profiler
+     range; ``launch-ckpt``: minicpm3-4b cut to 2 layers, checkpointed
+     every 2 steps, with a fatal and a transient failure and a resume,
+     held bit for bit (``phase_launch_ckpt``), each save and restore timed;
   8. one JSON line of per-kernel launches (summed over the paths of phases
      5 and 6, each counted from 0 just before it; the pipeline's and the
      divergent arm's launches are their own, not their twins' in turns: the
@@ -321,7 +334,8 @@ Phases, in order; any failure exits non-zero:
      ``flash_attention`` and 32 ``flash_attention_bwd`` launches a step,
      6h's ``train-hybrid``, 108 ``mamba_scan`` (54 forwards and remat's 54
      recomputes), 54 ``mamba_scan_bwd``, 9 ``flash_attention`` and 9
-     ``flash_attention_bwd`` a step), errors and times.
+     ``flash_attention_bwd`` a step, 7b's ``launch <arch>`` and
+     ``launch-ckpt``), errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 prints no result and exits non-zero.
@@ -332,6 +346,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -524,6 +539,19 @@ MAMBA_BWD_SHAPES = {
 HYBRID_HOLD_EVERY = 3
 #: the phase-7 training gates: (arch, layers) at full width in float32
 TRAIN_GATES = ((LM_ARCH, TRAIN_GATE_LAYERS), (SSM_ARCH, 4), (HYBRID_ARCH, 6))
+# the launch plane (launch/train.py): (arch, batch, seq) trained at full
+# width and depth by build_run + train; whisper-small's prefill shape (448
+# tokens, its decoder context, over 1,500 frames)
+LAUNCH_RUNS = ((MLA_ARCH, 2, 4_096), (ENCDEC_ARCH, 8, 448), (MOE_ARCH, 2, 4_096))
+LAUNCH_STEPS = 3
+# the checkpointed runs: minicpm3-4b at full width cut to 2 layers, 2 x
+# 4,096 tokens, a checkpoint every 2 steps, keep 2; 6 steps, then a resume
+# to 8
+CKPT_LAYERS, CKPT_EVERY, CKPT_STEPS, CKPT_RESUME_TO = 2, 2, 6, 8
+#: the pipeline positions the failing run trains, in order: the fatal
+#: failure at step 2 restores the step-2 checkpoint and retries with batch 2,
+#: then the loop draws 2 again (ROADMAP.md queue 3, entry 20)
+CKPT_B_ORDER = [0, 1, 2, 2, 3, 4]
 
 
 def parse_args(argv):
@@ -535,6 +563,25 @@ def parse_args(argv):
 
 def fail(msg):
     raise RuntimeError(msg)
+
+
+def share_of(ms, busy):
+    """``ms`` over a profile's device-busy ms, or None where the profile
+    holds no device time: the profiler lost the run's device trace, which
+    ``device_profile`` counts in ``PROFILES`` and which is no fault of
+    the program."""
+    return ms / busy if busy else None
+
+
+def idle_of(busy, ms):
+    """The idle share of ``ms`` given a profile's device-busy ms, or None
+    where the profile holds no device time (see ``share_of``)."""
+    return 1 - busy / ms if busy else None
+
+
+def pct(x):
+    """A share printed as a percentage, or "not measured" for None."""
+    return "not measured" if x is None else f"{x:.2%}"
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -1970,13 +2017,13 @@ def profile_batch(policy, eng, state, median_ms, *inputs):
         mine = [(ms, n) for k, ms, n in events if name in k]
         ms = sum(m for m, _ in mine)
         shares.append(f"{name.removesuffix('_kernel')} {ms:.4f} ms"
-                      f" x{sum(n for _, n in mine)}, {ms / busy:.2%} of busy")
+                      f" x{sum(n for _, n in mine)}, {pct(share_of(ms, busy))} of busy")
     print(
         f"profile {policy}: wall {wall:.2f} ms under the profiler, device busy"
-        f" {busy:.2f} ms, idle {1 - busy / median_ms:.1%} of the unprofiled"
+        f" {busy:.2f} ms, idle {pct(idle_of(busy, median_ms))} of the unprofiled"
         f" median {median_ms:.2f} ms; {'; '.join(shares)}; top: {top}"
     )
-    return (*out, 1 - busy / median_ms)
+    return (*out, idle_of(busy, median_ms))
 
 
 def recorded_calls(label, eng, state, inputs):
@@ -4341,18 +4388,29 @@ def clean_steps(flips):
     return np.cumprod(~flips.any(1), axis=0).astype(bool).T
 
 
-def device_profile(fn, ranges=(), kernel_log=None):
+# the profiles taken and those that came back with no device time (the
+# profiler lost the device trace; the run's numbers from them are None)
+PROFILES = dict(taken=0, lost=0)
+
+
+def device_profile(fn, ranges=(), launches=None):
     """``fn()`` under ``torch.profiler``: its result, the wall milliseconds
     under the profiler, the kernels as ``(name, device ms, count)`` sorted
     by device time (kernels only: an operator's row repeats its kernels'
     time), and the device ms of the kernels launched under each profiler
     range named in ``ranges`` (``record_function``, as ``models/layers.py``
-    ``sdpa`` marks its copies; a kernel launched through ``ctypes`` belongs
-    to no range).  A list ``kernel_log`` receives every kernel launch as
-    ``(name, device ms)``, in the order they ran."""
+    ``sdpa`` marks its copies).  A dict ``launches`` receives, for each ``kernels/ops.py`` launch range
+    (``ops.launch_label``: kernel and shapes), its ``calls`` (the ranges
+    on the host), ``timed`` (their spans on the device) and ``ms`` (the
+    spans' device time): a kernel launched through ``ctypes`` is linked to
+    its range's span on the device, not to an operator, and a kernel
+    event the profiler drops costs its range's time, not the match of the
+    other ranges."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with warnings.catch_warnings():
@@ -4363,8 +4421,9 @@ def device_profile(fn, ranges=(), kernel_log=None):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
-    # a record_function range (the engine labels its phases) shows up on
-    # the device too, spanning its kernels: only kernels and copies count
+    # a record_function range (the engine labels its phases, ops.py each
+    # launch) shows up on the device too, spanning its kernels: only
+    # kernels and copies count
     host_keys = {e.key for e in averages if e.device_type == DeviceType.CPU}
     events = [
         (e.key, e.self_device_time_total / 1e3, e.count)
@@ -4378,11 +4437,39 @@ def device_profile(fn, ranges=(), kernel_log=None):
         for r in ranges
     }
     kernels = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
-    if kernel_log is not None:
-        runs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                      key=lambda e: e.time_range.start)
-        kernel_log.extend((e.name, e.time_range.elapsed_us() / 1e3) for e in runs)
+    PROFILES["taken"] += 1
+    if not kernels:
+        PROFILES["lost"] += 1
+        print(f"profile {PROFILES['taken']}: no device time, the profiler lost the device trace")
+    if launches is not None:
+        kinds = tuple(f"{k} " for k in ops.LAUNCHES)
+        for e in prof.events():
+            if e.name.startswith(kinds):
+                row = launches.setdefault(e.name, dict(calls=0, timed=0, ms=0.0))
+                if e.device_type == DeviceType.CPU:
+                    row["calls"] += 1
+                elif e.device_type == DeviceType.CUDA:
+                    row["timed"] += 1
+                    row["ms"] += e.time_range.elapsed_us() / 1e3
     return out, wall, kernels, marked
+
+
+def launch_ms(launches, kernel):
+    """The device ms of ``device_profile``'s ``launches`` rows of one
+    kernel (its launch ranges' spans), all shapes."""
+    return sum(row["ms"] for label, row in launches.items() if label.startswith(kernel + " "))
+
+
+def launch_shares(launches, kernel, busy):
+    """``device_profile``'s ``launches`` rows of one kernel, by shape: calls,
+    spans timed, device ms a timed call and share of ``busy``."""
+    return {
+        label.removeprefix(kernel + " "): dict(
+            calls=row["calls"], timed=row["timed"],
+            ms_per_call=row["ms"] / row["timed"] if row["timed"] else None,
+            share=share_of(row["ms"], busy))
+        for label, row in launches.items() if label.startswith(kernel + " ")
+    }
 
 
 def attention_errs(out, want):
@@ -4511,7 +4598,7 @@ def phase_serving(seed, arch=LM_ARCH):
     record = {1: [], 2: []}  # decode logits of two requests, per step
     recorded = {}
     times, len_sum, releases, reused = [], 0, 0, 0
-    prof, checks = None, []
+    prof, checks, by_launch = None, [], {}
     prof_step = DECODE_STEPS // 2 + 1  # not a step checked against the plain path
     # the plain step profiled too, at the last check step before prof_step
     plain_prof_step = prof_step // CHECK_EVERY * CHECK_EVERY
@@ -4544,7 +4631,7 @@ def phase_serving(seed, arch=LM_ARCH):
         check = step % CHECK_EVERY == 0
         if step == prof_step:
             (logits, k_new, v_new), _, prof, prof_marked = device_profile(
-                lambda: paged_decode_step(*args), ranges=ranges
+                lambda: paged_decode_step(*args), ranges=ranges, launches=by_launch
             )
         elif check:
             layer_errs, logs = [], ([], [])
@@ -4624,8 +4711,10 @@ def phase_serving(seed, arch=LM_ARCH):
              f" expected {cfg.n_layers * DECODE_STEPS}")
     med = float(np.median(times))
     busy = sum(ms for _, ms, _ in prof)
-    paged = sum(ms for k, ms, _ in prof if "paged_attention" in k)
-    paged_calls = sum(n for k, _, n in prof if "paged_attention" in k)
+    # the kernel's time: its launch ranges' spans on the device
+    paged = launch_ms(by_launch, "paged_attention")
+    paged_calls = sum(row["timed"] for label, row in by_launch.items()
+                      if label.startswith("paged_attention "))
     top = "; ".join(f"{k[:40]} {ms:.3f} ms x{n}" for k, ms, n in prof[:8])
     report = dict(
         steps=DECODE_STEPS,
@@ -4635,15 +4724,15 @@ def phase_serving(seed, arch=LM_ARCH):
         p25_ms=float(np.percentile(times, 25)),
         p75_ms=float(np.percentile(times, 75)),
         device_busy_ms=busy,
-        idle_share=1 - busy / med,
+        idle_share=idle_of(busy, med),
         kernels_per_step=sum(n for _, _, n in prof),
         plain_step_device_busy_ms=sum(ms for _, ms, _ in plain_prof),
         plain_step_kernels=sum(n for _, _, n in plain_prof),
         regather_device_ms=marked[REGATHER],
         paged_attention_ms=paged,
-        paged_attention_ms_per_call=paged / max(paged_calls, 1),
+        paged_attention_ms_per_call=paged / paged_calls if paged_calls else None,
         paged_attention_calls=paged_calls,
-        paged_attention_share=paged / busy,
+        paged_attention_share=share_of(paged, busy),
         lookups_per_step=lookups / DECODE_STEPS,
         mean_seq_len=len_sum / (DECODE_STEPS * SERVE_SLOTS),
         releases=releases,
@@ -4654,7 +4743,7 @@ def phase_serving(seed, arch=LM_ARCH):
     if cfg.moe:
         report.update(
             moe_block_device_ms=prof_marked[MOE_BLOCK],
-            moe_block_share=prof_marked[MOE_BLOCK] / busy,
+            moe_block_share=share_of(prof_marked[MOE_BLOCK], busy),
             routing_agree_min=min(c["routing_agree"] for c in checks),
             dropped_pairs_per_step=float(np.mean([c["dropped_pairs"] for c in checks])),
             dropped_share=float(np.mean([c["dropped_share"] for c in checks])),
@@ -5201,8 +5290,10 @@ def timed_prefill(cfg, params, toks, expect, enc_emb=None):
     Where ``flash_attention`` runs, one more call holds each of its
     launches to its plain version on the layer's own q, k and v, run in f32
     (``held_to_plain(exact=True)``; max abs error <= 2e-2 in bf16, 1e-4 in
-    f32), and the profiled call reports the device ms of ``sdpa``'s
-    transposes and, for an MoE model, of its MoE blocks.  An
+    f32).  The profiled call reports each kernel's device ms a call by its
+    launch ranges' spans (None where the profiler timed none of them), and
+    the device ms of ``sdpa``'s transposes and, for an MoE model, of its
+    MoE blocks.  An
     encoder-decoder model takes its frames ``enc_emb``.  Returns (report,
     launches)."""
     import torch
@@ -5241,7 +5332,8 @@ def timed_prefill(cfg, params, toks, expect, enc_emb=None):
             fail(f"prefill {cfg.name}: {len(held)} flash_attention calls held to their"
                  f" plain version, max abs error {worst} (limit {ATTN_TOL[cfg.dtype]})")
     ranges = ((SDPA_TRANSPOSES,) if attention else ()) + ((MOE_BLOCK,) if cfg.moe else ())
-    _, _, prof, marked = device_profile(run, ranges=ranges)
+    by_launch = {}
+    _, _, prof, marked = device_profile(run, ranges=ranges, launches=by_launch)
     busy = sum(ms for _, ms, _ in prof)
     med = float(np.median(times))
     report = dict(
@@ -5249,13 +5341,16 @@ def timed_prefill(cfg, params, toks, expect, enc_emb=None):
         median_ms=med,
         tokens_per_s=toks.numel() / med * 1e3,
         device_busy_ms=busy,
-        idle_share=1 - busy / med,
+        idle_share=idle_of(busy, med),
         top=[(k[:48], ms, n) for k, ms, n in prof[:6]],
     )
-    for k in expect:
-        calls = [(ms, n) for name, ms, n in prof if k in name]
-        report[f"{k}_ms_per_call"] = sum(m for m, _ in calls) / sum(n for _, n in calls)
-        report[f"{k}_share"] = sum(m for m, _ in calls) / busy
+    for k in expect:  # each kernel's time: its launch ranges' spans on the device
+        ms = launch_ms(by_launch, k)
+        timed = sum(row["timed"] for label, row in by_launch.items()
+                    if label.startswith(k + " "))
+        report[f"{k}_ms_per_call"] = ms / timed if timed else None
+        report[f"{k}_timed"] = timed
+        report[f"{k}_share"] = share_of(ms, busy)
     if attention:
         report["flash_attention_held_to_plain"] = dict(
             calls=len(held),
@@ -5263,15 +5358,16 @@ def timed_prefill(cfg, params, toks, expect, enc_emb=None):
             differing_share=float(np.mean([f for _, f in held])),
         )
         report["sdpa_transposes_device_ms"] = marked[SDPA_TRANSPOSES]
-        report["sdpa_transposes_share"] = marked[SDPA_TRANSPOSES] / busy
+        report["sdpa_transposes_share"] = share_of(marked[SDPA_TRANSPOSES], busy)
     if cfg.moe:
         report["moe_block_device_ms"] = marked[MOE_BLOCK]
-        report["moe_block_share"] = marked[MOE_BLOCK] / busy
+        report["moe_block_share"] = share_of(marked[MOE_BLOCK], busy)
     return report, launches
 
 
 def phase_ssm_serving(seed):
-    """falcon-mamba-7b at full width (64 layers, bf16, weights from
+    """falcon-mamba-7b at full width (its registry depth, 32 of 64 layers
+    in ``main``; bf16, weights from
     ``seed``) served with ``decode_step`` over ``SSM_SLOTS`` slots for
     ``DECODE_STEPS`` steps: seeded prompts fed a token a step, then greedy
     tokens; a finished request's slot is zeroed and a new request admitted.
@@ -5351,7 +5447,7 @@ def phase_ssm_serving(seed):
         p25_ms=float(np.percentile(times, 25)),
         p75_ms=float(np.percentile(times, 75)),
         device_busy_ms=busy,
-        idle_share=1 - busy / med,
+        idle_share=idle_of(busy, med),
         top=[(k[:48], ms, n) for k, ms, n in prof[:6]],
         releases=releases,
         peak_gib=peak,
@@ -5510,7 +5606,7 @@ def phase_mla(seed):
         p25_ms=float(np.percentile(times, 25)),
         p75_ms=float(np.percentile(times, 75)),
         device_busy_ms=busy,
-        idle_share=1 - busy / med,
+        idle_share=idle_of(busy, med),
         kernels_per_step=sum(n for _, _, n in prof),
         top=[(k[:48], ms, n) for k, ms, n in prof[:6]],
     )
@@ -5530,63 +5626,37 @@ def phase_mla(seed):
     return report, prefill_launches, decode_launches
 
 
-def flash_label(q_shape, k_shape, causal):
-    """A ``flash_attention`` call's shapes, as ``flash_calls`` records them."""
-    return (f"flash_attention q {list(q_shape)} over {k_shape[2]} keys"
-            f"{', causal' if causal else ''}")
-
-
-@contextlib.contextmanager
-def flash_calls(order):
-    """Within the block, every ``ops.flash_attention`` call appends its
-    ``flash_label`` to ``order``."""
-    from repro_torch.kernels import ops
-
-    launch = ops.flash_attention
-
-    def recorded(q, k, v, *, causal=True, scale=None):
-        order.append(flash_label(q.shape, k.shape, causal))
-        return launch(q, k, v, causal=causal, scale=scale)
-
-    ops.flash_attention = recorded
-    try:
-        yield
-    finally:
-        ops.flash_attention = launch
-
-
 def encdec_profile(fn, name, shapes):
     """``fn()`` profiled, with its ``flash_attention`` calls by shape:
-    ``shapes`` lists the (q shape, k shape, causal, calls) it should make;
-    the profile's flash kernels, in the order they ran, are the calls in
-    the order ``flash_calls`` recorded them.  Returns the result and a
-    report: wall and device busy ms, kernels, top kernels, each shape's
-    calls, device ms a call and share of busy, and ``sdpa``'s transposes'
-    device ms and share."""
+    ``shapes`` lists the (q shape, k shape, causal, calls) it should make,
+    and the launch ranges on the host (``device_profile(launches=)``) and
+    ``ops.LAUNCHES`` must count just these; each shape's device time is its
+    ranges' spans.  Returns the result and a report: wall and device busy
+    ms, kernels, top kernels, each shape's calls, spans timed, device ms a
+    call and share of busy, and ``sdpa``'s transposes' device ms and
+    share."""
+    from repro_torch.kernels import ops
     from repro_torch.models.layers import SDPA_TRANSPOSES
 
-    order, log = [], []
-    with flash_calls(order):
-        out, wall, prof, marked = device_profile(fn, (SDPA_TRANSPOSES,), kernel_log=log)
-    flash_ms = [ms for kernel, ms in log if "flash_attention" in kernel]
-    labels = [flash_label(q, k, causal) for q, k, causal, _ in shapes]
-    want = {flash_label(q, k, causal): n for q, k, causal, n in shapes}
-    if len(flash_ms) != len(order) or {c: order.count(c) for c in order} != want:
-        fail(f"{name}: {len(flash_ms)} flash_attention kernels profiled, calls {order}")
+    launches = {}
+    before = ops.LAUNCHES["flash_attention"]
+    out, wall, prof, marked = device_profile(fn, (SDPA_TRANSPOSES,), launches=launches)
+    launched = ops.LAUNCHES["flash_attention"] - before
+    want = {ops.launch_label("flash_attention", q, k, causal=causal): n
+            for q, k, causal, n in shapes}
+    calls = {k: row["calls"] for k, row in launches.items() if k.startswith("flash_attention ")}
+    if calls != want or launched != sum(want.values()):
+        fail(f"{name}: flash_attention launch ranges {calls}, expected {want};"
+             f" {launched} launches counted")
     busy = sum(ms for _, ms, _ in prof)
-    by_shape = {}
-    for label in labels:
-        ms = sum(t for t, c in zip(flash_ms, order) if c == label)
-        by_shape[label] = dict(calls=order.count(label), ms_per_call=ms / order.count(label),
-                               share=ms / busy)
     report = dict(
         wall_ms=wall,
         device_busy_ms=busy,
         kernels=sum(n for _, _, n in prof),
         top=[(k[:48], ms, n) for k, ms, n in prof[:6]],
-        flash_by_shape=by_shape,
+        flash_by_shape=launch_shares(launches, "flash_attention", busy),
         sdpa_transposes_device_ms=marked[SDPA_TRANSPOSES],
-        sdpa_transposes_share=marked[SDPA_TRANSPOSES] / busy,
+        sdpa_transposes_share=share_of(marked[SDPA_TRANSPOSES], busy),
     )
     return out, report
 
@@ -5649,7 +5719,7 @@ def phase_encdec(seed):
     report["encode"] = dict(
         slots=b, frames=t_src, median_ms=med, frames_per_s=b * t_src / med * 1e3,
         cross_cache_gb=2 * cache["xk"].numel() * 2 / 1e9,
-        idle_share=1 - prof["device_busy_ms"] / med,
+        idle_share=idle_of(prof["device_busy_ms"], med),
         **prof,
     )
 
@@ -5697,7 +5767,7 @@ def phase_encdec(seed):
         median_ms=med,
         p25_ms=float(np.percentile(times, 25)),
         p75_ms=float(np.percentile(times, 75)),
-        idle_share=1 - prof["device_busy_ms"] / med,
+        idle_share=idle_of(prof["device_busy_ms"], med),
         cross_held_to_plain=dict(calls=len(held), max_abs_err=worst,
                                  differing_share=float(np.mean([f for _, f in held]))),
         **prof,
@@ -5857,10 +5927,13 @@ def train_expect(cfg):
     checkpointed layer's forward kernel runs twice (the checkpoint's
     forward, the recompute) and its backward once; the hybrid's shared
     block is not checkpointed, so its flash forward runs once an
-    application."""
+    application; an encoder layer is checkpointed like a decoder layer."""
     n = cfg.n_layers
     if not cfg.ssm:
-        return {"flash_attention": 2 * n, "flash_attention_bwd": n}
+        # an encoder-decoder's decoder layer attends twice (self and
+        # cross), and each encoder layer once (non-causal)
+        calls = 2 * n + cfg.enc_layers if cfg.encdec else n
+        return {"flash_attention": 2 * calls, "flash_attention_bwd": calls}
     out = {"mamba_scan": 2 * n, "mamba_scan_bwd": n}
     if cfg.hybrid_attn_every:
         groups = n // cfg.hybrid_attn_every
@@ -5884,8 +5957,9 @@ def phase_train(seed, arch=LM_ARCH):
     peak memory; the loss on batch 0 after step 1's update and after all
     the updates, the last (minitron-4b) or the first (zamba2-2.7b) below
     step 1's; one more step profiled: device busy ms, the shares of
-    the flash forward and backward, of the ``mamba_scan`` forward and
-    backward, and of ``sdpa``'s transposes, the weight products' ms and
+    the flash forward and backward and of the ``mamba_scan`` forward and
+    backward (their launch ranges' spans, by shape), and of ``sdpa``'s
+    transposes, the weight products' ms and
     the optimizer's (``ADAMW_UPDATE``) beside its bytes' bound; the flops a
     step, ``6 N tokens`` with N the non-embedding parameters plus the head
     (the tied embedding where it is the head), and with the hybrid's
@@ -5997,45 +6071,46 @@ def phase_train(seed, arch=LM_ARCH):
         fail(f"train {arch}: batch 0's loss {after_first} after step 1's update on it,"
              f" {after} after {TRAIN_STEPS} updates; step 1's was {steps[0]['loss']}")
 
-    log = []
+    by_launch = {}
     _, wall, prof, marked = device_profile(
         lambda: step(params, state, batches[TRAIN_STEPS]),
-        ranges=(SDPA_TRANSPOSES, ADAMW_UPDATE), kernel_log=log,
+        ranges=(SDPA_TRANSPOSES, ADAMW_UPDATE), launches=by_launch,
     )
-    # the kernels' sum (``log`` also holds the ranges' own spans)
     busy = sum(ms for _, ms, _ in prof)
-
-    def kernel_ms(*parts):
-        return sum(ms for name, ms in log if any(x in name for x in parts))
-
-    fwd = kernel_ms("flash_attention_wgmma")
-    bwd = kernel_ms("bwd_prepass", "bwd_dkdv", "bwd_dq")
-    scan = kernel_ms("mamba_scan_kernel")
-    scan_bwd = kernel_ms("mamba_scan_bwd_kernel", "mamba_bwd_partials_sum")
-    products = kernel_ms("nvjet", "gemm", "cutlass")
+    # each kernel's time: its launch ranges' spans on the device
+    fwd = launch_ms(by_launch, "flash_attention")
+    bwd = launch_ms(by_launch, "flash_attention_bwd")
+    scan = launch_ms(by_launch, "mamba_scan")
+    scan_bwd = launch_ms(by_launch, "mamba_scan_bwd")
+    products = sum(ms for k, ms, _ in prof if any(x in k for x in ("nvjet", "gemm", "cutlass")))
     med = float(np.median([x["ms"] for x in steps[1:]]))
     flops = 6 * n_params * tokens
     profiled = dict(
         wall_ms=wall,
         device_busy_ms=busy,
-        idle_share=1 - busy / wall,
+        idle_share=idle_of(busy, wall),
         flash_fwd_ms=fwd,
-        flash_fwd_share=fwd / busy,
+        flash_fwd_share=share_of(fwd, busy),
         flash_bwd_ms=bwd,
-        flash_bwd_share=bwd / busy,
+        flash_bwd_share=share_of(bwd, busy),
+        flash_fwd_by_shape=launch_shares(by_launch, "flash_attention", busy),
+        flash_bwd_by_shape=launch_shares(by_launch, "flash_attention_bwd", busy),
         sdpa_transposes_ms=marked[SDPA_TRANSPOSES],
-        sdpa_transposes_share=marked[SDPA_TRANSPOSES] / busy,
+        sdpa_transposes_share=share_of(marked[SDPA_TRANSPOSES], busy),
     )
     if cfg.ssm:
-        profiled.update(mamba_scan_ms=scan, mamba_scan_share=scan / busy,
-                        mamba_scan_bwd_ms=scan_bwd, mamba_scan_bwd_share=scan_bwd / busy)
+        profiled.update(mamba_scan_ms=scan, mamba_scan_share=share_of(scan, busy),
+                        mamba_scan_bwd_ms=scan_bwd, mamba_scan_bwd_share=share_of(scan_bwd, busy),
+                        mamba_scan_by_shape=launch_shares(by_launch, "mamba_scan", busy),
+                        mamba_scan_bwd_by_shape=launch_shares(by_launch, "mamba_scan_bwd",
+                                                              busy))
     profiled.update(
-        rest_share=1 - (fwd + bwd + scan + scan_bwd + marked[SDPA_TRANSPOSES]) / busy,
+        rest_share=share_of(busy - fwd - bwd - scan - scan_bwd - marked[SDPA_TRANSPOSES], busy),
         # within the rest: the matrix products (cuBLAS), the optimizer
         weight_products_ms=products,
-        weight_products_share=products / busy,
+        weight_products_share=share_of(products, busy),
         adamw_update_ms=marked[ADAMW_UPDATE],
-        adamw_update_share=marked[ADAMW_UPDATE] / busy,
+        adamw_update_share=share_of(marked[ADAMW_UPDATE], busy),
         adamw_update_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3,
         kernels=sum(n for _, _, n in prof),
         top=[(k[:48], ms, n) for k, ms, n in prof[:12]],
@@ -6065,8 +6140,8 @@ def phase_train(seed, arch=LM_ARCH):
     print(f"train {arch}: {json.dumps(report)}")
     if cfg.ssm:
         print(f"train {arch}: the scan's backward {scan_bwd:.2f} ms of {busy:.2f} device ms in the"
-              f" profiled step ({scan_bwd / busy:.1%}), its forward {scan:.2f} ms"
-              f" ({scan / busy:.1%}); median step {med:.2f} ms; peak {peak:.2f} GiB")
+              f" profiled step ({pct(share_of(scan_bwd, busy))}), its forward {scan:.2f} ms"
+              f" ({pct(share_of(scan, busy))}); median step {med:.2f} ms; peak {peak:.2f} GiB")
     del params, state, batches
     return report, launches
 
@@ -6138,6 +6213,307 @@ def phase_train_gate(seed, arch=LM_ARCH, layers=TRAIN_GATE_LAYERS):
     del params, grads_k, grads_p
     torch.cuda.empty_cache()
     return report
+
+
+def phase_launch(seed, arch, batch, seq):
+    """Phase ``launch``: ``arch`` at full width and depth (bf16, remat)
+    through the launcher, ``build_run(arch, batch=, seq=,
+    steps=LAUNCH_STEPS, seed=)`` on the card, then ``train(run,
+    LAUNCH_STEPS, ckpt_every=0)`` on its ``TokenPipeline`` batches.  First
+    the gradients of batch 0 with every ``flash_attention_bwd`` call held
+    to its plain version within ``GRAD_TOL`` (minicpm3-4b at head dim 96,
+    v padded from 64; whisper-small's non-causal encoder over 1,500 frames,
+    its causal decoder and its cross attention; granite-moe-1b-a400m at 64)
+    and every leaf's gradient finite and not all zero.  Then the
+    launcher's steps, each timed by the launcher (``run.step_seconds``, from
+    the step's call to its loss on the host) with its loss, their
+    launches against ``train_expect``, the peak memory, the first step's
+    loss within 1e-3 of batch 0's from the gradient pass (granite's
+    ``index_add_`` combine is not bit-stable on the card, so the two may
+    differ by a rounding; the other models match to that too), and one
+    more step profiled: device busy, the flash forward's and backward's
+    ms and shares by shape (their launch ranges), ``sdpa``'s transposes,
+    the weight products and the optimizer.  Returns (report, launches of
+    the launcher's steps)."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenPipeline, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models.layers import SDPA_TRANSPOSES
+    from repro_torch.train.optimizer import ADAMW_UPDATE
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+
+    t0 = time.perf_counter()
+    run = launch.build_run(arch, batch=batch, seq=seq, steps=LAUNCH_STEPS, seed=seed)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    cfg, dev = run.cfg, run.mesh.device
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        fail(f"launch: {arch} should train in bf16 with remat")
+    expect = train_expect(cfg)
+    tokens = batch * seq
+    first = to_device(TokenPipeline(cfg, global_batch=batch, seq_len=seq, seed=seed)
+                      .next_batch(), cfg, dev)
+    held = []
+    with held_to_plain(held, "flash_attention_bwd", compare=grad_err):
+        loss0, _, grads = loss_and_grads(cfg, run.params, first)
+    leaves_checked = grad_check(run.params, grads, f"launch {arch}")
+    worst = max(e for e, _ in held) if held else float("inf")
+    if len(held) != expect["flash_attention_bwd"] or not worst <= GRAD_TOL[cfg.dtype]:
+        fail(f"launch {arch}: {len(held)} flash_attention_bwd calls held to their plain version"
+             f" (expected {expect['flash_attention_bwd']}), worst {worst} (limit"
+             f" {GRAD_TOL[cfg.dtype]})")
+    del grads, first
+    torch.cuda.empty_cache()
+
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, watchdog = launch.train(run, LAUNCH_STEPS, ckpt_every=0, log_every=1)
+    step_ms = [s * 1e3 for s in run.step_seconds]
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k, per_step in expect.items():
+        if launches[k] != per_step * LAUNCH_STEPS:
+            fail(f"launch {arch}: {launches[k]} {k} launches, expected"
+                 f" {per_step * LAUNCH_STEPS}")
+    if (run.step != LAUNCH_STEPS or len(losses) != LAUNCH_STEPS
+            or not all(np.isfinite(x) for x in losses)):
+        fail(f"launch {arch}: step {run.step}, losses {losses}")
+    if abs(losses[0] - float(loss0)) > 1e-3 * abs(float(loss0)):
+        fail(f"launch {arch}: step 1's loss {losses[0]} is not batch 0's {float(loss0)}")
+
+    step = make_train_step(cfg, run.opt_cfg)
+    nxt = to_device(run.pipeline.next_batch(), cfg, dev)
+    by_launch = {}
+    _, wall, prof, marked = device_profile(
+        lambda: step(run.params, run.opt_state, nxt),
+        ranges=(SDPA_TRANSPOSES, ADAMW_UPDATE), launches=by_launch,
+    )
+    busy = sum(ms for _, ms, _ in prof)
+    fwd = launch_shares(by_launch, "flash_attention", busy)
+    bwd = launch_shares(by_launch, "flash_attention_bwd", busy)
+    fwd_ms = launch_ms(by_launch, "flash_attention")
+    bwd_ms = launch_ms(by_launch, "flash_attention_bwd")
+    products = sum(ms for k, ms, _ in prof if any(x in k for x in ("nvjet", "gemm", "cutlass")))
+    med = float(np.median(step_ms))
+    report = dict(
+        arch=arch, layers=cfg.n_layers, enc_layers=cfg.enc_layers, batch=batch, seq_len=seq,
+        source_frames=cfg.max_source_positions if cfg.encdec else None,
+        tokens_per_step=tokens, build_run_s=built_s,
+        losses=losses, step_ms=step_ms, median_ms=med, tokens_per_s=tokens / med * 1e3,
+        watchdog=dict(steps=watchdog.steps, ema_ms=watchdog.ema * 1e3,
+                      stragglers=watchdog.stragglers),
+        batch0_loss=float(loss0), peak_gib=peak, leaves_with_grad=leaves_checked,
+        held_to_plain=dict(calls=len(held), max_rel_err=worst,
+                           max_abs_err=max(a for _, a in held)),
+        launches_per_step={k: launches[k] // LAUNCH_STEPS for k in expect},
+        profiled_step=dict(
+            wall_ms=wall, device_busy_ms=busy, idle_share=idle_of(busy, wall),
+            flash_fwd_ms=fwd_ms, flash_fwd_share=share_of(fwd_ms, busy),
+            flash_bwd_ms=bwd_ms, flash_bwd_share=share_of(bwd_ms, busy),
+            flash_fwd_by_shape=fwd, flash_bwd_by_shape=bwd,
+            sdpa_transposes_ms=marked[SDPA_TRANSPOSES],
+            weight_products_ms=products, weight_products_share=share_of(products, busy),
+            adamw_update_ms=marked[ADAMW_UPDATE],
+            adamw_update_share=share_of(marked[ADAMW_UPDATE], busy),
+            kernels=sum(n for _, _, n in prof),
+            top=[(k[:48], ms, n) for k, ms, n in prof[:8]],
+        ),
+    )
+    print(f"launch {arch}: {json.dumps(report)}")
+    del run, step, nxt
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+@contextlib.contextmanager
+def arch_cut(arch, **overrides):
+    """Within the block, the registry's ``arch`` is its config with
+    ``overrides`` (``build_run`` takes a registry name)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    kept = registry.ARCHS[arch]
+    registry.ARCHS[arch] = dataclasses.replace(kept, **overrides)
+    try:
+        yield
+    finally:
+        registry.ARCHS[arch] = kept
+
+
+@contextlib.contextmanager
+def timed_checkpoints(log):
+    """Within the block, every ``CheckpointManager.save`` and ``restore``
+    appends ``(kind, seconds, bytes on disk)`` to ``log`` (a save's
+    seconds include the copy off the card, a restore's the copy onto
+    it)."""
+    import torch
+
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    save, restore = CheckpointManager.save, CheckpointManager.restore
+
+    def step_bytes(d):
+        return sum(f.stat().st_size for f in pathlib.Path(d).rglob("*.npy"))
+
+    def timed_save(self, step, state, extra=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(self, step, state, extra)
+        log.append(("save", time.perf_counter() - t0, step_bytes(out)))
+        return out
+
+    def timed_restore(self, template, *, step=None, shardings=None):
+        t0 = time.perf_counter()
+        out = restore(self, template, step=step, shardings=shardings)
+        torch.cuda.synchronize()
+        log.append(("restore", time.perf_counter() - t0,
+                    step_bytes(os.path.join(self.root, f"step_{out[1]:08d}"))))
+        return out
+
+    CheckpointManager.save, CheckpointManager.restore = timed_save, timed_restore
+    try:
+        yield
+    finally:
+        CheckpointManager.save, CheckpointManager.restore = save, restore
+
+
+def state_of(run):
+    """Copies of ``run``'s parameters and moments, in tree order."""
+    from repro_torch.train.optimizer import leaves
+
+    return [t.clone() for tree in (run.params, run.opt_state.mu, run.opt_state.nu)
+            for t in leaves(tree)]
+
+
+def same_state(a, b):
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_launch_ckpt(seed):
+    """Phase ``launch-ckpt``: minicpm3-4b at full width cut to
+    ``CKPT_LAYERS`` layers (bf16, 2 x 4,096 tokens), trained by the launcher
+    in a temporary directory that the phase removes.  Runs: (a) without
+    checkpoints, 3 steps, then on to ``CKPT_STEPS``; (b) checkpointed every
+    ``CKPT_EVERY`` steps (keep 2) with ``FailureInjector({2: FatalError, 3:
+    TransientError})``, 3 steps, then resumed from its step-3 checkpoint
+    to ``CKPT_STEPS``; (r) the pipeline's batches at positions
+    ``CKPT_B_ORDER``, [0, 1, 2, 2, 3, 4], through ``make_train_step``
+    without the launcher; (c) a fresh ``build_run`` on (b)'s directory, to
+    ``CKPT_RESUME_TO``.  Gates, bit for bit on the parameters and moments:
+    (b) at step 3, after its restore and the retried step, equals (a) at
+    step 3; (b) trains the batches in (r)'s order (``ROADMAP.md`` queue 3,
+    entry 20: the retried step trains the failing iteration's batch, then
+    the loop draws again from the restored position), so it ends equal to
+    (r) and unlike (a), at pipeline position 5; every leaf of (b)'s last
+    checkpoint restored from disk equals (b)'s live tensor; (c) resumes at
+    step 6 from position 5 and runs 2 steps, to position 7.  Reports each save's and restore's seconds and
+    bytes.  Gradients were run-to-run bit-stable on the card at this
+    shape, so no deterministic switch is set.  Returns (report, launches
+    of the runs)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault import FailureInjector, FatalError, TransientError
+    from repro_torch.train.optimizer import leaves
+    from repro_torch.train.train_step import make_train_step
+
+    root = tempfile.mkdtemp(prefix="launch_ckpt_")
+    io = []
+    ops.reset_launches()
+    try:
+        with arch_cut(MLA_ARCH, n_layers=CKPT_LAYERS), timed_checkpoints(io):
+
+            def new_run(name):
+                run = launch.build_run(MLA_ARCH, batch=2, seq=TRAIN_SEQ, steps=CKPT_RESUME_TO,
+                                       seed=seed, ckpt_dir=name and os.path.join(root, name))
+                if run.ckpt is not None:
+                    run.ckpt.keep = 2
+                return run
+
+            run = new_run(None)
+            launch.train(run, 3, log_every=CKPT_STEPS)
+            a3 = state_of(run)
+            losses_a, _ = launch.train(run, CKPT_STEPS, log_every=CKPT_STEPS)
+            a6 = state_of(run)
+            bytes_state = sum(t.numel() * t.element_size() for t in a6)
+            del run
+
+            run = new_run("b")
+            injector = FailureInjector({2: FatalError, 3: TransientError})
+            launch.train(run, 3, ckpt_every=CKPT_EVERY, injector=injector, log_every=CKPT_STEPS)
+            after_restore_exact = same_state(state_of(run), a3)
+            del a3
+            launch.train(run, CKPT_STEPS, ckpt_every=CKPT_EVERY, injector=injector,
+                         log_every=CKPT_STEPS)
+            b6 = state_of(run)
+            b_position = run.pipeline.state.step
+            mgr = CheckpointManager(os.path.join(root, "b"), keep=2)
+            back, back_step, _ = mgr.restore((run.params, run.opt_state))
+            on_disk_exact = back_step == CKPT_STEPS and back[1].step == CKPT_STEPS and same_state(
+                [t for tree in (back[0], back[1].mu, back[1].nu) for t in leaves(tree)], b6)
+            del run, back
+
+            run = new_run(None)
+            drawn = [to_device(run.pipeline.next_batch(), run.cfg, run.mesh.device)
+                     for _ in range(max(CKPT_B_ORDER) + 1)]
+            step = make_train_step(run.cfg, run.opt_cfg)
+            for i in CKPT_B_ORDER:
+                run.params, run.opt_state, _ = step(run.params, run.opt_state, drawn[i])
+            replay_exact = same_state(state_of(run), b6)
+            b_equals_a = same_state(b6, a6)
+            del run, drawn, step, a6, b6
+            torch.cuda.empty_cache()
+            if not after_restore_exact:
+                fail("launch-ckpt: (b) after its restore and retried step differs from (a)")
+            if (injector.schedule or b_position != max(CKPT_B_ORDER) + 1 or not replay_exact
+                    or b_equals_a):
+                fail(f"launch-ckpt: (b) at pipeline position {b_position} (expected"
+                     f" {max(CKPT_B_ORDER) + 1}), faults left {injector.schedule}, equal to the"
+                     f" replay of {CKPT_B_ORDER} {replay_exact}, to (a) {b_equals_a}")
+            if not on_disk_exact:
+                fail(f"launch-ckpt: step {back_step}'s checkpoint restored from disk differs from"
+                     f" (b)'s live state")
+
+            run = new_run("b")
+            losses_c, _ = launch.train(run, CKPT_RESUME_TO, ckpt_every=CKPT_EVERY, log_every=1)
+            c_position = run.pipeline.state.step
+            if (run.step != CKPT_RESUME_TO or len(losses_c) != CKPT_RESUME_TO - CKPT_STEPS
+                    or c_position != b_position + len(losses_c)):
+                fail(f"launch-ckpt: (c) ended at step {run.step} after {len(losses_c)} steps, at"
+                     f" pipeline position {c_position} (expected {CKPT_RESUME_TO} after"
+                     f" {CKPT_RESUME_TO - CKPT_STEPS}, at {b_position + 2})")
+            kept = run.ckpt.all_steps()
+            del run
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    saves = [(s, b) for k, s, b in io if k == "save"]
+    restores = [(s, b) for k, s, b in io if k == "restore"]
+    report = dict(
+        arch=MLA_ARCH, layers=CKPT_LAYERS, tokens_per_step=2 * TRAIN_SEQ,
+        state_bytes_on_card=bytes_state, losses_a=losses_a, losses_c=losses_c,
+        after_restore_exact=after_restore_exact, b_order=CKPT_B_ORDER, b_position=b_position,
+        b_equals_replay=replay_exact, b_equals_a=b_equals_a, c_position=c_position,
+        on_disk_exact=on_disk_exact, kept_steps=kept,
+        saves=len(saves), save_s=[s for s, _ in saves], save_bytes=saves[0][1],
+        save_gb_per_s=float(np.median([b / s for s, b in saves])) / 1e9,
+        restores=len(restores), restore_s=[s for s, _ in restores],
+        restore_bytes=restores[0][1],
+        restore_gb_per_s=float(np.median([b / s for s, b in restores])) / 1e9,
+    )
+    print(f"launch-ckpt: {json.dumps(report)}")
+    return report, dict(ops.LAUNCHES)
 
 
 def main(argv=None):
@@ -6288,6 +6664,19 @@ def main(argv=None):
     report["gate-train"] = {arch: phase_train_gate(args.seed, arch, layers)
                             for arch, layers in TRAIN_GATES}
     t21 = time.perf_counter()
+    # the launch plane: build_run + train at full width, the earlier models
+    # freed; then the checkpointed runs
+    report["launch"] = {}
+    for arch, batch, seq in LAUNCH_RUNS:
+        report["launch"][arch], per_path[f"launch {arch}"] = phase_launch(
+            args.seed, arch, batch, seq)
+        check_launches(f"launch {arch}", per_path[f"launch {arch}"],
+                       ("flash_attention", "flash_attention_bwd"))
+    t22 = time.perf_counter()
+    report["launch-ckpt"], per_path["launch-ckpt"] = phase_launch_ckpt(args.seed)
+    check_launches("launch-ckpt", per_path["launch-ckpt"],
+                   ("flash_attention", "flash_attention_bwd"))
+    t23 = time.perf_counter()
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["read-only"]}
     print(f"main: launches {launches}")
     print(f"phases: kernels {t1 - t0:.1f} s, cpu-vs-cuda {t2 - t1:.1f} s,"
@@ -6302,7 +6691,8 @@ def main(argv=None):
           f" moe gate {t14 - t13:.1f} s, mla serving and prefill {t15 - t14:.1f} s,"
           f" mla gate {t16 - t15:.1f} s, encdec serving and prefill {t17 - t16:.1f} s,"
           f" encdec gate {t18 - t17:.1f} s, train {t19 - t18:.1f} s,"
-          f" train hybrid {t20 - t19:.1f} s, train gates {t21 - t20:.1f} s")
+          f" train hybrid {t20 - t19:.1f} s, train gates {t21 - t20:.1f} s,"
+          f" launch {t22 - t21:.1f} s, launch-ckpt {t23 - t22:.1f} s")
     rows = []
     for name, k in kernels.items():
         rows.append(dict(
@@ -6323,6 +6713,7 @@ def main(argv=None):
                                  "hot_ms", "yardstick_ms", "per_arch", "per_shape", "per_mix")
                if x in k},
         ))
+    print(f"profiles: {PROFILES['taken']} taken, {PROFILES['lost']} with no device time")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -11,7 +11,8 @@ loads.  The library goes to ``build/kernels/`` at the repository root,
 named by a hash of the sources, so an edited source is rebuilt.
 
 ``LAUNCHES`` counts each kernel's launches: a wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else.  Each launch runs inside a profiler
+range named by ``launch_label`` (kernel and operand shapes).
 
 ``flash_attention`` and ``mamba_scan`` are differentiable: under grad
 they run as the ``FlashAttention`` and ``MambaScan`` functions, whose
@@ -23,6 +24,7 @@ that no trainer gets a gradient that silently stops at it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -82,6 +84,26 @@ def _refuse_grad(kernel: str, *tensors) -> None:
         raise RuntimeError(
             f"{kernel} has no backward: {NO_BACKWARD.get(kernel, _INDEX_PLANE)}"
         )
+
+
+def launch_label(kernel: str, *shapes, **flags) -> str:
+    """The profiler range of one launch: the kernel's name, its operands'
+    shapes and the flags that are set, e.g. ``"flash_attention [2, 40,
+    4096, 96] [2, 40, 4096, 96] causal"``."""
+    return " ".join([kernel, *(str(list(s)) for s in shapes), *(k for k, v in flags.items() if v)])
+
+
+def launch_range(kernel: str, *tensors, **flags):
+    """``record_function`` around one launch, named by ``launch_label``,
+    while a profiler is on; otherwise nothing (no label is built), so a
+    launch outside a profile pays one flag read.  Its span on the device
+    is the launch's kernels, so a profile gives each launch's device time
+    by name and shape (the profile links a ``ctypes`` launch to no
+    operator, but to its range)."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return contextlib.nullcontext()
+    label = launch_label(kernel, *(t.shape for t in tensors), **flags)
+    return torch.autograd.profiler.record_function(label)
 
 
 def reset_launches() -> None:
@@ -181,7 +203,8 @@ def node_search(
     if rows.device.type == "cpu":
         _node_search.validate(rows, queries, values)
         return ref.node_search_ref(rows, queries, values)
-    out = _node_search.launch(library(), rows, queries, values)
+    with launch_range("node_search", rows, queries):
+        out = _node_search.launch(library(), rows, queries, values)
     LAUNCHES["node_search"] += 1
     return out
 
@@ -205,7 +228,8 @@ def node_search_prefix(
     if rows.device.type == "cpu":
         _node_search.validate_prefix(*args)
         return ref.node_search_prefix_ref(*args)
-    out = _node_search.launch_prefix(library(), *args)
+    with launch_range("node_search_prefix", suffix, queries):
+        out = _node_search.launch_prefix(library(), *args)
     LAUNCHES["node_search_prefix"] += 1
     return out
 
@@ -231,7 +255,8 @@ def subtree_walk(
     if pool_keys.device.type == "cpu":
         _subtree_walk.validate(*args, levels, active)
         return ref.subtree_walk_ref(*args, levels=levels, active=active)
-    out = _subtree_walk.launch(library(), *args, levels, active)
+    with launch_range("subtree_walk", pool_keys, queries):
+        out = _subtree_walk.launch(library(), *args, levels, active)
     LAUNCHES["subtree_walk"] += 1
     return out
 
@@ -252,7 +277,8 @@ def leaf_write(
     if rows_k.device.type == "cpu":
         _leaf_write.validate(*args)
         return ref.leaf_write_ref(*args)
-    out = _leaf_write.launch(library(), *args)
+    with launch_range("leaf_write", rows_k, upd_slot, ins_key):
+        out = _leaf_write.launch(library(), *args)
     LAUNCHES["leaf_write"] += 1
     return out
 
@@ -273,7 +299,8 @@ def leaf_scan(
     if window_keys.device.type == "cpu":
         _leaf_scan.validate(*args, max_count)
         return ref.leaf_scan_ref(*args, max_count=max_count)
-    out = _leaf_scan.launch(library(), *args, max_count)
+    with launch_range("leaf_scan", window_keys, start_keys):
+        out = _leaf_scan.launch(library(), *args, max_count)
     LAUNCHES["leaf_scan"] += 1
     return out
 
@@ -293,7 +320,8 @@ def leaf_split(
     if rows_k.device.type == "cpu":
         _leaf_split.validate(*args)
         return ref.leaf_split_ref(*args)
-    out = _leaf_split.launch(library(), *args)
+    with launch_range("leaf_split", rows_k, ins_key):
+        out = _leaf_split.launch(library(), *args)
     LAUNCHES["leaf_split"] += 1
     return out
 
@@ -316,7 +344,8 @@ def paged_attention(
     if q.device.type == "cpu":
         _paged_attention.validate(*args)
         return ref.paged_attention_ref(*args, with_lse=with_lse)
-    out = _paged_attention.launch(library(), *args, with_lse=with_lse)
+    with launch_range("paged_attention", q, k_pages, page_table):
+        out = _paged_attention.launch(library(), *args, with_lse=with_lse)
     LAUNCHES["paged_attention"] += 1
     return out
 
@@ -380,7 +409,8 @@ def flash_attention_fwd(
         return ref.flash_attention_ref(
             q, k, v, causal=causal, scale=scale, with_lse=with_lse
         )
-    out = _flash_attention.launch(library(), q, k, v, causal, scale, with_lse=with_lse)
+    with launch_range("flash_attention", q, k, causal=causal):
+        out = _flash_attention.launch(library(), q, k, v, causal, scale, with_lse=with_lse)
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -405,7 +435,8 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         _flash_attention.validate_bwd(*args, dtypes=_flash_attention.CPU_DTYPES)
         return ref.flash_attention_bwd_ref(*args, causal=causal, scale=scale)
-    out = _flash_attention.launch_bwd(library(), *args, causal, scale)
+    with launch_range("flash_attention_bwd", q, k, causal=causal):
+        out = _flash_attention.launch_bwd(library(), *args, causal, scale)
     LAUNCHES["flash_attention_bwd"] += 1
     return out
 
@@ -475,7 +506,8 @@ def mamba_scan_fwd(
         _mamba_scan.validate(*args, dtypes=_mamba_scan.CPU_DTYPES)
         out = ref.mamba_scan_ref(*args)
         return (*out, None) if with_states else out
-    out = _mamba_scan.launch(library(), *args, with_states=with_states)
+    with launch_range("mamba_scan", x, Bmat):
+        out = _mamba_scan.launch(library(), *args, with_states=with_states)
     LAUNCHES["mamba_scan"] += 1
     return out
 
@@ -501,6 +533,7 @@ def mamba_scan_bwd(
     if delta.device.type == "cpu":
         _mamba_scan.validate_bwd(*args, states, dtypes=_mamba_scan.CPU_DTYPES)
         return ref.mamba_scan_bwd_ref(*args)
-    out = _mamba_scan.launch_bwd(library(), *args, states)
+    with launch_range("mamba_scan_bwd", x, Bmat):
+        out = _mamba_scan.launch_bwd(library(), *args, states)
     LAUNCHES["mamba_scan_bwd"] += 1
     return out

@@ -461,13 +461,33 @@ def moe_queue(idx: torch.Tensor, cap: int):
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` with f32 accumulation and an f32 result (the
     reference's ``preferred_element_type=F32``): on the card a bf16 product
-    asks for the f32 output directly; the CPU has no such product, so it
-    multiplies f32 copies."""
+    asks for the f32 output directly (``BmmF32``, which gives it a
+    gradient); the CPU has no such product, so it multiplies f32 copies."""
     if a.dtype == F32:
         return torch.bmm(a, b)
     if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=F32)
+        return BmmF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
+
+
+class BmmF32(torch.autograd.Function):
+    """``torch.bmm(a, b, out_dtype=F32)`` with its gradient, which torch
+    does not define for that form: the f32 output gradient times the other
+    operand in f32, rounded to each operand's dtype, as the reference
+    differentiates its f32-result product (and as the CPU path's f32
+    copies do)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = torch.bmm(g, b.float().mT).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = torch.bmm(a.float().mT, g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db
 
 
 def _moe_chunk(cfg: ArchConfig, p: dict, xt: torch.Tensor, with_aux: bool = True):

@@ -18,8 +18,9 @@ moments' dtype (bf16 moments by default).  Three differences:
   tolerance.
 
 ``OptState.step`` is a Python int, the schedule's scalars are f32
-tensors on the CPU.  ``compressed_psum`` waits for ``train/sharding``
-(``ROADMAP.md`` queue 1, item 13.g).
+tensors on the CPU.  ``compressed_psum`` runs the reference's
+``shard_map`` reduction over the virtual mesh's leading axis
+(``core/mesh.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import math
 from typing import Any, Dict, Iterator, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.core import mesh
 
 F32 = torch.float32
 #: elements an update piece may hold: a few f32 temporaries of 256 MB
@@ -178,3 +181,21 @@ def compress_int8(
 
 def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
+
+
+def compressed_psum(g: torch.Tensor, err: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback int8 all-reduce over the participants of the leading
+    axis: ``g`` and ``err`` are ``[n, ...]``, participant ``i``'s gradient
+    and residual at ``[i]``, as ``core/mesh.py`` lays out a virtual mesh.
+    Each participant compresses its own slice (``compress_int8``); the
+    int8 payloads are summed in int32 (``mesh.psum``) and the scales
+    reduced by their maximum (``mesh.pmax``), as the reference's ``psum``
+    and ``pmax`` over the axis do.  Returns ``(g_reduced f32 [n, ...],
+    new_err [n, ...])``.  Like the reference's collective counter, which
+    counts ``all_to_all`` and ``route_exchange`` only, ``core/mesh.py``
+    counts neither reduction."""
+    q, scale, new_err = zip(*(compress_int8(gi, ei) for gi, ei in zip(g, err)))
+    q, scale, new_err = torch.stack(q), torch.stack(scale), torch.stack(new_err)
+    summed = mesh.psum(q.to(torch.int32))
+    scale_max = mesh.pmax(scale).reshape((-1,) + (1,) * (g.dim() - 1))
+    return summed.float() * scale_max, new_err

@@ -5,8 +5,8 @@ The port of ``repro.train.train_step.make_train_step``: the same
 microbatch split and f32 gradient accumulation, a Python loop where the
 reference scans.  The parameters and the optimizer state are updated in
 place (``adamw_update``) and returned; the reference's ``jax.jit`` with
-donated buffers does the same to its inputs.  ``jit_train_step`` waits for
-``train/sharding`` (``ROADMAP.md`` queue 1, item 13.g).
+donated buffers does the same to its inputs.  ``jit_train_step`` places
+the batch by ``train/sharding.py``'s rules and runs the same step.
 """
 
 from __future__ import annotations
@@ -73,3 +73,35 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *, microbatches: int = 
         return params, opt_state, out
 
     return train_step
+
+
+def jit_train_step(
+    cfg: ArchConfig,
+    opt_cfg: OptConfig,
+    mesh,
+    params_shapes,
+    *,
+    microbatches: int = 1,
+):
+    """``make_train_step`` with the reference's placements on ``mesh``
+    (``launch/mesh.py``): the step places the host batch where
+    ``batch_shardings`` puts it (on one card every placement is the mesh's
+    device) through ``data/pipeline.py::to_device``, and updates the
+    parameters and moments in place, where the reference donates their
+    buffers.  The parameters (``params_shapes``' structure) must lie on
+    the mesh's device: a step that moved them could not update them in
+    place."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.train.sharding import batch_shardings, param_shardings
+
+    p_sh = param_shardings(params_shapes, mesh, cfg)
+    (device,) = {s.device for s in batch_shardings(mesh, encdec=cfg.encdec).values()}
+    step = make_train_step(cfg, opt_cfg, microbatches=microbatches)
+
+    def placed_step(params, opt_state: OptState, batch):
+        for p, s in zip(leaves(params), leaves(p_sh)):
+            if p.device != s.device:
+                raise ValueError(f"a parameter lies on {p.device}, the mesh on {s.device}")
+        return step(params, opt_state, to_device(batch, cfg, device))
+
+    return placed_step

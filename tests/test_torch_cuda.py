@@ -1559,3 +1559,76 @@ def test_fence_waits_for_the_card(cuda):
     tree = {"a": (x, [torch.zeros(3, device=cuda)]), "b": 1}
     assert timeline.fence(tree) is tree
     assert done.query()
+
+
+@pytest.mark.cuda
+def test_launch_ranges_time_each_launch_on_the_card(cuda):
+    """Each ``flash_attention`` launch's profiler range (kernel and shapes)
+    spans its kernel on the device, so device time is read by range."""
+    from torch.autograd import DeviceType
+
+    q = torch.randn(1, 4, 256, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(1, 4, 512, 64, device=cuda, dtype=torch.bfloat16)
+    ops.flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for causal in (True, False, True):
+            ops.flash_attention(q, k, k, causal=causal)
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.events():
+        if e.name.startswith("flash_attention "):
+            spans.setdefault((e.name, e.device_type), []).append(e.time_range.elapsed_us())
+    causal = ops.launch_label("flash_attention", q.shape, k.shape, causal=True)
+    full = ops.launch_label("flash_attention", q.shape, k.shape, causal=False)
+    for device in (DeviceType.CPU, DeviceType.CUDA):
+        assert len(spans[(causal, device)]) == 2 and len(spans[(full, device)]) == 1
+    assert all(t > 0 for t in spans[(full, DeviceType.CUDA)])
+
+
+@pytest.mark.cuda
+def test_expert_product_has_a_gradient_on_the_card(cuda):
+    """On the card a bf16 expert product asks for its f32 result directly,
+    a form of ``torch.bmm`` without a derivative, so MoE training failed
+    there ("derivative for aten::bmm is not implemented") while the CPU's
+    f32 copies trained.  ``BmmF32`` gives it the gradient of those
+    copies: the f32 output gradient times the other operand in f32,
+    rounded to bf16."""
+    from repro_torch.models import layers as t_layers
+
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(4, 32, 64, generator=g).to(cuda, torch.bfloat16).requires_grad_()
+    b = torch.randn(4, 64, 48, generator=g).to(cuda, torch.bfloat16).requires_grad_()
+    w = torch.randn(4, 32, 48, generator=g).to(cuda)
+    out = t_layers._bmm_f32(a, b)
+    assert out.dtype == torch.float32
+    da, db = torch.autograd.grad((out * w).sum(), (a, b))
+    a32, b32 = a.detach().float().requires_grad_(), b.detach().float().requires_grad_()
+    want = torch.bmm(a32, b32)
+    ea, eb = torch.autograd.grad((want * w).sum(), (a32, b32))
+    assert float((out - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert da.dtype == db.dtype == torch.bfloat16
+    assert torch.equal(da, ea.to(torch.bfloat16)) and torch.equal(db, eb.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_launcher_trains_moe_on_the_card_and_resumes(cuda, tmp_path, monkeypatch):
+    """``launch/train.py`` on the card: a reduced granite-moe-1b-a400m (bf16,
+    head dim 64 for the flash backward, its expert products on the
+    f32-result path) trains 2 steps with a checkpoint a step, and the last
+    checkpoint restores onto the card bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as launch
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import leaves
+
+    arch = "granite-moe-1b-a400m"
+    monkeypatch.setitem(registry.ARCHS, arch, registry.ARCHS[arch].reduced(head_dim=64, remat=True))
+    run = launch.build_run(arch, batch=2, seq=64, steps=2, ckpt_dir=str(tmp_path))
+    losses, _ = launch.train(run, 2, ckpt_every=1, log_every=10)
+    assert run.step == 2 and all(np.isfinite(losses))
+    back, step, _ = CheckpointManager(str(tmp_path)).restore((run.params, run.opt_state))
+    assert step == 2 and back[1].step == 2
+    for got, want in zip(leaves(back[0]), leaves(run.params)):
+        assert got.device.type == "cuda" and torch.equal(got, want)

@@ -36,6 +36,8 @@ assert {
     "repro_torch.kernels.mamba_scan", "repro_torch.configs.falcon_mamba_7b",
     "repro_torch.configs.zamba2_2_7b", "repro_torch.train.optimizer",
     "repro_torch.train.train_step", "repro_torch.data.pipeline",
+    "repro_torch.train.fault", "repro_torch.train.checkpoint", "repro_torch.train.sharding",
+    "repro_torch.launch.mesh", "repro_torch.launch.train", "repro_torch.launch.elastic",
 } <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
@@ -50,6 +52,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.models import model
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.data.pipeline import TokenPipeline, to_device
+from repro_torch.launch import mesh as launch_mesh, train as launch_train
 small = get_config("minitron-4b").reduced()
 ssm = get_config("falcon-mamba-7b").reduced()
 if not torch.cuda.is_available():
@@ -63,6 +66,8 @@ if not torch.cuda.is_available():
         lambda: scan.make_dex_scan(None, dex.DexMeshConfig()),
         lambda: smo.make_dex_smo(None, dex.DexMeshConfig()),
         lambda: to_device(TokenPipeline(small, 1, 4).next_batch(), small),
+        lambda: launch_mesh.make_production_mesh(),
+        lambda: launch_train.build_run("minitron-4b", reduce=True),
     ):
         try:
             call()

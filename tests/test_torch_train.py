@@ -5,13 +5,16 @@ and parameters carried across by ``params_from_numpy``.
 
 Tolerances, each with what was measured:
 
-* ``loss_fn`` on reduced minitron-4b, granite-moe-1b-a400m and
-  falcon-mamba-7b (2 layers) and zamba2-2.7b (4 Mamba layers, the shared
-  block after every 2), three cross-entropy chunks, ignored labels: the
-  loss within 1e-5 relative (measured 1e-7; 0 for the SSM models), every
-  leaf's gradient within 1e-4 x that leaf's RMS (measured up to 1.5e-5,
-  zamba2-2.7b's ``A_log`` 3.9e-5: sums in another order through
-  attention, the MoE combine, the scan's backward and the head);
+* ``loss_fn`` on reduced minitron-4b, granite-moe-1b-a400m,
+  falcon-mamba-7b, minicpm3-4b (MLA) and whisper-small (2 layers; whisper's
+  2 encoder layers over 48 frames of ``enc_emb`` from the batch's seed)
+  and zamba2-2.7b (4 Mamba layers, the shared block after every 2), three
+  cross-entropy chunks, ignored labels: the loss within 1e-5 relative
+  (measured 1e-7; 0 for the SSM models, minicpm3-4b and whisper-small),
+  every leaf's gradient within 1e-4 x that leaf's RMS (measured up to
+  1.5e-5, minicpm3-4b 1.4e-5, whisper-small 1.2e-5, zamba2-2.7b's
+  ``A_log`` 3.9e-5: sums in another order through attention, the MoE
+  combine, the scan's backward and the head);
 * ``adamw_update`` over three steps with clipping, the chunked update and
   bf16 and f32 moments: parameters within 1e-6 x their largest magnitude
   (measured 4e-10); f32 moments within 1e-6 relative (measured 2e-7: XLA
@@ -47,7 +50,9 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.train import optimizer as TO  # noqa: E402
 from repro_torch.train import train_step as TT  # noqa: E402
 
-NAMES = ["minitron-4b", "granite-moe-1b-a400m", "falcon-mamba-7b", "zamba2-2.7b"]
+NAMES = ["minitron-4b", "granite-moe-1b-a400m", "falcon-mamba-7b", "zamba2-2.7b", "minicpm3-4b",
+         "whisper-small"]
+FRAMES = 48  # whisper-small's source frames (the reduced config holds 64)
 CE_CHUNK = 8  # three chunks of the 24 positions
 
 
@@ -62,13 +67,18 @@ def configs(name, **more):
     return ref_config(name).reduced(**kw), get_config(name).reduced(**kw)
 
 
-def batch_of(vocab, b, s, seed):
+def batch_of(vocab, b, s, seed, frames=0, width=0):
+    """Tokens and labels; with ``frames``, an encoder-decoder's frame
+    embeddings ``enc_emb`` [b, frames, width] f32 from the same seed."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, vocab, size=(b, s)).astype(np.int32)
     labels = np.roll(toks, -1, 1)
     labels[:, -1] = -100
     labels[0, 3] = -100
-    return {"tokens": toks, "labels": labels}
+    out = {"tokens": toks, "labels": labels}
+    if frames:
+        out["enc_emb"] = (0.02 * rng.standard_normal((b, frames, width))).astype(np.float32)
+    return out
 
 
 def tensors(batch):
@@ -89,7 +99,8 @@ def reference(name):
     inputs, shared by the tests of one config."""
     rc, tc = configs(name)
     rp = RM.init_params(rc, jax.random.PRNGKey(0))
-    batch = batch_of(rc.vocab, 2, 24, seed=1)
+    frames = dict(frames=FRAMES, width=rc.d_model) if rc.encdec else {}
+    batch = batch_of(rc.vocab, 2, 24, seed=1, **frames)
     fn = jax.jit(jax.value_and_grad(
         lambda p, b: RM.loss_fn(rc, p, b, ce_chunk=CE_CHUNK), has_aux=True
     ))
