@@ -5,9 +5,10 @@ host-fallback paths, its paged-KV serving of minitron-4b and of the MoE
 model granite-moe-1b-a400m, its Mamba serving of falcon-mamba-7b and
 zamba2-2.7b, its MLA serving of minicpm3-4b, its encoder-decoder
 serving of whisper-small, its training of minitron-4b and zamba2-2.7b, and
-its training launcher (``launch/train.py``: minicpm3-4b, whisper-small and
-granite-moe-1b-a400m at full width, checkpoints, failures and a resume),
-on one NVIDIA GPU and check them.
+its training launcher (``launch/train.py``: minicpm3-4b, whisper-small,
+granite-moe-1b-a400m and falcon-mamba-7b at full width, checkpoints,
+failures and a resume) with each training run's peak predicted first by
+the dry-run on the meta device, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed 0] [--n-keys 200000000]
 
@@ -208,7 +209,8 @@ Phases, in order; any failure exits non-zero:
      mirror, with the ms of each part.  A host oracle carries the applied
      writes forward; every lane that is not shed must match it, scans
      included;
-  6. serving at full width (the index freed first): minitron-4b, 32 layers,
+  6. serving at full width and half depth (``SERVE_DEPTH``; the index freed
+     first): minitron-4b, 16 of its 32 layers,
      bf16, weights from ``--seed``; 64 request slots over a pool of 4,096
      pages of 16 tokens (8.6 GB of KV), 36 pages a request; seeded prompts
      of 32-512 tokens fed a token a step, then 64 greedy tokens; a finished
@@ -230,7 +232,8 @@ Phases, in order; any failure exits non-zero:
      device ms of ``sdpa``'s transposes) and
      two served requests replayed through it (max |dlogit| / RMS and greedy
      agreement, reported);
-     6b. (minitron-4b freed) falcon-mamba-7b at full width, 64 layers, bf16:
+     6b. (minitron-4b freed) falcon-mamba-7b at full width, 32 of its 64
+     layers, bf16:
      64 slots decoded through ``decode_step`` (the recurrent state),
      seeded prompts of 32-512 tokens fed a token a step, then 64 greedy
      tokens, a finished request's slot zeroed and a new one admitted, 640
@@ -243,16 +246,16 @@ Phases, in order; any failure exits non-zero:
      ``flash_attention`` at head dim 80 in the 9 shared-block calls, each
      held to its plain version once, as for minitron-4b), then 128 decode
      steps of 32 slots;
-     6d. (the earlier models freed) granite-moe-1b-a400m at full width, 24
-     layers, bf16, 32 experts top-8 at a capacity factor of 1.25: phase 6's
+     6d. (the earlier models freed) granite-moe-1b-a400m at full width, 12
+     of its 24 layers, bf16, 32 experts top-8 at a capacity factor of 1.25: phase 6's
      traffic and checks through the DEX page table (4,096 pages, 3.2 GB of
      KV), the checked steps also reporting the routing agreement of the
      kernel and plain steps and the pairs dropped, the profiled step the
      MoE blocks' device ms (``MOE_BLOCK``); then ``prefill`` over 2 x 2,048
      tokens as for minitron-4b, with its dropped pairs;
-     6e. (the earlier models freed) minicpm3-4b at full width, 62 layers,
-     bf16, MLA: ``prefill`` over 2 x 2,048 tokens as for minitron-4b
-     (``flash_attention`` at q, k 96 wide and v 64 padded to 96, 62 calls,
+     6e. (the earlier models freed) minicpm3-4b at full width, 31 of its 62
+     layers, bf16, MLA: ``prefill`` over 2 x 2,048 tokens as for minitron-4b
+     (``flash_attention`` at q, k 96 wide and v 64 padded to 96, 31 calls,
      each held to its plain version once); then 256 ``decode_step``s of 64
      slots in lockstep over the compressed cache (``c_kv``, ``k_rope``) of
      256 positions, greedy after a seeded first token, logits finite, one
@@ -312,16 +315,29 @@ Phases, in order; any failure exits non-zero:
      run as its plain version: the loss within 1e-5 relative, each
      gradient within 1e-3 x its RMS;
   7b. ``launch``: minicpm3-4b (62 MLA layers, 2 x 4,096 tokens),
-     whisper-small (8 x 448 tokens over 8 x 1,500 frames) and
-     granite-moe-1b-a400m (2 x 4,096) built by ``build_run`` and trained 3
+     whisper-small (8 x 448 tokens over 8 x 1,500 frames),
+     granite-moe-1b-a400m (2 x 4,096) and falcon-mamba-7b (64 Mamba
+     layers, d_model 4,096, 2 x 4,096) built by ``build_run`` and trained 3
      steps by ``train`` on the card (bf16, remat): batch 0's every
-     ``flash_attention_bwd`` call held to its plain version, every
-     gradient finite and not all zero, launches a step against
-     ``train_expect``, ms and tokens/s a step, peak memory, one step
-     profiled with the flash time by shape from each launch's profiler
-     range; ``launch-ckpt``: minicpm3-4b cut to 2 layers, checkpointed
+     ``flash_attention_bwd`` call held to its plain version within 2e-2,
+     and one in eight of falcon-mamba-7b's 64 ``mamba_scan_bwd`` calls (8,
+     one in each eighth of the stack) within 1e-4 of the largest plain
+     gradient, every gradient finite and not all zero, launches a step
+     against ``train_expect`` (falcon-mamba-7b: 128 ``mamba_scan``, 64
+     ``mamba_scan_bwd``), ms and tokens/s a step, peak memory, one step
+     profiled with the flash and scan time by shape from each launch's
+     profiler range; ``launch-ckpt``: minicpm3-4b cut to 2 layers, checkpointed
      every 2 steps, with a fatal and a transient failure and a resume,
      held bit for bit (``phase_launch_ckpt``), each save and restore timed;
+     Every training phase (6g, 6h and each ``launch`` run) first asks the
+     dry-run (``launch/dryrun.py::lower_cell``: its step on the meta
+     device, one microbatch on a 1x1 mesh) for its predicted peak, which
+     must fit the card and whose kernel calls must be ``train_expect``'s,
+     and prints on a ``roofline <phase>`` line the predicted and measured
+     peak (``torch.cuda.max_memory_allocated``), the counted and the model
+     flops (``model_flops_for``) and ``roofline_fraction`` (model flops
+     over 989e12 x the median step's seconds); a predicted peak off the
+     measured one by more than 15% fails the run;
   8. one JSON line of per-kernel launches (summed over the paths of phases
      5 and 6, each counted from 0 just before it; the pipeline's and the
      divergent arm's launches are their own, not their twins' in turns: the
@@ -334,8 +350,9 @@ Phases, in order; any failure exits non-zero:
      ``flash_attention`` and 32 ``flash_attention_bwd`` launches a step,
      6h's ``train-hybrid``, 108 ``mamba_scan`` (54 forwards and remat's 54
      recomputes), 54 ``mamba_scan_bwd``, 9 ``flash_attention`` and 9
-     ``flash_attention_bwd`` a step, 7b's ``launch <arch>`` and
-     ``launch-ckpt``), errors and times.
+     ``flash_attention_bwd`` a step, 7b's ``launch <arch>`` (``launch
+     falcon-mamba-7b``: 128 ``mamba_scan`` and 64 ``mamba_scan_bwd`` a
+     step) and ``launch-ckpt``), errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 prints no result and exits non-zero.
@@ -360,41 +377,26 @@ sys.path.insert(0, str(ROOT / "src"))
 
 FULL_KEYS = 200_000_000  # the paper's bulk load (YCSB, §8.1)
 BATCH = 65_536
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-# The least a search of one sorted 64-key row must read: a binary search
-# over its sixteen 32-byte sectors (4 keys each), ceil(log2(16 + 1)) reads.
-ROW_SEARCH_BYTES = 32 * 5
-# The least leaf_write must move per row: its 64 keys and 64 values read and
-# written once (4 x 512 B), its occupancy written (4 B), and one probe of each
-# staged list (an update slot, 4 B, and an insert key, 8 B) to find it
-# empty; each active staged update adds its slot and value (12 B), each
-# active staged insert its key and value (16 B).
-LEAF_ROW_BYTES = 4 * 64 * 8 + 4 + 4 + 8
-STAGED_UPDATE_BYTES = 4 + 8
-STAGED_INSERT_BYTES = 8 + 8
-# leaf_split per row, as its contract has it: its keys and whole staged key
-# list read (active staged keys may sit anywhere in the list) and its left
-# and right key and value planes written, the right ones empty where the row
-# does not split (6 x 512 B), and occ_l, occ_r, sep and did_split written
-# (20 B); each live (not KEY_MAX) key's value is read, of the row's and of
-# the staged list's (8 B each): an empty slot's value reaches no output.
-SPLIT_ROW_BYTES = 6 * 64 * 8 + 20
-SPLIT_VALUE_BYTES = 8
-# node_search_prefix per lane: a compressible lane reads its prefix (8 B),
-# nbits (4 B) and query (8 B) and writes its slot (4 B), plus a binary
-# search of its 256-byte suffix row (ceil(log2(8 + 1)) = 4 of 8 sectors)
-# unless its prefix already exceeds the query's; an incompressible lane
-# reads nbits and query, writes the slot, and searches its canonical row.
-PREFIX_LANE_BYTES = 8 + 4 + 8 + 4
-SUFFIX_SEARCH_BYTES = 32 * 4
-CANON_LANE_BYTES = 4 + 8 + 4 + ROW_SEARCH_BYTES
-# node_search per lane: the query read (8 B), slot, found and value written
-# (13 B); a live query searches its row (ROW_SEARCH_BYTES), a KEY_MAX query
-# needs no search, every key being <= KEY_MAX, only the sector that holds
-# row[63] for ``found``; with values, each matching slot's value (8 B), so
-# a KEY_MAX query adds the values of its KEY_MAX run.
-NS_LANE_BYTES = 8 + 4 + 1 + 8
-KEYMAX_SEARCH_BYTES = 32
+# each kernel's least work (bytes, flops, exponentials) and the card's
+# rates: roofline/analysis.py, which the port's roofline reads too
+from repro_torch.roofline.analysis import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS as BF16_FLOPS_PER_S,
+    flash_bwd_bytes,
+    flash_bwd_flops,
+    flash_bytes,
+    flash_flops,
+    leaf_scan_bytes,
+    leaf_split_bytes,
+    leaf_write_bytes,
+    mamba_bwd_bytes,
+    mamba_bytes,
+    mamba_exps,
+    node_search_bytes,
+    paged_bytes,
+    prefix_search_bytes,
+    walk_bytes,
+)
 # the kernel timers: a scratch tensor written and read before each cold
 # call (five times the 50 MB L2), and the card's spin a queued call (0.5
 # ms at 1.98 GHz, several times the host's cost of a call)
@@ -454,13 +456,19 @@ TRACE_PATH = "traces/chip_smoke_telemetry.json"
 # page table; grok-1-314b (628 GB in bf16) runs reduced only
 LM_ARCH = "minitron-4b"
 MOE_ARCH, GROK_ARCH = "granite-moe-1b-a400m", "grok-1-314b"
-BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 # max abs error of an attention kernel against its plain version, by dtype
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: paged_attention's log-sum-exp: products of bf16 inputs are exact in f32,
 #: so only the order of the sums differs from the plain version
 LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 SERVE_SLOTS = 64  # requests decoded together
+#: the serving phases (6, 6b, 6d, 6e: minitron-4b, falcon-mamba-7b,
+#: granite-moe-1b-a400m, minicpm3-4b) run each model at full width and
+#: 1 / SERVE_DEPTH of its layers.  Their decode loops are bound by the host
+#: (idle 74-94% a step), so their time goes with the layers, and with PR 32's
+#: training phase and predictions the whole run took 1,150 s of its 1,200 s
+#: limit at full depth on a slow host (1,164 s with the process start)
+SERVE_DEPTH = 2
 PAGE_SIZE = 16
 N_PAGES = 4_096  # 65,536 tokens of KV: 8.6 GB for minitron-4b, 3.2 GB for granite
 PAGES_PER_REQ = 36  # 576 tokens: the longest prompt plus the generated tokens
@@ -542,8 +550,17 @@ TRAIN_GATES = ((LM_ARCH, TRAIN_GATE_LAYERS), (SSM_ARCH, 4), (HYBRID_ARCH, 6))
 # the launch plane (launch/train.py): (arch, batch, seq) trained at full
 # width and depth by build_run + train; whisper-small's prefill shape (448
 # tokens, its decoder context, over 1,500 frames)
-LAUNCH_RUNS = ((MLA_ARCH, 2, 4_096), (ENCDEC_ARCH, 8, 448), (MOE_ARCH, 2, 4_096))
+LAUNCH_RUNS = ((MLA_ARCH, 2, 4_096), (ENCDEC_ARCH, 8, 448), (MOE_ARCH, 2, 4_096),
+               (SSM_ARCH, 2, 4_096))
 LAUNCH_STEPS = 3
+# falcon-mamba-7b through the launcher: one in SSM_HOLD_EVERY of batch 0's 64
+# mamba_scan_bwd calls is held to its plain version (about 2 s a call on an
+# H100, row 11b), one in each eighth of the stack
+SSM_HOLD_EVERY = 8
+#: a training phase's peak (torch.cuda.max_memory_allocated) against the
+#: dry-run's prediction (launch/dryrun.py on the meta device): within this
+#: share of the measured peak
+PEAK_TOL = 0.15
 # the checkpointed runs: minicpm3-4b at full width cut to 2 layers, 2 x
 # 4,096 tokens, a checkpoint every 2 steps, keep 2; 6 steps, then a resume
 # to 8
@@ -965,21 +982,6 @@ def engine_mix(pool, keys, buckets, cap, live, seed):
     return rows, qs, vals
 
 
-def node_search_bytes(rows, q, vals):
-    """Least bytes ``node_search`` must move on these lanes
-    (``NS_LANE_BYTES``, ``ROW_SEARCH_BYTES``, ``KEYMAX_SEARCH_BYTES``)."""
-    from repro_torch.core.nodes import KEY_MAX
-
-    n = q.numel()
-    top = int((q == KEY_MAX).sum())
-    nbytes = (
-        n * NS_LANE_BYTES
-        + (n - top) * ROW_SEARCH_BYTES
-        + top * KEYMAX_SEARCH_BYTES
-    )
-    if vals is not None:
-        nbytes += 8 * int((rows == q[:, None]).sum())
-    return nbytes
 
 
 def node_search_mix(name, rows, q, vals):
@@ -1018,39 +1020,6 @@ def node_search_mix(name, rows, q, vals):
     return t
 
 
-def walk_bytes(pool, st, q, levels, found, active=None):
-    """Least bytes a walk must move: a binary search of each distinct row its
-    walked lanes read (``ROW_SEARCH_BYTES``), each distinct child id read
-    (4 B), the matched values (8 B), a walked lane's inputs (subtree 4 B,
-    query 8 B) and every lane's outputs (found, value, leaf: 13 B) and,
-    where there is one, its mask byte (``active``)."""
-    import torch
-
-    n = q.numel()
-    if active is not None:
-        st, q, found = st[active], q[active], found[active]
-    cap = pool.pool_keys.shape[1]
-    local = torch.zeros_like(q)
-    rows, kids = [], []
-    stl = st.long()
-    for _ in range(levels - 1):
-        gid = stl * cap + local
-        rows.append(gid)
-        r = pool.pool_keys[stl, local]
-        slot = ((r <= q[:, None]).sum(1) - 1).clamp(min=0)
-        kids.append(gid * 64 + slot)
-        local = pool.pool_children[stl, local, slot].long()
-        local = torch.where(local < 0, local + cap, local)
-    rows.append(stl * cap + local)
-    n_rows = torch.unique(torch.cat(rows)).numel()
-    n_kids = torch.unique(torch.cat(kids)).numel() if kids else 0
-    return (
-        ROW_SEARCH_BYTES * n_rows
-        + 4 * n_kids
-        + 8 * int(found.sum())
-        + 12 * q.numel()
-        + (13 + (active is not None)) * n
-    )
 
 
 def walk_lanes(pool, meta, keys, n, g):
@@ -1259,16 +1228,6 @@ def leaf_split_inputs(q, seed, dev):
     return rows_k, rows_v, ins_key, ins_val
 
 
-def leaf_split_bytes(args):
-    """The bytes ``leaf_split``'s contract moves for ``args`` (rows_k,
-    rows_v, ins_key, ins_val): ``SPLIT_ROW_BYTES`` a row and
-    ``SPLIT_VALUE_BYTES`` for each live (not KEY_MAX) key's value, in the
-    rows and in the staged lists."""
-    from repro_torch.core.nodes import KEY_MAX
-
-    rows_k, _, ins_key, _ = args
-    n_live = int((rows_k != KEY_MAX).sum()) + int((ins_key != KEY_MAX).sum())
-    return rows_k.shape[0] * SPLIT_ROW_BYTES + n_live * SPLIT_VALUE_BYTES
 
 
 def leaf_scan_inputs(pool, meta, keys, n, seed):
@@ -1375,26 +1334,6 @@ def prefix_search_inputs(pool, meta, sep, keys, n, seed):
     )
 
 
-def prefix_search_bytes(prefix, nbits, queries):
-    """Least bytes ``node_search_prefix`` must move for these lanes
-    (``PREFIX_LANE_BYTES``, ``SUFFIX_SEARCH_BYTES``, ``CANON_LANE_BYTES``)."""
-    import torch
-
-    from repro_torch.core.nodes import KEY_MAX
-
-    comp = nbits >= 0
-    one = torch.ones_like(queries)
-    low = torch.bitwise_left_shift(one, nbits.clamp(min=0).long()) - 1
-    searched = comp & (prefix <= (queries & ~low))
-    # an incompressible lane's KEY_MAX query needs no search (every key is
-    # <= KEY_MAX): only its nbits, query and slot
-    top = ~comp & (queries == KEY_MAX)
-    return (
-        int(comp.sum()) * PREFIX_LANE_BYTES
-        + int(searched.sum()) * SUFFIX_SEARCH_BYTES
-        + int((~comp).sum()) * CANON_LANE_BYTES
-        - int(top.sum()) * ROW_SEARCH_BYTES
-    )
 
 
 def phase_kernels(pool, meta, keys, seed):
@@ -1502,11 +1441,7 @@ def phase_kernels(pool, meta, keys, seed):
         fail(f"leaf_write differs from its plain version (max abs err {err})")
     n_upd = int((args[2] >= 0).sum())
     n_ins = int((args[4] != KEY_MAX).sum())
-    nbytes = (
-        n_lw * LEAF_ROW_BYTES
-        + n_upd * STAGED_UPDATE_BYTES
-        + n_ins * STAGED_INSERT_BYTES
-    )
+    nbytes = leaf_write_bytes(n_lw, n_upd, n_ins)
     out["leaf_write"] = dict(
         name="leaf_write",
         route="cuda",
@@ -1533,13 +1468,7 @@ def phase_kernels(pool, meta, keys, seed):
         fail(f"leaf_scan differs from its plain version (max abs err {err})")
     n_active = int(((counts > 0) & (start != KEY_MAX)).sum())
     n_sel = int(got[2].sum())
-    # every slot reads its start and count and writes its row and taken; an
-    # active one also searches its start row and reads each selected record
-    nbytes = (
-        n_ns * (8 + 4 + 16 * mc + 4)
-        + n_active * ROW_SEARCH_BYTES
-        + n_sel * 16
-    )
+    nbytes = leaf_scan_bytes(n_ns, mc, n_active, n_sel)
     out["leaf_scan"] = dict(
         name="leaf_scan",
         route="cuda",
@@ -3826,13 +3755,7 @@ def lm_attention_kernels(seed):
         h, hkv, d = q.shape[1], kp.shape[2], q.shape[2]
         item = q.element_size()
         pages_used = int(((lens.long() + page - 1) // page).sum())
-        nbytes = (
-            int(lens.long().sum()) * hkv * d * 2 * item  # live K and V rows
-            + 2 * q.numel() * item  # q in, output out
-            + q.shape[0] * h * 4  # lse out
-            + pages_used * 4
-            + lens.numel() * 4
-        )
+        nbytes = paged_bytes(q.shape, hkv, item, int(lens.long().sum()), pages_used)
         nb = q.shape[0]
 
         def gather_sdpa():
@@ -3928,11 +3851,11 @@ def lm_attention_kernels(seed):
             for s in ((2, h, sq, dh), (2, hkv, sk, dh), (2, hkv, sk, dv))
         )
         vp = F.pad(v, (0, dh - dv))  # v zero-padded to q's width, as sdpa passes it
-        pairs = sq * (sq + 1) // 2  # (query, key) pairs the causal mask keeps
-        # QK^T and PV at the true head dims, not the padded ones
-        flops = 2 * 2 * h * (dh + dv) * pairs
+        # QK^T and PV at the true head dims, not the padded ones, over the
+        # (query, key) pairs the causal mask keeps
+        flops = flash_flops(2, h, sq, sq, dh, dv, True)
         # q, k, v in at their true widths, the output [2, h, sq, dv] out
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + 2 * h * sq * dv)
+        nbytes = flash_bytes(q.numel(), k.numel(), v.numel(), 2 * h * sq * dv, 2)
         if dv != dh:
             err = max_abs_err([ops.flash_attention(q, k, vp)[..., :dv]],
                               [ref.flash_attention_ref(q, k, vp)[..., :dv]])
@@ -3978,8 +3901,8 @@ def lm_attention_kernels(seed):
             errs[dtype] = max(errs[dtype], err)
         # bf16, timed: every (query, key) pair, 2 (Dq + Dv) flops a head; q,
         # k, v read and the output written once
-        flops = 2 * 2 * h * dh * b * sq_ * sk_
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = flash_flops(b, h, sq_, sk_, dh, dh, False)
+        nbytes = flash_bytes(q.numel(), k.numel(), v.numel(), q.numel(), 2)
         t = cold_and_hot({"default": lambda: ops.flash_attention(q, k, v, causal=False)},
                          lambda: F.scaled_dot_product_attention(q, k, v))
         q_rows = -(-sq_ // fa_mod.BLOCK_Q) * fa_mod.BLOCK_Q
@@ -4033,12 +3956,6 @@ def lm_attention_kernels(seed):
     return out
 
 
-def kept_pairs(sq, sk, causal):
-    """(query, key) pairs of one head that the mask keeps (causal offset
-    ``Sk - Sq``)."""
-    if not causal:
-        return sq * sk
-    return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
 
 
 def grad_err(got, want):
@@ -4094,9 +4011,9 @@ def flash_bwd_kernel(seed):
             continue
         b, h, sq, d = qs
         hkv, sk = ks[1], ks[2]
-        flops = 10 * d * kept_pairs(sq, sk, causal) * b * h
+        flops = flash_bwd_flops(b, h, sq, sk, d, causal)
         # q, o, dO and dq like q, k, v, dk and dv like k, lse in f32
-        nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        nbytes = flash_bwd_bytes(q.numel(), k.numel(), lse.numel(), 2)
         qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
         so = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal, enable_gqa=hkv != h)
         t = cold_and_hot(
@@ -4551,6 +4468,17 @@ class Request:
         return len(self.gen) >= GEN_TOKENS
 
 
+def serve_config(arch):
+    """``arch``'s config at 1 / ``SERVE_DEPTH`` of its layers, as the
+    serving phases run it."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=cfg.n_layers // SERVE_DEPTH)
+
+
 def phase_serving(seed, arch=LM_ARCH):
     """``arch`` (minitron-4b, or granite-moe-1b-a400m) at full width (bf16,
     weights from ``seed``) served through the DEX page table for
@@ -4568,7 +4496,6 @@ def phase_serving(seed, arch=LM_ARCH):
     fed, decode logits)."""
     import torch
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import model
     from repro_torch.models.layers import MOE_BLOCK
@@ -4576,7 +4503,7 @@ def phase_serving(seed, arch=LM_ARCH):
     from repro_torch.serve.serve_step import REGATHER, paged_decode_step
 
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = serve_config(arch)
     ranges = (MOE_BLOCK,) if cfg.moe else ()
     t0 = time.perf_counter()
     params = model.init_params(cfg, seed, device=dev)
@@ -4773,11 +4700,10 @@ def phase_prefill(params, replays, seed, arch=LM_ARCH):
     different pairs)."""
     import torch
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.serve.serve_step import prefill
 
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = serve_config(arch)
     g = torch.Generator(device=dev).manual_seed(seed + 12)
     toks = torch.randint(0, cfg.vocab, (2, PREFILL_TOKENS), generator=g, device=dev)
     report, launches = timed_prefill(cfg, params, toks, {"flash_attention": cfg.n_layers})
@@ -4897,10 +4823,6 @@ def mamba_inputs(b, l, d, n, dtype, seed, dev):
     return (delta, A, *rest)
 
 
-def mamba_bytes(b, l, d, n, item):
-    """The least bytes of one scan: delta (f32), x (``item`` bytes) and y
-    (f32) at [B, L, D], B and C at [B, L, N], A and h_last in f32."""
-    return b * l * d * (4 + item + 4) + 2 * b * l * n * item + d * n * 4 + b * d * n * 4
 
 
 def sm_clock_hz():
@@ -4973,7 +4895,7 @@ def mamba_kernels(seed, build):
         args = mamba_inputs(b, l, d, n, torch.bfloat16, seed + 30, dev)
         want = ref.mamba_scan_ref(*args)
         nbytes = mamba_bytes(b, l, d, n, 2)
-        exps = b * l * d * n
+        exps = mamba_exps(b, l, d, n)
         bytes_ms, exps_ms = nbytes / HBM_BYTES_PER_S * 1e3, exps / exps_per_s * 1e3
         plans = mamba_mod.variants(b, d, n, sms)
         plan_ms, plan_rows = {}, {}
@@ -5046,14 +4968,6 @@ def mamba_kernels(seed, build):
 
 
 
-def mamba_bwd_bytes(b, l, d, n, item, dh_last):
-    """The least bytes of one backward: its inputs read once (delta, dy f32
-    and x at [B, L, D], B and C at [B, L, N] of ``item`` bytes, A and, where
-    given, dh_last f32) and its outputs written once in f32 (ddelta, dx,
-    dB, dC, dA); not the forward's saved states, which another design may
-    not need."""
-    return (b * l * d * (4 + 4 + item + 4 + 4) + b * l * n * (2 * item + 8) + 2 * d * n * 4
-            + (b * d * n * 4 if dh_last else 0))
 
 
 def mamba_bwd_issue(sass, states, lanes):
@@ -5146,7 +5060,7 @@ def mamba_bwd_kernel(seed, build):
                     "no_states": lambda: ops.mamba_scan_fwd(*args),
                 })
                 nbytes = mamba_bwd_bytes(b, l, d, n, 2, False)
-                exps = b * l * d * n
+                exps = mamba_exps(b, l, d, n)
                 bytes_ms, exps_ms = nbytes / HBM_BYTES_PER_S * 1e3, exps / exps_per_s * 1e3
                 issue = mamba_bwd_issue(build["sass"], p.states, p.lanes)
                 rows[label] = dict(
@@ -5366,10 +5280,9 @@ def timed_prefill(cfg, params, toks, expect, enc_emb=None):
 
 
 def phase_ssm_serving(seed):
-    """falcon-mamba-7b at full width (its registry depth, 32 of 64 layers
-    in ``main``; bf16, weights from
-    ``seed``) served with ``decode_step`` over ``SSM_SLOTS`` slots for
-    ``DECODE_STEPS`` steps: seeded prompts fed a token a step, then greedy
+    """falcon-mamba-7b at full width and half depth (``serve_config``: 32 of
+    its 64 layers; bf16, weights from ``seed``) served with ``decode_step``
+    over ``SSM_SLOTS`` slots for ``DECODE_STEPS`` steps: seeded prompts fed a token a step, then greedy
     tokens; a finished request's slot is zeroed and a new request admitted.
     Then ``SSM_REPLAYS`` finished requests replayed through ``prefill`` (the
     kernel in every layer) against the decode's logits at each generated
@@ -5378,12 +5291,11 @@ def phase_ssm_serving(seed):
     to its plain version.  Returns (report, launches of the prefill path)."""
     import torch
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.models import model
     from repro_torch.serve.serve_step import prefill
 
     dev = torch.device("cuda")
-    cfg = get_config(SSM_ARCH)
+    cfg = serve_config(SSM_ARCH)
     t0 = time.perf_counter()
     params = model.init_params(cfg, seed, device=dev)
     torch.cuda.synchronize()
@@ -5541,7 +5453,7 @@ def phase_hybrid(seed):
 
 
 def phase_mla(seed):
-    """minicpm3-4b at full width (62 layers, bf16, weights from ``seed``):
+    """minicpm3-4b at full width (31 of its 62 layers, bf16, weights from ``seed``):
     ``prefill`` over two ``PREFILL_TOKENS`` sequences (``timed_prefill``:
     ``flash_attention`` at q, k 96 wide and v 64, padded to 96 by ``sdpa``,
     in every layer, each call held to its plain version once), then
@@ -5554,13 +5466,12 @@ def phase_mla(seed):
     the decode path, which runs no kernel of the table)."""
     import torch
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import model
     from repro_torch.serve.serve_step import prefill
 
     dev = torch.device("cuda")
-    cfg = get_config(MLA_ARCH)
+    cfg = serve_config(MLA_ARCH)
     t0 = time.perf_counter()
     params = model.init_params(cfg, seed, device=dev)
     torch.cuda.synchronize()
@@ -5941,6 +5852,71 @@ def train_expect(cfg):
     return out
 
 
+def train_prediction(cfg, batch, seq):
+    """The dry-run of one train step of ``cfg`` on ``batch`` x ``seq``
+    tokens, one microbatch on a 1x1 mesh (``launch/dryrun.py::lower_cell``
+    on the meta device, nothing allocated): its predicted peak (the
+    parameters', moments' and batch's bytes plus the step's counted peak),
+    its counted flops and bytes, the model flops (``model_flops_for``) and
+    its kernel calls, which must be ``train_expect``'s.  Fails where the
+    predicted peak exceeds the card's memory."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.roofline.analysis import model_flops_for
+
+    cell = ShapeCell("card", seq, batch, "train")
+    low = dryrun.lower_cell(cfg, cell, make_mesh((1, 1), ("data", "model"), "meta"), "1x1",
+                            microbatches=1)
+    tot = low.counter.totals()
+    calls = {k: v["calls"] for k, v in low.counter.kernels.items()}
+    pred = dict(
+        predicted_peak_bytes=low.argument_bytes + low.temp_bytes,
+        argument_bytes=low.argument_bytes, temp_bytes=low.temp_bytes,
+        counted_flops=tot["flops"], counted_matmul_flops=tot["matmul_flops"],
+        counted_kernel_flops=tot["kernel_flops"], counted_bytes=tot["bytes"],
+        model_flops=model_flops_for(cfg, cell), kernel_calls=calls, dryrun_s=low.seconds,
+    )
+    if calls != train_expect(cfg):
+        fail(f"dry-run {cfg.name}: kernel calls {calls}, the card's step launches"
+             f" {train_expect(cfg)}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    if pred["predicted_peak_bytes"] > total:
+        fail(f"dry-run {cfg.name}: predicted peak {pred['predicted_peak_bytes'] / 2**30:.2f} GiB"
+             f" exceeds the card's {total / 2**30:.2f} GiB")
+    return pred
+
+
+def peak_report(what, pred, peak_bytes, median_ms):
+    """Print the dry-run's predicted peak beside the measured one, the
+    counted and the model flops and ``roofline_fraction`` (model flops over
+    the bf16 peak rate times the median step); fails where the prediction
+    is off by more than ``PEAK_TOL`` of the measured peak."""
+    ratio = pred["predicted_peak_bytes"] / peak_bytes
+    line = dict(
+        predicted_peak_gib=pred["predicted_peak_bytes"] / 2**30,
+        measured_peak_gib=peak_bytes / 2**30,
+        predicted_over_measured=ratio,
+        argument_gib=pred["argument_bytes"] / 2**30,
+        temp_gib=pred["temp_bytes"] / 2**30,
+        counted_flops=pred["counted_flops"],
+        counted_matmul_flops=pred["counted_matmul_flops"],
+        counted_kernel_flops=pred["counted_kernel_flops"],
+        counted_bytes=pred["counted_bytes"],
+        model_flops=pred["model_flops"],
+        median_step_ms=median_ms,
+        roofline_fraction=pred["model_flops"] / (BF16_FLOPS_PER_S * median_ms / 1e3),
+        dryrun_s=pred["dryrun_s"],
+    )
+    print(f"roofline {what}: {json.dumps(line)}")
+    if not abs(ratio - 1) <= PEAK_TOL:
+        fail(f"{what}: predicted peak {line['predicted_peak_gib']:.2f} GiB, measured"
+             f" {line['measured_peak_gib']:.2f} GiB (limit {PEAK_TOL:.0%})")
+    return line
+
+
 def phase_train(seed, arch=LM_ARCH):
     """Phase 6g (minitron-4b, 32 layers) and 6h (zamba2-2.7b, 54 Mamba
     layers and the shared GQA block after every 6): ``arch`` at full width
@@ -5980,6 +5956,7 @@ def phase_train(seed, arch=LM_ARCH):
     if not cfg.remat or cfg.dtype != "bfloat16":
         fail(f"train: {arch} should train in bf16 with remat")
     expect = train_expect(cfg)
+    pred = train_prediction(cfg, TRAIN_BATCH, TRAIN_SEQ)
     params = model.init_params(cfg, seed, device=dev)
     ocfg = OptConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
     state = init_opt_state(params, ocfg)
@@ -6137,6 +6114,7 @@ def phase_train(seed, arch=LM_ARCH):
     if applied != n_params:
         report.update(params_applied=applied, flops_per_step_applied=6 * applied * tokens,
                       tflops_per_s_applied=6 * applied * tokens / med / 1e9)
+    report["roofline"] = peak_report(f"train {arch}", pred, peak * 2**30, med)
     print(f"train {arch}: {json.dumps(report)}")
     if cfg.ssm:
         print(f"train {arch}: the scan's backward {scan_bwd:.2f} ms of {busy:.2f} device ms in the"
@@ -6244,6 +6222,9 @@ def phase_launch(seed, arch, batch, seq):
     from repro_torch.train.optimizer import ADAMW_UPDATE
     from repro_torch.train.train_step import loss_and_grads, make_train_step
 
+    from repro_torch.configs.registry import get_config
+
+    pred = train_prediction(get_config(arch), batch, seq)
     t0 = time.perf_counter()
     run = launch.build_run(arch, batch=batch, seq=seq, steps=LAUNCH_STEPS, seed=seed)
     torch.cuda.synchronize()
@@ -6255,15 +6236,33 @@ def phase_launch(seed, arch, batch, seq):
     tokens = batch * seq
     first = to_device(TokenPipeline(cfg, global_batch=batch, seq_len=seq, seed=seed)
                       .next_batch(), cfg, dev)
-    held = []
-    with held_to_plain(held, "flash_attention_bwd", compare=grad_err):
+    held, held_scan = [], []
+    with contextlib.ExitStack() as stack:
+        if "flash_attention_bwd" in expect:
+            stack.enter_context(held_to_plain(held, "flash_attention_bwd", compare=grad_err))
+        if "mamba_scan_bwd" in expect:
+            stack.enter_context(held_to_plain(held_scan, "mamba_scan_bwd", compare=grad_err,
+                                              plain=plain_mamba_bwd, every=SSM_HOLD_EVERY))
         loss0, _, grads = loss_and_grads(cfg, run.params, first)
     leaves_checked = grad_check(run.params, grads, f"launch {arch}")
-    worst = max(e for e, _ in held) if held else float("inf")
-    if len(held) != expect["flash_attention_bwd"] or not worst <= GRAD_TOL[cfg.dtype]:
-        fail(f"launch {arch}: {len(held)} flash_attention_bwd calls held to their plain version"
-             f" (expected {expect['flash_attention_bwd']}), worst {worst} (limit"
-             f" {GRAD_TOL[cfg.dtype]})")
+    held_report = {}
+    for kernel, errs, tol, calls in (
+        ("flash_attention_bwd", held, GRAD_TOL[cfg.dtype], expect.get("flash_attention_bwd", 0)),
+        ("mamba_scan_bwd", held_scan, GRAD_TOL["float32"],
+         -(-expect.get("mamba_scan_bwd", 0) // SSM_HOLD_EVERY)),
+    ):
+        if not calls:
+            continue
+        worst = max(e for e, _ in errs) if errs else float("inf")
+        if len(errs) != calls or not worst <= tol:
+            fail(f"launch {arch}: {len(errs)} {kernel} calls held to their plain version"
+                 f" (expected {calls}), worst {worst} of the largest gradient (limit {tol})")
+        held_report[kernel] = dict(calls=len(errs), max_rel_err=worst,
+                                   max_abs_err=max(a for _, a in errs))
+    if held_scan:
+        # the backward runs from the last layer: call i is layer n - 1 - i x every
+        held_report["mamba_scan_bwd"]["layers"] = [
+            cfg.n_layers - 1 - i * SSM_HOLD_EVERY for i in range(len(held_scan))]
     del grads, first
     torch.cuda.empty_cache()
 
@@ -6295,6 +6294,8 @@ def phase_launch(seed, arch, batch, seq):
     bwd = launch_shares(by_launch, "flash_attention_bwd", busy)
     fwd_ms = launch_ms(by_launch, "flash_attention")
     bwd_ms = launch_ms(by_launch, "flash_attention_bwd")
+    scan_ms = launch_ms(by_launch, "mamba_scan")
+    scan_bwd_ms = launch_ms(by_launch, "mamba_scan_bwd")
     products = sum(ms for k, ms, _ in prof if any(x in k for x in ("nvjet", "gemm", "cutlass")))
     med = float(np.median(step_ms))
     report = dict(
@@ -6305,14 +6306,17 @@ def phase_launch(seed, arch, batch, seq):
         watchdog=dict(steps=watchdog.steps, ema_ms=watchdog.ema * 1e3,
                       stragglers=watchdog.stragglers),
         batch0_loss=float(loss0), peak_gib=peak, leaves_with_grad=leaves_checked,
-        held_to_plain=dict(calls=len(held), max_rel_err=worst,
-                           max_abs_err=max(a for _, a in held)),
+        held_to_plain=held_report,
         launches_per_step={k: launches[k] // LAUNCH_STEPS for k in expect},
         profiled_step=dict(
             wall_ms=wall, device_busy_ms=busy, idle_share=idle_of(busy, wall),
             flash_fwd_ms=fwd_ms, flash_fwd_share=share_of(fwd_ms, busy),
             flash_bwd_ms=bwd_ms, flash_bwd_share=share_of(bwd_ms, busy),
             flash_fwd_by_shape=fwd, flash_bwd_by_shape=bwd,
+            mamba_scan_ms=scan_ms, mamba_scan_share=share_of(scan_ms, busy),
+            mamba_scan_bwd_ms=scan_bwd_ms, mamba_scan_bwd_share=share_of(scan_bwd_ms, busy),
+            mamba_scan_by_shape=launch_shares(by_launch, "mamba_scan", busy),
+            mamba_scan_bwd_by_shape=launch_shares(by_launch, "mamba_scan_bwd", busy),
             sdpa_transposes_ms=marked[SDPA_TRANSPOSES],
             weight_products_ms=products, weight_products_share=share_of(products, busy),
             adamw_update_ms=marked[ADAMW_UPDATE],
@@ -6321,6 +6325,7 @@ def phase_launch(seed, arch, batch, seq):
             top=[(k[:48], ms, n) for k, ms, n in prof[:8]],
         ),
     )
+    report["roofline"] = peak_report(f"launch {arch}", pred, peak * 2**30, med)
     print(f"launch {arch}: {json.dumps(report)}")
     del run, step, nxt
     torch.cuda.empty_cache()
@@ -6671,7 +6676,7 @@ def main(argv=None):
         report["launch"][arch], per_path[f"launch {arch}"] = phase_launch(
             args.seed, arch, batch, seq)
         check_launches(f"launch {arch}", per_path[f"launch {arch}"],
-                       ("flash_attention", "flash_attention_bwd"))
+                       tuple(report["launch"][arch]["launches_per_step"]))
     t22 = time.perf_counter()
     report["launch-ckpt"], per_path["launch-ckpt"] = phase_launch_ckpt(args.seed)
     check_launches("launch-ckpt", per_path["launch-ckpt"],

@@ -145,6 +145,53 @@ def init_state(
     )
 
 
+def state_shardings(mesh, cfg: DexMeshConfig) -> DexState:
+    """A ``train/sharding.py::Placement`` for each ``DexState`` field on
+    ``mesh`` (``launch/mesh.py``), with the reference's specs: the per-device
+    planes over every route axis and the memory axis, the pool's shards,
+    ``occupancy`` and ``n_alloc`` over the memory axis, the rest
+    replicated.  The virtual mesh keeps every plane whole on its device; a
+    spec says how the described mesh would split it."""
+    from repro_torch.train.sharding import Placement
+
+    dev = (cfg.route_axes + (cfg.memory_axis,),)
+    mem = (cfg.memory_axis,)
+
+    def ns(spec):
+        return Placement(mesh, spec)
+
+    pool_spec = SubtreePool(
+        top_keys=ns(()),
+        top_children=ns(()),
+        pool_keys=ns(mem),
+        pool_children=ns(mem),
+        pool_values=ns(mem),
+    )
+    cache_spec = DexCache(
+        tags=ns(dev), keys=ns(dev), children=ns(dev), values=ns(dev),
+        fifo=ns(dev), ver=ns(dev),
+    )
+    return DexState(
+        pool=pool_spec,
+        cache=cache_spec,
+        boundaries=ns(()),
+        miss_ema=ns(dev),
+        stats=ns(dev),
+        versions=ns(dev),
+        occupancy=ns(mem),
+        route_demand=ns(dev),
+        succ=ns(dev),
+        n_alloc=ns(mem),
+        lat_hist=ns(dev),
+        lat_audit=ns(dev),
+        rt_keys=ns(()),
+        rt_hi=ns(()),
+        rt_sub=ns(()),
+        rt_local=ns(()),
+        rt_ver=ns(()),
+    )
+
+
 def state_to_numpy(state: DexState) -> Dict[str, np.ndarray]:
     """Flatten ``state`` to numpy arrays keyed by field path.  The arrays are
     copies: the engine updates cache planes in place, so a view of a CPU

@@ -2,7 +2,14 @@
 
 A tensor on the CPU goes to the kernel's plain PyTorch version
 (``kernels/ref.py``); a tensor on the card launches the CUDA kernel or
-raises.  Nothing falls back.
+raises; a tensor on the ``meta`` device gets the kernel's outputs, of the
+shapes and dtypes the card's launch gives them, with nothing computed
+(the dry-run, ``launch/dryrun.py``).  Nothing falls back.
+
+While a step is counted (``COUNTER``, ``roofline/calibrate.py``), a
+kernel's call on the CPU or the meta device adds the kernel's work
+(``roofline/analysis.py``), its outputs and its scratch to the counter,
+in place of the operations of its plain version.
 
 The CUDA sources under ``repro_torch/csrc`` are compiled at first use with
 ``nvcc`` for ``sm_90a``, one ``nvcc`` per source started together, then
@@ -45,6 +52,7 @@ from repro_torch.kernels import node_search as _node_search
 from repro_torch.kernels import paged_attention as _paged_attention
 from repro_torch.kernels import ref
 from repro_torch.kernels import subtree_walk as _subtree_walk
+from repro_torch.roofline import analysis as AN
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -73,6 +81,9 @@ _INDEX_PLANE = "the index plane is not trained (ROADMAP.md queue 1, item 13.f)"
 BUILD_SECONDS = [0.0]
 
 _LIB: list = []
+#: the counter (``roofline/calibrate.py::StepCounter``) of the step being
+#: counted, or None
+COUNTER: list = [None]
 
 
 def _refuse_grad(kernel: str, *tensors) -> None:
@@ -189,6 +200,48 @@ def library() -> ctypes.CDLL:
     return _LIB[0]
 
 
+def _nbytes(*trees) -> int:
+    """Bytes of the tensors in ``trees`` (tuples nested, None skipped)."""
+    n = 0
+    for t in trees:
+        if isinstance(t, (tuple, list)):
+            n += _nbytes(*t)
+        elif t is not None:
+            n += t.numel() * t.element_size()
+    return n
+
+
+def _io_work(*inputs):
+    """``work`` of a kernel counted by its operands alone: no flops, each
+    input read once and each output written once (the index kernels', whose
+    least bytes depend on the data; their most)."""
+    return lambda out: (0, _nbytes(inputs, out), 0)
+
+
+def _counted(kernel: str, work, run):
+    """``run()``, the kernel's plain version on the CPU or its outputs on
+    the meta device.  While a step is counted (``COUNTER``), the counter
+    sees none of ``run``'s own operations: it adds the kernel's ``work(out)
+    -> (flops, bytes, scratch bytes)`` (``roofline/analysis.py``), its
+    outputs' storage and the scratch the card's launch holds for the
+    call."""
+    counter = COUNTER[0]
+    if counter is None:
+        return run()
+    return counter.kernel(kernel, work, run)
+
+
+def _meta(*shapes_dtypes, device):
+    """Empty tensors of ``(shape, dtype)`` pairs on ``device`` (the meta
+    device): a kernel's outputs, shapes and dtypes as the card's launch
+    allocates them."""
+    out = tuple(torch.empty(s, dtype=dt, device=device) for s, dt in shapes_dtypes)
+    return out[0] if len(out) == 1 else out
+
+
+I32, I64, F32 = torch.int32, torch.int64, torch.float32
+
+
 def node_search(
     rows: torch.Tensor,
     queries: torch.Tensor,
@@ -200,9 +253,15 @@ def node_search(
     the kernel searches it (``kernels/node_search.py``), and the CPU path
     raises ``ValueError`` on an unsorted row."""
     _refuse_grad("node_search", rows, queries, values)
+    work = _io_work(rows, queries, values)
+    if rows.device.type == "meta":
+        b = queries.shape[0]
+        return _counted("node_search", work, lambda: _meta(
+            ((b,), I32), ((b,), torch.bool), ((b,), I64), device=rows.device))
     if rows.device.type == "cpu":
         _node_search.validate(rows, queries, values)
-        return ref.node_search_ref(rows, queries, values)
+        return _counted("node_search", work,
+                        lambda: ref.node_search_ref(rows, queries, values))
     with launch_range("node_search", rows, queries):
         out = _node_search.launch(library(), rows, queries, values)
     LAUNCHES["node_search"] += 1
@@ -225,9 +284,13 @@ def node_search_prefix(
     ``ValueError`` on one that is not."""
     args = (prefix, nbits, suffix, rows, queries)
     _refuse_grad("node_search_prefix", *args)
+    work = _io_work(*args)
+    if rows.device.type == "meta":
+        return _counted("node_search_prefix", work,
+                        lambda: _meta(((queries.shape[0],), I32), device=rows.device))
     if rows.device.type == "cpu":
         _node_search.validate_prefix(*args)
-        return ref.node_search_prefix_ref(*args)
+        return _counted("node_search_prefix", work, lambda: ref.node_search_prefix_ref(*args))
     with launch_range("node_search_prefix", suffix, queries):
         out = _node_search.launch_prefix(library(), *args)
     LAUNCHES["node_search_prefix"] += 1
@@ -252,9 +315,15 @@ def subtree_walk(
     and the CPU path raises ``ValueError`` on an unsorted row."""
     args = (pool_keys, pool_children, pool_values, subtree, queries)
     _refuse_grad("subtree_walk", *args, active)
+    work = _io_work(*args, active)
+    if pool_keys.device.type == "meta":
+        b = queries.shape[0]
+        return _counted("subtree_walk", work, lambda: _meta(
+            ((b,), torch.bool), ((b,), I64), ((b,), I32), device=pool_keys.device))
     if pool_keys.device.type == "cpu":
         _subtree_walk.validate(*args, levels, active)
-        return ref.subtree_walk_ref(*args, levels=levels, active=active)
+        return _counted("subtree_walk", work,
+                        lambda: ref.subtree_walk_ref(*args, levels=levels, active=active))
     with launch_range("subtree_walk", pool_keys, queries):
         out = _subtree_walk.launch(library(), *args, levels, active)
     LAUNCHES["subtree_walk"] += 1
@@ -274,9 +343,14 @@ def leaf_write(
     ``ref.leaf_write_ref``)."""
     args = (rows_k, rows_v, upd_slot, upd_val, ins_key, ins_val)
     _refuse_grad("leaf_write", *args)
+    work = _io_work(*args)
+    if rows_k.device.type == "meta":
+        return _counted("leaf_write", work, lambda: _meta(
+            (rows_k.shape, rows_k.dtype), (rows_v.shape, rows_v.dtype),
+            ((rows_k.shape[0],), I32), device=rows_k.device))
     if rows_k.device.type == "cpu":
         _leaf_write.validate(*args)
-        return ref.leaf_write_ref(*args)
+        return _counted("leaf_write", work, lambda: ref.leaf_write_ref(*args))
     with launch_range("leaf_write", rows_k, upd_slot, ins_key):
         out = _leaf_write.launch(library(), *args)
     LAUNCHES["leaf_write"] += 1
@@ -296,9 +370,16 @@ def leaf_scan(
     leaf window (see ``ref.leaf_scan_ref``)."""
     args = (window_keys, window_values, start_keys, counts)
     _refuse_grad("leaf_scan", *args)
+    work = _io_work(*args)
+    if window_keys.device.type == "meta":
+        b = start_keys.shape[0]
+        return _counted("leaf_scan", work, lambda: _meta(
+            ((b, max_count), I64), ((b, max_count), I64), ((b,), I32),
+            device=window_keys.device))
     if window_keys.device.type == "cpu":
         _leaf_scan.validate(*args, max_count)
-        return ref.leaf_scan_ref(*args, max_count=max_count)
+        return _counted("leaf_scan", work,
+                        lambda: ref.leaf_scan_ref(*args, max_count=max_count))
     with launch_range("leaf_scan", window_keys, start_keys):
         out = _leaf_scan.launch(library(), *args, max_count)
     LAUNCHES["leaf_scan"] += 1
@@ -317,9 +398,15 @@ def leaf_split(
     ``ref.leaf_split_ref``)."""
     args = (rows_k, rows_v, ins_key, ins_val)
     _refuse_grad("leaf_split", *args)
+    work = _io_work(*args)
+    if rows_k.device.type == "meta":
+        q = (rows_k.shape[0],)
+        return _counted("leaf_split", work, lambda: _meta(
+            *([(rows_k.shape, rows_k.dtype)] * 4), (q, I32), (q, I32), (q, I64), (q, I32),
+            device=rows_k.device))
     if rows_k.device.type == "cpu":
         _leaf_split.validate(*args)
-        return ref.leaf_split_ref(*args)
+        return _counted("leaf_split", work, lambda: ref.leaf_split_ref(*args))
     with launch_range("leaf_split", rows_k, ins_key):
         out = _leaf_split.launch(library(), *args)
     LAUNCHES["leaf_split"] += 1
@@ -338,12 +425,28 @@ def paged_attention(
     """``[B, H, D]``: each request's one query token attended over its
     tokens below ``seq_lens[b]``, stored in the pages ``page_table[b]``
     names (see ``ref.paged_attention_ref``); with ``with_lse`` also the
-    log-sum-exp of its logits, ``[B, H]`` f32 (``-inf`` at length 0)."""
+    log-sum-exp of its logits, ``[B, H]`` f32 (``-inf`` at length 0).
+    Counted, its work is that of every page of the table full: the meta
+    device has no lengths (``analysis.paged_bytes``)."""
     args = (q, k_pages, v_pages, page_table, seq_lens)
     _refuse_grad("paged_attention", *args)
+
+    def work(out):
+        _, h, d = q.shape
+        pages = page_table.numel()
+        tokens = pages * k_pages.shape[1]
+        return (4 * d * h * tokens,
+                AN.paged_bytes(q.shape, k_pages.shape[2], q.element_size(), tokens, pages), 0)
+
+    if q.device.type == "meta":
+        _paged_attention.validate(*args)
+        b, h = q.shape[:2]
+        return _counted("paged_attention", work, lambda: _meta(
+            (q.shape, q.dtype), *([((b, h), F32)] if with_lse else []), device=q.device))
     if q.device.type == "cpu":
         _paged_attention.validate(*args)
-        return ref.paged_attention_ref(*args, with_lse=with_lse)
+        return _counted("paged_attention", work,
+                        lambda: ref.paged_attention_ref(*args, with_lse=with_lse))
     with launch_range("paged_attention", q, k_pages, page_table):
         out = _paged_attention.launch(library(), *args, with_lse=with_lse)
     LAUNCHES["paged_attention"] += 1
@@ -404,11 +507,22 @@ def flash_attention_fwd(
     f32)`` ``with_lse`` (the natural log-sum-exp of each row's scaled
     logits, ``-inf`` where no key is reached).  On the CPU float64 is taken
     too, for ``gradcheck``."""
+    def work(out):
+        b, h, sq, d = q.shape
+        lse = b * h * sq if with_lse else 0
+        return (AN.flash_flops(b, h, sq, k.shape[2], d, v.shape[3], causal),
+                AN.flash_bytes(q.numel(), k.numel(), v.numel(), q.numel(), q.element_size(),
+                               lse), 0)
+
+    if q.device.type == "meta":
+        _flash_attention.validate(q, k, v)
+        lse = [(q.shape[:3], F32)] if with_lse else []
+        return _counted("flash_attention", work,
+                        lambda: _meta((q.shape, q.dtype), *lse, device=q.device))
     if q.device.type == "cpu":
         _flash_attention.validate(q, k, v, dtypes=_flash_attention.CPU_DTYPES)
-        return ref.flash_attention_ref(
-            q, k, v, causal=causal, scale=scale, with_lse=with_lse
-        )
+        return _counted("flash_attention", work, lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal, scale=scale, with_lse=with_lse))
     with launch_range("flash_attention", q, k, causal=causal):
         out = _flash_attention.launch(library(), q, k, v, causal, scale, with_lse=with_lse)
     LAUNCHES["flash_attention"] += 1
@@ -432,9 +546,24 @@ def flash_attention_bwd(
     The kernel takes head dims 64, 80, 96 and 128
     (``kernels/flash_attention.py``)."""
     args = (q, k, v, o, do, lse)
+
+    def work(out):
+        # the scratch of the backward's pre-pass: Delta and the base-2
+        # log-sum-exp, [B, H, Sq] f32 each
+        b, h, sq, d = q.shape
+        return (AN.flash_bwd_flops(b, h, sq, k.shape[2], d, causal),
+                AN.flash_bwd_bytes(q.numel(), k.numel(), lse.numel(), q.element_size()),
+                2 * b * h * sq * 4)
+
+    if q.device.type == "meta":
+        _flash_attention.validate_bwd(*args)
+        _flash_attention.plan_bwd(q.shape[3], q.dtype)  # raises where the card has no kernel
+        return _counted("flash_attention_bwd", work, lambda: _meta(
+            (q.shape, q.dtype), (k.shape, k.dtype), (v.shape, v.dtype), device=q.device))
     if q.device.type == "cpu":
         _flash_attention.validate_bwd(*args, dtypes=_flash_attention.CPU_DTYPES)
-        return ref.flash_attention_bwd_ref(*args, causal=causal, scale=scale)
+        return _counted("flash_attention_bwd", work, lambda: ref.flash_attention_bwd_ref(
+            *args, causal=causal, scale=scale))
     with launch_range("flash_attention_bwd", q, k, causal=causal):
         out = _flash_attention.launch_bwd(library(), *args, causal, scale)
     LAUNCHES["flash_attention_bwd"] += 1
@@ -462,11 +591,10 @@ def mamba_scan(
 
 class MambaScan(torch.autograd.Function):
     """``mamba_scan`` with its gradient: the forward keeps its operands and
-    the states it saved every ``SAVE_EVERY`` steps (none on the CPU); the
-    backward is ``mamba_scan_bwd``, given null for the gradient of an
-    output that the loss does not reach.  Both are looked up in this module
-    at each call, so a caller may hold them to, or swap them for, their
-    plain versions."""
+    the states it saved every ``SAVE_EVERY`` steps; the backward is
+    ``mamba_scan_bwd``, given null for the gradient of an output that the
+    loss does not reach.  Both are looked up in this module at each call,
+    so a caller may hold them to, or swap them for, their plain versions."""
 
     @staticmethod
     def forward(ctx, delta, A, Bmat, C, x):
@@ -499,13 +627,26 @@ def mamba_scan_fwd(
     """The forward of ``mamba_scan``: ``(y, h_last)``, or ``(y, h_last,
     states)`` ``with_states`` (the state before every ``SAVE_EVERY``-th
     step, ``[B, ceil(L / SAVE_EVERY), D, N]`` f32, for the backward kernel;
-    None on the CPU, whose plain backward keeps its own).  On the CPU
-    float64 is taken too, for ``gradcheck``."""
+    the CPU's plain version keeps them too, though its plain backward
+    needs none).  On the CPU float64 is taken too, for ``gradcheck``."""
     args = (delta, A, Bmat, C, x)
+
+    def work(out):
+        (b, l, d), n = delta.shape, A.shape[1]
+        return (AN.mamba_flops(b, l, d, n),
+                AN.mamba_bytes(b, l, d, n, x.element_size()), 0)
+
+    if delta.device.type == "meta":
+        _mamba_scan.validate(*args)
+        (b, l, d), n = delta.shape, A.shape[1]
+        states = [((b, _mamba_scan.saves(l), d, n), F32)] if with_states else []
+        return _counted("mamba_scan", work, lambda: _meta(
+            ((b, l, d), F32), ((b, d, n), F32), *states, device=delta.device))
     if delta.device.type == "cpu":
         _mamba_scan.validate(*args, dtypes=_mamba_scan.CPU_DTYPES)
-        out = ref.mamba_scan_ref(*args)
-        return (*out, None) if with_states else out
+        every = _mamba_scan.SAVE_EVERY if with_states else 0
+        return _counted("mamba_scan", work,
+                        lambda: ref.mamba_scan_ref(*args, save_every=every))
     with launch_range("mamba_scan", x, Bmat):
         out = _mamba_scan.launch(library(), *args, with_states=with_states)
     LAUNCHES["mamba_scan"] += 1
@@ -530,9 +671,27 @@ def mamba_scan_bwd(
     needs the ``states`` its forward kept (``mamba_scan_fwd(...,
     with_states=True)``); the CPU path ignores them."""
     args = (delta, A, Bmat, C, x, dy, dh_last)
+
+    def work(out):
+        # the launch's scratch: dA's [B, D, N] partials and dB's and dC's,
+        # one a cluster of the H100's plan
+        (b, l, d), n, item = delta.shape, A.shape[1], x.element_size()
+        clusters = _mamba_scan.plan_bwd(b, d, n, item=item).clusters if b and d else 0
+        return (AN.mamba_flops(b, l, d, n, backward=True),
+                AN.mamba_bwd_bytes(b, l, d, n, item, dh_last is not None),
+                4 * b * d * n + 4 * 2 * b * l * clusters * n)
+
+    if delta.device.type == "meta":
+        _mamba_scan.validate_bwd(*args, states)
+        if states is None:
+            raise ValueError("mamba_scan_bwd needs the states the forward kept (with_states=True)")
+        (b, l, d), n = delta.shape, A.shape[1]
+        return _counted("mamba_scan_bwd", work, lambda: _meta(
+            ((b, l, d), F32), ((d, n), F32), ((b, l, n), F32), ((b, l, n), F32),
+            ((b, l, d), F32), device=delta.device))
     if delta.device.type == "cpu":
         _mamba_scan.validate_bwd(*args, states, dtypes=_mamba_scan.CPU_DTYPES)
-        return ref.mamba_scan_bwd_ref(*args)
+        return _counted("mamba_scan_bwd", work, lambda: ref.mamba_scan_bwd_ref(*args))
     with launch_range("mamba_scan_bwd", x, Bmat):
         out = _mamba_scan.launch_bwd(library(), *args, states)
     LAUNCHES["mamba_scan_bwd"] += 1

@@ -375,7 +375,9 @@ def mamba_scan_ref(
     Bmat: torch.Tensor,
     C: torch.Tensor,
     x: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    *,
+    save_every: int = 0,
+):
     """Selective scan with diagonal ``A``, a step at a time.
 
     ``delta`` [B, L, D] (post-softplus), ``A`` [D, N] (negative), ``Bmat``
@@ -383,17 +385,25 @@ def mamba_scan_ref(
     float64, for ``gradcheck``).  Per step ``h = exp(delta_t * A) * h +
     (delta_t * x_t) * B_t`` from ``h = 0``, and ``y_t = <h, C_t>``.  Returns
     ``(y [B, L, D], h_last [B, D, N])``, both in that dtype; the state is
-    one [B, D, N] tensor, never [B, L, D, N]."""
+    one [B, D, N] tensor, never [B, L, D, N].  With ``save_every`` also the
+    state before every ``save_every``-th step, ``[B, ceil(L / save_every),
+    D, N]`` f32: the states the backward kernel restarts from."""
     ct = _scan_dtype(delta)
     delta, A, Bmat, C, x = (t.to(ct) for t in (delta, A, Bmat, C, x))
     b, l, d = delta.shape
     h = torch.zeros((b, d, A.shape[1]), dtype=ct, device=delta.device)
     y = torch.empty((b, l, d), dtype=ct, device=delta.device)
+    states = None
+    if save_every:
+        states = torch.empty((b, -(-l // save_every), d, A.shape[1]), dtype=torch.float32,
+                             device=delta.device)
     for t in range(l):
+        if states is not None and t % save_every == 0:
+            states[:, t // save_every] = h
         dt = delta[:, t, :, None]
         h = torch.exp(dt * A) * h + (dt * x[:, t, :, None]) * Bmat[:, t, None, :]
         y[:, t] = (h * C[:, t, None, :]).sum(-1)
-    return y, h
+    return (y, h) if states is None else (y, h, states)
 
 
 def _scan_dtype(delta: torch.Tensor) -> torch.dtype:

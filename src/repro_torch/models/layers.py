@@ -24,7 +24,9 @@ takes one head dim for q, k and v, as the TPU kernel does; where v is
 narrower (MLA: q and k 96 wide, v 64), ``sdpa`` zero-pads v to q's width in
 the copy it makes anyway and cuts the output back, which is exact: zero
 columns of V add nothing to the others of P.V.  Its tensor-parallel hooks
-(``_tp``) are dropped: one card, no GSPMD.
+(``_tp``) have nothing to pin on one card: ``set_tp_context`` records a
+launcher's context as the reference's does, and every tensor stays whole,
+as the reference's do with the context unset.
 
 ``mla_attention`` is the reference's MLA step for step: prefill folds the
 no-position and rotary parts of q and k into one head dim for ``sdpa``;
@@ -56,6 +58,19 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig
 
 F32 = torch.float32
+
+#: the tensor-parallel context a launcher sets before a step
+#: (``set_tp_context``): ``(mesh, data axes)`` or None.  The reference pins
+#: layer intermediates to model-axis shardings under it; one card has
+#: nothing to pin.
+_TP_CTX = None
+
+
+def set_tp_context(mesh, data_axes):
+    """Record the tensor-parallel context (``mesh=None`` clears it), as the
+    reference's launchers do before tracing."""
+    global _TP_CTX
+    _TP_CTX = None if mesh is None else (mesh, tuple(data_axes))
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -166,12 +181,16 @@ def sdpa(q, k, v, *, causal: bool, scale=None):
 
 
 def _normal(shape, std, dt, gen, device):
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dt, device=device)
     return (torch.randn(shape, generator=gen, device=device) * std).to(dt)
 
 
 def _stacked(layers, shape, std, dt, gen, device):
     """``[layers, *shape]`` of N(0, std), drawn a layer at a time so the f32
-    draw never exceeds one layer."""
+    draw never exceeds one layer (on the meta device, nothing is drawn)."""
+    if torch.device(device).type == "meta":
+        return torch.empty((layers, *shape), dtype=dt, device=device)
     out = torch.empty((layers, *shape), dtype=dt, device=device)
     for i in range(layers):
         out[i] = _normal(shape, std, dt, gen, device)
@@ -462,10 +481,11 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` with f32 accumulation and an f32 result (the
     reference's ``preferred_element_type=F32``): on the card a bf16 product
     asks for the f32 output directly (``BmmF32``, which gives it a
-    gradient); the CPU has no such product, so it multiplies f32 copies."""
+    gradient), and so does the meta device, which stands for it; the CPU
+    has no such product, so it multiplies f32 copies."""
     if a.dtype == F32:
         return torch.bmm(a, b)
-    if a.is_cuda:
+    if a.device.type != "cpu":
         return BmmF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 

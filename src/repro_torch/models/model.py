@@ -93,9 +93,10 @@ def init_params(cfg: ArchConfig, seed: int, device=None) -> Dict[str, Any]:
     ``device`` (``None`` means CUDA) from a ``torch.Generator`` seeded with
     ``seed``.  The numbers differ from the reference's ``jax.random`` ones;
     tests carry the reference's parameters across with
-    ``params_from_numpy``."""
+    ``params_from_numpy``.  On the ``meta`` device (the dry-run) the leaves
+    have their shapes and dtypes and no values, and no generator draws."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     dt = L.torch_dtype(cfg)
     n = cfg.n_layers
     params: Dict[str, Any] = {
@@ -214,10 +215,11 @@ def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     bf16 product asks cuBLAS for the f32 output directly (``HeadProduct``),
     which spares an f32 copy of the 256k-row head on every decode step and
     every cross-entropy chunk; the CPU has no such product, so it
-    multiplies f32 copies."""
+    multiplies f32 copies.  The meta device takes the card's path, whose
+    memory and work it stands for."""
     if x.dtype == F32:
         return torch.matmul(x, head)
-    if x.is_cuda:
+    if x.device.type != "cpu":
         out = HeadProduct.apply(x.reshape(-1, x.shape[-1]), head)
         return out.reshape(*x.shape[:-1], head.shape[-1])
     return torch.matmul(x.float(), head.float())

@@ -43,6 +43,25 @@ class Placement:
     def place(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device)
 
+    def shard_shape(self, shape) -> Tuple[int, ...]:
+        """One shard's shape of a leaf of ``shape`` on the described mesh,
+        as ``NamedSharding.shard_shape`` gives it: each dim over the product
+        of its axes' sizes, which must divide it (``ValueError``)."""
+        out = []
+        for dim, axes in zip(shape, tuple(self.spec) + (None,) * (len(shape) - len(self.spec))):
+            n = 1 if axes is None else _axis_size(self.mesh, axes)
+            if dim % n:
+                raise ValueError(f"spec {self.spec} splits dim {dim} of {tuple(shape)} {n} ways")
+            out.append(dim // n)
+        return tuple(out)
+
+    def shard_bytes(self, t) -> int:
+        """Bytes of one shard of the tensor ``t`` on the described mesh."""
+        n = 1
+        for dim in self.shard_shape(tuple(t.shape)):
+            n *= dim
+        return n * t.element_size()
+
 
 def _data_axes(mesh: MeshSpec):
     """The data axes: one axis by its name, two as a tuple (the entry

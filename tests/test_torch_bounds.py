@@ -1,5 +1,6 @@
-"""``chip_smoke.py``'s byte bound of ``leaf_split`` against a hand count of
-what its contract reads and writes."""
+"""The byte bound of ``leaf_split`` (``roofline/analysis.py``, which
+``chip_smoke.py`` imports for its bounds) against a hand count of what its
+contract reads and writes."""
 
 import pathlib
 import sys
@@ -14,6 +15,7 @@ if str(ROOT) not in sys.path:
 
 import chip_smoke  # noqa: E402
 from repro_torch.core.nodes import KEY_MAX  # noqa: E402
+from repro_torch.roofline import analysis  # noqa: E402
 
 
 def test_leaf_split_bytes_charges_the_whole_contract():
@@ -35,5 +37,6 @@ def test_leaf_split_bytes_charges_the_whole_contract():
     ins_val = torch.zeros((q, 64), dtype=torch.int64)
     per_row = 6 * 512 + 20
     assert per_row == 3092
-    got = chip_smoke.leaf_split_bytes((rows_k, rows_v, ins_key, ins_val))
+    assert chip_smoke.leaf_split_bytes is analysis.leaf_split_bytes
+    got = analysis.leaf_split_bytes((rows_k, rows_v, ins_key, ins_val))
     assert got == q * per_row + (74 + 3) * 8 == 9_892

@@ -1632,3 +1632,40 @@ def test_launcher_trains_moe_on_the_card_and_resumes(cuda, tmp_path, monkeypatch
     assert step == 2 and back[1].step == 2
     for got, want in zip(leaves(back[0]), leaves(run.params)):
         assert got.device.type == "cuda" and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_dryrun_predicted_peak_matches_the_card(cuda):
+    """A train step of falcon-mamba-7b and minitron-4b cut to 4 layers of
+    width 1,024 (vocab 4,096) at 2 x 1,024 tokens: the dry-run's predicted
+    peak (``launch/dryrun.py::lower_cell`` on the meta device: the
+    parameters', moments' and batch's bytes plus the counted step's peak)
+    within 15% of ``torch.cuda.max_memory_allocated`` over the step, from
+    what was allocated before the parameters."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    for arch in ("falcon-mamba-7b", "minitron-4b"):
+        cfg = get_config(arch).reduced(remat=True, head_dim=64, n_layers=4, d_model=1024,
+                                       d_ff=2048, vocab=4096, n_heads=16, n_kv_heads=4)
+        b, s = 2, 1024
+        low = dryrun.lower_cell(cfg, ShapeCell("t", s, b, "train"),
+                                make_mesh((1, 1), ("data", "model"), "meta"), "1x1",
+                                microbatches=1)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = t_model.init_params(cfg, 0, device=cuda)
+        opt = init_opt_state(params, OptConfig())
+        toks = torch.randint(0, cfg.vocab, (b, s), dtype=torch.int32, device=cuda)
+        make_train_step(cfg, OptConfig())(params, opt, {"tokens": toks, "labels": toks.clone()})
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base
+        predicted = low.argument_bytes + low.temp_bytes
+        assert abs(predicted / measured - 1) <= 0.15, (arch, predicted, measured)
+        del params, opt, toks
+        torch.cuda.empty_cache()

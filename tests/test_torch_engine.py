@@ -6,10 +6,6 @@ CPU mesh, ``tests/torch_mesh_ref.py``); at 2x4 also the mixed lookup,
 update and insert engine.  The 1x1 mixed engine is in
 tests/test_torch_write.py."""
 
-import os
-import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -30,11 +26,17 @@ from repro_torch.core import fleet_cache as t_fleet_cache  # noqa: E402
 from repro_torch.core import mesh as t_mesh  # noqa: E402
 from repro_torch.core import pool as t_pool  # noqa: E402
 from repro_torch.obs import registry as t_registry  # noqa: E402
+from torch_mesh_group import MeshGroup  # noqa: E402
+
+#: the reference runs its jnp kernels (``repro/kernels/ref.py``), bit for bit
+#: its Pallas ones (``tests/test_kernels.py``), which hold the port's kernels in
+#: ``tests/test_torch_{kernels,write,scan,smo}.py``: interpret mode's trace and
+#: compile were most of a reference run's time
+PLAIN = dict(use_kernel=False)
 
 KEY_MIN = np.iinfo(np.int64).min
 KEY_MAX = np.iinfo(np.int64).max
 RESULTS = ("found", "values", "status", "shed")
-HERE = pathlib.Path(__file__).parent
 
 
 def _flat(state):
@@ -79,7 +81,7 @@ def test_engine_1x1_matches_reference(policy, factor):
     cfg, t_cfg = ref_dex.DexMeshConfig(**kw), t_dex.DexMeshConfig(**kw)
     state = ref_dex.init_state(pool, meta, cfg, np.array([KEY_MIN, KEY_MAX]))
     t_state = t_dex.state_from_numpy(_flat(state), t_meta, t_cfg, "cpu")
-    fn = ref_engine.make_dex_engine(meta, cfg, mesh, ops=("lookup",))
+    fn = ref_engine.make_dex_engine(meta, cfg, mesh, ops=("lookup",), **PLAIN)
     eng = jax.jit(fn)
     t_eng = t_engine.make_dex_engine(t_meta, t_cfg, device="cpu")
     for k in ("route_rounds", "fused_pairs", "descent_levels", "scan_hops"):
@@ -139,23 +141,16 @@ def test_make_dex_lookup_wrapper_matches_engine():
 
 
 @pytest.fixture(scope="module")
-def mesh_ref(tmp_path_factory):
-    out = tmp_path_factory.mktemp("mesh_ref") / "ref.npz"
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(HERE.parent / "src") + os.pathsep + env.get(
-        "PYTHONPATH", ""
-    )
-    env.pop("XLA_FLAGS", None)
-    res = subprocess.run(
-        [sys.executable, str(HERE / "torch_mesh_ref.py"), str(out)],
-        env=env,
-        capture_output=True,
-        text=True,
-        timeout=600,
-    )
-    assert res.returncode == 0, f"stdout:\n{res.stdout}\nstderr:\n{res.stderr}"
-    with np.load(out) as z:
-        return dict(z)
+def mesh_group(tmp_path_factory):
+    """The reference's ``engine`` group, run once for the module
+    (``tests/torch_mesh_group.py``)."""
+    with MeshGroup(tmp_path_factory) as group:
+        yield group
+
+
+@pytest.fixture(scope="module")
+def mesh_ref(mesh_group):
+    return mesh_group.arrays()
 
 
 @pytest.mark.parametrize("name", ["fetch", "offload", "auto", "auto_tight"])

@@ -39,9 +39,15 @@ from test_engine import _dataset, _mixed_batches  # noqa: E402
 from test_torch_pipeline import (  # noqa: E402
     _assert_state_equal,
     _flat,
-    mesh_ref_pipe,
     planes,
 )
+from torch_mesh_group import MeshGroup  # noqa: E402
+
+#: the reference runs its jnp kernels (``repro/kernels/ref.py``), bit for bit
+#: its Pallas ones (``tests/test_kernels.py``), which hold the port's kernels in
+#: ``tests/test_torch_{kernels,write,scan,smo}.py``: interpret mode's trace and
+#: compile were most of a reference run's time
+PLAIN = dict(use_kernel=False)
 
 KEY_MIN = np.iinfo(np.int64).min
 KEY_MAX = np.iinfo(np.int64).max
@@ -246,7 +252,7 @@ def test_divergent_engine_1x1_matches_reference():
     ops = ("lookup", "update", "insert")
     eng = jax.jit(ref_engine.make_dex_engine(
         meta, cfg, mesh, ops=ops, max_count=1,
-        cache_policy=ref_fc.divergent_policy(cfg, col_affinity=2.0),
+        cache_policy=ref_fc.divergent_policy(cfg, col_affinity=2.0), **PLAIN,
     ))
     t_eng = t_engine.make_dex_engine(
         t_meta, t_cfg, ops=ops, max_count=1,
@@ -265,8 +271,16 @@ def test_divergent_engine_1x1_matches_reference():
 
 
 @pytest.fixture(scope="module")
-def div_ref(tmp_path_factory):
-    return mesh_ref_pipe(tmp_path_factory, "divergent,divergent_pipe,uniform")
+def div_group(tmp_path_factory):
+    """The reference's ``pipe`` group over its fleet-cache cases, run once
+    for the module (``tests/torch_mesh_group.py``)."""
+    with MeshGroup(tmp_path_factory, "pipe", "divergent,divergent_pipe,uniform") as group:
+        yield group
+
+
+@pytest.fixture(scope="module")
+def div_ref(div_group):
+    return div_group.arrays()
 
 
 def _div_setup(arrays):

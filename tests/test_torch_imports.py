@@ -38,6 +38,8 @@ assert {
     "repro_torch.train.train_step", "repro_torch.data.pipeline",
     "repro_torch.train.fault", "repro_torch.train.checkpoint", "repro_torch.train.sharding",
     "repro_torch.launch.mesh", "repro_torch.launch.train", "repro_torch.launch.elastic",
+    "repro_torch.launch.dryrun", "repro_torch.roofline.analysis",
+    "repro_torch.roofline.calibrate",
 } <= set(mods), mods
 for m in mods:
     importlib.import_module(m)

@@ -157,8 +157,12 @@ def test_decode_step_matches_reference(name, dtype, monkeypatch):
     tcache = TM.init_decode_cache(tc, b, max_len=steps, device="cpu")
     wants, gots, ref_log, port_log = [], [], [], []
     with recorded_routing(monkeypatch, ref_log, port_log):
+        # jitted inside the block, so its trace holds this test's recorder:
+        # traced once for the 8 steps, where unjitted each step retraces
+        # the layer scan
+        ref_step = jax.jit(RM.decode_step, static_argnums=0)
         for t in range(steps):
-            want, rcache = RM.decode_step(
+            want, rcache = ref_step(
                 rc, rp, jnp.asarray(toks[:, t : t + 1]), rcache, jnp.int32(t)
             )
             jax.effects_barrier()

@@ -17,10 +17,6 @@ the reference's, bit for bit on the CPU:
 """
 
 import hashlib
-import os
-import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -42,13 +38,19 @@ from repro_torch.core import pool as t_pool  # noqa: E402
 from repro_torch.core import route_table as t_rt  # noqa: E402
 from repro_torch.obs import registry as t_registry  # noqa: E402
 from test_engine import GOLDEN_PIPE, MC, _dataset, _digest, _mixed_batches  # noqa: E402
+from torch_mesh_group import MeshGroup  # noqa: E402
+
+#: the reference runs its jnp kernels (``repro/kernels/ref.py``), bit for bit
+#: its Pallas ones (``tests/test_kernels.py``), which hold the port's kernels in
+#: ``tests/test_torch_{kernels,write,scan,smo}.py``: interpret mode's trace and
+#: compile were most of a reference run's time
+PLAIN = dict(use_kernel=False)
 
 KEY_MIN = np.iinfo(np.int64).min
 KEY_MAX = np.iinfo(np.int64).max
 RESULTS = ("found", "values", "status", "shed")
 SCAN_RESULTS = RESULTS + ("scan_keys", "scan_values", "taken")
 OPS = ("lookup", "update", "insert")
-HERE = pathlib.Path(__file__).parent
 
 
 def _flat(state):
@@ -102,7 +104,7 @@ def _run_both(policy, ops, max_count, seed, rng_seed, n_batches, with_scan,
     init = t_dex.state_to_numpy(t_state)
     mesh = make_mesh_compat((1, 1), ("data", "model"))
     pipe = ref_engine.make_dex_engine(meta, cfg, mesh, ops=ops, max_count=max_count,
-                                      pipeline=True)
+                                      pipeline=True, **PLAIN)
     t_pipe = t_engine.make_dex_engine(t_meta, t_cfg, ops=ops, max_count=max_count,
                                       pipeline=True, device="cpu")
     assert t_pipe.plan == {k: v for k, v in pipe.plan.items() if k != "phases"}
@@ -311,27 +313,17 @@ def test_pipelined_engine_poisoned_matches_descent():
     assert stats[t_registry.STAT_RT_MISPREDICTS] > 0
 
 
-def mesh_ref_pipe(tmp_path_factory, cases):
-    """Run ``tests/torch_mesh_ref.py OUT pipe CASES`` and load its arrays."""
-    out = tmp_path_factory.mktemp("mesh_ref") / "pipe.npz"
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(HERE.parent / "src") + os.pathsep + env.get("PYTHONPATH", "")
-    env.pop("XLA_FLAGS", None)
-    res = subprocess.run(
-        [sys.executable, str(HERE / "torch_mesh_ref.py"), str(out), "pipe", cases],
-        env=env,
-        capture_output=True,
-        text=True,
-        timeout=600,
-    )
-    assert res.returncode == 0, f"stdout:\n{res.stdout}\nstderr:\n{res.stderr}"
-    with np.load(out) as z:
-        return dict(z)
+@pytest.fixture(scope="module")
+def pipe_group(tmp_path_factory):
+    """The reference's ``pipe`` group (its ``pipe`` case), run once for the
+    module (``tests/torch_mesh_group.py``)."""
+    with MeshGroup(tmp_path_factory, "pipe", "pipe") as group:
+        yield group
 
 
 @pytest.fixture(scope="module")
-def pipe_ref(tmp_path_factory):
-    return mesh_ref_pipe(tmp_path_factory, "pipe")
+def pipe_ref(pipe_group):
+    return pipe_group.arrays()
 
 
 def mesh_cfg(arrays, name, t_meta):

@@ -15,10 +15,6 @@ for bit on the CPU:
   mesh, ``tests/torch_mesh_ref.py repart``).
 """
 
-import os
-import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -44,11 +40,17 @@ from repro_torch.core import repartition as t_rep  # noqa: E402
 from repro_torch.core import route_table as t_rt  # noqa: E402
 from repro_torch.core.partition import LogicalPartitions  # noqa: E402
 from repro_torch.obs import registry as t_registry  # noqa: E402
+from torch_mesh_group import MeshGroup  # noqa: E402
+
+#: the reference runs its jnp kernels (``repro/kernels/ref.py``), bit for bit
+#: its Pallas ones (``tests/test_kernels.py``), which hold the port's kernels in
+#: ``tests/test_torch_{kernels,write,scan,smo}.py``: interpret mode's trace and
+#: compile were most of a reference run's time
+PLAIN = dict(use_kernel=False)
 
 KEY_MIN = np.iinfo(np.int64).min
 KEY_MAX = np.iinfo(np.int64).max
 RESULTS = ("found", "values", "status", "shed")
-HERE = pathlib.Path(__file__).parent
 
 
 def _flat(state):
@@ -95,11 +97,11 @@ def _split_pool(level_m, n_keys, seed):
         burst.append(rng.choice(cand, size=40, replace=False))
     kk = np.concatenate(burst)
     vv = kk * 3
-    insert = jax.jit(ref_write.make_dex_insert(meta, cfg, mesh))
+    insert = jax.jit(ref_write.make_dex_insert(meta, cfg, mesh, **PLAIN))
     state, st = insert(state, jnp.asarray(kk), jnp.asarray(vv))
     shed = np.asarray(st) == ref_write.STATUS_SPLIT
     assert shed.any()
-    smo = jax.jit(ref_smo.make_dex_smo(meta, cfg, mesh))
+    smo = jax.jit(ref_smo.make_dex_smo(meta, cfg, mesh, **PLAIN))
     state, _, _ = ref_smo.run_smo(
         smo, state, np.where(shed, kk, KEY_MAX), np.where(shed, vv, 0)
     )
@@ -355,23 +357,16 @@ def test_maybe_repartition_retrains_an_active_table_as_reference():
 
 
 @pytest.fixture(scope="module")
-def repart_ref(tmp_path_factory):
-    out = tmp_path_factory.mktemp("mesh_ref") / "repart.npz"
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(HERE.parent / "src") + os.pathsep + env.get(
-        "PYTHONPATH", ""
-    )
-    env.pop("XLA_FLAGS", None)
-    res = subprocess.run(
-        [sys.executable, str(HERE / "torch_mesh_ref.py"), str(out), "repart"],
-        env=env,
-        capture_output=True,
-        text=True,
-        timeout=600,
-    )
-    assert res.returncode == 0, f"stdout:\n{res.stdout}\nstderr:\n{res.stderr}"
-    with np.load(out) as z:
-        return dict(z)
+def repart_group(tmp_path_factory):
+    """The reference's ``repart`` group, run once for the module
+    (``tests/torch_mesh_group.py``)."""
+    with MeshGroup(tmp_path_factory, "repart") as group:
+        yield group
+
+
+@pytest.fixture(scope="module")
+def repart_ref(repart_group):
+    return repart_group.arrays()
 
 
 def test_repartition_2x4_matches_reference(repart_ref):

@@ -11,10 +11,6 @@ counts two ``all_to_all``) are bit-identical after each batch.  Also the
 virtual mesh's exchange over each axis against the formula it implements,
 and the check of ``DexMeshConfig.route_shape``."""
 
-import os
-import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -29,31 +25,26 @@ from repro_torch.core import routing as t_routing  # noqa: E402
 from repro_torch.core import smo as t_smo  # noqa: E402
 from repro_torch.core import write as t_write  # noqa: E402
 from repro_torch.obs import registry as t_registry  # noqa: E402
+from torch_mesh_group import MeshGroup  # noqa: E402
 
 KEY_MAX = np.iinfo(np.int64).max
 RESULTS = ("found", "values", "status", "shed")
 SCAN_RESULTS = RESULTS + ("scan_keys", "scan_values", "taken")
 MIXED = ("lookup", "update", "insert")
 ALL_OPS = ("lookup", "update", "insert", "scan")
-HERE = pathlib.Path(__file__).parent
 
 
 @pytest.fixture(scope="module")
-def axes_ref(tmp_path_factory):
-    out = tmp_path_factory.mktemp("mesh_ref") / "axes.npz"
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(HERE.parent / "src") + os.pathsep + env.get("PYTHONPATH", "")
-    env.pop("XLA_FLAGS", None)
-    res = subprocess.run(
-        [sys.executable, str(HERE / "torch_mesh_ref.py"), str(out), "axes"],
-        env=env,
-        capture_output=True,
-        text=True,
-        timeout=600,
-    )
-    assert res.returncode == 0, f"stdout:\n{res.stdout}\nstderr:\n{res.stderr}"
-    with np.load(out) as z:
-        return dict(z)
+def axes_group(tmp_path_factory):
+    """The reference's ``axes`` group, run once for the module
+    (``tests/torch_mesh_group.py``)."""
+    with MeshGroup(tmp_path_factory, "axes") as group:
+        yield group
+
+
+@pytest.fixture(scope="module")
+def axes_ref(axes_group):
+    return axes_group.arrays()
 
 
 def _cfg(policy, factor, sets=64, admit=None):

@@ -17,10 +17,6 @@ on the CPU:
 The pipelined engine's poisoned case is in tests/test_torch_pipeline.py.
 """
 
-import os
-import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -47,12 +43,18 @@ from repro_torch.core import pool as t_pool  # noqa: E402
 from repro_torch.core import route_table as t_rt  # noqa: E402
 from repro_torch.core import routing as t_routing  # noqa: E402
 from repro_torch.obs import registry as t_registry  # noqa: E402
+from torch_mesh_group import MeshGroup  # noqa: E402
+
+#: the reference runs its jnp kernels (``repro/kernels/ref.py``), bit for bit
+#: its Pallas ones (``tests/test_kernels.py``), which hold the port's kernels in
+#: ``tests/test_torch_{kernels,write,scan,smo}.py``: interpret mode's trace and
+#: compile were most of a reference run's time
+PLAIN = dict(use_kernel=False)
 
 KEY_MIN = np.iinfo(np.int64).min
 KEY_MAX = np.iinfo(np.int64).max
 RESULTS = ("found", "values", "status", "shed")
 OPS = ("lookup", "update", "insert")
-HERE = pathlib.Path(__file__).parent
 
 
 def _flat(state):
@@ -162,12 +164,12 @@ def test_train_after_smo_splits_matches_reference():
         burst.append(rng.choice(np.setdiff1d(np.arange(lo + 1, hi), keys), 30,
                                 replace=False))
     kk = np.concatenate(burst)
-    state, st = jax.jit(ref_write.make_dex_insert(meta, cfg, mesh))(
+    state, st = jax.jit(ref_write.make_dex_insert(meta, cfg, mesh, **PLAIN))(
         state, jnp.asarray(kk), jnp.asarray(kk * 5)
     )
     shed = np.asarray(st) == ref_write.STATUS_SPLIT
     state, _, _ = ref_smo.run_smo(
-        jax.jit(ref_smo.make_dex_smo(meta, cfg, mesh)),
+        jax.jit(ref_smo.make_dex_smo(meta, cfg, mesh, **PLAIN)),
         state, np.where(shed, kk, KEY_MAX), np.where(shed, kk * 5, 0),
     )
     t_state = t_dex.state_from_numpy(_flat(state), t_meta, t_cfg, "cpu")
@@ -240,7 +242,7 @@ def test_engine_with_trained_table_1x1_matches_reference(policy):
     state = ref_rt.train_route_table(state, meta)
     t_state = t_rt.train_route_table(t_state, t_meta)
     mesh = make_mesh_compat((1, 1), ("data", "model"))
-    fn = ref_engine.make_dex_engine(meta, cfg, mesh, ops=OPS, max_count=1)
+    fn = ref_engine.make_dex_engine(meta, cfg, mesh, ops=OPS, max_count=1, **PLAIN)
     eng = jax.jit(fn)
     t_eng = t_engine.make_dex_engine(t_meta, t_cfg, ops=OPS, max_count=1, device="cpu")
     for k in ("route_rounds", "fused_pairs", "descent_levels", "scan_hops"):
@@ -275,7 +277,8 @@ def test_poisoned_table_matches_descent_only():
     state = ref_rt.poison_route_table(ref_rt.train_route_table(state, meta))
     t_rt_state = t_rt.poison_route_table(t_rt.train_route_table(t_rt_state, t_meta))
     mesh = make_mesh_compat((1, 1), ("data", "model"))
-    eng = jax.jit(ref_engine.make_dex_engine(meta, cfg, mesh, ops=OPS, max_count=1))
+    eng = jax.jit(ref_engine.make_dex_engine(meta, cfg, mesh, ops=OPS, max_count=1,
+                                             **PLAIN))
     e_de = t_engine.make_dex_engine(t_meta, t_cfg0, ops=OPS, device="cpu")
     e_rt = t_engine.make_dex_engine(t_meta, t_cfg, ops=OPS, device="cpu")
     rng = np.random.default_rng(42)
@@ -384,23 +387,16 @@ def test_route_table_with_pipeline_or_divergent_policy_runs(kw):
 
 
 @pytest.fixture(scope="module")
-def rt_ref(tmp_path_factory):
-    out = tmp_path_factory.mktemp("mesh_ref") / "rt.npz"
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(HERE.parent / "src") + os.pathsep + env.get(
-        "PYTHONPATH", ""
-    )
-    env.pop("XLA_FLAGS", None)
-    res = subprocess.run(
-        [sys.executable, str(HERE / "torch_mesh_ref.py"), str(out), "rt"],
-        env=env,
-        capture_output=True,
-        text=True,
-        timeout=600,
-    )
-    assert res.returncode == 0, f"stdout:\n{res.stdout}\nstderr:\n{res.stderr}"
-    with np.load(out) as z:
-        return dict(z)
+def rt_group(tmp_path_factory):
+    """The reference's ``rt`` group, run once for the module
+    (``tests/torch_mesh_group.py``)."""
+    with MeshGroup(tmp_path_factory, "rt") as group:
+        yield group
+
+
+@pytest.fixture(scope="module")
+def rt_ref(rt_group):
+    return rt_group.arrays()
 
 
 @pytest.mark.parametrize("name", ["rt_fetch", "rt_offload", "rt_auto", "rt_poison_fetch"])

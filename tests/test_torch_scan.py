@@ -17,10 +17,6 @@
 """
 
 import hashlib
-import os
-import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -51,13 +47,19 @@ from repro_torch.obs import registry as t_registry  # noqa: E402
 from test_engine import GOLDEN_SYNC, MC, _digest, _mixed_batches  # noqa: E402
 from test_engine import _dataset as _engine_dataset  # noqa: E402
 from test_torch_cuda import scan_case  # noqa: E402
+from torch_mesh_group import MeshGroup  # noqa: E402
+
+#: the reference runs its jnp kernels (``repro/kernels/ref.py``), bit for bit
+#: its Pallas ones (``tests/test_kernels.py``), which hold the port's kernels in
+#: ``tests/test_torch_{kernels,write,scan,smo}.py``: interpret mode's trace and
+#: compile were most of a reference run's time
+PLAIN = dict(use_kernel=False)
 
 KEY_MIN = np.iinfo(np.int64).min
 KEY_MAX = np.iinfo(np.int64).max
 FANOUT = 64
 SCAN_RESULTS = ("found", "values", "status", "shed", "scan_keys", "scan_values",
                 "taken")
-HERE = pathlib.Path(__file__).parent
 
 
 def _flat(state):
@@ -157,7 +159,7 @@ def _scan_setup(keys, *, level_m=1, max_count=48, factor=2.0):
     cfg, t_cfg = ref_dex.DexMeshConfig(**kw), t_dex.DexMeshConfig(**kw)
     state = ref_dex.init_state(pool, meta, cfg, np.array([KEY_MIN, KEY_MAX]))
     t_state = t_dex.state_from_numpy(_flat(state), t_meta, t_cfg, "cpu")
-    fn = ref_scan.make_dex_scan(meta, cfg, mesh, max_count=max_count)
+    fn = ref_scan.make_dex_scan(meta, cfg, mesh, max_count=max_count, **PLAIN)
     t_fn = t_scan.make_dex_scan(t_meta, t_cfg, max_count=max_count, device="cpu")
     return state, fn, t_state, t_fn
 
@@ -290,7 +292,7 @@ def test_all_ops_engine_1x1_matches_reference(policy):
     _, state, meta, cfg, t_state, t_eng, batches = _golden_engine(policy)
     mesh = make_mesh_compat((1, 1), ("data", "model"))
     fn = ref_engine.make_dex_engine(meta, cfg, mesh, ops=ref_engine.ALL_OPS,
-                                    max_count=MC)
+                                    max_count=MC, **PLAIN)
     for k in ("route_rounds", "fused_pairs", "descent_levels", "scan_hops"):
         assert t_eng.plan[k] == fn.plan[k], k
     eng = jax.jit(fn)
@@ -331,23 +333,16 @@ def test_scan_only_engine_plan_prunes_the_fused_round():
 
 
 @pytest.fixture(scope="module")
-def scan_ref(tmp_path_factory):
-    out = tmp_path_factory.mktemp("scan_ref") / "ref.npz"
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(HERE.parent / "src") + os.pathsep + env.get(
-        "PYTHONPATH", ""
-    )
-    env.pop("XLA_FLAGS", None)
-    res = subprocess.run(
-        [sys.executable, str(HERE / "torch_mesh_ref.py"), str(out), "scan"],
-        env=env,
-        capture_output=True,
-        text=True,
-        timeout=600,
-    )
-    assert res.returncode == 0, f"stdout:\n{res.stdout}\nstderr:\n{res.stderr}"
-    with np.load(out) as z:
-        return dict(z)
+def scan_group(tmp_path_factory):
+    """The reference's ``scan`` group, run once for the module
+    (``tests/torch_mesh_group.py``)."""
+    with MeshGroup(tmp_path_factory, "scan") as group:
+        yield group
+
+
+@pytest.fixture(scope="module")
+def scan_ref(scan_group):
+    return scan_group.arrays()
 
 
 @pytest.mark.parametrize(

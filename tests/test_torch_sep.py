@@ -36,6 +36,12 @@ from repro_torch.core import write as t_write  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
 
+#: the reference runs its jnp kernels (``repro/kernels/ref.py``), bit for bit
+#: its Pallas ones (``tests/test_kernels.py``), which hold the port's kernels in
+#: ``tests/test_torch_{kernels,write,scan,smo}.py``: interpret mode's trace and
+#: compile were most of a reference run's time
+PLAIN = dict(use_kernel=False)
+
 KEY_MIN = np.iinfo(np.int64).min
 KEY_MAX = np.iinfo(np.int64).max
 FANOUT = 64
@@ -178,12 +184,12 @@ def _split_pair(seed=4):
     sep = ref_pool.compress_separators(pool, meta)
     t_sep = t_pool.compress_separators(t_state.pool, t_meta)
     old = np.asarray(state.versions).copy()
-    state, st = jax.jit(ref_write.make_dex_insert(meta, cfg, mesh))(
+    state, st = jax.jit(ref_write.make_dex_insert(meta, cfg, mesh, **PLAIN))(
         state, jnp.asarray(kk), jnp.asarray(vv)
     )
     shed = np.asarray(st) == ref_write.STATUS_SPLIT
     state, _, _ = ref_smo.run_smo(
-        jax.jit(ref_smo.make_dex_smo(meta, cfg, mesh)),
+        jax.jit(ref_smo.make_dex_smo(meta, cfg, mesh, **PLAIN)),
         state, np.where(shed, kk, KEY_MAX), np.where(shed, vv, 0),
     )
     want = ref_smo.refresh_sep_planes(sep, state, meta, old)

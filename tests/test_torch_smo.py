@@ -15,10 +15,6 @@
   ``tests/torch_mesh_ref.py``).
 """
 
-import os
-import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -30,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.compat import make_mesh_compat  # noqa: E402
 from repro.core import dex as ref_dex  # noqa: E402
+from repro.core import engine as ref_engine  # noqa: E402
 from repro.core import pool as ref_pool  # noqa: E402
 from repro.core import scan as ref_scan  # noqa: E402
 from repro.core import smo as ref_smo  # noqa: E402
@@ -45,11 +42,17 @@ from repro_torch.core import write as t_write  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.obs import registry as t_registry  # noqa: E402
 from test_torch_cuda import split_case  # noqa: E402
+from torch_mesh_group import MeshGroup  # noqa: E402
+
+#: the reference runs its jnp kernels (``repro/kernels/ref.py``), bit for bit
+#: its Pallas ones (``tests/test_kernels.py``), which hold the port's kernels in
+#: ``tests/test_torch_{kernels,write,scan,smo}.py``: interpret mode's trace and
+#: compile were most of a reference run's time
+PLAIN = dict(use_kernel=False)
 
 KEY_MIN = np.iinfo(np.int64).min
 KEY_MAX = np.iinfo(np.int64).max
 FANOUT = 64
-HERE = pathlib.Path(__file__).parent
 
 
 def _flat(state):
@@ -89,6 +92,21 @@ def _dataset(n, seed=0, space=None):
     return np.sort(rng.choice(space, size=n, replace=False).astype(np.int64) + 1)
 
 
+def _ref_lookup(meta, cfg, mesh):
+    """``repro.core.dex.make_dex_lookup`` (the lookup-only engine, its
+    results as ``(state, found, values, shed)``) with ``PLAIN``, which the
+    reference's wrapper does not take."""
+    eng = ref_engine.make_dex_engine(meta, cfg, mesh, ops=("lookup",), **PLAIN)
+
+    def lookup(state, keys):
+        keys = keys.astype(jnp.int64)
+        opcodes = jnp.full(keys.shape, ref_engine.OP_LOOKUP, jnp.int32)
+        state, r = eng(state, opcodes, keys, jnp.zeros_like(keys))
+        return state, r.found, r.values, r.shed
+
+    return lookup
+
+
 class Pair:
     """The reference and the port side by side on one 1x1 index
     (tests/test_smo.py's ``_setup``), with the host tree as the oracle."""
@@ -109,10 +127,10 @@ class Pair:
         self.t_state = t_dex.state_from_numpy(_flat(self.state), self.t_meta,
                                               t_cfg, "cpu")
         self.host = HostBTree(keys, vals, fill=0.7)
-        self.lookup = jax.jit(ref_dex.make_dex_lookup(meta, cfg, mesh))
-        self.insert = jax.jit(ref_write.make_dex_insert(meta, cfg, mesh))
-        self.smo = jax.jit(ref_smo.make_dex_smo(meta, cfg, mesh))
-        self.scan = jax.jit(ref_scan.make_dex_scan(meta, cfg, mesh, max_count=64))
+        self.lookup = jax.jit(_ref_lookup(meta, cfg, mesh))
+        self.insert = jax.jit(ref_write.make_dex_insert(meta, cfg, mesh, **PLAIN))
+        self.smo = jax.jit(ref_smo.make_dex_smo(meta, cfg, mesh, **PLAIN))
+        self.scan = jax.jit(ref_scan.make_dex_scan(meta, cfg, mesh, max_count=64, **PLAIN))
         self.t_lookup = t_dex.make_dex_lookup(self.t_meta, t_cfg, device="cpu")
         self.t_insert = t_write.make_dex_insert(self.t_meta, t_cfg, device="cpu")
         self.t_smo = t_smo.make_dex_smo(self.t_meta, t_cfg, device="cpu")
@@ -295,23 +313,16 @@ def test_exhausted_free_list_returns_the_reference_residue():
 
 
 @pytest.fixture(scope="module")
-def smo_ref(tmp_path_factory):
-    out = tmp_path_factory.mktemp("smo_ref") / "ref.npz"
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(HERE.parent / "src") + os.pathsep + env.get(
-        "PYTHONPATH", ""
-    )
-    env.pop("XLA_FLAGS", None)
-    res = subprocess.run(
-        [sys.executable, str(HERE / "torch_mesh_ref.py"), str(out), "smo"],
-        env=env,
-        capture_output=True,
-        text=True,
-        timeout=600,
-    )
-    assert res.returncode == 0, f"stdout:\n{res.stdout}\nstderr:\n{res.stderr}"
-    with np.load(out) as z:
-        return dict(z)
+def smo_group(tmp_path_factory):
+    """The reference's ``smo`` group, run once for the module
+    (``tests/torch_mesh_group.py``)."""
+    with MeshGroup(tmp_path_factory, "smo") as group:
+        yield group
+
+
+@pytest.fixture(scope="module")
+def smo_ref(smo_group):
+    return smo_group.arrays()
 
 
 def test_smo_2x4_matches_reference(smo_ref):

@@ -28,6 +28,11 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
+#: the reference's forward and decode step, traced once a config and shape
+#: (unjitted, each decode step retraces its layer scan)
+REF_FORWARD = jax.jit(RM.forward, static_argnums=0)
+REF_STEP = jax.jit(RM.decode_step, static_argnums=0)
+
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DTYPES = ["float32", "bfloat16"]
 NAMES = ["falcon-mamba-7b", "zamba2-2.7b"]
@@ -124,7 +129,7 @@ def test_mamba_block_one_token_with_a_state_matches_reference(dtype):
 def test_forward_matches_reference(name, dtype):
     rc, tc, rp, tp = setup(name, dtype)
     toks = np.random.default_rng(1).integers(0, rc.vocab, size=(2, 24)).astype(np.int32)
-    want, _ = RM.forward(rc, rp, jnp.asarray(toks))
+    want, _ = REF_FORWARD(rc, rp, jnp.asarray(toks))
     got, aux = TM.forward(tc, tp, torch.from_numpy(toks))
     assert got.dtype == torch.float32 and got.shape == (2, 24, rc.vocab)
     assert float(aux) == 0.0
@@ -143,7 +148,7 @@ def test_decode_step_matches_reference(name, dtype):
         k: v.shape for k, v in rcache.items()
     }
     for t in range(steps):
-        want, rcache = RM.decode_step(
+        want, rcache = REF_STEP(
             rc, rp, jnp.asarray(toks[:, t : t + 1]), rcache, jnp.int32(t)
         )
         got, tcache = TM.decode_step(tc, tp, torch.from_numpy(toks[:, t : t + 1]), tcache, t)
@@ -181,12 +186,12 @@ def test_hybrid_decode_runs_the_layers_past_the_last_group():
     rc, tc, rp, tp = setup("zamba2-2.7b", "float32", seed=5, n_layers=5)
     b, s = 1, 6
     toks = np.random.default_rng(8).integers(0, rc.vocab, size=(b, s)).astype(np.int32)
-    want, _ = RM.forward(rc, rp, jnp.asarray(toks))
+    want, _ = REF_FORWARD(rc, rp, jnp.asarray(toks))
     rcache = RM.init_decode_cache(rc, b, max_len=s)
     tcache = TM.init_decode_cache(tc, b, max_len=s, device="cpu")
     r_dec, t_dec = [], []
     for t in range(s):
-        lg, rcache = RM.decode_step(rc, rp, jnp.asarray(toks[:, t : t + 1]), rcache, jnp.int32(t))
+        lg, rcache = REF_STEP(rc, rp, jnp.asarray(toks[:, t : t + 1]), rcache, jnp.int32(t))
         r_dec.append(np.asarray(lg))
         t_dec.append(TM.decode_step(tc, tp, torch.from_numpy(toks[:, t : t + 1]), tcache, t)[0])
     np.testing.assert_allclose(torch.stack(t_dec, 1).numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)

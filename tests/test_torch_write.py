@@ -38,6 +38,12 @@ from repro_torch.kernels import ref as t_ref  # noqa: E402
 from repro_torch.obs import registry as t_registry  # noqa: E402
 from test_torch_cuda import leaf_case  # noqa: E402
 
+#: the reference runs its jnp kernels (``repro/kernels/ref.py``), bit for bit
+#: its Pallas ones (``tests/test_kernels.py``), which hold the port's kernels in
+#: ``tests/test_torch_{kernels,write,scan,smo}.py``: interpret mode's trace and
+#: compile were most of a reference run's time
+PLAIN = dict(use_kernel=False)
+
 KEY_MIN = np.iinfo(np.int64).min
 KEY_MAX = np.iinfo(np.int64).max
 OPS = ("lookup", "update", "insert")
@@ -214,7 +220,7 @@ def test_mixed_engine_1x1_matches_reference(policy, factor):
     """4,000 keys, cache_sets=128, 4 batches x 256 lanes with hot keys."""
     keys = _dataset(4000, seed=31)
     state, meta, cfg, mesh, t_state, t_meta, t_cfg = _setup(policy, factor, keys)
-    fn = ref_engine.make_dex_engine(meta, cfg, mesh, ops=OPS)
+    fn = ref_engine.make_dex_engine(meta, cfg, mesh, ops=OPS, **PLAIN)
     eng = jax.jit(fn)
     t_eng = t_engine.make_dex_engine(t_meta, t_cfg, ops=OPS, device="cpu")
     for k in ("route_rounds", "fused_pairs", "descent_levels", "scan_hops"):
@@ -260,7 +266,7 @@ def test_update_and_insert_wrappers_match_reference(policy):
         (ref_write.make_dex_update, t_write.make_dex_update, up_k, up_v),
         (ref_write.make_dex_insert, t_write.make_dex_insert, in_k, in_v),
     ):
-        state, status = jax.jit(maker(meta, cfg, mesh))(
+        state, status = jax.jit(maker(meta, cfg, mesh, **PLAIN))(
             state, jnp.asarray(kk), jnp.asarray(vv)
         )
         t_state, t_status = t_maker(t_meta, t_cfg, device="cpu")(t_state, kk, vv)

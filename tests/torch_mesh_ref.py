@@ -127,11 +127,12 @@ LAYOUTS = {
     "2x2x2": (("data", "pod"), (2, 2, 2), 2),
 }
 LAYOUT = ["2x4"]  # the layout this run builds its configurations for
-#: keyword arguments of every ``make_dex_*`` call.  The ``axes`` group runs
-#: the plain jnp forms of ``leaf_write``, ``leaf_scan`` and ``leaf_split``
-#: (``use_kernel=False``), which tests/test_kernels.py holds bit-equal to
-#: the Pallas kernels; their interpret mode costs most of a run's CPU time
-KERNEL = {}
+#: keyword arguments of every ``make_dex_*`` call: every group runs the
+#: plain jnp forms of the index kernels (``use_kernel=False``), which
+#: tests/test_kernels.py holds bit-equal to the Pallas kernels (every
+#: group's saved arrays are the same either way); their interpret mode
+#: costs most of a run's CPU time
+KERNEL = {"use_kernel": False}
 RESULTS = ("found", "values", "status", "shed")
 SCAN_RESULTS = RESULTS + ("scan_keys", "scan_values", "taken")
 
@@ -343,7 +344,7 @@ def run_rt_engines(out, pool, meta, bounds, mesh, lanes):
             state = route_table.poison_route_table(state)
         for k, v in flat(state).items():
             out[f"{name}/init/{k}"] = v
-        fn = engine_mod.make_dex_engine(meta, cfg, mesh, ops=MIXED_OPS)
+        fn = engine_mod.make_dex_engine(meta, cfg, mesh, ops=MIXED_OPS, **KERNEL)
         eng = jax.jit(fn)
         for i, planes in enumerate(mixed_batches()):
             args = tuple(jax.device_put(jnp.asarray(a), lanes) for a in planes)
@@ -369,7 +370,7 @@ def run_repart_case(out, pool, meta, bounds, mesh, lanes):
     )
     for k, v in flat(state).items():
         out[f"repart/init/{k}"] = v
-    eng = jax.jit(engine_mod.make_dex_engine(meta, cfg, mesh, ops=MIXED_OPS))
+    eng = jax.jit(engine_mod.make_dex_engine(meta, cfg, mesh, ops=MIXED_OPS, **KERNEL))
     ctl = RepartitionController(
         LogicalPartitions(bounds),
         n_memory=cfg.n_memory,
@@ -434,7 +435,7 @@ def run_smo_case(out, pool, meta, bounds, mesh, lanes, scan=True):
         out[f"smo/run/{k}"] = v
     if not scan:
         return
-    scan = jax.jit(scan_mod.make_dex_scan(meta, cfg, mesh, max_count=64))
+    scan = jax.jit(scan_mod.make_dex_scan(meta, cfg, mesh, max_count=64, **KERNEL))
     keys, _ = dataset()
     starts = np.concatenate([keys[np.array(SMO_LEAVES) * 44], kk[:150:5]])
     starts = np.resize(starts, LANES).astype(np.int64)
@@ -571,7 +572,7 @@ def run_pipe_cases(out, pool, meta, bounds, mesh, lanes, cases, sync=True):
         state = sharded_state(pool, meta, cfg, bounds, mesh)
         save_planes(out, "pipe/init/", state)
         eng = jax.jit(engine_mod.make_dex_engine(meta, cfg, mesh, ops=MIXED_OPS,
-                                                 max_count=1))
+                                                 max_count=1, **KERNEL))
         for i, planes in enumerate(batches if sync else ()):
             args = tuple(jax.device_put(jnp.asarray(a), lanes) for a in planes)
             state, res = eng(state, *args)
@@ -593,7 +594,7 @@ def run_pipe_cases(out, pool, meta, bounds, mesh, lanes, cases, sync=True):
         state = sharded_state(pool, meta, cfg, bounds, mesh)
         save_planes(out, f"{case}/init/", state)
         fn = engine_mod.make_dex_engine(meta, cfg, mesh, ops=div_ops, max_count=1,
-                                        cache_policy=pol)
+                                        cache_policy=pol, **KERNEL)
         eng = jax.jit(fn)
         for i, planes in enumerate(warm):
             args = tuple(jax.device_put(jnp.asarray(a), lanes) for a in planes)
@@ -622,7 +623,7 @@ def run_pipe_cases(out, pool, meta, bounds, mesh, lanes, cases, sync=True):
         state = sharded_state(pool, meta, cfg, bounds, mesh)
         save_planes(out, "divergent_pipe/init/", state)
         pipe = engine_mod.make_dex_engine(meta, cfg, mesh, ops=div_ops, max_count=1,
-                                          pipeline=True, cache_policy=policy)
+                                          pipeline=True, cache_policy=policy, **KERNEL)
         run_pipeline(out, "divergent_pipe", pipe, state, batches, lanes)
 
 
@@ -659,7 +660,6 @@ def main(out_path, group="engine", cases=",".join(PIPE_CASES)):
     elif group == "pipe":
         run_pipe_cases(out, pool, meta, bounds, mesh, lanes, cases.split(","))
     elif group == "axes":
-        KERNEL["use_kernel"] = False
         # the scan after the SMO burst and the pipe case's synchronous run
         # are left out: the scan and mixed engines above cover both
         run_engines(out, AXES_CONFIGS, pool, meta, bounds, mesh, lanes)
