@@ -3694,6 +3694,337 @@ def phase_drain(args, keys, pool, meta, oracle, bounds, carried):
     return report, {run: launches}
 
 
+# ---------------------------------------------------------------------------
+# the index mesh over ranks (core/mesh.py's rank backend)
+# ---------------------------------------------------------------------------
+
+#: the phase's world: the 2x4 mesh's 8 devices over 4 ranks, 2 a rank
+RANK_WORLD = 4
+#: (workload, batches, the engine's ops) run in order on one state; one
+#: batch each keeps the phase near 40 s (every world's ranks take about 10
+#: s to start and a gloo batch 0.6-2.2 s)
+RANK_RUNS = (
+    ("read-only", 1, ("lookup",)),
+    ("ycsb-a", 1, ("lookup", "update")),
+    ("ycsb-e", 1, ("insert", "scan")),
+)
+#: the kernels every rank must launch
+RANK_KERNELS = ("node_search", "subtree_walk", "leaf_write", "leaf_scan", "leaf_split")
+RANK_RESULTS = ("found", "values", "status", "shed", "scan_keys", "scan_values", "taken")
+
+
+def rank_batches(host_keys, seed, batch):
+    """``[(workload, opcodes, keys, values)]`` of ``RANK_RUNS``: YCSB-C, A
+    and E (scans of uniform length 1-100) over ``host_keys``, each write a
+    value no earlier write of the key has had."""
+    from repro_torch.core import engine
+    from repro_torch.data import ycsb
+
+    out = []
+    for w_i, (workload, n, _) in enumerate(RANK_RUNS):
+        kw = dict(scan_len=SCAN_MAX_COUNT, scan_len_dist="uniform") if workload == "ycsb-e" else {}
+        wl = ycsb.generate(workload, host_keys, batch * n, seed=seed + 41 + w_i, **kw)
+        for i in range(n):
+            opc, kk, vals = ycsb.engine_lanes(wl, i * batch, (i + 1) * batch)
+            stamp = (((w_i + 1) << 8) + i << 20) + np.arange(batch)
+            vals = np.where(opc == engine.OP_SCAN, vals, kk ^ VALUE_XOR ^ stamp)
+            out.append((workload, opc, kk, vals))
+    return out
+
+
+def rank_burst(rng, pool, meta, n_leaves):
+    """A split burst: ``SMO_KEYS_PER_LEAF`` fresh keys into each of
+    ``n_leaves`` leaves, one in each of as many subtrees other than the
+    last; ``(keys, values)`` in a random lane order."""
+    import torch
+
+    dev = pool.pool_keys.device
+    subtrees = rng.choice(meta.n_subtrees - 1, size=n_leaves, replace=False)
+    local = meta.leaf_start + rng.integers(0, meta.leaves_per_subtree, n_leaves)
+    rows = pool.pool_keys[
+        torch.from_numpy(subtrees).to(dev), torch.from_numpy(local).to(dev)
+    ].cpu().numpy()
+    kk = rng.permutation(
+        np.concatenate([fresh_in_leaf(rng, r, SMO_KEYS_PER_LEAF) for r in rows])
+    )
+    return kk, kk ^ VALUE_XOR ^ (3 << 50)
+
+
+def rank_spec(host_keys, seed, batch, burst):
+    """The phase's steps, ``[(name, opcodes, keys, values)]``: the batches
+    of ``RANK_RUNS``, then the split burst (``"split-burst"``: its keys and
+    values, inserted and settled by SMO rounds), then a ``"read-back"``
+    lookup batch of the burst's keys."""
+    from repro_torch.core import engine
+
+    kk, vv = burst
+    zero = np.zeros(kk.shape, np.int64)
+    return rank_batches(host_keys, seed, batch) + [
+        ("split-burst", None, kk, vv),
+        ("read-back", np.full(kk.shape, engine.OP_LOOKUP, np.int32), kk, zero),
+    ]
+
+
+def run_rank_steps(meta, cfg, state, spec, lanes, dev):
+    """The phase's steps (:func:`rank_spec`) on this process's share of the
+    mesh: each batch through its workload's engine (the read-back through
+    the lookup engine), the split burst through the insert engine and
+    ``run_smo``.  ``lanes`` cuts a batch to this process's lanes.  Returns
+    ``(state, steps)``: each step's results (an ``EngineResult``; for the
+    burst the insert's and the rounds' statuses), its collective counts and
+    ms (host clock around a synchronised call)."""
+    import torch
+
+    from repro_torch.core import engine, mesh, smo, write
+    from repro_torch.core.nodes import KEY_MAX
+
+    engines = {
+        w: engine.make_dex_engine(meta, cfg, ops=o, max_count=SCAN_MAX_COUNT, device=dev)
+        for w, _, o in RANK_RUNS
+    }
+    engines["read-back"] = engines["read-only"]
+    insert = write.make_dex_insert(meta, cfg, device=dev)
+    smo_round = smo.make_dex_smo(meta, cfg, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    steps = []
+    for name, opc, kk, vals in spec:
+        step = dict(name=name)
+        mesh.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        if name == "split-burst":
+            kk, vals = lanes(kk), lanes(vals)
+            state, st = insert(state, kk, vals)
+            split = (st == write.STATUS_SPLIT).cpu().numpy()
+            state, sst, step["rounds"] = smo.run_smo(
+                smo_round, state, np.where(split, kk, KEY_MAX), vals
+            )
+            r = (st, torch.from_numpy(sst).to(dev))
+        else:
+            inputs = [torch.from_numpy(lanes(a)).to(dev) for a in (opc, kk, vals)]
+            state, r = engines[name](state, *inputs)
+        sync()
+        step.update(result=r, counts=mesh.collective_counts(),
+                    ms=(time.perf_counter() - t0) * 1e3)
+        steps.append(step)
+    return state, steps
+
+
+def state_planes(state):
+    """Every plane of a ``DexState`` by field path."""
+    out = {}
+    for name, value in state._asdict().items():
+        if isinstance(value, tuple):
+            out.update({f"{name}.{k}": t for k, t in value._asdict().items()})
+        else:
+            out[name] = value
+    return out
+
+
+def ranks_worker(rm, pool, meta, cfg, bounds, spec, virt_steps, virt_state):
+    """One rank of the ``ranks`` phase: its share of the state from the
+    parent's pool (shared through CUDA IPC; the rank copies its own share,
+    ``dex.shard_pool``), the phase's steps on its lanes, its lanes held to
+    the virtual mesh's, bit for bit, and at the end its every plane to the
+    same rows of the virtual mesh's planes (``dex.shard_state``: views, no
+    copy).  Returns what the parent prints and checks."""
+    import torch
+
+    from repro_torch.core import dex, mesh
+    from repro_torch.core.pool import SubtreePool
+    from repro_torch.kernels import ops
+
+    spec = [(n, None if o is None else o.numpy(), k.numpy(), v.numpy()) for n, o, k, v in spec]
+    torch.set_num_threads(2)
+    cuda = torch.cuda.is_available()
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    c0, n_cols = mesh.local_columns(cfg)
+    shard = SubtreePool(*(t.to(dev, copy=True) for t in dex.shard_pool(pool, cfg, rm)))
+    state = dex.init_state(shard, meta, cfg, bounds, device=dev, mesh=rm)
+    del shard
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in state_planes(state).values()}
+    state_bytes = sum(storages.values())
+    pool_bytes = sum(t.numel() * t.element_size() for t in state.pool[2:])
+
+    def lanes(a):
+        w = len(a) // rm.world
+        return a[rm.rank * w : (rm.rank + 1) * w]
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, steps = run_rank_steps(meta, cfg, state, spec, lanes, dev)
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    differ = []
+    for mine, want in zip(steps, virt_steps):
+        if mine["name"] == "split-burst":
+            pairs = zip(("insert_status", "smo_status"), mine["result"], want["result"])
+        else:
+            pairs = ((f, getattr(mine["result"], f), getattr(want["result"], f))
+                     for f in RANK_RESULTS if getattr(mine["result"], f) is not None)
+        for f, a, b in pairs:
+            if not torch.equal(a, lanes(b).to(dev)):
+                differ.append(f"{mine['name']} {f}")
+        if mine["counts"] != want["counts"]:
+            differ.append(f"{mine['name']} counts {mine['counts']} != {want['counts']}")
+    # every plane against the same rows of the virtual mesh's: the shards of
+    # all ranks cover every plane, each column's replicas included
+    want = state_planes(dex.shard_state(virt_state, cfg, rm))
+    mine = state_planes(state)
+    for k, t in mine.items():
+        if not torch.equal(t, want[k].to(dev)):
+            differ.append(f"plane {k}")
+    return dict(
+        rank=rm.rank, backend=rm.backend,
+        card=torch.cuda.get_device_name(dev) if cuda else "cpu",
+        card_index=dev.index,
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None,
+        pool_bytes=pool_bytes, state_bytes=state_bytes,
+        columns=[c0, n_cols], devices=list(rm.block(cfg)),
+        ms=[round(s["ms"], 3) for s in steps], names=[s["name"] for s in steps],
+        counts=[s["counts"] for s in steps], run_s=run_s, launches=launches,
+        rounds=steps[-2]["rounds"], differ=differ, planes=len(mine),
+    )
+
+
+def phase_ranks(args, dev=None, world=RANK_WORLD, batch=BATCH, cache_sets=65_536):
+    """The index mesh over ranks (``core/mesh.py``'s rank backend), after
+    the index phases with their state freed: the 2x4 mesh of the index
+    phases over ``world`` ranks, 2 virtual devices a rank, each rank holding
+    the pool rows of its 2 memory columns only.  The pool is built once
+    here and shared with the ranks through CUDA IPC; each copies its own
+    columns' rows.  The steps (:func:`rank_spec`: YCSB-C, A and E batches,
+    a split burst settled by SMO rounds, a read-back of its keys) run first
+    on the virtual mesh on a copy of the pool, its lanes held to the host
+    oracle, then on the ranks: with ``world`` cards or more, one rank a
+    card over NCCL; with fewer, the ranks share the cards over gloo with
+    CUDA tensors staged through pinned host memory, and a one-rank NCCL
+    world holding all 8 virtual devices follows.  Every rank's lanes and
+    planes must equal the virtual mesh's bit for bit, its collective counts
+    the virtual mesh's, and every rank must launch each of
+    ``RANK_KERNELS``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import dex, write
+    from repro_torch.core.nodes import KEY_MAX, KEY_MIN
+    from repro_torch.core.pool import SubtreePool
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    cuda = dev.type == "cuda"
+    mem0 = torch.cuda.memory_allocated() if cuda else 0
+    keys, pool, meta = make_index(args.n_keys, args.seed + 40, dev)
+    host_keys = keys.cpu().numpy()
+    del keys
+    bounds = np.array([KEY_MIN, host_keys[host_keys.size // 2], KEY_MAX], np.int64)
+    cfg = mesh_config("auto", cache_sets)
+    rng = np.random.default_rng(args.seed + 40)
+    burst = rank_burst(rng, pool, meta, batch // SMO_KEYS_PER_LEAF)
+    spec = rank_spec(host_keys, args.seed, batch, burst)
+    build_s = time.perf_counter() - t_phase
+
+    # the virtual mesh, on a copy of the pool (the engine writes it in place)
+    vstate = dex.init_state(SubtreePool(*(t.clone() for t in pool)), meta, cfg, bounds,
+                            device=dev)
+    ops.reset_launches()
+    vstate, vsteps = run_rank_steps(meta, cfg, vstate, spec, lambda a: a, dev)
+    virt_launches = dict(ops.LAUNCHES)
+    oracle = HostOracle(host_keys)
+    for (name, opc, kk, vals), step in zip(spec, vsteps):
+        if name == "split-burst":
+            st, sst = (t.cpu().numpy() for t in step["result"])
+            if not ((st == write.STATUS_OK) | (sst == write.STATUS_OK)).all():
+                fail("ranks: a split-burst lane was not settled on the virtual mesh")
+            oracle.apply(kk, vals)
+        else:
+            oracle.check(f"ranks virtual {name}", opc, kk, vals, step["result"],
+                         SCAN_MAX_COUNT)
+    virt_ms = [round(s["ms"], 3) for s in vsteps]
+    print(f"main ranks: virtual mesh on one process, ms per step {virt_ms} "
+          f"({[s['name'] for s in vsteps]}), SMO rounds {vsteps[-2]['rounds']}, "
+          f"launches {virt_launches}; every lane equals the host oracle")
+    payload = [dict(name=s["name"], result=s["result"], counts=s["counts"]) for s in vsteps]
+    # the batches go to the ranks as tensors, through shared memory: a large
+    # pickled argument would be written down each rank's start-up pipe
+    # while the rank imports, and the ranks would start one after another
+    shared_spec = [
+        (n, None if o is None else torch.from_numpy(o), torch.from_numpy(k),
+         torch.from_numpy(v))
+        for n, o, k, v in spec
+    ]
+
+    n_cards = torch.cuda.device_count() if cuda else 0
+    if n_cards >= world:
+        worlds = [("nccl", world)]
+    else:
+        worlds = [("gloo", world)] + ([("nccl", 1)] if cuda else [])
+    report = dict(n_keys=int(host_keys.size), build_s=build_s, virtual_ms=virt_ms,
+                  steps=[s["name"] for s in vsteps], worlds={})
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for backend, p in worlds:
+        how = ("one rank a card" if backend == "nccl" and p > 1 else
+               "all 8 virtual devices on one rank" if p == 1 else
+               f"{p} ranks on {max(n_cards, 1)} card(s), CUDA tensors staged "
+               "through pinned host memory" if cuda else f"{p} ranks on the CPU")
+        print(f"main ranks: backend {backend}, world {p}: {how}")
+        init = tempfile.mkdtemp(prefix=f"dex_ranks_{backend}{p}_")
+        t0 = time.perf_counter()
+        try:
+            res = spawn_ranks(ranks_worker, p, backend, pool, meta, cfg, bounds,
+                              shared_spec, payload, vstate, init=init)
+        finally:
+            shutil.rmtree(init, ignore_errors=True)
+        seconds = time.perf_counter() - t0
+        for r in res:
+            print(f"main ranks {backend}{p} rank {r['rank']}: card {r['card']} "
+                  f"(index {r['card_index']}), peak {r['peak_gib']} GiB, pool shard "
+                  f"{r['pool_bytes']} bytes (columns {r['columns']}), state "
+                  f"{r['state_bytes']} bytes (devices {r['devices']}), ms per step "
+                  f"{r['ms']}, steps {r['run_s']:.2f} s, SMO rounds {r['rounds']}, "
+                  f"{r['planes']} planes held, launches {r['launches']}")
+            if r["differ"]:
+                fail(f"ranks {backend}{p} rank {r['rank']} differs from the virtual "
+                     f"mesh: {r['differ'][:8]}")
+            # (a rehearsal on the CPU counts no launch: the plain versions run)
+            missing = [k for k in RANK_KERNELS if r["launches"][k] <= 0]
+            if missing and cuda:
+                fail(f"ranks {backend}{p} rank {r['rank']} launched no {missing}")
+            for k, v in r["launches"].items():
+                launches[k] += v
+        report["worlds"][f"{backend}{p}"] = dict(
+            seconds=seconds, ranks=[{k: r[k] for k in (
+                "rank", "card", "peak_gib", "pool_bytes", "state_bytes", "ms", "run_s")}
+                for r in res])
+        print(f"main ranks {backend}{p}: every lane, plane and count equals the "
+              f"virtual mesh's ({seconds:.1f} s with the ranks' start)")
+    del vstate, vsteps, payload, pool
+    if cuda:
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        # the ranks must have released every block shared with them, or it
+        # stays allocated here for the rest of the run
+        report["left_gib"] = (torch.cuda.memory_allocated() - mem0) / 2**30
+        if report["left_gib"] > 1.0:
+            fail(f"ranks: the phase left {report['left_gib']:.2f} GiB allocated on the "
+                 "card (blocks shared with the ranks not released)")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"main ranks: {json.dumps({k: v for k, v in report.items() if k != 'worlds'})}")
+    print(f"main ranks: phase {report['seconds']:.1f} s")
+    return report, {"ranks": launches}
+
+
 def lm_attention_kernels(seed):
     """``paged_attention`` and ``flash_attention`` at the serving shapes,
     in bf16 and f32, against their plain versions (max abs error <= 2e-2
@@ -6598,9 +6929,14 @@ def main(argv=None):
     report.update(more)
     per_path.update(more_paths)
     t6 = time.perf_counter()
-    # the LM phases run without the index
     del keys, pool, meta, oracle, bounds, carried
     torch.cuda.empty_cache()
+    # the index mesh over ranks, on an index of its own
+    report["ranks"], more_paths = phase_ranks(args)
+    per_path.update(more_paths)
+    torch.cuda.empty_cache()
+    t6r = time.perf_counter()
+    # the LM phases run without the index
     report["serving"], per_path["serving"], params, replays = phase_serving(args.seed)
     check_launches("serving", per_path["serving"], ("paged_attention", "node_search"))
     t7 = time.perf_counter()
@@ -6689,8 +7025,8 @@ def main(argv=None):
           f" route table {t5 - t4:.1f} s, repartition {t6a - t5:.1f} s,"
           f" pipeline {t6b - t6a:.1f} s, fleet policy {t6c - t6b:.1f} s,"
           f" route axes {t6d - t6c:.1f} s, telemetry {t6e - t6d:.1f} s,"
-          f" drain {t6 - t6e:.1f} s,"
-          f" serving {t7 - t6:.1f} s, prefill {t8 - t7:.1f} s, gate {t9 - t8:.1f} s,"
+          f" drain {t6 - t6e:.1f} s, ranks {t6r - t6:.1f} s,"
+          f" serving {t7 - t6r:.1f} s, prefill {t8 - t7:.1f} s, gate {t9 - t8:.1f} s,"
           f" ssm serving and prefill {t10 - t9:.1f} s, hybrid {t11 - t10:.1f} s,"
           f" ssm gate {t12 - t11:.1f} s, moe serving and prefill {t13 - t12:.1f} s,"
           f" moe gate {t14 - t13:.1f} s, mla serving and prefill {t15 - t14:.1f} s,"

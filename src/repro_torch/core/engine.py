@@ -72,6 +72,13 @@ the pool per batch; a caller that needs the pre-batch state keeps a copy.
 One or two route axes (``cfg.route_axes``, their sizes ``cfg.route_sizes``)
 run the same program: a route exchange over two axes counts the reference's
 two ``all_to_all`` (``routing.route_exchange``).
+
+On the rank backend (``core/mesh.py``) the synchronous engine runs the same
+program on a rank's block of devices and its share of the state
+(``dex.shard_state``): it takes the rank's own lanes, indexes the pool rows
+of its own columns, and each rank applies its columns' gathered writes to
+its copy of their shard.  The pipeline, two route axes, the route table and
+a divergent or peeking cache policy raise ``NotImplementedError`` there.
 """
 
 from __future__ import annotations
@@ -347,7 +354,9 @@ def make_dex_engine(
 
     ``ops`` is any non-empty subset of ``ALL_OPS``.
     ``opcodes``/``keys``/``values`` are [B] lanes, split evenly over the
-    virtual devices (lanes ``dev*b .. (dev+1)*b`` start on device ``dev``);
+    devices this process holds (lanes ``dev*b .. (dev+1)*b`` start on its
+    ``dev``-th device: on ranks, a rank passes its block's slice of the
+    batch and gets its results back);
     ``keys == KEY_MAX`` lanes and opcodes outside ``ops`` are inactive.
     Update and insert lanes carry their new value in ``values``, scan lanes
     their record count (clipped to ``max_count``); lookups ignore it.
@@ -365,6 +374,18 @@ def make_dex_engine(
     if cfg.policy not in ("fetch", "offload", "auto"):
         raise ValueError(f"unknown policy {cfg.policy!r}")
     device = mesh.resolve_device(device)
+    rank_mesh = mesh.current()
+    if rank_mesh is not None:
+        if pipeline:
+            mesh.refuse_on_ranks("the pipelined engine", 1)
+        if not fleet_cache.is_uniform(cache_policy) or fleet_cache.peeks_enabled(
+            cache_policy
+        ):
+            mesh.refuse_on_ranks("a divergent or peeking cache policy", 1)
+        if len(cfg.route_axes) > 1:
+            mesh.refuse_on_ranks("two route axes", 2)
+        if cfg.route_table_slots > 0:
+            mesh.refuse_on_ranks("the leaf-direct route table", 3)
 
     has_lookup = "lookup" in ops
     has_update = "update" in ops
@@ -397,7 +418,10 @@ def make_dex_engine(
     # the leaf-direct route table; with no slots the program is the
     # descent-only one
     use_rt = cfg.route_table_slots > 0 and do_descent
-    nr, nm, n_dev = cfg.n_route, cfg.n_memory, cfg.n_devices
+    # the devices this process holds (all of them on the virtual mesh) and
+    # the first of its pool columns
+    nr, nm, n_dev = cfg.n_route, cfg.n_memory, mesh.local_devices(cfg)
+    col0, n_cols = mesh.local_columns(cfg)
     s_per = meta.n_subtrees_padded // nm
     n_nodes = meta.n_nodes
     # per-level node population of one column: the fetch side of the cost
@@ -684,7 +708,7 @@ def make_dex_engine(
         if route_planes:
             lane_prio = dev_index[:, None] * b + torch.arange(b, device=device)
             # phase-offset priority: all updates replay before all inserts
-            phase = torch.where(opc_in == OP_INSERT, n_dev * b, 0)
+            phase = torch.where(opc_in == OP_INSERT, cfg.n_devices * b, 0)
             payload = torch.stack([keys, values, opc_in, lane_prio + phase], -1)
         else:
             payload = keys
@@ -838,8 +862,9 @@ def make_dex_engine(
                 req[..., 2] == MSG_PEEK,
             )
             walk = walk & ~peer_hit
-        # a request on column m names a subtree of m's shard
-        st = my_col * s_per + torch.where(walk, stf % s_per, 0)
+        # a request on column m names a subtree of m's shard, whose rows
+        # this process holds from its first column on
+        st = (my_col - col0) * s_per + torch.where(walk, stf % s_per, 0)
         o_found, o_val, _ = kops.subtree_walk(
             state.pool.pool_keys,
             state.pool.pool_children,
@@ -878,8 +903,9 @@ def make_dex_engine(
         """The fused tagged request/response exchange of an engine with
         writes.  Each lane's request goes to its leaf's memory column; the
         columns' batches are gathered over the route replicas and applied
-        to the one pool once: two-sided lanes first walk the pre-batch pool
-        (``subtree_walk``; a peek answered from the receiving device's
+        to the pool once per copy (the virtual mesh's one pool; each rank's
+        copy of its own columns): two-sided lanes first walk the pre-batch
+        pool (``subtree_walk``; a peek answered from the receiving device's
         cache does not walk), then every write applies (``leaf_write``),
         and each device takes its own route row of the response."""
         pool = state.pool
@@ -895,7 +921,7 @@ def make_dex_engine(
         dropped = dropped & send
         with _scope("dex/fused_a2a/request"):
             req = mesh.a2a(wbuf, cfg, cfg.memory_axis)  # [Dev, nm, wcap, RF]
-        # [nm, nr, nm, wcap, RF]: each column's batch, gathered once
+        # [n_cols, nr, nm, wcap, RF]: each held column's batch, gathered once
         flat = mesh.gather_route(req, cfg).reshape(-1, REQ_FIELDS)
         tagf, gidf, stf, kf, vf, prf = (c.contiguous() for c in flat.unbind(-1))
         wgid = torch.where((tagf == MSG_UPDATE) | (tagf == MSG_INSERT), gidf, KEY_MAX)
@@ -916,6 +942,7 @@ def make_dex_engine(
             walk = peekf & ~peer_hit if may_peek else torch.zeros_like(peekf)
             if may_offload:
                 walk = walk | ((tagf >= MSG_OFF_LOOKUP) & (tagf <= MSG_OFF_INSERT))
+            # the held column of each gathered request: its shard's rows
             col_f = torch.arange(kf.numel(), device=device) // (nr * nm * wcap)
             st = col_f * s_per + torch.where(walk, stf % s_per, 0)
             o_found, o_val, o_loc = kops.subtree_walk(
@@ -937,13 +964,15 @@ def make_dex_engine(
             lk = peekf | (tagf == MSG_OFF_LOOKUP)
             resp_val = torch.where(lk, o_val, 0)
         allow_ins = (tagf == MSG_INSERT) | (tagf == MSG_OFF_INSERT)
+        # the shard's node ids: a constant shift, which keeps their order
+        gid0 = col0 * s_per * meta.subtree_cap
         with _scope("dex/apply"):
             _, _, _, wstat, rows_v, ins_in_leaf = _apply_leaf_writes(
                 pool.pool_keys,
                 pool.pool_values,
                 state.occupancy,
                 meta,
-                wgid,
+                torch.where(wgid != KEY_MAX, wgid - gid0, KEY_MAX) if gid0 else wgid,
                 kf,
                 vf,
                 prf,
@@ -970,7 +999,7 @@ def make_dex_engine(
         del rows_v
         width = RESP_HEAD + FANOUT
         # each device answers its own route row
-        resp = mesh.route_share(resp.view(nm, nr, nm, wcap, width), cfg)
+        resp = mesh.route_share(resp.view(n_cols, nr, nm, wcap, width), cfg)
         with _scope("dex/fused_a2a/response"):
             resp = mesh.a2a(resp, cfg, cfg.memory_axis)
         back = routing.unpack_to_lanes(resp, wlane, nq, 0)
@@ -1000,7 +1029,9 @@ def make_dex_engine(
         bump = torch.zeros(n_nodes + 1, dtype=vers.dtype, device=device)
         at = torch.where(wrote_ok, f.gid, n_nodes).reshape(-1)
         bump.scatter_reduce_(0, at, nv.reshape(-1), "amax")
-        new_vers = torch.maximum(mesh.pmax(vers), bump[:n_nodes])
+        # this process's bumps join the maximum over the mesh (on ranks each
+        # holds only its own lanes' bumps)
+        new_vers = mesh.pmax(torch.maximum(vers.amax(0, keepdim=True), bump[None, :n_nodes]))
         set_idx = routing.umod(routing.hash64(f.gid), cfg.cache_sets)
         dd = torch.arange(n_dev, device=device)[:, None]
         eqt = cache.tags[dd, set_idx] == f.gid[..., None]
@@ -1231,6 +1262,13 @@ def make_dex_engine(
             )
         if state.stats.device != device:
             raise ValueError(f"state lies on {state.stats.device}, engine on {device}")
+        if state.stats.shape[0] != n_dev:
+            raise ValueError(
+                f"state holds {state.stats.shape[0]} devices; this process "
+                f"holds {n_dev}"
+            )
+        if mesh.current() is not rank_mesh:
+            raise RuntimeError("the engine runs on the mesh it was built on")
         b = keys.shape[0] // n_dev
         opcodes = torch.as_tensor(opcodes).to(device=device, dtype=torch.int32)
         allowed = opcodes == enabled[0]

@@ -52,9 +52,11 @@ class DexCache(NamedTuple):
     ver: torch.Tensor  # [Dev, sets, ways] int32 node version at admit
 
 
-def init_cache(cfg, device=None) -> DexCache:
+def init_cache(cfg, device=None, *, n_dev=None) -> DexCache:
+    """Cold caches of ``n_dev`` devices (None: every device of the mesh)."""
     device = resolve_device(device)
-    d, s, w = cfg.n_devices, cfg.cache_sets, cfg.cache_ways
+    d = cfg.n_devices if n_dev is None else n_dev
+    s, w = cfg.cache_sets, cfg.cache_ways
     i64 = dict(dtype=torch.int64, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     return DexCache(

@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.mesh import resolve_device
+from repro_torch.core.mesh import refuse_on_ranks, resolve_device
 from repro_torch.core.nodes import FANOUT, KEY_MAX, KEY_MIN, NULL
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import subtree_walk_ref as _walk_ref
@@ -123,12 +123,19 @@ def build_pool(
     n_shards: int = 1,
     headroom: float = DEFAULT_HEADROOM,
     subtree_leaves: Optional[int] = None,
+    columns: Optional[Tuple[int, int]] = None,
     device=None,
 ) -> Tuple[SubtreePool, PoolMeta]:
     """Bulk-build the blocked pool from sorted unique int64 keys (numpy or
     torch) on ``device``.  ``n_shards`` pads the subtree axis to a multiple of
     the memory columns; ``headroom`` adds free-list rows per block;
-    ``subtree_leaves`` sets leaves per block (default ``per_node**level_m``)."""
+    ``subtree_leaves`` sets leaves per block (default ``per_node**level_m``).
+
+    ``columns = (first, count)`` keeps the ``pool_*`` rows of those memory
+    columns only (of ``n_shards``), as a rank of ``core/mesh.py``'s rank
+    backend holds them: the other columns' blocks are never built, and the
+    rows kept equal the same rows of the whole build.  The top tree and
+    ``meta`` are the whole index's."""
     device = resolve_device(device)
     keys = torch.as_tensor(keys, dtype=torch.int64).to(device)
     if keys.numel() == 0:
@@ -158,26 +165,40 @@ def build_pool(
     cap = base_cap + int(np.ceil(base_cap * headroom))
     leaf_start = int(offs[-2])
 
+    # the blocks built: rows s_lo .. s_hi of the whole pool
+    s_lo, s_hi = 0, S
+    if columns is not None:
+        c0, n_cols = (int(c) for c in columns)
+        if not (0 <= c0 and n_cols >= 1 and c0 + n_cols <= n_shards):
+            raise ValueError(f"columns {columns!r} outside {n_shards} shards")
+        s_per = S // n_shards
+        s_lo, s_hi = c0 * s_per, (c0 + n_cols) * s_per
+    n_rows = s_hi - s_lo
+
     i64 = dict(dtype=torch.int64, device=device)
-    PK = torch.full((S, cap, FANOUT), KEY_MAX, **i64)
-    PC = torch.full((S, cap, FANOUT), NULL, dtype=torch.int32, device=device)
-    PV = torch.zeros((S, cap, FANOUT), **i64)
+    PK = torch.full((n_rows, cap, FANOUT), KEY_MAX, **i64)
+    PC = torch.full((n_rows, cap, FANOUT), NULL, dtype=torch.int32, device=device)
+    PV = torch.zeros((n_rows, cap, FANOUT), **i64)
 
     # leaves: global leaf g is row leaf_start + g % lps of block g // lps
     pad = n_leaves * per_node - n
     leaf_k = _pad_last(keys, n + pad, KEY_MAX)
     leaf_v = _pad_last(values, n + pad, 0)
-    g = torch.arange(n_leaves, **i64)
-    PK[g // lps, leaf_start + g % lps, :per_node] = leaf_k.view(n_leaves, per_node)
-    PV[g // lps, leaf_start + g % lps, :per_node] = leaf_v.view(n_leaves, per_node)
+    g_lo, g_hi = min(s_lo * lps, n_leaves), min(s_hi * lps, n_leaves)
+    g = torch.arange(g_lo, g_hi, **i64)
+    rows_k = leaf_k.view(n_leaves, per_node)[g_lo:g_hi]
+    rows_v = leaf_v.view(n_leaves, per_node)[g_lo:g_hi]
+    PK[g // lps - s_lo, leaf_start + g % lps, :per_node] = rows_k
+    PV[g // lps - s_lo, leaf_start + g % lps, :per_node] = rows_v
 
     # inner block levels 1..M, bottom-up, all blocks at once: ``mins`` holds
     # each block's child minima, ``cnt`` how many children it really has
-    mins = torch.full((S * lps,), KEY_MAX, **i64)
-    mins[:n_leaves] = leaf_k[::per_node]
-    mins = mins.view(S, lps)
-    cnt = torch.clamp(n_leaves - torch.arange(S, **i64) * lps, 0, lps)
-    subtree_mins = mins[:n_subtrees, 0].clone()
+    leaf_mins = leaf_k[::per_node]
+    mins = torch.full((n_rows * lps,), KEY_MAX, **i64)
+    mins[: g_hi - g_lo] = leaf_mins[g_lo:g_hi]
+    mins = mins.view(n_rows, lps)
+    cnt = torch.clamp(n_leaves - torch.arange(s_lo, s_hi, **i64) * lps, 0, lps)
+    subtree_mins = leaf_mins[::lps][:n_subtrees].clone()
     subtree_mins[0] = KEY_MIN
     child_off = leaf_start
     for lvl in range(1, level_m + 1):
@@ -315,6 +336,7 @@ def compress_separators(pool: SubtreePool, meta: PoolMeta) -> SepPlanes:
     """The compressed planes of every pool row, built on the pool's device
     (``core/smo.py::refresh_sep_planes`` keeps them current across on-mesh
     splits)."""
+    refuse_on_ranks("compress_separators, the separator planes", 3)
     s, c, f = pool.pool_keys.shape
     prefix, nbits, suffix = compress_rows(pool.pool_keys.view(s * c, f))
     return SepPlanes(

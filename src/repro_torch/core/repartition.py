@@ -33,7 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import fleet_cache
+from repro_torch.core import fleet_cache, mesh
 from repro_torch.core.dex import DexState
 from repro_torch.core.nodes import KEY_MAX, KEY_MIN
 from repro_torch.core.partition import LogicalPartitions
@@ -165,6 +165,7 @@ def install_boundaries(
     a moved key interval, so every cached copy of it is refetched.  Returns
     ``(new_state, nodes_invalidated, shared_before, shared_after)``; the
     new state's ``boundaries`` and ``versions`` are new tensors."""
+    mesh.refuse_on_ranks("install_boundaries, the boundary install", 3)
     gids, lo, hi = node_key_ranges(
         state.pool.pool_keys, meta, state.pool.pool_children
     )
@@ -288,6 +289,7 @@ class RepartitionController:
         ``cooldown_batches`` calls after an install are skipped.  ``obs``
         is an optional telemetry batch (``obs/timeline.py``): the boundary
         install becomes its fenced phase ``repartition/install``."""
+        mesh.refuse_on_ranks("maybe_repartition, the boundary install", 3)
         if self._cooldown > 0:
             self._cooldown -= 1
             return state, None

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import mesh
 from repro_torch.core.dex import DexState
 from repro_torch.core.nodes import KEY_MAX
 from repro_torch.core.pool import PoolMeta
@@ -57,6 +58,7 @@ def train_route_table(
     demand-hottest route partitions are kept (a stable sort, so key order
     breaks ties and the kept set stays a union of key ranges).  Returns a
     new state with new table arrays of ``slots`` entries."""
+    mesh.refuse_on_ranks("train_route_table, the leaf-direct route table", 3)
     r = int(state.rt_keys.shape[0]) if slots is None else int(slots)
     gids, lo, hi = leaf_ranges(state, meta)
     if gids.numel() > r:

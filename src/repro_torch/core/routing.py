@@ -1,6 +1,7 @@
-"""Request routing over the virtual mesh.
+"""Request routing over the mesh.
 
-Every per-device tensor carries a leading ``Dev`` axis (``core/mesh.py``).
+Every per-device tensor carries a leading ``Dev`` axis (``core/mesh.py``:
+every device of the mesh on the virtual mesh, a rank's block on ranks).
 A batch moves between devices the way the reference moves it:
 
   1. bucket requests by destination with bounded capacity
@@ -203,9 +204,10 @@ def fetch_rows(pool, meta, cfg, gid: torch.Tensor, want: torch.Tensor):
     buf, lane, dropped = pack_by_dest(gid, owner, nm, cap)
     req = mesh.a2a(buf, cfg, cfg.memory_axis)  # [Dev, nm, cap]
     # serve on the owning column: a request on column m names a subtree of
-    # m's shard, rows m*s_per .. (m+1)*s_per of the global pool
+    # m's shard, rows m*s_per .. (m+1)*s_per of the global pool, which this
+    # process holds from its first column's rows on
     valid = req != KEY_MAX
-    col = mesh.memory_linear_index(cfg, dev)[:, None, None]
+    col = mesh.memory_linear_index(cfg, dev)[:, None, None] - mesh.local_columns(cfg)[0]
     st = col * s_per + torch.where(valid, (req // meta.subtree_cap) % s_per, 0)
     lo = torch.where(valid, req % meta.subtree_cap, 0)
     vm = valid[..., None]

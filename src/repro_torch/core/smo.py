@@ -30,7 +30,12 @@ the host fallback, ``write.drain_splits``, which replays it through a
 
 The virtual mesh holds one pool: each memory column's gathered batch is
 applied once (``mesh.gather_route``) and each device takes its own route
-row of the statuses (``mesh.route_share``).  The round writes the pool,
+row of the statuses (``mesh.route_share``).  On the rank backend a rank
+applies its own columns' batches to its copy of their shard, and the
+successors its columns wrote and the version bumps join over the ranks
+(``mesh.owner_merge``, ``mesh.pmax``); ``run_smo`` sums its progress over
+the ranks so that every rank runs the same rounds, and ``settle_splits``
+raises ``NotImplementedError`` there.  The round writes the pool,
 ``occupancy``, ``n_alloc`` and ``versions`` in place; ``succ`` comes back as
 a new table.  :func:`run_smo` drives rounds until the pending set stops
 shrinking, :func:`settle_splits` adds the host fallback for what they
@@ -111,9 +116,15 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
     device = mesh.resolve_device(device)
     levels = meta.levels_in_subtree
     cap_nodes = meta.subtree_cap
-    nr, nm, n_dev = cfg.n_route, cfg.n_memory, cfg.n_devices
+    if len(cfg.route_axes) > 1:
+        mesh.refuse_on_ranks("the SMO round over two route axes", 2)
+    # the devices this process holds and its pool columns: rows are indexed
+    # in the held shard, node ids stay global
+    nr, nm, n_dev = cfg.n_route, cfg.n_memory, mesh.local_devices(cfg)
+    col0, n_cols = mesh.local_columns(cfg)
     s_pad = meta.n_subtrees_padded
     s_per = s_pad // nm
+    sbase = col0 * s_per
     dev_index = mesh.device_linear_index(cfg, device)
     first_row = (dev_index // nm) == 0
 
@@ -121,7 +132,11 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
         """``[nm]`` count of the subtree rows ``rows`` in each column."""
         return torch.bincount(rows // s_per, minlength=nm)
 
+    rank_mesh = mesh.current()
+
     def smo(state, keys, values):
+        if mesh.current() is not rank_mesh:
+            raise RuntimeError("the SMO round runs on the mesh it was built on")
         keys = torch.as_tensor(keys).to(device=device, dtype=torch.int64)
         values = torch.as_tensor(values).to(device=device, dtype=torch.int64)
         if keys.shape[0] % n_dev:
@@ -152,8 +167,9 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
         n = k.numel()
         live = k != KEY_MAX
 
-        # 2. walk the block to the leaf, recording the path
-        st = torch.where(live, top_walk(pool, meta, k), 0)
+        # 2. walk the block to the leaf, recording the path (``st`` is the
+        # subtree's row in the held shard)
+        st = torch.where(live, top_walk(pool, meta, k) - sbase, 0)
         local = torch.zeros_like(k)
         plocals = [local]
         for _ in range(levels - 1):
@@ -161,7 +177,7 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
             local = pc[st, local, slot.long()].long()
             plocals.append(local)
         leaf_lo = plocals[-1]
-        gid_leaf = meta.node_gid(st, leaf_lo)
+        gid_leaf = meta.node_gid(st + sbase, leaf_lo)
 
         # 3. conflict order; keys already present become value updates
         eqk = pk[st, leaf_lo] == k[:, None]
@@ -225,7 +241,7 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
         can_split = allowed & (sib_lo < cap_nodes)
         apply_seg = merge_ok | can_split
         cs = can_split.nonzero()[:, 0]
-        split_cols = per_column(seg_st[cs])
+        split_cols = per_column(seg_st[cs] + sbase)
 
         # 6. merge or split each staged leaf (the leaf_split kernel)
         lk, lv, rk, rv, occ_l, occ_r, sep, _ = kops.leaf_split(
@@ -243,8 +259,8 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
         n_alloc.index_add_(0, seg_st[cs], torch.ones_like(cs, dtype=n_alloc.dtype))
 
         # the successor chain: leaf -> sibling -> the leaf's old successor
-        gid_seg = meta.node_gid(seg_st, seg_lo)
-        gid_sib = meta.node_gid(seg_st, sib_lo)
+        gid_seg = meta.node_gid(seg_st + sbase, seg_lo)
+        gid_sib = meta.node_gid(seg_st + sbase, sib_lo)
         succ = state.succ[0].clone()
         old_nxt = succ[gid_seg[cs]]
         succ[gid_sib[cs]] = old_nxt
@@ -255,7 +271,7 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
         _bump(vers, g_s[upd_w])
         _bump(vers, gid_seg[a])
         _bump(vers, gid_sib[cs])
-        gid_par = meta.node_gid(seg_st, seg_par)
+        gid_par = meta.node_gid(seg_st + sbase, seg_par)
         _bump(vers, gid_par[cs])
 
         # 7. separators into the parent rows (the leaf_write kernel, with
@@ -312,15 +328,22 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
         run_out = torch.where(winner, outcome_w, 0)[last_of_run]
         status_s = torch.where(live_s, run_out[run_id], STATUS_MISS).to(torch.int32)
         status = torch.empty_like(status_s).scatter_(0, order, status_s)
-        own = mesh.route_share(status.long().view(nm, nr, nm, b), cfg)
+        own = mesh.route_share(status.long().view(n_cols, nr, nm, b), cfg)
         back = mesh.a2a(own[..., None], cfg, cfg.memory_axis)
         out = routing.unpack_to_lanes(back, lane, b, 0)[..., 0].to(torch.int32)
         out = torch.where(dropped & live0, STATUS_SPLIT, out)
         out = torch.where(live0, out, STATUS_MISS).to(torch.int32)
 
-        # 10. the replicated tables and the split count, once per column
+        # 10. the replicated tables and the split count, once per column: a
+        # rank wrote the successors of its own columns' nodes only
+        if rank_mesh is not None:
+            node_col = torch.arange(succ.numel(), device=device) // (
+                s_per * cap_nodes
+            )
+            succ = mesh.owner_merge(succ, (node_col >= col0) & (node_col < col0 + n_cols))
         versions = state.versions
-        versions.copy_(torch.maximum(versions.amax(0), vers).expand_as(versions))
+        new_vers = mesh.pmax(torch.maximum(versions.amax(0), vers)[None])
+        versions.copy_(new_vers.expand_as(versions))
         upd = torch.zeros((n_dev, N_STATS), dtype=torch.int64, device=device)
         col_splits = (split_cols + inner_cols)[dev_index % nm]
         upd[:, STAT_SMO_SPLITS] = torch.where(first_row, col_splits, 0)
@@ -339,11 +362,12 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
         splits per column."""
         c, f = cap_nodes, FANOUT
         dev = pk.device
-        row_ix = torch.arange(s_pad, device=dev)[:, None].expand(s_pad, c)
-        lo_ix = torch.arange(c, device=dev)[None, :].expand(s_pad, c)
-        gid_grid = row_ix * c + lo_ix
+        s_rows = pk.shape[0]  # the held shard's subtree rows
+        row_ix = torch.arange(s_rows, device=dev)[:, None].expand(s_rows, c)
+        lo_ix = torch.arange(c, device=dev)[None, :].expand(s_rows, c)
+        gid_grid = (row_ix + sbase) * c + lo_ix
         col_f = torch.arange(f, device=dev)[None, None, :]
-        flag = torch.zeros((s_pad, c), dtype=torch.bool, device=dev)
+        flag = torch.zeros((s_rows, c), dtype=torch.bool, device=dev)
         flag[f_st, f_par] = True
         splits = torch.zeros((nm,), dtype=torch.int64, device=dev)
         for _ in range(sweeps):
@@ -352,7 +376,7 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
             par_occ = occ.gather(1, par_safe)
             can = flag & (lo_ix != 0) & (par >= 0)
             room = can & (par_occ < FANOUT)
-            min_lo = torch.full((s_pad, c + 1), c, dtype=torch.int64, device=dev)
+            min_lo = torch.full((s_rows, c + 1), c, dtype=torch.int64, device=dev)
             min_lo.scatter_reduce_(1, torch.where(room, par_safe, c), lo_ix, "amin")
             m_g = occ.long()
             win = room & (min_lo.gather(1, par_safe) == lo_ix) & (m_g >= 2)
@@ -378,10 +402,10 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
             n_alloc.add_(ok.sum(1))
             # one separator into each winner's parent row
             at = torch.where(ok, par_safe, c)
-            psep = torch.full((s_pad, c + 1), KEY_MAX, dtype=torch.int64, device=dev)
+            psep = torch.full((s_rows, c + 1), KEY_MAX, dtype=torch.int64, device=dev)
             psep.scatter_(1, at, sep_g)
             psep = psep[:, :c]
-            pchild = torch.full((s_pad, c + 1), NULL, dtype=pc.dtype, device=dev)
+            pchild = torch.full((s_rows, c + 1), NULL, dtype=pc.dtype, device=dev)
             pchild.scatter_(1, at, sib_g.to(pc.dtype))
             pchild = pchild[:, :c]
             has = psep != KEY_MAX
@@ -396,11 +420,11 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
             bumped = ok | has
             bumped[r_i, sib] = True
             _bump(vers, gid_grid[bumped])
-            splits += per_column(r_i)
+            splits += per_column(r_i + sbase)
             # parents that were full flag themselves for the next sweep;
             # losers among several flagged children retry next round
             nf_par = torch.where(can & (par_occ >= FANOUT), par_safe, c)
-            flag = torch.zeros((s_pad, c + 1), dtype=torch.bool, device=dev)
+            flag = torch.zeros((s_rows, c + 1), dtype=torch.bool, device=dev)
             flag.scatter_(1, nf_par, True)
             flag = flag[:, :c]
         return splits
@@ -426,15 +450,21 @@ def run_smo(smo, state, keys, values, *, max_rounds=None, levels: int = 2, obs=N
         # parent's split, the parent for the grandparent's) and a leaf with
         # more than 64 pending keys splits again each round
         max_rounds = 2 * levels + 6
+    if obs is not None:
+        mesh.refuse_on_ranks("telemetry of SMO rounds", 5)
     pending = keys != KEY_MAX
     status = np.full(keys.shape, STATUS_MISS, np.int32)
     rounds = 0
 
-    def splits_done(st):
-        return int(st.stats[:, STAT_SMO_SPLITS].sum())
+    def totals(pend, st):
+        """Pending lanes and splits done, over every rank, so that every
+        rank runs the same rounds."""
+        return mesh.host_sum(
+            [int(pend.sum()), int(st.stats[:, STAT_SMO_SPLITS].sum())]
+        ).tolist()
 
-    while pending.any() and rounds < max_rounds:
-        before = splits_done(state)
+    n_pending, before = totals(pending, state)
+    while n_pending and rounds < max_rounds:
         with obs_phase(obs, f"smo/round{rounds}"):
             state, st_r = smo(
                 state, np.where(pending, keys, KEY_MAX), np.where(pending, values, 0)
@@ -446,9 +476,11 @@ def run_smo(smo, state, keys, values, *, max_rounds=None, levels: int = 2, obs=N
         still = pending & (st_np == STATUS_SPLIT)
         # progress: lanes settled, or splits executed (a round that only
         # split a full parent settles nothing but unblocks its children)
-        if still.sum() >= pending.sum() and splits_done(state) <= before:
+        n_still, after = totals(still, state)
+        if n_still >= n_pending and after <= before:
             pending = still
             break
+        n_pending, before = n_still, after
         pending = still
     status[pending] = STATUS_SPLIT
     return state, status, rounds
@@ -470,6 +502,7 @@ def settle_splits(state, meta: PoolMeta, cfg, smo, host, shed_keys, shed_values,
     it."""
     shed_keys = np.asarray(shed_keys, np.int64)
     shed_values = np.asarray(shed_values, np.int64)
+    mesh.refuse_on_ranks("settle_splits, the host fallback of the SMO", 4)
     if shed_keys.size == 0:
         return state, meta, {"onmesh": 0, "residual": 0, "rounds": 0, "drained": False}
     state, status, rounds = run_smo(
@@ -506,6 +539,7 @@ def refresh_sep_planes(sep: SepPlanes, state, meta: PoolMeta, old_versions) -> S
     ``old_versions`` must be a copy taken before the rounds
     (``state.versions.clone()``): a view of the live plane shows no change
     and nothing is refreshed."""
+    mesh.refuse_on_ranks("refresh_sep_planes, the separator planes", 3)
     vers, old = state.versions, torch.as_tensor(old_versions).to(state.versions.device)
     if vers.dim() == 2:
         vers = vers[0]

@@ -86,7 +86,7 @@ def _apply_leaf_writes(
     pool_values: torch.Tensor,  # [S, C, F]
     occupancy: torch.Tensor,  # [S, C] int32
     meta: PoolMeta,
-    gid: torch.Tensor,  # [N] int64 global leaf gids (KEY_MAX = inactive lane)
+    gid: torch.Tensor,  # [N] int64 leaf gids from pool_keys' first row (KEY_MAX = inactive)
     key: torch.Tensor,  # [N] int64
     value: torch.Tensor,  # [N] int64
     prio: torch.Tensor,  # [N] int64, unique among live lanes
@@ -100,7 +100,9 @@ def _apply_leaf_writes(
     This is ``repro.core.write._apply_leaf_writes`` over the whole pool with
     global gids: the reference applies each memory column's gathered batch
     to its shard, and since a gid names one column, one call over all the
-    columns' batches gives each lane the same fate.
+    columns' batches gives each lane the same fate.  A rank of the rank
+    backend passes its own columns' rows and gids counted from their first
+    row.
 
     ``pool_keys``, ``pool_values`` and ``occupancy`` are written **in
     place**, only at the leaves that took a write.  Returns ``(pool_keys,
@@ -296,6 +298,9 @@ def drain_splits(state, meta: PoolMeta, cfg, host, shed_keys, shed_values, bound
     pool is allocated, so the two never coexist (tensors the caller shares
     with it, such as the pool it gave ``init_state``, go with it).  With no
     shed lanes this is a no-op that returns the same objects."""
+    from repro_torch.core import mesh
+
+    mesh.refuse_on_ranks("drain_splits, the host rebuild of the pool", 4)
     shed_keys = np.asarray(shed_keys)
     shed_values = np.asarray(shed_values)
     if shed_keys.size == 0:

@@ -343,6 +343,10 @@ def snapshot(state_or_stats) -> Snapshot:
     ``[Dev, N_STATS]`` array or tensor.  Device transfer happens here — call
     once per batch, after the fence.
     """
+    from repro_torch.core import mesh
+
+    # a rank's stats hold its own devices only
+    mesh.refuse_on_ranks("a telemetry snapshot", 5)
     stats = getattr(state_or_stats, "stats", state_or_stats)
     arr = _to_host(stats)
     per_device = {m.name: arr[:, m.slot] for m in MESH_SLOTS}

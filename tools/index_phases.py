@@ -3,7 +3,7 @@
 the 200M-key index, without the rest of the script: a quicker check of a
 change to those phases.
 
-    python3 tools/index_phases.py [--phases route_axes,telemetry,drain]
+    python3 tools/index_phases.py [--phases route_axes,telemetry,drain,ranks]
                                   [--cpu-vs-cuda] [--n-keys N] [--seed S]
 
 Prints the card's name and power limit, builds the kernels
@@ -11,7 +11,9 @@ Prints the card's name and power limit, builds the kernels
 optionally runs phase 4 (``phase_cpu_vs_cuda``), then the named phases in
 order on one host oracle of the load, with the successor table of a fresh
 state (no phase before them split a leaf).  ``drain`` must come last: it
-rebuilds the pool.  Any failure exits non-zero.  The numbers to keep come
+rebuilds the pool.  ``ranks`` (``phase_ranks``, the index mesh over ranks)
+builds an index of its own; named alone, no shared index is built.  Any
+failure exits non-zero.  The numbers to keep come
 from ``chip_smoke.py`` itself, where earlier phases have written the index."""
 
 from __future__ import annotations
@@ -50,6 +52,12 @@ def main(argv=None):
         t0 = time.perf_counter()
         cs.phase_cpu_vs_cuda(args.seed)
         print(f"cpu-vs-cuda: {time.perf_counter() - t0:.1f} s")
+    names = args.phases.split(",")
+    if names == ["ranks"]:
+        t0 = time.perf_counter()
+        cs.phase_ranks(args)
+        print(f"phase ranks: {time.perf_counter() - t0:.1f} s")
+        return 0
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     keys, pool, meta = cs.make_index(args.n_keys, args.seed, dev)
@@ -61,9 +69,12 @@ def main(argv=None):
     fresh = dex.init_state(pool, meta, cs.mesh_config("fetch", 64), bounds, device=dev)
     carried = (fresh.succ, fresh.n_alloc)
     del fresh
-    for name in args.phases.split(","):
+    for name in names:
         t0 = time.perf_counter()
-        getattr(cs, f"phase_{name}")(args, keys, pool, meta, oracle, bounds, carried)
+        if name == "ranks":
+            cs.phase_ranks(args)
+        else:
+            getattr(cs, f"phase_{name}")(args, keys, pool, meta, oracle, bounds, carried)
         torch.cuda.empty_cache()
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     return 0
