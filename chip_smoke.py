@@ -3701,35 +3701,57 @@ def phase_drain(args, keys, pool, meta, oracle, bounds, carried):
 #: the phase's world: the 2x4 mesh's 8 devices over 4 ranks, 2 a rank
 RANK_WORLD = 4
 #: (workload, batches, the engine's ops) run in order on one state; one
-#: batch each keeps the phase near 40 s (every world's ranks take about 10
-#: s to start and a gloo batch 0.6-2.2 s)
+#: batch each keeps the phase short (every world's ranks take about 10 s
+#: to start and a gloo batch 0.5-2.3 s)
 RANK_RUNS = (
     ("read-only", 1, ("lookup",)),
     ("ycsb-a", 1, ("lookup", "update")),
     ("ycsb-e", 1, ("insert", "scan")),
 )
-#: the kernels every rank must launch
+#: the pipelined YCSB-A step's pushes (then the drain)
+RANK_PIPE_PUSHES = 3
+#: the YCSB-C batches under ``fetch`` and the divergent policy
+RANK_DIV_BATCHES = 2
+#: the kernels every rank of a 2x4 world must launch
 RANK_KERNELS = ("node_search", "subtree_walk", "leaf_write", "leaf_scan", "leaf_split")
+#: the kernels every rank of the 2x2x2 world's YCSB-A batch must launch
+RANK_AXES_KERNELS = ("node_search", "subtree_walk", "leaf_write")
 RANK_RESULTS = ("found", "values", "status", "shed", "scan_keys", "scan_values", "taken")
 
 
-def rank_batches(host_keys, seed, batch):
-    """``[(workload, opcodes, keys, values)]`` of ``RANK_RUNS``: YCSB-C, A
-    and E (scans of uniform length 1-100) over ``host_keys``, each write a
-    value no earlier write of the key has had."""
+def rank_lanes_of(workload, n, host_keys, seed, batch, w_i):
+    """``n`` batches of ``workload`` over ``host_keys``, ``(opcodes, keys,
+    values)`` each ``[n, batch]``, each write a value no earlier write of
+    the key has had (``w_i`` numbers the run)."""
     from repro_torch.core import engine
     from repro_torch.data import ycsb
 
+    kw = dict(scan_len=SCAN_MAX_COUNT, scan_len_dist="uniform") if workload == "ycsb-e" else {}
+    wl = ycsb.generate(workload, host_keys, batch * n, seed=seed + 41 + w_i, **kw)
+    out = []
+    for i in range(n):
+        opc, kk, vals = ycsb.engine_lanes(wl, i * batch, (i + 1) * batch)
+        stamp = (((w_i + 1) << 8) + i << 20) + np.arange(batch)
+        vals = np.where(opc == engine.OP_SCAN, vals, kk ^ VALUE_XOR ^ stamp)
+        out.append((opc, kk, vals))
+    return tuple(np.stack(planes) for planes in zip(*out))
+
+
+def rank_batches(host_keys, seed, batch):
+    """``[(step, opcodes, keys, values)]``: the batches of ``RANK_RUNS``
+    (YCSB-C, A and E, scans of uniform length 1-100), one step each, then
+    ``"ycsb-a-pipe"`` (``RANK_PIPE_PUSHES`` YCSB-A batches through the
+    pipeline) and ``"ycsb-c-divergent"`` (``RANK_DIV_BATCHES`` YCSB-C
+    batches under the divergent policy), their planes ``[n, batch]``."""
     out = []
     for w_i, (workload, n, _) in enumerate(RANK_RUNS):
-        kw = dict(scan_len=SCAN_MAX_COUNT, scan_len_dist="uniform") if workload == "ycsb-e" else {}
-        wl = ycsb.generate(workload, host_keys, batch * n, seed=seed + 41 + w_i, **kw)
-        for i in range(n):
-            opc, kk, vals = ycsb.engine_lanes(wl, i * batch, (i + 1) * batch)
-            stamp = (((w_i + 1) << 8) + i << 20) + np.arange(batch)
-            vals = np.where(opc == engine.OP_SCAN, vals, kk ^ VALUE_XOR ^ stamp)
-            out.append((workload, opc, kk, vals))
-    return out
+        opc, kk, vals = rank_lanes_of(workload, n, host_keys, seed, batch, w_i)
+        out += [(workload, opc[i], kk[i], vals[i]) for i in range(n)]
+    return out + [
+        ("ycsb-a-pipe", *rank_lanes_of("ycsb-a", RANK_PIPE_PUSHES, host_keys, seed, batch, 3)),
+        ("ycsb-c-divergent",
+         *rank_lanes_of("read-only", RANK_DIV_BATCHES, host_keys, seed, batch, 4)),
+    ]
 
 
 def rank_burst(rng, pool, meta, n_leaves):
@@ -3751,10 +3773,10 @@ def rank_burst(rng, pool, meta, n_leaves):
 
 
 def rank_spec(host_keys, seed, batch, burst):
-    """The phase's steps, ``[(name, opcodes, keys, values)]``: the batches
-    of ``RANK_RUNS``, then the split burst (``"split-burst"``: its keys and
-    values, inserted and settled by SMO rounds), then a ``"read-back"``
-    lookup batch of the burst's keys."""
+    """The phase's steps on the 2x4 mesh, ``[(name, opcodes, keys,
+    values)]``: :func:`rank_batches`, then the split burst
+    (``"split-burst"``: its keys and values, inserted and settled by SMO
+    rounds), then a ``"read-back"`` lookup batch of the burst's keys."""
     from repro_torch.core import engine
 
     kk, vv = burst
@@ -3765,24 +3787,45 @@ def rank_spec(host_keys, seed, batch, burst):
     ]
 
 
+def rank_engine(name, meta, cfg, dev):
+    """The engine of a step of :func:`rank_spec`: its workload's (the
+    read-back: the lookup engine's), the YCSB-A pipeline, or the lookup
+    engine under ``fetch`` and ``divergent_policy(peek_budget=
+    FLEET_PEEK_BUDGET)``."""
+    import dataclasses
+
+    from repro_torch.core import engine, fleet_cache
+
+    if name == "ycsb-a-pipe":
+        return engine.make_dex_engine(meta, cfg, ops=("lookup", "update"), max_count=1,
+                                      pipeline=True, device=dev)
+    if name == "ycsb-c-divergent":
+        fcfg = dataclasses.replace(cfg, policy="fetch")
+        policy = fleet_cache.divergent_policy(fcfg, peek_budget=FLEET_PEEK_BUDGET)
+        return engine.make_dex_engine(meta, fcfg, ops=("lookup",), max_count=1,
+                                      cache_policy=policy, device=dev)
+    ops_ = dict((w, o) for w, _, o in RANK_RUNS)["read-only" if name == "read-back" else name]
+    return engine.make_dex_engine(meta, cfg, ops=ops_, max_count=SCAN_MAX_COUNT, device=dev)
+
+
 def run_rank_steps(meta, cfg, state, spec, lanes, dev):
-    """The phase's steps (:func:`rank_spec`) on this process's share of the
-    mesh: each batch through its workload's engine (the read-back through
-    the lookup engine), the split burst through the insert engine and
+    """The steps of ``spec`` (:func:`rank_spec`'s layout) on this process's
+    share of the mesh: each batch through its engine, a pipelined step's
+    batches pushed in order and drained, the divergent step's batches one
+    after another, the split burst through the insert engine and
     ``run_smo``.  ``lanes`` cuts a batch to this process's lanes.  Returns
-    ``(state, steps)``: each step's results (an ``EngineResult``; for the
-    burst the insert's and the rounds' statuses), its collective counts and
-    ms (host clock around a synchronised call)."""
+    ``(state, steps)``: each step's results (an ``EngineResult``; a list of
+    them for a step of several batches; for the burst the insert's and the
+    rounds' statuses), its collective counts (by phase), the fleet's
+    counters after it (``registry.snapshot``, over every rank on ranks) and
+    its ms (host clock around a synchronised step)."""
     import torch
 
-    from repro_torch.core import engine, mesh, smo, write
+    from repro_torch.core import mesh, smo, write
     from repro_torch.core.nodes import KEY_MAX
+    from repro_torch.obs import registry
 
-    engines = {
-        w: engine.make_dex_engine(meta, cfg, ops=o, max_count=SCAN_MAX_COUNT, device=dev)
-        for w, _, o in RANK_RUNS
-    }
-    engines["read-back"] = engines["read-only"]
+    engines = {}
     insert = write.make_dex_insert(meta, cfg, device=dev)
     smo_round = smo.make_dex_smo(meta, cfg, device=dev)
 
@@ -3790,9 +3833,14 @@ def run_rank_steps(meta, cfg, state, spec, lanes, dev):
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
+    def batch(*planes):
+        return [torch.from_numpy(lanes(a)).to(dev) for a in planes]
+
     steps = []
     for name, opc, kk, vals in spec:
         step = dict(name=name)
+        if name != "split-burst" and name not in engines:
+            engines[name] = rank_engine(name, meta, cfg, dev)
         mesh.reset_counts()
         sync()
         t0 = time.perf_counter()
@@ -3804,14 +3852,36 @@ def run_rank_steps(meta, cfg, state, spec, lanes, dev):
                 smo_round, state, np.where(split, kk, KEY_MAX), vals
             )
             r = (st, torch.from_numpy(sst).to(dev))
+        elif name == "ycsb-a-pipe":
+            pipe = engines[name].start(state)
+            r = [pipe.push(*batch(opc[j], kk[j], vals[j])) for j in range(len(kk))][1:]
+            r.append(pipe.drain())
+            state = pipe.state
+        elif name == "ycsb-c-divergent":
+            r = []
+            for j in range(len(kk)):
+                state, rj = engines[name](state, *batch(opc[j], kk[j], vals[j]))
+                r.append(rj)
         else:
-            inputs = [torch.from_numpy(lanes(a)).to(dev) for a in (opc, kk, vals)]
-            state, r = engines[name](state, *inputs)
+            state, r = engines[name](state, *batch(opc, kk, vals))
         sync()
-        step.update(result=r, counts=mesh.collective_counts(),
-                    ms=(time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        step.update(result=r, counts=mesh.collective_counts(by_phase=True), ms=ms)
+        snap = registry.snapshot(state)
+        step["snapshot"] = dict(fleet=snap.fleet, per_device=snap.per_device)
         steps.append(step)
     return state, steps
+
+
+def rank_fields(step):
+    """``[(field, tensor)]``: a step's lanes, each batch's of a step of
+    several."""
+    r = step["result"]
+    if step["name"] == "split-burst":
+        return list(zip(("insert_status", "smo_status"), r))
+    rs = r if isinstance(r, list) else [r]
+    return [(f"{j}.{f}", getattr(x, f)) for j, x in enumerate(rs) for f in RANK_RESULTS
+            if getattr(x, f) is not None]
 
 
 def state_planes(state):
@@ -3828,10 +3898,11 @@ def state_planes(state):
 def ranks_worker(rm, pool, meta, cfg, bounds, spec, virt_steps, virt_state):
     """One rank of the ``ranks`` phase: its share of the state from the
     parent's pool (shared through CUDA IPC; the rank copies its own share,
-    ``dex.shard_pool``), the phase's steps on its lanes, its lanes held to
-    the virtual mesh's, bit for bit, and at the end its every plane to the
-    same rows of the virtual mesh's planes (``dex.shard_state``: views, no
-    copy).  Returns what the parent prints and checks."""
+    ``dex.shard_pool``), the steps on its lanes, its lanes, collective
+    counts and fleet snapshots held to the virtual mesh's, bit for bit, and
+    at the end its every plane to the same rows of the virtual mesh's
+    planes (``dex.shard_state``: views, no copy).  Returns what the parent
+    prints and checks."""
     import torch
 
     from repro_torch.core import dex, mesh
@@ -3864,16 +3935,17 @@ def ranks_worker(rm, pool, meta, cfg, bounds, spec, virt_steps, virt_state):
     launches = dict(ops.LAUNCHES)
     differ = []
     for mine, want in zip(steps, virt_steps):
-        if mine["name"] == "split-burst":
-            pairs = zip(("insert_status", "smo_status"), mine["result"], want["result"])
-        else:
-            pairs = ((f, getattr(mine["result"], f), getattr(want["result"], f))
-                     for f in RANK_RESULTS if getattr(mine["result"], f) is not None)
-        for f, a, b in pairs:
+        for (f, a), (_, b) in zip(rank_fields(mine), rank_fields(want)):
             if not torch.equal(a, lanes(b).to(dev)):
                 differ.append(f"{mine['name']} {f}")
         if mine["counts"] != want["counts"]:
             differ.append(f"{mine['name']} counts {mine['counts']} != {want['counts']}")
+        ms, ws = mine["snapshot"], want["snapshot"]
+        bad = [k for k, v in ms["per_device"].items()
+               if not np.array_equal(v, ws["per_device"][k]) or ms["fleet"][k] != ws["fleet"][k]]
+        if bad:
+            differ.append(f"{mine['name']} snapshot {bad} {[ms['fleet'][k] for k in bad]} "
+                          f"!= {[ws['fleet'][k] for k in bad]}")
     # every plane against the same rows of the virtual mesh's: the shards of
     # all ranks cover every plane, each column's replicas included
     want = state_planes(dex.shard_state(virt_state, cfg, rm))
@@ -3881,6 +3953,7 @@ def ranks_worker(rm, pool, meta, cfg, bounds, spec, virt_steps, virt_state):
     for k, t in mine.items():
         if not torch.equal(t, want[k].to(dev)):
             differ.append(f"plane {k}")
+    names = [s["name"] for s in steps]
     return dict(
         rank=rm.rank, backend=rm.backend,
         card=torch.cuda.get_device_name(dev) if cuda else "cpu",
@@ -3888,10 +3961,113 @@ def ranks_worker(rm, pool, meta, cfg, bounds, spec, virt_steps, virt_state):
         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None,
         pool_bytes=pool_bytes, state_bytes=state_bytes,
         columns=[c0, n_cols], devices=list(rm.block(cfg)),
-        ms=[round(s["ms"], 3) for s in steps], names=[s["name"] for s in steps],
+        ms=[round(s["ms"], 3) for s in steps], names=names,
         counts=[s["counts"] for s in steps], run_s=run_s, launches=launches,
-        rounds=steps[-2]["rounds"], differ=differ, planes=len(mine),
+        rounds=steps[names.index("split-burst")]["rounds"] if "split-burst" in names else None,
+        differ=differ, planes=len(mine),
     )
+
+
+def run_rank_world(backend, p, tag, pool, meta, cfg, bounds, spec, vsteps, vstate, need,
+                   n_cards):
+    """One world of ``phase_ranks``: ``p`` ranks over ``backend`` run
+    ``spec`` from the shared ``pool``; every rank must equal the virtual
+    mesh's ``vsteps`` and ``vstate`` and launch each kernel of ``need``.
+    Returns ``(report, launches summed over the ranks)``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cuda = torch.cuda.is_available()
+    how = ("one rank a card" if backend == "nccl" and p > 1 else
+           "all 8 virtual devices on one rank" if p == 1 else
+           f"{p} ranks on {max(n_cards, 1)} card(s), CUDA tensors staged "
+           "through pinned host memory" if cuda else f"{p} ranks on the CPU")
+    print(f"main ranks {tag}: backend {backend}, world {p}: {how}")
+    payload = [dict(name=s["name"], result=s["result"], counts=s["counts"],
+                    snapshot=s["snapshot"]) for s in vsteps]
+    # the batches go to the ranks as tensors, through shared memory: a large
+    # pickled argument would be written down each rank's start-up pipe
+    # while the rank imports, and the ranks would start one after another
+    shared_spec = [
+        (n, None if o is None else torch.from_numpy(o), torch.from_numpy(k),
+         torch.from_numpy(v))
+        for n, o, k, v in spec
+    ]
+    init = tempfile.mkdtemp(prefix=f"dex_ranks_{tag}_")
+    t0 = time.perf_counter()
+    try:
+        res = spawn_ranks(ranks_worker, p, backend, pool, meta, cfg, bounds,
+                          shared_spec, payload, vstate, init=init)
+    finally:
+        shutil.rmtree(init, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for r in res:
+        print(f"main ranks {tag} rank {r['rank']}: card {r['card']} "
+              f"(index {r['card_index']}), peak {r['peak_gib']} GiB, pool shard "
+              f"{r['pool_bytes']} bytes (columns {r['columns']}), state "
+              f"{r['state_bytes']} bytes (devices {r['devices']}), ms per step "
+              f"{r['ms']}, steps {r['run_s']:.2f} s, SMO rounds {r['rounds']}, "
+              f"{r['planes']} planes held, launches {r['launches']}")
+        if r["differ"]:
+            fail(f"ranks {tag} rank {r['rank']} differs from the virtual "
+                 f"mesh: {r['differ'][:8]}")
+        # (a rehearsal on the CPU counts no launch: the plain versions run)
+        missing = [k for k in need if r["launches"][k] <= 0]
+        if missing and cuda:
+            fail(f"ranks {tag} rank {r['rank']} launched no {missing}")
+        for k, v in r["launches"].items():
+            launches[k] += v
+    print(f"main ranks {tag}: every lane, plane, count and snapshot equals the "
+          f"virtual mesh's ({seconds:.1f} s with the ranks' start)")
+    report = dict(seconds=seconds, steps=res[0]["names"], ranks=[{k: r[k] for k in (
+        "rank", "card", "peak_gib", "pool_bytes", "state_bytes", "ms", "run_s")}
+        for r in res])
+    return report, launches
+
+
+def run_rank_virtual(tag, meta, cfg, pool, bounds, spec, oracle, dev):
+    """The steps of ``spec`` on the virtual mesh over ``pool`` (the engine
+    writes it: pass a copy), every lane held to ``oracle``; the divergent
+    step must peek.  Returns ``(state, steps)``."""
+    from repro_torch.core import dex, write
+    from repro_torch.kernels import ops
+
+    vstate = dex.init_state(pool, meta, cfg, bounds, device=dev)
+    ops.reset_launches()
+    vstate, vsteps = run_rank_steps(meta, cfg, vstate, spec, lambda a: a, dev)
+    launches = dict(ops.LAUNCHES)
+    prev = None
+    for (name, opc, kk, vals), step in zip(spec, vsteps):
+        if name == "split-burst":
+            st, sst = (t.cpu().numpy() for t in step["result"])
+            if not ((st == write.STATUS_OK) | (sst == write.STATUS_OK)).all():
+                fail(f"ranks {tag}: a split-burst lane was not settled on the virtual mesh")
+            oracle.apply(kk, vals)
+        elif isinstance(step["result"], list):
+            for j, r in enumerate(step["result"]):
+                oracle.check(f"ranks {tag} virtual {name} {j}", opc[j], kk[j], vals[j], r,
+                             SCAN_MAX_COUNT)
+        else:
+            oracle.check(f"ranks {tag} virtual {name}", opc, kk, vals, step["result"],
+                         SCAN_MAX_COUNT)
+        fleet = step["snapshot"]["fleet"]
+        if name == "ycsb-c-divergent":
+            step["peeks"] = {k: fleet[k] - prev[k] for k in ("peer_hits", "peer_misses")}
+            if not sum(step["peeks"].values()):
+                fail(f"ranks {tag}: the divergent policy's YCSB-C batches peeked nothing")
+        prev = fleet
+    print(f"main ranks {tag}: virtual mesh on one process, ms per step "
+          f"{[round(s['ms'], 3) for s in vsteps]} ({[s['name'] for s in vsteps]}), "
+          f"collective counts {[s['counts'] for s in vsteps]}, "
+          f"peeks {[s.get('peeks') for s in vsteps if 'peeks' in s]}, launches "
+          f"{launches}; every lane equals the host oracle")
+    return vstate, vsteps
 
 
 def phase_ranks(args, dev=None, world=RANK_WORLD, batch=BATCH, cache_sets=65_536):
@@ -3901,25 +4077,23 @@ def phase_ranks(args, dev=None, world=RANK_WORLD, batch=BATCH, cache_sets=65_536
     the pool rows of its 2 memory columns only.  The pool is built once
     here and shared with the ranks through CUDA IPC; each copies its own
     columns' rows.  The steps (:func:`rank_spec`: YCSB-C, A and E batches,
+    YCSB-A through the pipeline, a YCSB-C pair under the divergent policy,
     a split burst settled by SMO rounds, a read-back of its keys) run first
     on the virtual mesh on a copy of the pool, its lanes held to the host
     oracle, then on the ranks: with ``world`` cards or more, one rank a
     card over NCCL; with fewer, the ranks share the cards over gloo with
     CUDA tensors staged through pinned host memory, and a one-rank NCCL
-    world holding all 8 virtual devices follows.  Every rank's lanes and
-    planes must equal the virtual mesh's bit for bit, its collective counts
-    the virtual mesh's, and every rank must launch each of
-    ``RANK_KERNELS``."""
-    import shutil
-    import tempfile
-
+    world holding all 8 virtual devices follows.  Then one YCSB-A batch on
+    the 2x2x2 mesh (``axes_config``: one route row of both columns a rank)
+    over ``world`` gloo ranks, from the same pool shared the same way.
+    Every rank's lanes, planes and fleet snapshots must equal the virtual
+    mesh's bit for bit, its collective counts (by phase) the virtual
+    mesh's, and every rank must launch each of ``RANK_KERNELS``
+    (``RANK_AXES_KERNELS`` on the 2x2x2 mesh)."""
     import torch
 
-    from repro_torch.core import dex, write
     from repro_torch.core.nodes import KEY_MAX, KEY_MIN
     from repro_torch.core.pool import SubtreePool
-    from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import spawn_ranks
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda") if dev is None else torch.device(dev)
@@ -3936,80 +4110,49 @@ def phase_ranks(args, dev=None, world=RANK_WORLD, batch=BATCH, cache_sets=65_536
     build_s = time.perf_counter() - t_phase
 
     # the virtual mesh, on a copy of the pool (the engine writes it in place)
-    vstate = dex.init_state(SubtreePool(*(t.clone() for t in pool)), meta, cfg, bounds,
-                            device=dev)
-    ops.reset_launches()
-    vstate, vsteps = run_rank_steps(meta, cfg, vstate, spec, lambda a: a, dev)
-    virt_launches = dict(ops.LAUNCHES)
-    oracle = HostOracle(host_keys)
-    for (name, opc, kk, vals), step in zip(spec, vsteps):
-        if name == "split-burst":
-            st, sst = (t.cpu().numpy() for t in step["result"])
-            if not ((st == write.STATUS_OK) | (sst == write.STATUS_OK)).all():
-                fail("ranks: a split-burst lane was not settled on the virtual mesh")
-            oracle.apply(kk, vals)
-        else:
-            oracle.check(f"ranks virtual {name}", opc, kk, vals, step["result"],
-                         SCAN_MAX_COUNT)
-    virt_ms = [round(s["ms"], 3) for s in vsteps]
-    print(f"main ranks: virtual mesh on one process, ms per step {virt_ms} "
-          f"({[s['name'] for s in vsteps]}), SMO rounds {vsteps[-2]['rounds']}, "
-          f"launches {virt_launches}; every lane equals the host oracle")
-    payload = [dict(name=s["name"], result=s["result"], counts=s["counts"]) for s in vsteps]
-    # the batches go to the ranks as tensors, through shared memory: a large
-    # pickled argument would be written down each rank's start-up pipe
-    # while the rank imports, and the ranks would start one after another
-    shared_spec = [
-        (n, None if o is None else torch.from_numpy(o), torch.from_numpy(k),
-         torch.from_numpy(v))
-        for n, o, k, v in spec
-    ]
-
+    vstate, vsteps = run_rank_virtual(
+        "2x4", meta, cfg, SubtreePool(*(t.clone() for t in pool)), bounds, spec,
+        HostOracle(host_keys), dev)
     n_cards = torch.cuda.device_count() if cuda else 0
     if n_cards >= world:
         worlds = [("nccl", world)]
     else:
         worlds = [("gloo", world)] + ([("nccl", 1)] if cuda else [])
-    report = dict(n_keys=int(host_keys.size), build_s=build_s, virtual_ms=virt_ms,
-                  steps=[s["name"] for s in vsteps], worlds={})
-    launches = {k: 0 for k in ops.LAUNCHES}
+    report = dict(n_keys=int(host_keys.size), build_s=build_s,
+                  virtual_ms=[round(s["ms"], 3) for s in vsteps],
+                  steps=[s["name"] for s in vsteps],
+                  peeks=[s["peeks"] for s in vsteps if "peeks" in s], worlds={})
+    launches = {}
     for backend, p in worlds:
-        how = ("one rank a card" if backend == "nccl" and p > 1 else
-               "all 8 virtual devices on one rank" if p == 1 else
-               f"{p} ranks on {max(n_cards, 1)} card(s), CUDA tensors staged "
-               "through pinned host memory" if cuda else f"{p} ranks on the CPU")
-        print(f"main ranks: backend {backend}, world {p}: {how}")
-        init = tempfile.mkdtemp(prefix=f"dex_ranks_{backend}{p}_")
-        t0 = time.perf_counter()
-        try:
-            res = spawn_ranks(ranks_worker, p, backend, pool, meta, cfg, bounds,
-                              shared_spec, payload, vstate, init=init)
-        finally:
-            shutil.rmtree(init, ignore_errors=True)
-        seconds = time.perf_counter() - t0
-        for r in res:
-            print(f"main ranks {backend}{p} rank {r['rank']}: card {r['card']} "
-                  f"(index {r['card_index']}), peak {r['peak_gib']} GiB, pool shard "
-                  f"{r['pool_bytes']} bytes (columns {r['columns']}), state "
-                  f"{r['state_bytes']} bytes (devices {r['devices']}), ms per step "
-                  f"{r['ms']}, steps {r['run_s']:.2f} s, SMO rounds {r['rounds']}, "
-                  f"{r['planes']} planes held, launches {r['launches']}")
-            if r["differ"]:
-                fail(f"ranks {backend}{p} rank {r['rank']} differs from the virtual "
-                     f"mesh: {r['differ'][:8]}")
-            # (a rehearsal on the CPU counts no launch: the plain versions run)
-            missing = [k for k in RANK_KERNELS if r["launches"][k] <= 0]
-            if missing and cuda:
-                fail(f"ranks {backend}{p} rank {r['rank']} launched no {missing}")
-            for k, v in r["launches"].items():
-                launches[k] += v
-        report["worlds"][f"{backend}{p}"] = dict(
-            seconds=seconds, ranks=[{k: r[k] for k in (
-                "rank", "card", "peak_gib", "pool_bytes", "state_bytes", "ms", "run_s")}
-                for r in res])
-        print(f"main ranks {backend}{p}: every lane, plane and count equals the "
-              f"virtual mesh's ({seconds:.1f} s with the ranks' start)")
-    del vstate, vsteps, payload, pool
+        tag = f"{backend}{p}"
+        report["worlds"][tag], got = run_rank_world(
+            backend, p, tag, pool, meta, cfg, bounds, spec, vsteps, vstate, RANK_KERNELS,
+            n_cards)
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    del vstate, vsteps
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the 2x2x2 mesh: one YCSB-A batch from the same (untouched) pool; the
+    # virtual mesh's copy shares the children plane, which no update writes
+    cfg2 = axes_config("auto", cache_sets)
+    bounds4 = quarter_bounds(host_keys)
+    opc, kk, vals = rank_lanes_of("ycsb-a", 1, host_keys, args.seed, batch, 5)
+    spec2 = [("ycsb-a", opc[0], kk[0], vals[0])]
+    twin = pool._replace(pool_keys=pool.pool_keys.clone(),
+                         pool_values=pool.pool_values.clone())
+    vstate, vsteps = run_rank_virtual("2x2x2", meta, cfg2, twin, bounds4, spec2,
+                                      HostOracle(host_keys), dev)
+    del twin
+    if cuda:
+        torch.cuda.empty_cache()
+    tag = "gloo4-2x2x2" if n_cards < world else f"nccl{world}-2x2x2"
+    report["worlds"][tag], got = run_rank_world(
+        "gloo" if n_cards < world else "nccl", world, tag, pool, meta, cfg2, bounds4,
+        spec2, vsteps, vstate, RANK_AXES_KERNELS, n_cards)
+    launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    report["virtual_2x2x2_ms"] = [round(s["ms"], 3) for s in vsteps]
+    del vstate, vsteps, pool
     if cuda:
         torch.cuda.ipc_collect()
         torch.cuda.empty_cache()

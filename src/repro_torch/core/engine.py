@@ -73,12 +73,19 @@ One or two route axes (``cfg.route_axes``, their sizes ``cfg.route_sizes``)
 run the same program: a route exchange over two axes counts the reference's
 two ``all_to_all`` (``routing.route_exchange``).
 
-On the rank backend (``core/mesh.py``) the synchronous engine runs the same
-program on a rank's block of devices and its share of the state
-(``dex.shard_state``): it takes the rank's own lanes, indexes the pool rows
-of its own columns, and each rank applies its columns' gathered writes to
-its copy of their shard.  The pipeline, two route axes, the route table and
-a divergent or peeking cache policy raise ``NotImplementedError`` there.
+On the rank backend (``core/mesh.py``) the engine, synchronous or
+pipelined, runs the same program on a rank's block of devices and its share
+of the state (``dex.shard_state``): it takes the rank's own lanes (a
+pipeline's pushes and its drain too), indexes the pool rows of its own
+columns, and each rank applies its columns' gathered writes to its copy of
+their shard.  A cache policy is read at the rank's rows of its planes; a
+``MSG_PEEK`` lane crosses ranks inside the fused round's exchange and is
+answered by the receiving device from its own cache and versions.  The
+pipeline's stale check reads the versions of the rank's devices, which
+every write round joins over the ranks (``mesh.pmax``), and counts its
+collectives by phase as the virtual mesh does.  One or two route axes run
+there alike.  The leaf-direct route table raises ``NotImplementedError``
+there.
 """
 
 from __future__ import annotations
@@ -151,7 +158,8 @@ MSG_OFF_INSERT = 5  # offloaded insert: the owner walks, then merges
 MSG_PEEK = 6  # peer peek: the owner answers from its cache, else walks
 REQ_FIELDS = 6  # (tag, gid, subtree, key, value, prio)
 # (status, value, gid, leaf-took-inserts flag, which is the peer-cache-hit
-# bit of a MSG_PEEK lane) ahead of the value row
+# bit of a MSG_PEEK lane) ahead of the value row (and, with updates, the
+# keys row)
 RESP_HEAD = 4
 
 
@@ -211,6 +219,7 @@ class Fused(NamedTuple):
     peek: torch.Tensor  # the lane was sent as MSG_PEEK
     gid: Optional[torch.Tensor] = None  # the leaf the owner wrote (or KEY_MAX)
     row_v: Optional[torch.Tensor] = None  # [Dev, Q, F] post-batch value row
+    row_k: Optional[torch.Tensor] = None  # [Dev, Q, F] post-batch keys row (updates)
 
 
 def fma32(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -254,8 +263,9 @@ class EnginePipeline:
     ``push(opcodes, keys, values)`` runs one step: the new batch's front
     half, then the previous batch's back half, and returns the **previous**
     batch's :class:`EngineResult` (``None`` on the priming push).
-    ``drain()`` pushes an inactive batch to flush the last back half and
-    returns its result.  Every pushed batch of a run has one width.
+    ``drain()`` pushes an inactive batch, built on the engine's ``device``,
+    to flush the last back half and returns its result.  Every pushed batch
+    of a run has one width (on ranks: the rank's own lanes).
     ``step_fn(state, carry, opcodes, keys, values) -> (state, carry,
     result)`` and ``init_carry(b)`` (the all-inactive prologue carry) are
     exposed so a caller can count the collectives of one step by phase;
@@ -264,10 +274,11 @@ class EnginePipeline:
     synchronous engine; results are fresh tensors that later pushes leave
     alone."""
 
-    def __init__(self, step, init_carry, plan):
+    def __init__(self, step, init_carry, plan, device):
         self.step_fn = step
         self.init_carry = init_carry
         self.plan = plan
+        self.device = device
         self._state = None
         self._carry = None
         self._width = None
@@ -310,13 +321,13 @@ class EnginePipeline:
         """Flush the batch in flight; the next push primes again."""
         if self._state is None or not self._primed:
             return None
-        b = self._width
+        b, dev = self._width, self.device
         self._state, _, result = self.step_fn(
             self._state,
             self._carry,
-            torch.zeros((b,), dtype=torch.int32),
-            torch.full((b,), KEY_MAX, dtype=torch.int64),
-            torch.zeros((b,), dtype=torch.int64),
+            torch.zeros((b,), dtype=torch.int32, device=dev),
+            torch.full((b,), KEY_MAX, dtype=torch.int64, device=dev),
+            torch.zeros((b,), dtype=torch.int64, device=dev),
         )
         self._carry = None
         self._primed = False
@@ -375,17 +386,8 @@ def make_dex_engine(
         raise ValueError(f"unknown policy {cfg.policy!r}")
     device = mesh.resolve_device(device)
     rank_mesh = mesh.current()
-    if rank_mesh is not None:
-        if pipeline:
-            mesh.refuse_on_ranks("the pipelined engine", 1)
-        if not fleet_cache.is_uniform(cache_policy) or fleet_cache.peeks_enabled(
-            cache_policy
-        ):
-            mesh.refuse_on_ranks("a divergent or peeking cache policy", 1)
-        if len(cfg.route_axes) > 1:
-            mesh.refuse_on_ranks("two route axes", 2)
-        if cfg.route_table_slots > 0:
-            mesh.refuse_on_ranks("the leaf-direct route table", 3)
+    if cfg.route_table_slots > 0:
+        mesh.refuse_on_ranks("the leaf-direct route table", 3)
 
     has_lookup = "lookup" in ops
     has_update = "update" in ops
@@ -442,7 +444,7 @@ def make_dex_engine(
     first = (dev_index == 0).long()
     my_col = mesh.memory_linear_index(cfg, device)[:, None]
     peek_budget = (
-        fleet_cache.device_peek_budget(cache_policy, device) if may_peek else None
+        fleet_cache.device_peek_budget(cache_policy, cfg, device) if may_peek else None
     )
     plan = {
         "route_rounds": 1,
@@ -986,18 +988,24 @@ def make_dex_engine(
             # a peek's flag is its peer hit (peeks are lookups, which the
             # insert path's readers never see)
             ins_in_leaf = torch.where(peekf, peer_hit, ins_in_leaf)
+        rows = [rows_v]
+        if has_update:
+            # the post-batch keys row, which the writer's cached keys must
+            # equal for a refresh of its value row
+            rows.append(pool.pool_keys.view(-1, FANOUT)[
+                torch.where(wgid != KEY_MAX, wgid - gid0, 0)])
         resp = torch.cat(
             [
                 wstat[:, None].long(),
                 resp_val[:, None],
                 wgid[:, None],
                 ins_in_leaf[:, None].long(),
-                rows_v,
+                *rows,
             ],
             -1,
         )
-        del rows_v
-        width = RESP_HEAD + FANOUT
+        del rows_v, rows
+        width = resp.shape[-1]
         # each device answers its own route row
         resp = mesh.route_share(resp.view(n_cols, nr, nm, wcap, width), cfg)
         with _scope("dex/fused_a2a/response"):
@@ -1011,7 +1019,8 @@ def make_dex_engine(
             ins=back[..., 3] != 0,
             peek=tag == MSG_PEEK,
             gid=back[..., 2],
-            row_v=back[..., RESP_HEAD:],
+            row_v=back[..., RESP_HEAD : RESP_HEAD + FANOUT],
+            row_k=back[..., RESP_HEAD + FANOUT :] if has_update else None,
         )
 
     def write_through(state, opc, f: Fused, force_off):
@@ -1044,8 +1053,16 @@ def make_dex_engine(
             # not when the leaf also took inserts: the cached keys would be
             # stale under a current version; the old stamp forces a refetch.
             # Nor for a stale-forced update: the cached keys are a batch
-            # behind the response's value row.
-            u = (chit & (opc == OP_UPDATE) & ~f.ins & ~force_off).nonzero(as_tuple=True)
+            # behind the response's value row.  Nor where the cached keys
+            # differ from the leaf's post-batch keys row: a row that went
+            # stale under an earlier batch's insert (an offloaded update
+            # skips the descent that would have refetched it) would serve
+            # its old keys with the new values under a current stamp
+            # (ROADMAP.md, queue 3, entry 22).
+            same = (cache.keys.view(-1, FANOUT)[slot] == f.row_k).all(-1)
+            u = (chit & same & (opc == OP_UPDATE) & ~f.ins & ~force_off).nonzero(
+                as_tuple=True
+            )
             cache.values.view(-1, FANOUT)[slot[u]] = f.row_v[u]
             cache.ver.view(-1)[slot[u]] = nv[u]
         if has_insert:
@@ -1320,13 +1337,14 @@ def make_dex_engine(
     if not pipeline:
         return engine
 
-    def init_carry(b_global: int):
-        """The all-inactive prologue carry for a batch of ``b_global``
-        lanes: every routed slot holds the KEY_MAX sentinel, so the first
-        step's back half sends, writes and answers nothing."""
-        if b_global % n_dev:
-            raise ValueError(f"batch width {b_global} must divide over {n_dev} devices")
-        b = b_global // n_dev
+    def init_carry(b_lanes: int):
+        """The all-inactive prologue carry for a batch of ``b_lanes`` lanes
+        of this process (on ranks: the rank's own, over its block of
+        devices): every routed slot holds the KEY_MAX sentinel, so the
+        first step's back half sends, writes and answers nothing."""
+        if b_lanes % n_dev:
+            raise ValueError(f"batch width {b_lanes} must divide over {n_dev} devices")
+        b = b_lanes // n_dev
         cap = routing.route_capacity(b, nr, cfg.route_capacity_factor)
         qs = (n_dev, nr * cap)
         i64 = dict(dtype=torch.int64, device=device)
@@ -1387,4 +1405,4 @@ def make_dex_engine(
         stages=("front", "back"),
         overlap_phases=("pipe/front", "pipe/back"),
     )
-    return EnginePipeline(pipe_step, init_carry, pplan)
+    return EnginePipeline(pipe_step, init_carry, pplan, device)

@@ -18,6 +18,9 @@ their set.  :func:`leaf_admit` rolls the §5.4 leaf-admission dice under a
   its own cache, version-checked (:func:`peer_answer`), else by its block
   walk.
 
+A policy is built for the whole mesh; on the rank backend each function
+reads the rows of the rank's block of devices.
+
 :func:`rt_accept` is the fence check of a route-table guess and
 :func:`invalidate_nodes` the version bump of a repartition install.
 
@@ -33,7 +36,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import routing
+from repro_torch.core import mesh, routing
 from repro_torch.core.mesh import resolve_device
 from repro_torch.core.nodes import FANOUT, KEY_MAX
 
@@ -148,21 +151,34 @@ def demand_boost(policy: Optional[CachePolicy], cfg, demand: torch.Tensor,
     return torch.clamp(cfg.n_route * share, lo, hi)
 
 
-def device_peek_budget(policy: CachePolicy, device) -> torch.Tensor:
-    """``[Dev]`` int32 peek budget of each device a batch."""
-    return torch.as_tensor(np.asarray(policy.peek_budget, np.int32)).to(device)
+def _device_rows(plane, cfg) -> np.ndarray:
+    """A policy plane's rows of the devices this process holds: every row
+    on the virtual mesh, the rank's block on ranks.  Whether the policy is
+    uniform or peeks is read off the whole policy, so every rank runs one
+    program."""
+    plane = np.asarray(plane)
+    if mesh.current() is None:
+        return plane
+    return plane[mesh.device_linear_index(cfg, "cpu").numpy()]
+
+
+def device_peek_budget(policy: CachePolicy, cfg, device) -> torch.Tensor:
+    """``[Dev]`` int32 peek budget of each device this process holds a
+    batch."""
+    rows = _device_rows(np.asarray(policy.peek_budget, np.int32), cfg)
+    return torch.as_tensor(rows).to(device)
 
 
 _PHI64 = 0x9E3779B97F4A7C15  # golden-ratio odd constant
 _SIGN = -(2**63)
 
 
-def _salt_offsets(policy: CachePolicy) -> list:
-    """Each device's ``evict_salt * 0x9E3779B97F4A7C15`` wrapped to a
+def _salt_offsets(policy: CachePolicy, cfg) -> list:
+    """Each held device's ``evict_salt * 0x9E3779B97F4A7C15`` wrapped to a
     signed int64, as the reference's int64 product wraps; computed on the
     host in exact integers."""
     out = []
-    for e in np.asarray(policy.evict_salt, np.int64).tolist():
+    for e in _device_rows(np.asarray(policy.evict_salt, np.int64), cfg).tolist():
         w = (int(e) * _PHI64) % 2**64
         out.append(w - 2**64 if w >= 2**63 else w)
     return out
@@ -182,8 +198,8 @@ def wrapping_add(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def leaf_admit(meta, cfg, policy: Optional[CachePolicy], gid: torch.Tensor, salt,
                *, boost: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The leaf-admission dice for ``gid`` [Dev, Q] with the caller's
-    access salt (op counter plus lane); row ``d`` is device ``d``'s, with
-    its demand ``boost[d]``.  Under a uniform policy every device rolls
+    access salt (op counter plus lane); row ``d`` is the ``d``-th held
+    device's (on ranks: of the rank's block), with its demand ``boost[d]``.  Under a uniform policy every device rolls
     ``routing.leaf_admit_dice(gid, p_admit_leaf_pct, salt)``; otherwise
     device ``d`` rolls at
     ``round(p_admit_leaf_pct * admit_bias[d, col] * boost)`` percent (half
@@ -195,12 +211,13 @@ def leaf_admit(meta, cfg, policy: Optional[CachePolicy], gid: torch.Tensor, salt
     device = gid.device
     s_per = meta.n_subtrees_padded // cfg.n_memory
     col = ((gid // meta.subtree_cap) // s_per).clamp(0, cfg.n_memory - 1)
-    bias = torch.as_tensor(np.asarray(policy.admit_bias, np.float32)).to(device)
+    bias = torch.as_tensor(_device_rows(np.asarray(policy.admit_bias, np.float32), cfg))
+    bias = bias.to(device)
     pct = float(np.float32(cfg.p_admit_leaf_pct)) * bias.gather(1, col.long())
     if boost is not None:
         pct = pct * boost[:, None]
     pct_i = torch.clamp(torch.round(pct), 1, 100).to(torch.int32)
-    off = torch.tensor(_salt_offsets(policy), dtype=torch.int64, device=device)
+    off = torch.tensor(_salt_offsets(policy, cfg), dtype=torch.int64, device=device)
     salt = torch.as_tensor(salt, dtype=torch.int64, device=device).expand(gid.shape)
     salt = wrapping_add(salt, off[:, None].expand(gid.shape))
     return routing.leaf_admit_dice(gid, pct_i, salt=salt)

@@ -22,6 +22,11 @@ that axis:
   rank a card; ``"gloo"`` carries CPU tensors, or CUDA tensors staged
   through pinned host buffers where ranks share a card.  ``bool`` planes
   travel as ``uint8``; ``int64``, ``int32`` and ``float32`` as they are.
+  Every per-batch path of the engine runs there: the synchronous and the
+  pipelined engine, scans, writes, the SMO round, a divergent or peeking
+  cache policy, one route axis or two; so do the telemetry plane's reads
+  of the fleet's counters (:func:`gather_devices`).  What is left to a
+  later slice raises ``NotImplementedError`` (:func:`refuse_on_ranks`).
 
 The collectives, with the virtual mesh's formula (the rank backend moves
 the same blocks):
@@ -35,9 +40,12 @@ the same blocks):
   exchange over ``a0`` swaps the buffer's ``i0`` with the device's ``d0``,
   one over ``a1`` its ``i1`` with ``d1``.  On ranks a block whose source
   and destination lie on one rank is a local copy and the rest go in one
-  ``all_to_all_single``;
+  ``all_to_all_single``, for an exchange over any one axis and for the
+  composed exchange over both route axes (:func:`route_transpose`);
 * ``psum`` and ``pmax`` over all axes: a sum or maximum over ``Dev``,
   broadcast back (on ranks: over the block, then ``all_reduce``);
+  :func:`gather_devices`, the whole ``Dev`` axis of a plane on every rank
+  (an ``all_gather``; the identity on the virtual mesh), counts nothing;
 * ``gather_route``, the write round's all-gather over the route axis: the
   reference makes every route replica of a memory column apply the same
   gathered batch to its copy of the shard.  The virtual mesh holds the
@@ -246,9 +254,9 @@ def a2a(x: torch.Tensor, cfg, axis: str) -> torch.Tensor:
         if axis == cfg.memory_axis:
             return _rank_a2a(rm, x, cfg, "memory")
         if axis in cfg.route_axes:
-            if len(cfg.route_axes) > 1:
-                refuse_on_ranks("an exchange over two route axes", 2)
-            return _rank_a2a(rm, x, cfg, "route")
+            if len(cfg.route_axes) == 1:
+                return _rank_a2a(rm, x, cfg, "route")
+            return _rank_a2a(rm, x, cfg, cfg.route_axes.index(axis))
         raise ValueError(f"unknown mesh axis {axis!r}")
     nr, nm = cfg.n_route, cfg.n_memory
     rest = tuple(x.shape[2:])
@@ -275,11 +283,12 @@ def route_transpose(x: torch.Tensor, cfg) -> torch.Tensor:
     """``[Dev, n_route, ...]`` -> the buffers exchanged over the whole route
     index: ``out[r*nm + m, s] = x[s*nm + m, r]``.  Counts nothing; with two
     route axes it is the composition of the exchanges over each, which act
-    on disjoint index pairs and so commute."""
+    on disjoint index pairs and so commute.  On ranks the composed
+    exchange is one ``all_to_all_single`` as well: each block crosses the
+    group once, where the exchanges over each axis in turn would send a
+    block that changes both coordinates twice."""
     rm = _ACTIVE[0]
     if rm is not None:
-        if len(cfg.route_axes) > 1:
-            refuse_on_ranks("an exchange over two route axes", 2)
         return _rank_a2a(rm, x, cfg, "route")
     nr, nm = cfg.n_route, cfg.n_memory
     rest = tuple(x.shape[2:])
@@ -347,14 +356,42 @@ def host_sum(values) -> np.ndarray:
     """Host integers summed over the ranks (the values themselves on the
     virtual mesh): what a host loop over a rank's lanes needs so that
     every rank takes the same branch.  Counts nothing."""
-    v = np.asarray(values, np.int64)
+    return _host_reduce(np.asarray(values, np.int64), "sum")
+
+
+def host_max(values) -> np.ndarray:
+    """Host float64 values, each the maximum over the ranks (the values
+    themselves on the virtual mesh).  Counts nothing."""
+    return _host_reduce(np.asarray(values, np.float64), "max")
+
+
+def _host_reduce(v: np.ndarray, op: str) -> np.ndarray:
     rm = _ACTIVE[0]
     if rm is None:
         return v
     t = torch.from_numpy(v.copy())
     if rm.backend == "nccl":
         t = t.to(resolve_device())
-    return _all_reduce(rm, t, "sum").cpu().numpy()
+    return _all_reduce(rm, t, op).cpu().numpy()
+
+
+def gather_devices(x: torch.Tensor) -> torch.Tensor:
+    """``[Dl, ...]`` -> ``[Dev, ...]``: every rank's block of a per-device
+    plane, in device order, on every rank (``x`` itself on the virtual
+    mesh).  What reads the whole fleet's counters calls it; every rank must
+    call it, and, like :func:`gather_route`, it counts nothing.  Under
+    ``"nccl"`` a CPU tensor travels through the card and comes back on the
+    CPU."""
+    import torch.distributed as dist
+
+    rm = _ACTIVE[0]
+    if rm is None:
+        return x
+    t = x.to(resolve_device()) if rm.backend == "nccl" and not x.is_cuda else x
+    wire = _to_wire(rm, t)
+    parts = [torch.empty_like(wire) for _ in range(rm.world)]
+    dist.all_gather(parts, wire, group=rm.group)
+    return _from_wire(torch.cat(parts), x)
 
 
 def owner_merge(x: torch.Tensor, owned: torch.Tensor) -> torch.Tensor:
@@ -417,32 +454,51 @@ def _all_reduce(rm: RankMesh, x: torch.Tensor, op: str) -> torch.Tensor:
     return _from_wire(w, x)
 
 
-def _a2a_plan(rm: RankMesh, cfg, kind: str):
-    """Index tables of one exchange on this rank, from the virtual mesh's
-    permutation over ``(destination device, buffer slot)`` pairs: the
-    local copy's source and destination rows, the rows sent to each other
-    rank (grouped by rank, in pair order) and where the rows received
-    from each land.  Both ends enumerate a rank pair's rows in the same
-    order, so the receiver places them without an index on the wire."""
-    key = (cfg.n_route, cfg.n_memory, kind)
-    plan = rm._plans.get(key)
-    if plan is not None:
-        return plan
-    nr, nm, p = cfg.n_route, cfg.n_memory, rm.rank
-    n_dev = cfg.n_devices
-    dl = local_devices(cfg, rm)
+def _a2a_sources(cfg, kind):
+    """``(src_g, src_j)`` ``[n_dev, n_axis]``: the device and buffer slot
+    each ``(destination device, slot)`` pair of the exchange reads, the
+    virtual mesh's permutation.  ``kind`` is ``"memory"``, ``"route"`` (the
+    whole route index: one route axis, or the composition of several) or
+    the position of one of several route axes."""
+    nr, nm = cfg.n_route, cfg.n_memory
     n_ax = nm if kind == "memory" else nr
-    g = np.arange(n_dev)[:, None]
+    g = np.arange(cfg.n_devices)[:, None]
     s = np.arange(n_ax)[None, :]
     r, m = g // nm, g % nm
     if kind == "memory":
-        src_g, src_j = r * nm + s, np.broadcast_to(m, (n_dev, n_ax))
-    else:
-        src_g, src_j = s * nm + m, np.broadcast_to(r, (n_dev, n_ax))
+        return r * nm + s, m
+    if kind == "route":
+        return s * nm + m, r
+    # swap the device's and the slot's digit along route axis ``kind``
+    # (route-major digits: the last axis varies fastest)
+    stride = int(np.prod(cfg.route_sizes[kind + 1:], dtype=np.int64))
+    size = cfg.route_sizes[kind]
+    dr, ds = (r // stride) % size, (s // stride) % size
+    src_r = r + (ds - dr) * stride
+    src_j = s + (dr - ds) * stride
+    return src_r * nm + m, src_j
+
+
+def _a2a_plan(rm: RankMesh, cfg, kind):
+    """Index tables of one exchange on this rank, from the virtual mesh's
+    permutation over ``(destination device, buffer slot)`` pairs
+    (:func:`_a2a_sources`): the local copy's source and destination rows,
+    the rows sent to each other rank (grouped by rank, in pair order) and
+    where the rows received from each land.  Both ends enumerate a rank
+    pair's rows in the same order, so the receiver places them without an
+    index on the wire."""
+    key = (cfg.n_route, cfg.n_memory, tuple(cfg.route_sizes), kind)
+    plan = rm._plans.get(key)
+    if plan is not None:
+        return plan
+    p, n_dev = rm.rank, cfg.n_devices
+    dl = local_devices(cfg, rm)
+    n_ax = cfg.n_memory if kind == "memory" else cfg.n_route
+    src_g, src_j = _a2a_sources(cfg, kind)
     src_g = np.broadcast_to(src_g, (n_dev, n_ax)).ravel()
-    src_j = np.asarray(src_j).ravel()
-    dst_g = np.broadcast_to(g, (n_dev, n_ax)).ravel()
-    dst_s = np.broadcast_to(s, (n_dev, n_ax)).ravel()
+    src_j = np.broadcast_to(src_j, (n_dev, n_ax)).ravel()
+    dst_g = np.repeat(np.arange(n_dev), n_ax)
+    dst_s = np.tile(np.arange(n_ax), n_dev)
     src_rank, dst_rank = src_g // dl, dst_g // dl
     src_row = (src_g - p * dl) * n_ax + src_j  # row of the local buffer
     dst_row = (dst_g - p * dl) * n_ax + dst_s  # row of the local result

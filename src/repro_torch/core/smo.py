@@ -116,8 +116,6 @@ def make_dex_smo(meta: PoolMeta, cfg, *, device=None):
     device = mesh.resolve_device(device)
     levels = meta.levels_in_subtree
     cap_nodes = meta.subtree_cap
-    if len(cfg.route_axes) > 1:
-        mesh.refuse_on_ranks("the SMO round over two route axes", 2)
     # the devices this process holds and its pool columns: rows are indexed
     # in the held shard, node ids stay global
     nr, nm, n_dev = cfg.n_route, cfg.n_memory, mesh.local_devices(cfg)
@@ -450,8 +448,6 @@ def run_smo(smo, state, keys, values, *, max_rounds=None, levels: int = 2, obs=N
         # parent's split, the parent for the grandparent's) and a leaf with
         # more than 64 pending keys splits again each round
         max_rounds = 2 * levels + 6
-    if obs is not None:
-        mesh.refuse_on_ranks("telemetry of SMO rounds", 5)
     pending = keys != KEY_MAX
     status = np.full(keys.shape, STATUS_MISS, np.int32)
     rounds = 0

@@ -325,7 +325,8 @@ class Snapshot:
 
 def _to_host(stats) -> np.ndarray:
     if hasattr(stats, "detach"):  # a tensor, maybe on the card
-        stats = stats.detach().cpu().numpy()
+        # a copy: a CPU tensor's numpy view would follow later writes
+        stats = stats.detach().cpu().numpy().copy()
     arr = np.asarray(stats)
     if arr.ndim == 1:
         arr = arr[None, :]
@@ -342,12 +343,21 @@ def snapshot(state_or_stats) -> Snapshot:
     Accepts a ``DexState`` (anything with a ``.stats`` attribute) or the raw
     ``[Dev, N_STATS]`` array or tensor.  Device transfer happens here — call
     once per batch, after the fence.
+
+    On the rank backend (``core/mesh.py``) the input is the rank's block,
+    ``[Dl, N_STATS]``: every rank's block is gathered (``mesh.
+    gather_devices``, a collective that counts nothing), so ``per_device``,
+    ``fleet`` and ``derived`` are the whole mesh's, the virtual mesh's, on
+    every rank.  Every rank must call it.
     """
+    import torch
+
     from repro_torch.core import mesh
 
-    # a rank's stats hold its own devices only
-    mesh.refuse_on_ranks("a telemetry snapshot", 5)
     stats = getattr(state_or_stats, "stats", state_or_stats)
+    if mesh.current() is not None:
+        t = torch.as_tensor(stats)
+        stats = mesh.gather_devices(t[None, :] if t.dim() == 1 else t)
     arr = _to_host(stats)
     per_device = {m.name: arr[:, m.slot] for m in MESH_SLOTS}
     fleet = {name: int(vec.sum()) for name, vec in per_device.items()}
@@ -387,7 +397,10 @@ def collectives_per_batch(fn, state, *args, by_phase: bool = False) -> Dict[str,
     so this runs ``fn`` on a copy of ``state`` (every tensor cloned) and
     leaves the caller's state untouched.  ``by_phase`` adds the counts of
     each ``mesh.phase`` label, as ``mesh.collective_counts`` does.  The
-    module counters are restored afterwards.
+    module counters are restored afterwards.  On the rank backend the
+    dispatch runs collectives, so every rank must call it, with its own
+    share of the state and its own lanes; each gets the virtual mesh's
+    counts.
     """
     from repro_torch.core import mesh
 

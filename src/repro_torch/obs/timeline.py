@@ -42,6 +42,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import mesh
 from repro_torch.obs import latency, registry
 
 
@@ -52,17 +53,28 @@ def _host(x: Any) -> np.ndarray:
     return np.asarray(x)
 
 
+def _fleet(plane: Any) -> np.ndarray:
+    """A per-device plane ``[Dev, ...]`` of the whole mesh on the host: on
+    the rank backend every rank's block, gathered in device order
+    (``mesh.gather_devices``; every rank must call it), so the sums over
+    the device axis run in the virtual mesh's order."""
+    if mesh.current() is not None:
+        plane = mesh.gather_devices(torch.as_tensor(plane))
+    return _host(plane)
+
+
 def _latency_arrays(state_or_hist: Any) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """Fleet-summed ``[classes, paths, buckets]`` histogram plus the optional
     ``[2, n_memory, levels]`` audit plane, from a ``DexState`` (mesh: sums the
-    device axis), a ``Simulator`` (already fleet-shaped), or a raw array."""
+    device axis, over every rank's devices on ranks), a ``Simulator``
+    (already fleet-shaped), or a raw array."""
     hist = getattr(state_or_hist, "lat_hist", state_or_hist)
-    hist = _host(hist)
+    hist = _fleet(hist) if np.ndim(hist) == 4 else _host(hist)
     if hist.ndim == 4:
         hist = hist.sum(axis=0)
     audit = getattr(state_or_hist, "lat_audit", None)
     if audit is not None:
-        audit = _host(audit).astype(np.float64).sum(axis=0)
+        audit = _fleet(audit).astype(np.float64).sum(axis=0)
     return hist.astype(np.int64), audit
 
 
@@ -293,20 +305,38 @@ class BatchTimeline:
 
     # -- aggregation ------------------------------------------------------
 
+    def records(self) -> List[BatchRecord]:
+        """The recorded batches.  On the rank backend their times are the
+        fleet's: each batch's and span's start and length the maximum over
+        the ranks (the slowest rank's), so every rank returns the same
+        records.  Every rank must call it, with the same batches and spans
+        recorded (two ``all_reduce`` of host numbers, counting nothing)."""
+        if mesh.current() is None:
+            return self.batches
+        flat = []
+        for r in self.batches:
+            flat += [r.t0, r.dur]
+            for p in r.phases:
+                flat += [p.t0, p.dur]
+        n = len(flat)
+        hi, neg_lo = mesh.host_max([n, -n])
+        if hi != n or -neg_lo != n:
+            raise ValueError(
+                "the ranks recorded different batches or spans; a timeline "
+                "over ranks records the same on every rank"
+            )
+        if n == 0:
+            return self.batches
+        it = iter(mesh.host_max(flat).tolist())
+        out = []
+        for r in self.batches:
+            t0, dur = next(it), next(it)
+            phases = [PhaseSpan(p.name, next(it), next(it)) for p in r.phases]
+            out.append(dataclasses.replace(r, t0=t0, dur=dur, phases=phases))
+        return out
+
     def phase_totals(self) -> Dict[str, Dict[str, float]]:
-        acc: Dict[str, List[float]] = {}
-        for rec in self.batches:
-            for name, secs in rec.phase_seconds().items():
-                acc.setdefault(name, []).append(secs)
-        return {
-            name: {
-                "count": len(vals),
-                "total_s": sum(vals),
-                "mean_s": sum(vals) / len(vals),
-                "max_s": max(vals),
-            }
-            for name, vals in acc.items()
-        }
+        return _phase_totals(self.records())
 
     def counter_totals(self) -> Dict[str, float]:
         fleet: Dict[str, int] = {}
@@ -337,12 +367,17 @@ class BatchTimeline:
         }
 
     def summary(self) -> Dict[str, Any]:
+        """The run's totals; on the rank backend the same on every rank
+        (:meth:`records`), which must all call it."""
+        return self._summary(self.records())
+
+    def _summary(self, recs: List[BatchRecord]) -> Dict[str, Any]:
         out = {
             "name": self.name,
             "meta": self.meta,
-            "n_batches": len(self.batches),
-            "wall_s": sum(r.dur for r in self.batches),
-            "phases": self.phase_totals(),
+            "n_batches": len(recs),
+            "wall_s": sum(r.dur for r in recs),
+            "phases": _phase_totals(recs),
             "counters": self.counter_totals(),
             "retry_latency": self.retry_latency(),
         }
@@ -354,9 +389,11 @@ class BatchTimeline:
         return out
 
     def to_json(self) -> Dict[str, Any]:
-        """JSON-serialisable dump (``metrics_timeline.json`` payload)."""
+        """JSON-serialisable dump (``metrics_timeline.json`` payload); on
+        the rank backend the same on every rank, which must all call it."""
+        recs = self.records()
         return {
-            **self.summary(),
+            **self._summary(recs),
             "batches": [
                 {
                     "index": r.index,
@@ -372,9 +409,25 @@ class BatchTimeline:
                     ),
                     "retries": r.retries,
                 }
-                for r in self.batches
+                for r in recs
             ],
         }
+
+
+def _phase_totals(records: List[BatchRecord]) -> Dict[str, Dict[str, float]]:
+    acc: Dict[str, List[float]] = {}
+    for rec in records:
+        for name, secs in rec.phase_seconds().items():
+            acc.setdefault(name, []).append(secs)
+    return {
+        name: {
+            "count": len(vals),
+            "total_s": sum(vals),
+            "mean_s": sum(vals) / len(vals),
+            "max_s": max(vals),
+        }
+        for name, vals in acc.items()
+    }
 
 
 def obs_phase(obs: Optional[Any], name: str):

@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.core import mesh
 from repro_torch.obs import latency
 from repro_torch.obs.timeline import BatchTimeline
 
@@ -47,8 +48,11 @@ _BATCH_TID = 0
 
 
 def to_trace_events(timeline: BatchTimeline) -> Dict[str, Any]:
-    """Render a timeline as a Chrome trace-event JSON object."""
+    """Render a timeline as a Chrome trace-event JSON object.  On the rank
+    backend every rank must call it, and every rank renders the same
+    events: the fleet's times (``timeline.records()``) and counters."""
     events: List[Dict[str, Any]] = []
+    records = timeline.records()
 
     def meta(pid: int, tid: int, name: str, what: str = "thread_name") -> None:
         events.append(
@@ -66,7 +70,7 @@ def to_trace_events(timeline: BatchTimeline) -> Dict[str, Any]:
 
     # one tid per distinct phase name, stable order of first appearance
     phase_tids: Dict[str, int] = {}
-    for rec in timeline.batches:
+    for rec in records:
         for span in rec.phases:
             if span.name not in phase_tids:
                 tid = len(phase_tids) + 1
@@ -74,14 +78,14 @@ def to_trace_events(timeline: BatchTimeline) -> Dict[str, Any]:
                 meta(_HOST_PID, tid, f"phase:{span.name}")
 
     n_dev = 0
-    for rec in timeline.batches:
+    for rec in records:
         if rec.counters is not None:
             n_dev = max(n_dev, rec.counters.n_devices)
     for d in range(n_dev):
         meta(d + 1, 0, f"device {d}", "process_name")
         meta(d + 1, 0, "counters")
 
-    for rec in timeline.batches:
+    for rec in records:
         ts = rec.t0 * _US
         events.append(
             {
@@ -142,7 +146,7 @@ def to_trace_events(timeline: BatchTimeline) -> Dict[str, Any]:
     lat = timeline.latency_arrays() if hasattr(timeline, "latency_arrays") else None
     if lat is not None:
         hist, audit = lat
-        ts_end = max((r.t0 + r.dur for r in timeline.batches), default=0.0) * _US
+        ts_end = max((r.t0 + r.dur for r in records), default=0.0) * _US
         gauges: Dict[str, float] = dict(latency.percentile_gauges(hist))
         if audit is not None:
             rep = latency.audit_report(audit[0], audit[1])
@@ -172,12 +176,18 @@ def to_trace_events(timeline: BatchTimeline) -> Dict[str, Any]:
 
 def write_trace(timeline: BatchTimeline, path: str) -> str:
     """Write the Perfetto-viewable trace JSON to ``path`` (its directory is
-    made if missing; the repo ignores ``traces/``); returns ``path``."""
+    made if missing; the repo ignores ``traces/``); returns ``path``.  On
+    the rank backend every rank renders the trace and rank 0 alone writes
+    it."""
+    events = to_trace_events(timeline)
+    rm = mesh.current()
+    if rm is not None and rm.rank != 0:
+        return path
     folder = os.path.dirname(path)
     if folder:
         os.makedirs(folder, exist_ok=True)
     with open(path, "w") as f:
-        json.dump(to_trace_events(timeline), f)
+        json.dump(events, f)
     return path
 
 

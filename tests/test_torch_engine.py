@@ -7,6 +7,8 @@ update and insert engine.  The 1x1 mixed engine is in
 tests/test_torch_write.py."""
 
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -356,3 +358,58 @@ def test_pipeline_and_divergent_engines_run_one_batch(kw):
     assert stats[t_registry.STAT_OPS] == q.size
     peeks = stats[t_registry.STAT_PEER_HITS] + stats[t_registry.STAT_PEER_MISSES]
     assert (peeks > 0) == (kw.get("divergent") == "peek")
+
+
+def test_offloaded_update_leaves_a_stale_cached_row_stale():
+    from repro_torch.core.write import STATUS_OK
+
+    """ROADMAP.md queue 3, entry 22: an offloaded update on a device whose
+    cached copy of the leaf went stale under an insert from another device
+    must not refresh that copy's values and stamp it current (the
+    reference's write-through does, which stitches the old keys plane to
+    the new values row; the port refreshes only where the cached keys equal
+    the leaf's post-batch keys row).  On a 1x2 mesh: device 0 caches a leaf, device 1
+    inserts a key below ``k`` into it, device 0 updates ``k`` offloaded,
+    then device 0 looks up every key of the leaf through the cache: each
+    reads its own value."""
+    from repro_torch.core.write import STATUS_OK
+
+    rng = np.random.default_rng(0)
+    keys = np.sort(rng.choice(300_000, size=6000, replace=False).astype(np.int64)) + 1
+    vals = keys * 7
+    cfg = t_dex.DexMeshConfig(n_route=1, n_memory=2, cache_sets=64, cache_ways=4,
+                              policy="fetch", p_admit_leaf_pct=100)
+    pool, meta = t_pool.build_pool(keys, vals, level_m=1, fill=0.7, n_shards=2,
+                                   device="cpu")
+    bounds = np.array([np.iinfo(np.int64).min, np.iinfo(np.int64).max], np.int64)
+    state = t_dex.init_state(pool, meta, cfg, bounds, device="cpu")
+    leaf = keys[4:12]  # keys of the first leaf
+    k = leaf[-1]
+    fresh = next(int(x) for x in range(int(leaf[0]) + 1, int(k)) if x not in set(leaf))
+    b = 16
+    lanes = np.full(2 * b, np.iinfo(np.int64).max, np.int64)
+    opc = np.zeros(2 * b, np.int32)
+
+    def run(eng, state, dev, kk, op, vv):
+        q, o, v = lanes.copy(), opc.copy(), np.zeros(2 * b, np.int64)
+        q[dev * b : dev * b + len(kk)] = kk
+        o[dev * b : dev * b + len(kk)] = op
+        v[dev * b : dev * b + len(kk)] = vv
+        return eng(state, o, q, v)
+
+    mk = lambda policy, ops: t_engine.make_dex_engine(  # noqa: E731
+        meta, dataclasses.replace(cfg, policy=policy), ops=ops, device="cpu")
+    lookup, insert = mk("fetch", ("lookup",)), mk("fetch", ("insert",))
+    update = mk("offload", ("lookup", "update"))
+    state, _ = run(lookup, state, 0, leaf, t_engine.OP_LOOKUP, 0)
+    state, r = run(insert, state, 1, [fresh], t_engine.OP_INSERT, fresh * 7)
+    assert r.status[b] == STATUS_OK
+    state, r = run(update, state, 0, [k], t_engine.OP_UPDATE, 12345)
+    assert r.status[0] == STATUS_OK
+    stats = state.stats.numpy().sum(0)
+    assert stats[t_registry.STAT_OFFLOADS] >= 1
+    state, r = run(lookup, state, 0, leaf, t_engine.OP_LOOKUP, 0)
+    want = np.where(leaf == k, 12345, leaf * 7)
+    assert r.found[: len(leaf)].all()
+    np.testing.assert_array_equal(r.values[: len(leaf)].numpy(), want)
+    assert state.stats.numpy()[0, t_registry.STAT_HITS] > 0

@@ -13,7 +13,14 @@ engine's divergent paths against the reference, bit for bit on the CPU:
   batches, every cached value poisoned and every version bumped, one more
   batch (every plane, peer hits before the poison and misses after, the
   collective counts equal to the uniform arm's); the uniform arm; and the
-  divergent policy under the pipeline on hot lookups and updates.
+  divergent policy under the pipeline on hot lookups and updates;
+* the same three cases over 4 gloo ranks (``launch/mesh.py::
+  spawn_ranks``, the world started beside the reference's subprocess),
+  every lane, gathered plane and rank's counts against the reference's
+  arrays; a poisoned, version-bumped row on one rank's devices failing
+  the peeks another rank's devices send; and the telemetry plane over the
+  ranks (snapshots, the timeline's summary and trace export, the latency
+  ledger's conservation) against the virtual mesh's.
 """
 
 import numpy as np
@@ -41,6 +48,8 @@ from test_torch_pipeline import (  # noqa: E402
     _flat,
     planes,
 )
+import torch_rank_cases as C  # noqa: E402
+from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from torch_mesh_group import MeshGroup  # noqa: E402
 
 #: the reference runs its jnp kernels (``repro/kernels/ref.py``), bit for bit
@@ -278,8 +287,44 @@ def div_group(tmp_path_factory):
         yield group
 
 
+#: the world of gloo ranks the 2x4 fleet-cache cases run on (2 devices a
+#: rank: route row 0 is ranks 0 and 1)
+DIV_WORLD = 4
+RANK_CASES = ("divergent", "uniform", "divergent_pipe", "peek_poison")
+
+
 @pytest.fixture(scope="module")
-def div_ref(div_group):
+def div_ranks(div_group, tmp_path_factory):
+    """``(each rank's results, the folder of their trace files)`` of
+    ``RANK_CASES`` over ``DIV_WORLD`` ranks (``tests/torch_rank_cases.py``),
+    run while the reference's group runs."""
+    out = tmp_path_factory.mktemp("div_traces")
+    ranks = spawn_ranks(C.world, DIV_WORLD, "gloo", RANK_CASES, str(out),
+                        init=tmp_path_factory.mktemp("div_ranks"))
+    return ranks, out
+
+
+@pytest.fixture(scope="module")
+def div_virtual(tmp_path_factory):
+    """The virtual mesh's runs of the rank cases the ranks are held to
+    (``peek_poison``, and the telemetry of ``divergent`` and
+    ``divergent_pipe``), each once, on one torch thread: the cases' small
+    ops run faster on one thread than on many beside the other test
+    workers."""
+    out = tmp_path_factory.mktemp("div_virtual")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return {"peek_poison": C.div_case("peek_poison"),
+                "divergent": C.div_case("divergent", str(out)),
+                "divergent_pipe": C.pipe_case("divergent_pipe", str(out))}
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def div_ref(div_group, div_ranks):
+    """The reference's arrays, read once the ranks are done."""
     return div_group.arrays()
 
 
@@ -373,3 +418,112 @@ def test_divergent_pipeline_2x4_matches_reference(div_ref):
     stats = pipe.state.stats.numpy().sum(0)
     assert stats[t_registry.STAT_PIPE_STALLS] > 0
     assert stats[t_registry.STAT_PEER_HITS] + stats[t_registry.STAT_PEER_MISSES] > 0
+
+
+@pytest.mark.parametrize("arm", ["divergent", "uniform"])
+def test_fleet_cache_2x4_on_ranks_matches_reference(div_ref, div_ranks, arm):
+    """The fleet-cache arms over 4 gloo ranks against the reference's
+    arrays: the batches, the initial and the poisoned planes, every batch's
+    lanes and gathered planes, each rank's counts; the divergent arm's
+    peeks cross ranks (devices 2 and 3, rank 1, peek leaves of columns 0
+    and 1, rank 0's) and land as peer hits before the poison and peer
+    misses after it."""
+    ranks, _ = div_ranks
+    for i, planes_ in enumerate(C.div_batches(C.DIV_WARM + 1, mixed=False)):
+        for f, a in zip(("opcodes", "keys", "values"), planes_):
+            np.testing.assert_array_equal(div_ref[f"div/{i}/{f}"], a)
+    C.check_reference(ranks, div_ref, DIV_WORLD, arm)
+    c = div_ref[f"{arm}/counts"]
+    for r in ranks:  # registry.collectives_per_batch on every rank
+        assert r[arm]["collectives"] == {"all_to_all": c[0], "route_exchange": c[1]}
+    C.equal(C.prefixed(div_ref, f"{arm}/poisoned/"), ranks[0][arm]["poisoned"], arm)
+    peer = [C.rank_lanes(ranks, lambda r: r[arm]["steps"][i]["peer"])
+            for i in range(C.DIV_WARM + 1)]
+    if arm == "divergent":
+        assert peer[-2][:, 0].sum() > 0 and peer[-1][:, 1].sum() > 0
+    else:
+        assert all(not p.any() for p in peer)
+
+
+def test_divergent_pipeline_2x4_on_ranks_matches_reference(div_ref, div_ranks):
+    """The divergent pipeline over 4 gloo ranks against the reference's
+    ``divergent_pipe`` arrays: every push's and the drain's lanes and
+    gathered planes, each rank's counts of every step by phase."""
+    ranks, _ = div_ranks
+    C.check_pipeline(ranks, div_ref, DIV_WORLD, "divergent_pipe")
+    stats = ranks[0]["divergent_pipe"]["steps"][-1]["planes"]["stats"]
+    assert stats[:, t_registry.STAT_PIPE_STALLS].sum() > 0
+    assert stats[:, [t_registry.STAT_PEER_HITS, t_registry.STAT_PEER_MISSES]].sum() > 0
+
+
+def test_poisoned_peer_row_fails_the_peek_across_ranks(div_ranks, div_virtual):
+    """tests/mesh_check.py's peer-peek version check across ranks: after 6
+    warm batches, the cached rows of devices 0 and 1 (rank 0) are poisoned
+    and their nodes' versions bumped; a ``peer_answer`` probe of those rows
+    hits before and never after; in the next batch the peeks that devices
+    2 and 3 (rank 1) send them fail the version check and count as peer
+    misses, and every lane still reads its key's value.  Lanes, planes,
+    counts and peer counts equal the virtual mesh's."""
+    ranks, _ = div_ranks
+    want = div_virtual["peek_poison"]
+    got = C.merged(ranks, "peek_poison")
+    for i, step in enumerate(want["steps"]):
+        for q, r in enumerate(ranks):
+            assert r["peek_poison"]["steps"][i]["counts"] == step["counts"], (i, q)
+        C.equal(step["result"], got["steps"][i]["result"], f"batch {i}")
+        C.equal(step["planes"], got["steps"][i]["planes"], f"batch {i} planes")
+        C.equal(step["peer"], C.rank_lanes(
+            ranks, lambda r: r["peek_poison"]["steps"][i]["peer"]), f"batch {i} peer")
+    C.equal(want["poisoned"], got["poisoned"], "poisoned")
+    for r in ranks:
+        assert r["peek_poison"]["probe_fresh"] == want["probe_fresh"]
+        assert r["peek_poison"]["probe_stale"] == want["probe_stale"]
+    fresh_hits, rows = want["probe_fresh"]
+    stale_hits, stale_rows = want["probe_stale"]
+    assert rows > 0 and fresh_hits > 0 and stale_hits == 0 and stale_rows == rows
+    peer_before, peer_after = (C.rank_lanes(
+        ranks, lambda r: r["peek_poison"]["steps"][i]["peer"]) for i in (-2, -1))
+    senders = [d for d in range(8) if d // 2 == 1]  # rank 1's devices
+    assert peer_after[senders, 1].sum() > peer_before[senders, 1].sum()
+    keys = C.div_batches(C.DIV_WARM + 1, mixed=False)[-1][1]
+    last = got["steps"][-1]["result"]
+    assert last["found"].all() and (last["values"] == keys * 7).all()
+
+
+def _untimed(events):
+    """Trace events without their timestamps and durations."""
+    return [{k: v for k, v in e.items() if k not in ("ts", "dur")} for e in events]
+
+
+@pytest.mark.parametrize("name", ["divergent", "divergent_pipe"])
+def test_telemetry_on_ranks_matches_virtual_mesh(div_ranks, div_virtual, name):
+    """The telemetry plane over 4 ranks: each step's fleet snapshot
+    (``registry.snapshot``, gathered over the ranks), the timeline's
+    ``summary()`` and trace export are equal on every rank; the counters,
+    latency ledger, cost audit, batches and phases equal the virtual
+    mesh's; the ledger holds as many lanes as the ops counted (the
+    pipeline's after the drain); only rank 0 wrote its trace file."""
+    import json
+
+    ranks, folder = div_ranks
+    want = div_virtual[name]
+    mine = [r[name] for r in ranks]
+    for q, r in enumerate(mine):
+        C.equal(mine[0]["summary"], r["summary"], f"rank {q} summary")
+        C.equal(mine[0]["trace"], r["trace"], f"rank {q} trace")
+        assert r["ledger"] == want["ledger"], q
+        assert r["ledger"]["hist"] == r["ledger"]["ops"] > 0
+        for i, step in enumerate(want["steps"]):
+            if "snapshot" in step:
+                C.equal(step["snapshot"], r["steps"][i]["snapshot"], f"rank {q} snap {i}")
+    ws, gs = want["summary"], mine[0]["summary"]
+    for k in ("counters", "latency", "cost_audit", "n_batches", "retry_latency"):
+        C.equal(ws.get(k), gs.get(k), k)
+    assert {k: v["count"] for k, v in ws["phases"].items()} == {
+        k: v["count"] for k, v in gs["phases"].items()}
+    C.equal(_untimed(want["trace"]["traceEvents"]),
+            _untimed(mine[0]["trace"]["traceEvents"]), "trace")
+    files = sorted(p.name for p in folder.glob(f"{name}_trace*.json"))
+    assert files == [f"{name}_trace0.json"]
+    with open(folder / files[0]) as f:
+        assert json.load(f) == json.loads(json.dumps(mine[0]["trace"]))

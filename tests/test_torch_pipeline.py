@@ -13,7 +13,11 @@ the reference's, bit for bit on the CPU:
   and a poisoned route table under the pipeline;
 * at 2x4, tests/mesh_check.py's pipelined traffic (the reference in a
   subprocess on a forced 8-device CPU mesh, ``tests/torch_mesh_ref.py
-  pipe``), synchronous and pipelined, with the per-phase counts.
+  pipe``), synchronous and pipelined, with the per-phase counts; and the
+  same pipeline over 4 gloo ranks (``launch/mesh.py::spawn_ranks``, the
+  world started beside the reference's subprocess): every push's lanes,
+  every gathered plane and each rank's counts by phase against the
+  reference's arrays.
 """
 
 import hashlib
@@ -37,6 +41,8 @@ from repro_torch.core import mesh as t_mesh  # noqa: E402
 from repro_torch.core import pool as t_pool  # noqa: E402
 from repro_torch.core import route_table as t_rt  # noqa: E402
 from repro_torch.obs import registry as t_registry  # noqa: E402
+import torch_rank_cases as C  # noqa: E402
+from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from test_engine import GOLDEN_PIPE, MC, _dataset, _digest, _mixed_batches  # noqa: E402
 from torch_mesh_group import MeshGroup  # noqa: E402
 
@@ -322,7 +328,9 @@ def pipe_group(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def pipe_ref(pipe_group):
+def pipe_ref(pipe_group, pipe_ranks):
+    """The reference's arrays, read once the ranks (``pipe_ranks``), which
+    run while the reference does, are done."""
     return pipe_group.arrays()
 
 
@@ -387,3 +395,28 @@ def test_pipeline_2x4_matches_reference(pipe_ref):
     stats = pipe.state.stats.numpy().sum(0)
     assert stats[t_registry.STAT_PIPE_STALLS] > 0
     assert state.stats.numpy()[:, t_registry.STAT_PIPE_STALLS].sum() == 0
+
+
+#: the world of gloo ranks the 2x4 pipeline runs on (2 devices a rank)
+PIPE_WORLD = 4
+
+
+@pytest.fixture(scope="module")
+def pipe_ranks(pipe_group, tmp_path_factory):
+    """The ``pipe`` case over ``PIPE_WORLD`` ranks
+    (``tests/torch_rank_cases.py``), run while the reference's group runs."""
+    return spawn_ranks(C.world, PIPE_WORLD, "gloo", ["pipe"],
+                       init=tmp_path_factory.mktemp("pipe_ranks"))
+
+
+def test_pipeline_2x4_on_ranks_matches_reference(pipe_ref, pipe_ranks):
+    """The 2x4 pipeline over 4 gloo ranks against the reference's ``pipe``
+    arrays: the batches, the initial planes, every push's and the drain's
+    lanes and gathered planes, and each rank's collective counts of every
+    step, by phase too, equal to the reference's traced step."""
+    for i, planes_ in enumerate(C.pipe_batches()):
+        for f, a in zip(("opcodes", "keys", "values"), planes_):
+            np.testing.assert_array_equal(pipe_ref[f"pipe/{i}/{f}"], a)
+    C.check_pipeline(pipe_ranks, pipe_ref, PIPE_WORLD, "pipe")
+    stats = pipe_ranks[0]["pipe"]["steps"][-1]["planes"]["stats"]
+    assert stats[:, t_registry.STAT_PIPE_STALLS].sum() > 0

@@ -21,7 +21,13 @@ the ``DexState``.
 * The route replicas of each column are equal after writes and splits;
   ``psum`` of float32 counts near 2**24 is exact.
 * The refusals: a world that does not divide the mesh, every path left to
-  a later slice, ``"nccl"`` on CPU tensors, and a rank that raises.
+  a later slice (entries 3 and 4 of ROADMAP.md's queue "Across ranks"),
+  ``"nccl"`` on CPU tensors, and a rank that raises.
+
+The pipeline and the fleet-cache policy over ranks are held to the
+reference in ``tests/test_torch_pipeline.py`` and
+``tests/test_torch_fleet_policy.py``, two route axes in
+``tests/test_torch_route_axes.py``, beside those files' reference groups.
 
 Each world runs all of its cases in one go (``tests/torch_rank_cases.py``,
 which imports the port and numpy only), through a module-scoped fixture.
@@ -77,44 +83,10 @@ def worlds(mesh_group, layout_group, tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def mesh_ref(mesh_group):
+def mesh_ref(mesh_group, worlds):
+    """The reference's arrays, read once the worlds, which run while the
+    reference does, are done."""
     return mesh_group.arrays()
-
-
-def _equal(want, got, where):
-    if isinstance(want, dict):
-        assert sorted(want) == sorted(got), where
-        for k in want:
-            _equal(want[k], got[k], f"{where}/{k}")
-    elif isinstance(want, (list, tuple)):
-        assert len(want) == len(got), where
-        for i, (a, b) in enumerate(zip(want, got)):
-            _equal(a, b, f"{where}[{i}]")
-    elif isinstance(want, np.ndarray):
-        got = np.asarray(got)
-        assert want.dtype == got.dtype and want.shape == got.shape, where
-        np.testing.assert_array_equal(want, got, err_msg=where)
-    else:
-        assert want == got, where
-
-
-def _lanes(ranks, get):
-    """One lane plane of every rank, concatenated in rank order."""
-    return np.concatenate([get(r) for r in ranks])
-
-
-def _merged(ranks, name):
-    """A world's engine case with every step's lanes of all ranks and the
-    planes rank 0 gathered."""
-    out = ranks[0][name]
-    steps = []
-    for i, step in enumerate(out["steps"]):
-        res = {
-            k: _lanes(ranks, lambda r: r[name]["steps"][i]["result"][k])
-            for k in step["result"]
-        }
-        steps.append(dict(step, result=res))
-    return dict(out, steps=steps)
 
 
 def test_rank_batches_are_the_reference_batches(mesh_ref):
@@ -129,35 +101,11 @@ def test_rank_batches_are_the_reference_batches(mesh_ref):
                 np.testing.assert_array_equal(mesh_ref[f"{tag}/{i}/{f}"], a)
 
 
-def _check_reference(ranks, mesh_ref, p, name):
-    """A world's engine case against the reference's saved arrays
-    ``mesh_ref``: the initial planes, every step's lanes and planes, and
-    each rank's collective counts."""
-    got = _merged(ranks, name)
-
-    def ref_planes(tag):
-        pre = f"{name}/{tag}/"
-        return {k[len(pre):]: v for k, v in mesh_ref.items() if k.startswith(pre)}
-
-    _equal(ref_planes("init"), got["init"], f"{p} ranks {name} init")
-    counts = mesh_ref[f"{name}/counts"]
-    want_counts = {"all_to_all": int(counts[0]), "route_exchange": int(counts[1])}
-    for i, step in enumerate(got["steps"]):
-        want = ref_planes(str(i))
-        results = {k[len("result."):]: want.pop(k) for k in list(want) if k.startswith("result.")}
-        assert set(step["result"]) <= set(results) and "found" in step["result"]
-        for k, lanes in step["result"].items():
-            _equal(results[k], lanes, f"{p} ranks {name} {i} {k}")
-        _equal(want, step["planes"], f"{p} ranks {name} batch {i}")
-        for q, r in enumerate(ranks):
-            assert r[name]["steps"][i]["counts"] == want_counts, (p, name, i, q)
-
-
 @pytest.mark.parametrize(
     "p,name", [(p, n) for n in REF_CASES for p in sorted(WORLDS)] + [(4, "offload")]
 )
 def test_2x4_engine_on_ranks_matches_reference(worlds, mesh_ref, p, name):
-    _check_reference(worlds[p], mesh_ref, p, name)
+    C.check_reference(worlds[p], mesh_ref, p, name)
 
 
 @pytest.mark.parametrize("p,name", LAYOUT_CASES)
@@ -170,18 +118,18 @@ def test_layout_on_ranks_matches_reference(worlds, layout_group, p, name):
         for f, a in zip(("opcodes", "keys", "values"), planes):
             np.testing.assert_array_equal(ref[f"scanmix/{i}/{f}"], a)
     assert set(np.concatenate([b[0] for b in batches])) == {0, 1, 2, 3}
-    _check_reference(worlds[p], ref, p, name)
+    C.check_reference(worlds[p], ref, p, name)
     assert ref[f"{name}/{len(batches) - 1}/stats"][:, STAT_OPS].sum() > 0
 
 @pytest.mark.parametrize("p,name", VIRTUAL_CASES)
 def test_engine_on_ranks_matches_virtual_mesh(worlds, p, name):
     want = C.engine_case(name)
-    got = _merged(worlds[p], name)
+    got = C.merged(worlds[p], name)
     for q, r in enumerate(worlds[p]):
         for i, step in enumerate(r[name]["steps"]):
             assert step["counts"] == want["steps"][i]["counts"], (name, q, i)
     want.pop("replicas"), got.pop("replicas")
-    _equal(want, got, f"{p} ranks {name}")
+    C.equal(want, got, f"{p} ranks {name}")
     assert want["steps"][-1]["planes"]["stats"][:, STAT_OPS].sum() > 0
 
 
@@ -193,13 +141,13 @@ def test_smo_on_ranks_matches_virtual_mesh(worlds):
     want = C.smo_case()
     got = dict(ranks[0]["smo"])
     for k in ("insert_status", "round_status", "run_status"):
-        got[k] = _lanes(ranks, lambda r: r["smo"][k])
-    got["scan"] = {k: _lanes(ranks, lambda r: r["smo"]["scan"][k]) for k in want["scan"]}
+        got[k] = C.rank_lanes(ranks, lambda r: r["smo"][k])
+    got["scan"] = {k: C.rank_lanes(ranks, lambda r: r["smo"]["scan"][k]) for k in want["scan"]}
     for r in ranks:
         assert r["smo"]["round_counts"] == want["round_counts"]
         assert r["smo"]["run_rounds"] == want["run_rounds"]
     want.pop("replicas"), got.pop("replicas")
-    _equal(want, got, "4 ranks smo")
+    C.equal(want, got, "4 ranks smo")
     assert (want["insert_status"] == 2).sum() > 0  # STATUS_SPLIT lanes
     assert want["run"]["stats"][:, STAT_SMO_SPLITS].sum() > 0
 
@@ -224,7 +172,7 @@ def test_psum_of_float_counts_is_exact(worlds):
     of int64 planes, and ``pmax`` of int32 planes: each rank's block equals
     the exact sum (maximum) of the gathered inputs, and the virtual mesh's."""
     ranks = worlds[8]
-    red = {k: _lanes(ranks, lambda r: r["reductions"][k]) for k in ranks[0]["reductions"]}
+    red = {k: C.rank_lanes(ranks, lambda r: r["reductions"][k]) for k in ranks[0]["reductions"]}
     exact = red["f32"].astype(np.int64).sum(0)
     assert exact.max() == 2**24 - 8
     np.testing.assert_array_equal(red["psum_f32"], np.broadcast_to(exact, red["f32"].shape))
@@ -240,9 +188,14 @@ def test_psum_of_float_counts_is_exact(worlds):
 
 
 def test_out_of_scope_paths_raise_on_ranks(worlds):
+    """The paths left to entries 3 (the route table, repartitioning, the
+    separator planes) and 4 (the host drain) of ROADMAP.md's queue "Across
+    ranks" raise, each naming its entry."""
     seen = worlds[2][0]["refusals"]
     refused = [m for m in seen if m.startswith("NotImplementedError")]
-    assert len(refused) == 12
+    assert len(refused) == 8
+    entries = [m.rsplit("entry ", 1)[1].rstrip(")") for m in refused]
+    assert entries == ["3"] * 6 + ["4"] * 2, refused
     for m in refused:
         assert 'ROADMAP.md, queue "Across ranks", entry' in m
     assert seen[-1] == "ValueError: 2 ranks do not divide the mesh's 3 devices"
@@ -307,7 +260,7 @@ def test_shard_state_equals_split_build():
             b = t_dex.state_to_numpy(
                 t_dex.init_state(part, meta, cfg, C.bounds(shape[0]), device="cpu", mesh=rm)
             )
-            _equal(a, b, f"{shape} rank {rank}/{world}")
+            C.equal(a, b, f"{shape} rank {rank}/{world}")
             dl = cfg.n_devices // world
             assert a["stats"].shape[0] == dl and a["succ"].shape[0] == dl
             c0, n_cols = t_mesh.local_columns(cfg, rm)

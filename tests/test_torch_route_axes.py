@@ -7,9 +7,14 @@ the pool over ``"model"`` of 2.  The lookup engine under ``fetch`` and under
 ``auto`` with shedding buckets, the mixed and scan engines under ``auto``,
 the SMO burst round and the pipelined engine: every lane result, every state
 plane, the stats and the collective counts (a route exchange over two axes
-counts two ``all_to_all``) are bit-identical after each batch.  Also the
-virtual mesh's exchange over each axis against the formula it implements,
-and the check of ``DexMeshConfig.route_shape``."""
+counts two ``all_to_all``) are bit-identical after each batch.  The same
+engines, the SMO case and the pipeline run over 2, 4 and 8 gloo ranks
+(``launch/mesh.py::spawn_ranks``, each world started beside the reference's
+subprocess) and are held to the reference's arrays the same way: lanes,
+gathered planes, each rank's counts (by phase for the pipeline).  Also the
+exchange over each axis against the formula it implements, on the virtual
+mesh and over ranks (where a block crosses ranks), and the check of
+``DexMeshConfig.route_shape``."""
 
 
 import numpy as np
@@ -25,6 +30,8 @@ from repro_torch.core import routing as t_routing  # noqa: E402
 from repro_torch.core import smo as t_smo  # noqa: E402
 from repro_torch.core import write as t_write  # noqa: E402
 from repro_torch.obs import registry as t_registry  # noqa: E402
+import torch_rank_cases as C  # noqa: E402
+from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from torch_mesh_group import MeshGroup  # noqa: E402
 
 KEY_MAX = np.iinfo(np.int64).max
@@ -42,8 +49,26 @@ def axes_group(tmp_path_factory):
         yield group
 
 
+#: the 2x2x2 cases each world of gloo ranks runs: 2 ranks (a route row
+#: pair a rank: an exchange over "pod" stays on a rank, one over "data"
+#: crosses), 4 (one route row a rank) and 8 (one device a rank)
+AXES_ENGINES = ("axes_fetch", "axes_auto_tight", "axes_mixed_auto", "axes_scan_auto")
+AXES_WORLD = AXES_ENGINES + ("axes_smo", "axes_pipe", "exchanges")
+WORLDS = (2, 4, 8)
+
+
 @pytest.fixture(scope="module")
-def axes_ref(axes_group):
+def axes_ranks(axes_group, tmp_path_factory):
+    """``{P: [each rank's results]}`` of ``AXES_WORLD`` over each world of
+    ``WORLDS``, run while the reference's group runs."""
+    return {p: spawn_ranks(C.world, p, "gloo", AXES_WORLD,
+                           init=tmp_path_factory.mktemp(f"axes{p}"))
+            for p in WORLDS}
+
+
+@pytest.fixture(scope="module")
+def axes_ref(axes_group, axes_ranks):
+    """The reference's arrays, read once the worlds are done."""
     return axes_group.arrays()
 
 
@@ -221,3 +246,62 @@ def test_route_axis_exchange_matches_its_formula(axis):
 def test_route_shape_must_fit_the_route_axes(kw):
     with pytest.raises(ValueError):
         t_dex.DexMeshConfig(**kw)
+
+
+@pytest.mark.parametrize("p,name", [(p, n) for n in AXES_ENGINES for p in WORLDS])
+def test_engine_2x2x2_on_ranks_matches_reference(axes_ref, axes_ranks, p, name):
+    """A 2x2x2 engine over ``p`` gloo ranks against the reference's arrays:
+    the initial planes, every batch's lanes and gathered planes, each
+    rank's counts (two ``all_to_all`` a route exchange)."""
+    C.check_reference(axes_ranks[p], axes_ref, p, name)
+
+
+@pytest.mark.parametrize("p", WORLDS)
+def test_smo_2x2x2_on_ranks_matches_reference(axes_ref, axes_ranks, p):
+    """The SMO burst on two route axes over ``p`` ranks: the insert's, the
+    round's and ``run_smo``'s lanes and gathered planes, the round's
+    counts on every rank, the rounds ``run_smo`` ran (recorded as phases of
+    a telemetry batch on every rank)."""
+    ranks = axes_ranks[p]
+    got = ranks[0]["axes_smo"]
+    np.testing.assert_array_equal(axes_ref["smo/keys"], C.smo_burst()[0])
+    for k in ("insert_status", "round_status", "run_status"):
+        np.testing.assert_array_equal(
+            axes_ref[f"smo/{k}"], C.rank_lanes(ranks, lambda r: r["axes_smo"][k]), k)
+    for tag in ("insert", "round", "run"):
+        C.equal(C.prefixed(axes_ref, f"smo/{tag}/"), got[tag], f"{p} ranks smo {tag}")
+    c = axes_ref["smo/round_counts"]
+    rounds = int(axes_ref["smo/run_rounds"])
+    for r in ranks:
+        assert r["axes_smo"]["round_counts"] == {
+            "all_to_all": int(c[0]), "route_exchange": int(c[1])}
+        assert r["axes_smo"]["run_rounds"] == rounds
+        assert r["axes_smo"]["run_phases"] == [f"smo/round{i}" for i in range(rounds)]
+
+
+@pytest.mark.parametrize("p", WORLDS)
+def test_pipeline_2x2x2_on_ranks_matches_reference(axes_ref, axes_ranks, p):
+    """The pipelined round trip on two route axes over ``p`` ranks: every
+    push's lanes and gathered planes, each rank's counts by phase."""
+    C.check_pipeline(axes_ranks[p], axes_ref, p, "axes_pipe", ref="pipe")
+
+
+@pytest.mark.parametrize("p", WORLDS)
+def test_route_axis_exchange_on_ranks_matches_virtual_mesh(axes_ranks, p):
+    """``mesh.a2a`` over each of the two route axes and ``route_transpose``
+    over ``p`` ranks equal the virtual mesh's, with the same counts; which
+    exchanges cross ranks follows the blocks: over 2 ranks (two route rows
+    a rank) "pod" stays on a rank and "data" crosses, over 4 (one route row
+    a rank) and 8 (one device a rank) both cross, and the memory axis
+    crosses only over 8."""
+    ranks = axes_ranks[p]
+    want = C.exchanges()
+    for k in ("data", "pod", "route"):
+        np.testing.assert_array_equal(
+            want[k], C.rank_lanes(ranks, lambda r: r["exchanges"][k]), k)
+    for r in ranks:
+        assert r["exchanges"]["counts"] == want["counts"] == {
+            "all_to_all": 2, "route_exchange": 0}
+    remote = {k: any(r["exchanges"]["remote"][k] for r in ranks)
+              for k in ("memory", "route", 0, 1)}
+    assert remote == {"memory": p == 8, "route": True, 0: True, 1: p > 2}
